@@ -1,0 +1,172 @@
+"""Index-wide packed vector arena — the storage side of the execution engine.
+
+Every partition's IVF stores its vectors re-ordered so each posting list is a
+contiguous slice (see ivf.py). The arena concatenates those per-partition
+``packed`` arrays into ONE index-wide tensor on the index's device and
+exposes a *global* posting-list table: posting list ``g`` of any partition
+lives at ``packed[list_start[g] : list_start[g] + list_len[g]]``.
+
+This is what lets the planner bucket work units across partitions and
+templates: one ``index_select`` on the device serves every partition, so one
+kernel dispatch can mix posting lists from anywhere in the index. ``gid``
+(also on the device) maps packed rows straight back to the caller's tuple
+ids, so executor output needs no per-partition id translation. The
+posting-list table and the row maps the planner reads on the host stay
+numpy.
+
+Compressed storage: a ``PQCodebook`` and its uint8 ``codes`` are carried
+(and saved) when present, but no search path reads them yet (ROADMAP.md §1
+item 4). Sharding the arena waits for the sharded engine (item 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import kmeans as km
+from .ivf import IVFIndex
+from .pq import PQCodebook, encode_pq
+
+
+@dataclasses.dataclass
+class PackedArena:
+    """Concatenated posting-list storage for one or more IVF partitions."""
+
+    packed: torch.Tensor  # f32 [N, d] on ``device`` — all partitions, posting-list order
+    gid: torch.Tensor  # i64 [N] on ``device`` — packed row -> caller tuple id
+    local_of: np.ndarray  # i64 [N] — packed row -> partition-local vector idx
+    list_start: np.ndarray  # i64 [G] — first packed row of global list g
+    list_len: np.ndarray  # i64 [G]
+    list_base: np.ndarray  # i64 [P + 1] — partition p owns lists [base[p], base[p+1])
+    part_row: np.ndarray  # i64 [P + 1] — partition p owns packed rows [row[p], row[p+1])
+    centroids: List[np.ndarray]  # per-partition coarse quantizer
+    metric: str
+    pq: Optional[PQCodebook] = None  # index-wide codebook (compressed mode)
+    codes: Optional[np.ndarray] = None  # uint8 [N, M], row-aligned with packed
+    # the quantizers on the device, for ``probe``
+    _cent_dev: List[torch.Tensor] = dataclasses.field(
+        default_factory=list, repr=False, compare=False
+    )
+
+    def __post_init__(self):
+        if not self._cent_dev:
+            self._cent_dev = [km.as_tensor(c, self.device) for c in self.centroids]
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    @property
+    def n(self) -> int:
+        return int(self.packed.shape[0])
+
+    @property
+    def d(self) -> int:
+        return int(self.packed.shape[1])
+
+    @property
+    def n_parts(self) -> int:
+        return len(self.centroids)
+
+    @property
+    def n_lists(self) -> int:
+        return int(self.list_start.shape[0])
+
+    def n_lists_of(self, part: int) -> int:
+        return int(self.list_base[part + 1] - self.list_base[part])
+
+    def probe(self, part: int, q_vecs: np.ndarray, nprobe: int) -> np.ndarray:
+        """nprobe nearest posting lists of partition ``part`` as GLOBAL list ids.
+
+        int32 [m, min(nprobe, n_lists_of(part))]. Same ranking as
+        ``IVFIndex.probe`` (same quantizer, same top-m), so engine results
+        match the per-query scan path exactly.
+        """
+        nprobe = int(min(nprobe, self.n_lists_of(part)))
+        local = km.topm_centroids(
+            q_vecs, self._cent_dev[part], nprobe, metric=self.metric, device=self.device
+        )
+        return local + np.int32(self.list_base[part])
+
+    def packed_bitmap(self, part: int, local_bitmap: np.ndarray) -> np.ndarray:
+        """Partition-local vector-order bitmap -> that partition's packed order."""
+        s, e = int(self.part_row[part]), int(self.part_row[part + 1])
+        return local_bitmap[self.local_of[s:e]]
+
+    # ------------------------------------------------------------ persistence
+
+    def to_state(self) -> dict:
+        """The reference's arena state: every array a numpy leaf."""
+        return {
+            "metric": self.metric,
+            "packed": self.packed.cpu().numpy(),
+            "gid": self.gid.cpu().numpy(),
+            "local_of": self.local_of,
+            "list_start": self.list_start,
+            "list_len": self.list_len,
+            "list_base": self.list_base,
+            "part_row": self.part_row,
+            "centroids": {str(p): c for p, c in enumerate(self.centroids)},
+            "pq": None if self.pq is None else self.pq.to_state(),
+            "codes": self.codes,
+        }
+
+    @staticmethod
+    def from_state(state: dict, device: km.Device = "cuda") -> "PackedArena":
+        cents = state["centroids"]
+        return PackedArena(
+            packed=km.as_tensor(np.asarray(state["packed"]), device),
+            gid=torch.from_numpy(np.asarray(state["gid"], dtype=np.int64)).to(device),
+            local_of=np.asarray(state["local_of"]),
+            list_start=np.asarray(state["list_start"]),
+            list_len=np.asarray(state["list_len"]),
+            list_base=np.asarray(state["list_base"]),
+            part_row=np.asarray(state["part_row"]),
+            centroids=[np.asarray(cents[str(p)]) for p in range(len(cents))],
+            metric=state["metric"],
+            pq=None if state["pq"] is None else PQCodebook.from_state(state["pq"]),
+            codes=None if state["codes"] is None else np.asarray(state["codes"]),
+        )
+
+    # ------------------------------------------------------------ constructors
+
+    @staticmethod
+    def from_partitions(
+        parts: Sequence[Tuple[np.ndarray, IVFIndex]],
+        pq: Optional[PQCodebook] = None,
+        device: km.Device = "cuda",
+    ) -> "PackedArena":
+        """parts: (rows, ivf) pairs; ``rows`` maps ivf-local idx -> caller id."""
+        if not parts:
+            raise ValueError("arena needs at least one partition")
+        metric = parts[0][1].metric
+        packed, gid, local_of, starts, lens, cents = [], [], [], [], [], []
+        list_base = np.zeros(len(parts) + 1, dtype=np.int64)
+        part_row = np.zeros(len(parts) + 1, dtype=np.int64)
+        for p, (rows, ivf) in enumerate(parts):
+            assert ivf.metric == metric, "mixed-metric partitions"
+            packed.append(ivf.packed)
+            gid.append(np.asarray(rows, dtype=np.int64)[ivf.order])
+            local_of.append(ivf.order)
+            starts.append(ivf.offsets[:-1].astype(np.int64) + part_row[p])
+            lens.append(np.diff(ivf.offsets).astype(np.int64))
+            cents.append(ivf.centroids)
+            list_base[p + 1] = list_base[p] + ivf.n_lists
+            part_row[p + 1] = part_row[p] + ivf.n
+        packed_all = np.concatenate(packed, axis=0)
+        return PackedArena(
+            packed=km.as_tensor(packed_all, device),
+            gid=torch.from_numpy(np.concatenate(gid)).to(device),
+            local_of=np.concatenate(local_of),
+            list_start=np.concatenate(starts),
+            list_len=np.concatenate(lens),
+            list_base=list_base,
+            part_row=part_row,
+            centroids=cents,
+            metric=metric,
+            pq=pq,
+            codes=None if pq is None else encode_pq(pq, packed_all),
+        )

@@ -1,0 +1,120 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on first use into ``_build/lib<name>-<hash>.so``
+(``.gitignore`` lists the directory): a shared library with a plain C
+interface, built for Hopper (``sm_90a``). The hash covers the source and the
+flags, so an edited kernel rebuilds. ``build_all`` starts one ``nvcc`` per
+source at once. A build or launch failure raises; nothing falls back to the
+plain PyTorch version.
+
+Nothing here runs at import: the CPU tests import every module on hosts
+that have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("fused_knn",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of every entry point: name -> argument types (all return int)
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "fused_knn": {
+        "fused_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "fused_knn_db_stationary_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        ),
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}  # nvcc's output per source (register/smem use)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home}/bin)")
+    return path
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source; returns (process, tmp path, target) or
+    None when the library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    build_log[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")  # every library exports one
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    lib.error_string = err
+    return lib
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
+    """Build (in parallel, one ``nvcc`` per source) and load every library."""
+    with _LOCK:
+        todo = [n for n in names if n not in _LIBS]
+        started = {n: _start(n) for n in todo}
+        for n, st in started.items():
+            if st is not None:
+                _finish(n, st)
+        for n in todo:
+            _LIBS[n] = _load(n)
+        return {n: _LIBS[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    return lib if lib is not None else build_all((name,))[name]
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = lib.error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,152 @@
+"""Dispatch layer of the kernels package: what the engine calls.
+
+``workunit_topk`` is the engine's scan entry point; it picks one of the two
+``fused_knn`` grids (CUDA kernels on a CUDA tensor, their plain version on a
+CPU tensor: the device decides, there is no backend switch). The merges,
+``pairwise_scores`` and ``masked_topk`` are plain PyTorch on the tensors'
+device, as the reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import torch
+
+from . import ref as _ref
+from .fused_knn import fused_knn, fused_knn_db_stationary
+
+# TV/TQ ratio from which a work-unit bucket takes the split-V (db-stationary)
+# grid: the one place the kernel choice lives
+DB_STATIONARY_RATIO = 4
+
+
+@dataclasses.dataclass
+class DispatchStats:
+    """Process-wide kernel-dispatch accounting (see core/planner.py).
+
+    ``knn_calls`` counts similarity-scan dispatches (one per shape bucket);
+    ``merge_calls`` counts top-k merges. ``shapes`` holds the distinct
+    (W, TQ, TV, k) problem shapes seen. ``peak_candidate_bytes`` is the
+    largest candidate merge buffer any single execution materialized (scores
+    + ids). ``lut_expand_bytes`` belongs to the compressed path, which this
+    package does not run yet; it stays 0.
+
+    Thread-safe: all mutation goes through a lock; read a consistent copy
+    with ``snapshot()``.
+    """
+
+    knn_calls: int = 0
+    merge_calls: int = 0
+    shapes: set = dataclasses.field(default_factory=set)
+    peak_candidate_bytes: int = 0
+    lut_expand_bytes: int = 0
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
+
+    def record_knn(self, shape: tuple) -> None:
+        with self._lock:
+            self.knn_calls += 1
+            self.shapes.add(shape)
+
+    def record_merge(self) -> None:
+        with self._lock:
+            self.merge_calls += 1
+
+    def record_candidate_bytes(self, nbytes: int) -> None:
+        with self._lock:
+            self.peak_candidate_bytes = max(self.peak_candidate_bytes, int(nbytes))
+
+    def reset(self) -> None:
+        with self._lock:
+            self.knn_calls = 0
+            self.merge_calls = 0
+            self.shapes = set()
+            self.peak_candidate_bytes = 0
+            self.lut_expand_bytes = 0
+
+    def snapshot(self) -> "DispatchStats":
+        """Consistent point-in-time copy (counters + shape set)."""
+        with self._lock:
+            return DispatchStats(
+                knn_calls=self.knn_calls,
+                merge_calls=self.merge_calls,
+                shapes=set(self.shapes),
+                peak_candidate_bytes=self.peak_candidate_bytes,
+                lut_expand_bytes=self.lut_expand_bytes,
+            )
+
+
+_DISPATCH = DispatchStats()
+
+
+def dispatch_stats() -> DispatchStats:
+    return _DISPATCH
+
+
+def reset_dispatch_stats() -> None:
+    _DISPATCH.reset()
+
+
+def pairwise_scores(q: torch.Tensor, v: torch.Tensor, metric: str = "ip") -> torch.Tensor:
+    """Dense score matrix (no masking/top-k): a plain product."""
+    return _ref.pairwise_scores_ref(q, v, metric)
+
+
+def masked_topk(
+    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, k: int, *, metric: str = "ip"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked similarity top-k of one query block against one vector set,
+    plain PyTorch (the exhaustive oracle's scan)."""
+    return _ref.masked_topk_ref(q, v, valid, int(k), metric)
+
+
+def use_db_stationary(tq: int, tv: int) -> bool:
+    """The split-V grid serves buckets whose rows dominate their queries."""
+    return tv >= DB_STATIONARY_RATIO * max(int(tq), 1)
+
+
+def workunit_topk(
+    q: torch.Tensor,  # [W, TQ, D]  one bucket's work units (see core/plan.py)
+    v: torch.Tensor,  # [W, TV, D]
+    valid: torch.Tensor,  # bool [W, TV]
+    k: int,
+    *,
+    metric: str = "ip",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Work-unit entry point of the execution engine: one bucket, one dispatch.
+
+    Picks the split-V grid when the vector tile dominates the query tile
+    (``use_db_stationary``), the query-stationary grid otherwise.
+    """
+    _DISPATCH.record_knn((q.shape[0], q.shape[1], v.shape[1], int(k)))
+    fn = fused_knn_db_stationary if use_db_stationary(q.shape[1], v.shape[1]) else fused_knn
+    return fn(q, v, valid, k=int(k), metric=metric)
+
+
+def merge_topk(
+    scores: torch.Tensor,  # f32 [m, C] — per-query candidate scores (-inf = absent)
+    idx: torch.Tensor,  # i64 [m, C] — candidate ids (-1 = absent)
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-k over candidate rows (stable: ties keep column order)."""
+    _DISPATCH.record_merge()
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
+    top = torch.gather(scores, 1, order)
+    out_i = torch.gather(idx, 1, order)
+    return _ref.normalize_merge_sentinels(top, out_i)
+
+
+def segmented_merge_topk(
+    flat_s: torch.Tensor,  # f32 [C, kk] — flat candidate rows (CSR layout)
+    flat_i: torch.Tensor,  # i64 [C, kk] — candidate ids (-1 = absent)
+    seg_of: torch.Tensor,  # i32 [C] — owning query per row, ascending; >= n_segments = pad
+    n_segments: int,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ragged per-query top-k reduction — the segmented ``merge_topk``;
+    bit-identical to the dense merge over the same per-segment candidate
+    order (``ref.segmented_merge_topk_ref``)."""
+    _DISPATCH.record_merge()
+    return _ref.segmented_merge_topk_ref(flat_s, flat_i, seg_of, int(n_segments), int(k))

@@ -1,0 +1,134 @@
+"""Plain PyTorch versions of the kernels' functions and of the engine merges.
+
+Every CUDA kernel in this package has its plain version here; the CPU tests
+hold these against ``repro.kernels.ref`` and ``chip_smoke.py`` holds each
+kernel against them on the card.
+
+Tie rule everywhere: (score descending, index ascending) — ``lax.top_k``'s
+smallest-index-first order. ``torch.topk`` gives no tie order, so ranks come
+from stable sorts (``stable_topk``).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float(-3.4e38)
+
+
+def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim of a 2-D tensor under (score desc, index asc).
+
+    ``torch.topk`` supplies the k+1 largest values, which are exact whatever
+    its tie order; a row whose k+1 largest values are pairwise distinct (above
+    the masked-score band) then has exactly one top-k, and ``topk``'s indices
+    are it. Rows with a tie there are re-ranked by a full stable sort. Ties
+    inside the masked band (``<= NEG_INF / 2``) are left to ``topk``: their
+    ids become -1 in every caller. Returns (values [r, k], int64 idx [r, k]).
+    """
+    n = scores.shape[-1]
+    if n <= k + 1:
+        top, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+        return top[:, :k], idx[:, :k]
+    top, idx = torch.topk(scores, k + 1, dim=-1, largest=True, sorted=True)
+    tied = ((top[:, 1:] == top[:, :-1]) & (top[:, 1:] > NEG_INF / 2)).any(dim=1)
+    top, idx = top[:, :k].clone(), idx[:, :k].clone()
+    rows = torch.nonzero(tied).flatten()
+    if rows.numel():
+        s, i = torch.sort(scores[rows], dim=-1, descending=True, stable=True)
+        top[rows] = s[:, :k]
+        idx[rows] = i[:, :k]
+    return top, idx
+
+
+def normalize_merge_sentinels(
+    scores: torch.Tensor, idx: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonical absent-result encoding shared by every merge path.
+
+    Merge inputs carry two sentinel flavors — ``-inf`` (allocation padding)
+    and the kernels' finite ``NEG_INF`` with idx -1. This maps every absent
+    entry to exactly (-inf, -1): an entry is absent iff its idx is negative or
+    its score is non-finite.
+    """
+    scores = torch.where(idx < 0, torch.full_like(scores, -float("inf")), scores)
+    idx = torch.where(torch.isfinite(scores), idx, torch.full_like(idx, -1))
+    return scores, idx
+
+
+def segmented_merge_topk_ref(
+    flat_s: torch.Tensor,  # f32 [C, kk] — candidate rows, any per-segment count
+    flat_i: torch.Tensor,  # int [C, kk] — candidate ids (-1 = absent)
+    seg_of: torch.Tensor,  # i32 [C] — owning segment per row, ASCENDING; >= n_segments = drop
+    n_segments: int,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ragged per-segment top-k: CSR-style rows -> [n_segments, k].
+
+    One stable sort by (segment, -score) ranks every candidate inside its
+    segment (two stable sorts: by -score, then by segment); rank < k
+    survives. Stability keeps the original candidate order among exactly
+    equal scores, which is ``lax.top_k``'s smallest-index-first rule. Rows
+    whose ``seg_of`` is ``n_segments`` or above are padding and are dropped.
+    """
+    C, kk = flat_s.shape
+    dev = flat_s.device
+    if n_segments == 0:
+        return (
+            torch.zeros((0, k), dtype=torch.float32, device=dev),
+            torch.zeros((0, k), dtype=flat_i.dtype, device=dev),
+        )
+    n = C * kk
+    s = flat_s.reshape(n)
+    i = flat_i.reshape(n)
+    seg = torch.repeat_interleave(seg_of.to(torch.int64), kk)
+    by_score = torch.sort(-s, stable=True).indices
+    order = by_score[torch.sort(seg[by_score], stable=True).indices]
+    s_s, i_s, seg_s = s[order], i[order], seg[order]
+    starts = torch.searchsorted(seg_s, torch.arange(n_segments, device=dev))
+    pos = torch.arange(n, device=dev) - starts[seg_s.clamp(0, n_segments - 1)]
+    keep = (seg_s < n_segments) & (pos < k)
+    out_s = torch.full((n_segments, k), -float("inf"), dtype=torch.float32, device=dev)
+    out_i = torch.full((n_segments, k), -1, dtype=flat_i.dtype, device=dev)
+    out_s[seg_s[keep], pos[keep]] = s_s[keep].to(torch.float32)
+    out_i[seg_s[keep], pos[keep]] = i_s[keep]
+    return normalize_merge_sentinels(out_s, out_i)
+
+
+def pairwise_scores_ref(q: torch.Tensor, v: torch.Tensor, metric: str = "ip") -> torch.Tensor:
+    """Similarity scores, best = max. q [..., nq, d], v [..., nv, d] -> f32
+    [..., nq, nv] (leading dims batch, e.g. the W work units of a bucket).
+
+    ip: q·v          l2: 2·q·v − ‖q‖² − ‖v‖²  (= −‖q − v‖², so max = nearest)
+    """
+    q = q.to(torch.float32)
+    v = v.to(torch.float32)
+    ip = q @ v.transpose(-1, -2)
+    if metric == "ip":
+        return ip
+    if metric == "l2":
+        qn = (q * q).sum(dim=-1, keepdim=True)  # [..., nq, 1]
+        vn = (v * v).sum(dim=-1)[..., None, :]  # [..., 1, nv]
+        return 2.0 * ip - qn - vn
+    raise ValueError(metric)
+
+
+def masked_topk_ref(
+    q: torch.Tensor,
+    v: torch.Tensor,
+    valid: torch.Tensor,
+    k: int,
+    metric: str = "ip",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k masked similarity search.
+
+    q [..., nq, d], v [..., nv, d], valid bool [..., nv] (the pushdown bitmap
+    of Section 4.2; leading dims batch, as the W work units of a bucket).
+    Returns (scores f32 [..., nq, k] best-first, idx int32 [..., nq, k]);
+    masked-out or absent entries have score ``NEG_INF`` and idx -1.
+    """
+    scores = pairwise_scores_ref(q, v, metric)
+    scores = torch.where(valid[..., None, :], scores, torch.full_like(scores, NEG_INF))
+    top, idx = stable_topk(scores.reshape(-1, scores.shape[-1]), k)
+    idx = torch.where(top <= NEG_INF / 2, torch.full_like(idx, -1), idx)
+    out_shape = scores.shape[:-1] + (k,)
+    return top.reshape(out_shape), idx.to(torch.int32).reshape(out_shape)

@@ -1,0 +1,148 @@
+"""The CUDA kernels of the port against their plain PyTorch versions, on the
+card. Every test here is marked ``cuda`` and skips without a CUDA device
+(the kernels are CUDA C++ with no CPU mode).
+
+This file imports neither jax nor the reference package, so it also runs
+where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.core import HQIConfig, HQIIndex, kg_style
+from repro_torch.kernels.fused_knn import MAX_K, fused_knn, fused_knn_db_stationary, fused_knn_plain
+
+GRIDS = {"fused_knn": fused_knn, "fused_knn_db_stationary": fused_knn_db_stationary}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(dev, seed, W, TQ, TV, D, density=0.7, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((W, TQ, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((W, TV, D), generator=g, device=dev).to(dtype)
+    valid = torch.rand((W, TV), generator=g, device=dev) < density
+    return q, v, valid
+
+
+def _check(got, want, tol):
+    """Scores within ``tol``; the same absent slots; equal ids wherever the
+    plain version's neighbouring scores are apart by more than ``tol``."""
+    gs, gi = got
+    ws, wi = want
+    torch.testing.assert_close(gs, ws, rtol=tol, atol=tol)
+    assert torch.equal(gi < 0, wi < 0)
+    gap = tol * (1 + ws.abs())
+    tied = torch.zeros_like(wi, dtype=torch.bool)
+    near = (ws[..., 1:] - ws[..., :-1]).abs() <= gap[..., 1:]
+    tied[..., 1:] |= near
+    tied[..., :-1] |= near
+    tied[..., -1] = True  # may tie with the first row left out
+    assert torch.equal(gi[~tied], wi[~tied])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("k", [1, 8, 10, 16, 32, MAX_K])  # every register-list size
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_every_list_size(dev, grid, k, metric):
+    q, v, valid = _case(dev, k, 32, 64, 600, 64)
+    fn = GRIDS[grid]
+    n0 = fn.launches
+    got = fn(q, v, valid, k=k, metric=metric)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _check(got, fused_knn_plain(q, v, valid, k=k, metric=metric), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize(
+    "W,TQ,TV,D",
+    [(1, 1, 16, 8), (3, 5, 37, 7), (4, 100, 300, 63), (2, 130, 1100, 16), (8, 64, 96, 256)],
+)
+def test_ragged_shapes(dev, grid, W, TQ, TV, D):
+    """Query counts off the 64-query chunk, odd widths, TV off every tile."""
+    q, v, valid = _case(dev, W * TQ + TV, W, TQ, TV, D)
+    k = min(10, TV)
+    got = GRIDS[grid](q, v, valid, k=k, metric="l2")
+    _check(got, fused_knn_plain(q, v, valid, k=k, metric="l2"), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_bf16_and_sparse_masks(dev, grid):
+    fn = GRIDS[grid]
+    q, v, valid = _case(dev, 1, 16, 64, 1024, 64, dtype=torch.bfloat16)
+    _check(fn(q, v, valid, k=10), fused_knn_plain(q, v, valid, k=10), 2e-2)
+    valid = torch.zeros_like(valid)
+    s, i = fn(q, v, valid, k=10)
+    assert (i == -1).all() and (s == -3.4e38).all()
+    valid[:, [3, 700]] = True
+    s, i = fn(q, v, valid, k=4)
+    assert (i[..., 2:] == -1).all() and (s[..., 2:] == -3.4e38).all()
+    assert set(i[..., :2].unique().tolist()) == {3, 700}
+
+
+@pytest.mark.cuda
+def test_ties_go_to_the_smallest_index(dev):
+    """Duplicated rows score exactly alike; both grids and the plain version
+    rank them by index."""
+    q, v, valid = _case(dev, 2, 4, 8, 700, 16, density=1.0)
+    v[:, 100:700:50] = v[:, 5:6]
+    want = fused_knn_plain(q, v, valid, k=16, metric="ip")
+    for fn in GRIDS.values():
+        s, i = fn(q, v, valid, k=16, metric="ip")
+        assert torch.equal(s, want[0]) or torch.allclose(s, want[0], rtol=1e-5, atol=1e-5)
+        dup = torch.isin(i, torch.tensor([5] + list(range(100, 700, 50)), device=dev))
+        for row_i, row_d in zip(i.reshape(-1, 16), dup.reshape(-1, 16)):
+            ids = row_i[row_d].tolist()
+            assert ids == sorted(ids)
+
+
+@pytest.mark.cuda
+def test_rejects_what_the_kernels_do_not_take(dev):
+    q, v, valid = _case(dev, 3, 2, 8, 128, 16)
+    with pytest.raises(ValueError, match="k <="):
+        fused_knn(q, v, valid, k=MAX_K + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_knn(q.transpose(1, 2).contiguous().transpose(1, 2), v, valid, k=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_widest_rows_the_tiles_hold(dev, grid):
+    """d=453 is the widest row a 64-query unit's tiles hold; d=454 raises
+    before launch, so ``check_kernel_limits`` agrees with the kernels'
+    real shared-memory need."""
+    fn = GRIDS[grid]
+    q, v, valid = _case(dev, 4, 2, 64, 300, 453)
+    _check(fn(q, v, valid, k=10), fused_knn_plain(q, v, valid, k=10), 1e-4)
+    q, v, valid = _case(dev, 4, 2, 64, 300, 454)
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="d=454"):
+        fn(q, v, valid, k=10)
+    assert fn.launches == n0
+
+
+@pytest.mark.cuda
+def test_engine_names_the_kernel_limits(dev):
+    """k above MAX_K on a card index fails in the engine, before any launch,
+    with the limit named; the same index on the CPU answers it."""
+    kg = kg_style(n=20_000, d=16, queries_per_split=40, seed=0)
+    wl = dataclasses.replace(kg.splits[1], k=MAX_K + 1)
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(), device=dev)
+    n0 = fused_knn.launches + fused_knn_db_stationary.launches
+    with pytest.raises(ValueError, match=f"k={MAX_K + 1}: the CUDA kernels take k <= {MAX_K}"):
+        index.search(wl, nprobe=8)
+    assert fused_knn.launches + fused_knn_db_stationary.launches == n0
+    res = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
+    assert res.ids.shape == (wl.m, MAX_K + 1)
