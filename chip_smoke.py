@@ -25,8 +25,30 @@
 4. card against CPU: a 100k-row index built on the card, reloaded from its
    ``to_state()`` on the CPU; both searches must agree (scores within
    1e-4, equal id sets per query);
-5. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+5. ADC kernels against their plain versions on the card:
+   ``workunit_pq_scan_streamed`` (a [4096, M, 256] resident table read
+   through random ``lut_idx``, an eighth of each unit's slots padding at row
+   0) and ``workunit_pq_scan`` (the same LUTs expanded) at W=256, TQ=64,
+   M in {8, 16}, TV in {32..4096}, k in {10, 40}, valid density 0.7;
+   ``pq_scan`` at NV in {10^4, 10^6}, M=8, k=40; plus all-invalid, k above
+   the valid count and 2 valid rows of 1024 at k=4 (unfilled slots
+   (NEG_INF, -1)); scores within 1e-4, ids equal where untied; kernel, plain
+   version and the yardstick (``torch.gather`` + sum + masked
+   ``torch.topk``) timed beside each shape's bound;
+6. the compressed (PQ) path at real size: the same data and workload,
+   ``HQIConfig(scan_mode="pq")`` built on the card, ``search(nprobe=8)``
+   once cold and three times warm; counters zeroed before the last search:
+   the resident-LUT ADC kernel and the re-rank grid must launch, every plain
+   version's count must stay 0 and no LUT may be expanded
+   (``lut_expand_bytes``). Ids pass their filters with exact f32 scores;
+   recall@10 against the exhaustive answer and against the f32 engine; a
+   traced and a profiled search; then the ADC kernel checked on every bucket
+   the path gave it and timed on the heaviest;
+7. PQ card against CPU at 100k rows: segmented and dense layouts (the dense
+   one drives ``workunit_pq_scan``) and a ``PQIndex`` with 64 queries and
+   ``rerank=4`` (``pq_scan``), each against its CPU reload;
+8. the ``kernels`` JSON line (all five kernels), the ``nvidia-smi`` line,
+   and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It writes its full record (and nvcc's log) under ``--out``
@@ -48,10 +70,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, CUDA cores (no tensor cores)
 MAIN_ROWS, MAIN_QUERIES = 1_000_000, 10_000  # the main path's kg_style size
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_knn.cu"
+KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
+           "workunit_pq_scan", "pq_scan")
+SOURCE = {
+    "fused_knn": "src/repro_torch/kernels/csrc/fused_knn.cu",
+    "fused_knn_db_stationary": "src/repro_torch/kernels/csrc/fused_knn.cu",
+    "workunit_pq_scan_streamed": "src/repro_torch/kernels/csrc/pq_scan.cu",
+    "workunit_pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
+    "pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
+}
 REPLACES = {
     "fused_knn": "src/repro/kernels/fused_knn.py:224",
     "fused_knn_db_stationary": "src/repro/kernels/fused_knn.py:165",
+    "workunit_pq_scan_streamed": "src/repro/kernels/pq_scan.py:299",
+    "workunit_pq_scan": "src/repro/kernels/pq_scan.py:180",
+    "pq_scan": "src/repro/kernels/pq_scan.py:86",
 }
 NEG_INF = -3.4e38
 
@@ -232,7 +265,6 @@ def phase_main_path(rec: dict) -> dict:
     import torch
 
     from repro_torch.core import HQIConfig, HQIIndex, exhaustive_search, kg_style, recall_at_k
-    from repro_torch.core.predicates import evaluate_filter
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_knn import fused_knn, fused_knn_db_stationary, fused_knn_plain
 
@@ -272,8 +304,36 @@ def phase_main_path(rec: dict) -> dict:
         raise AssertionError(f"a kernel of the main path was never launched: {counts}")
     if counts["plain"] != 0:
         raise AssertionError(f"the plain version ran on the main path: {counts}")
+    check_results(kg, wl, res)
 
-    # every returned id passes its query's filter and carries its exact score
+    t0 = time.perf_counter()
+    truth = exhaustive_search(kg.db, wl, device="cuda")
+    exh_s = time.perf_counter() - t0
+    recall = recall_at_k(res, truth)
+    log(f"[main] recall@10 {recall:.4f} against exhaustive_search ({exh_s:.3f} s)")
+    traced_s, spans = traced_search(index, wl, "main")
+    prof_s, busy_s, top = profiled_search(index, wl, "main")
+
+    rec["main_path"] = {
+        "n": n, "d": 64, "queries": wl.m, "partitions": len(index.partitions),
+        "build_seconds": build_s, "build_info": str(index.build_info),
+        "search_seconds_cold": times[0], "search_seconds_warm": times[1:],
+        "qps_warm": wl.m / warm_s, "recall_at_10": recall,
+        "exhaustive_seconds": exh_s, "launches": counts,
+        "knn_calls": st.knn_calls, "merge_calls": st.merge_calls,
+        "shapes": sorted(st.shapes), "peak_candidate_bytes": st.peak_candidate_bytes,
+        "peak_device_bytes": peak, "traced_search_seconds": traced_s, "span_ms": spans,
+        "profiled_search_seconds": prof_s, "device_busy_seconds": busy_s,
+        "device_ops_ms": top,
+    }
+    return {"index": index, "wl": wl, "counts": counts, "kg": kg, "truth": truth}
+
+
+def check_results(kg, wl, res) -> None:
+    """Every returned id passes its query's filter and carries its exact f32
+    score; no duplicates; scores finite exactly where ids are present."""
+    from repro_torch.core.predicates import evaluate_filter
+
     ids, scores = res.ids, res.scores
     if ids.shape != (wl.m, wl.k) or scores.shape != (wl.m, wl.k):
         raise AssertionError(f"result shape {ids.shape}")
@@ -297,56 +357,42 @@ def phase_main_path(rec: dict) -> dict:
         if len(np.unique(row)) != len(row):
             raise AssertionError(f"duplicate ids in row {r}")
 
-    t0 = time.perf_counter()
-    truth = exhaustive_search(kg.db, wl, device="cuda")
-    exh_s = time.perf_counter() - t0
-    recall = recall_at_k(res, truth)
-    log(f"[main] recall@10 {recall:.4f} against exhaustive_search ({exh_s:.3f} s)")
 
-    # where the search's time goes: one more run with the tracer on (fenced spans)
+def traced_search(index, wl, tag: str, **kw):
+    """One search with the tracer on (fenced spans): (seconds, ms per span)."""
     from repro_torch.obs import trace
 
     tracer = trace.enable()
     t0 = time.perf_counter()
-    index.search(wl, nprobe=8)
+    index.search(wl, nprobe=8, **kw)
     traced_s = time.perf_counter() - t0
     trace.disable()
     spans: dict = {}
     for ev in tracer.events():
         if ev.get("ph") == "X":
             spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
-    log(f"[main] traced search {traced_s:.3f} s; span ms {json.dumps(spans)}")
+    log(f"[{tag}] traced search {traced_s:.3f} s; span ms {json.dumps(spans)}")
+    return traced_s, spans
 
-    # device busy share: kernel time in a torch.profiler trace of one search
+
+def profiled_search(index, wl, tag: str, **kw):
+    """One search under torch.profiler: (seconds, device busy seconds, the
+    largest device items in ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search(wl, nprobe=8)
+        index.search(wl, nprobe=8, **kw)
         prof_s = time.perf_counter() - t0
     kernel_us: dict = {}  # device-side events only (kernels, copies, memsets)
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             kernel_us[ev.key] = ev.self_device_time_total
     busy_s = sum(kernel_us.values()) / 1e6
-    top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[main] profiled search {prof_s:.3f} s, device busy {busy_s * 1e3:.3f} ms "
-        f"({busy_s / prof_s:.2%}); top device ops (ms) "
-        + json.dumps({k[:60]: v / 1e3 for k, v in top}))
-
-    rec["main_path"] = {
-        "n": n, "d": 64, "queries": wl.m, "partitions": len(index.partitions),
-        "build_seconds": build_s, "build_info": str(index.build_info),
-        "search_seconds_cold": times[0], "search_seconds_warm": times[1:],
-        "qps_warm": wl.m / warm_s, "recall_at_10": recall,
-        "exhaustive_seconds": exh_s, "launches": counts,
-        "knn_calls": st.knn_calls, "merge_calls": st.merge_calls,
-        "shapes": sorted(st.shapes), "peak_candidate_bytes": st.peak_candidate_bytes,
-        "peak_device_bytes": peak, "traced_search_seconds": traced_s, "span_ms": spans,
-        "profiled_search_seconds": prof_s, "device_busy_seconds": busy_s,
-        "device_ops_ms": {k: v / 1e3 for k, v in top},
-    }
-    return {"index": index, "wl": wl, "counts": counts}
+    top = {k[:60]: v / 1e3 for k, v in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]}
+    log(f"[{tag}] profiled search {prof_s:.3f} s, device busy {busy_s * 1e3:.3f} ms "
+        f"({busy_s / prof_s:.2%}); top device ops (ms) " + json.dumps(top))
+    return prof_s, busy_s, top
 
 
 def phase_main_shapes(rec: dict, main: dict, max_err: dict) -> dict:
@@ -403,6 +449,17 @@ def phase_main_shapes(rec: dict, main: dict, max_err: dict) -> dict:
     return out
 
 
+def agree(a, b, what: str) -> None:
+    """Two searches agree: scores within 1e-4, equal id sets per query."""
+    np.testing.assert_allclose(
+        np.where(np.isfinite(a.scores), a.scores, -1e30),
+        np.where(np.isfinite(b.scores), b.scores, -1e30), rtol=1e-4, atol=1e-4,
+    )
+    for r in range(a.ids.shape[0]):
+        if set(a.ids[r][a.ids[r] >= 0].tolist()) != set(b.ids[r][b.ids[r] >= 0].tolist()):
+            raise AssertionError(f"{what}: disagree on query {r}")
+
+
 def phase_card_vs_cpu(rec: dict) -> None:
     from repro_torch.core import HQIConfig, HQIIndex, kg_style
 
@@ -414,16 +471,375 @@ def phase_card_vs_cpu(rec: dict) -> None:
     t0 = time.perf_counter()
     b = cpu.search(wl, nprobe=8)
     cpu_s = time.perf_counter() - t0
-    np.testing.assert_allclose(
-        np.where(np.isfinite(a.scores), a.scores, -1e30),
-        np.where(np.isfinite(b.scores), b.scores, -1e30), rtol=1e-4, atol=1e-4,
-    )
-    for r in range(wl.m):
-        if set(a.ids[r][a.ids[r] >= 0].tolist()) != set(b.ids[r][b.ids[r] >= 0].tolist()):
-            raise AssertionError(f"card and CPU disagree on query {r}")
+    agree(a, b, "card and CPU")
     rec["card_vs_cpu"] = {"n": 100_000, "queries": wl.m, "cpu_search_seconds": cpu_s,
                           "agree": True}
     log(f"[card-vs-cpu] {wl.m} queries on a 100k-row index agree (CPU search {cpu_s:.3f} s)")
+
+
+# ------------------------------------------------------------ ADC kernels
+
+
+def adc_bound(codes, valid, k: int, q_live, lut_rows: int) -> dict:
+    """Least time (ms) of an ADC scan on these inputs, counting only what
+    this data needs. Bytes over HBM: the codes of the valid rows (M bytes
+    each), the mask of each unit holding a real query, each distinct LUT row
+    the real slots index read once (M·1 KiB; ``lut_rows`` of them), the real
+    slots' top-k written once. Operations over the fp32 peak: M adds per
+    (real query, valid row of its unit). Beside it, the LUT bytes streamed
+    per (unit, real slot), the count of the reference's profiler."""
+    W, TV, M = codes.shape
+    nq_w = q_live.sum(1).double()
+    nv_w = valid.sum(1).double()
+    n_q, n_v = float(nq_w.sum()), float(nv_w.sum())
+    n_units = int((nq_w > 0).sum())
+    lut_row_bytes = M * 256 * 4
+    nbytes = n_v * M + n_units * TV + lut_rows * lut_row_bytes + n_q * k * 8
+    ops_ = float(M) * float((nq_w * nv_w).sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "lut_streamed_bytes": n_q * lut_row_bytes,
+            "valid_rows": int(n_v), "real_query_slots": int(n_q), "lut_rows": int(lut_rows)}
+
+
+def adc_yardstick(luts, codes, valid, k: int):
+    """``torch.gather`` + sum + masked ``torch.topk`` over expanded LUTs
+    [W, TQ, M, 256]: the library's way to the same top-k (tie order aside),
+    timed beside the kernels and used nowhere else."""
+    import torch
+
+    W, TQ, M, _ = luts.shape
+    idx = codes.permute(0, 2, 1).long()[:, None].expand(W, TQ, M, codes.shape[1])
+    s = torch.gather(luts, 3, idx).sum(2)
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    return torch.topk(s, k, dim=-1)
+
+
+def adc_yardstick_one(lut, codes, valid, k: int):
+    """The one-query yardstick: gather + sum + masked ``torch.topk``."""
+    import torch
+
+    s = torch.gather(lut, 1, codes.t().long()).sum(0)
+    return torch.topk(s.masked_fill(~valid, NEG_INF), k)
+
+
+def phase_adc_kernels(rec: dict, max_err: dict) -> None:
+    import torch
+
+    from repro_torch.kernels import pq_scan as adc
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    W, TQ, U = 256, 64, 4096
+    pad = TQ // 8  # the last eighth of each unit's slots is padding (LUT row 0)
+    q_live = torch.ones((W, TQ), dtype=torch.bool, device="cuda")
+    q_live[:, TQ - pad:] = False
+    rows = []
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        err = compare(got, want, 1e-4)
+        max_err[name] = max(max_err[name], err)
+        return err
+
+    for M in (8, 16):
+        table = torch.randn((U, M, 256), generator=gen, device="cuda")
+        for tv in (32, 128, 512, 1024, 4096):
+            codes = torch.randint(0, 256, (W, tv, M), generator=gen, device="cuda", dtype=torch.uint8)
+            valid = torch.rand((W, tv), generator=gen, device="cuda") < 0.7
+            lut_idx = torch.randint(0, U, (W, TQ), generator=gen, device="cuda", dtype=torch.int32)
+            lut_idx[:, TQ - pad:] = 0
+            luts = table[lut_idx.long()]
+            distinct = int(torch.unique(lut_idx[q_live]).numel())
+            for k in sorted({10, min(40, tv)}):  # k <= TV
+                want = adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
+                row = {"case": "sweep", "W": W, "TQ": TQ, "TV": tv, "M": M, "k": k}
+                row["streamed_err"] = check("workunit_pq_scan_streamed",
+                                            adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k), want)
+                row["expanded_err"] = check("workunit_pq_scan",
+                                            adc.workunit_pq_scan(luts, codes, valid, k=k), want)
+                row["streamed_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k), reps=15)
+                row["expanded_ms"] = cuda_ms(lambda: adc.workunit_pq_scan(luts, codes, valid, k=k), reps=15)
+                row["streamed_plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k), reps=15)
+                row["expanded_plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_plain(luts, codes, valid, k=k), reps=15)
+                row["streamed_yardstick_ms"] = cuda_ms(lambda: adc_yardstick(table[lut_idx.long()], codes, valid, k), reps=15)
+                row["expanded_yardstick_ms"] = cuda_ms(lambda: adc_yardstick(luts, codes, valid, k), reps=15)
+                row["streamed_bound"] = adc_bound(codes, valid, k, q_live, distinct)
+                row["expanded_bound"] = adc_bound(codes, valid, k, q_live, int(q_live.sum()))
+                rows.append(row)
+                log("[adc] " + json.dumps(row))
+            del luts
+
+    # masks the kernels must get exactly right, for all three wrappers
+    table = torch.randn((U, 8, 256), generator=gen, device="cuda")
+    lut_idx = torch.randint(0, U, (W, TQ), generator=gen, device="cuda", dtype=torch.int32)
+    codes = torch.randint(0, 256, (W, 1024, 8), generator=gen, device="cuda", dtype=torch.uint8)
+    luts = table[lut_idx.long()]
+    none = torch.zeros((W, 1024), dtype=torch.bool, device="cuda")
+    few = none.clone()
+    few[:, [3, 700, 1001]] = True
+    two = none.clone()
+    two[:, [3, 700]] = True
+    for label, valid, k in (("all_invalid", none, 10), ("k_above_valid", few, 40), ("two_valid", two, 4)):
+        want = adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
+        outs = {
+            "workunit_pq_scan_streamed": adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k),
+            "workunit_pq_scan": adc.workunit_pq_scan(luts, codes, valid, k=k),
+        }
+        for name, got in outs.items():
+            check(name, got, want)
+        lut0 = table[int(lut_idx[0, 0])]
+        got5 = adc.pq_scan(lut0, codes[0], valid[0], k=k)
+        check("pq_scan", got5, adc.pq_scan_plain(lut0, codes[0], valid[0], k=k))
+        if label == "two_valid":
+            for name, (s, i) in list(outs.items()) + [("pq_scan", got5)]:
+                ids = i.cpu().numpy()
+                if not ((ids[..., 2:] == -1).all()
+                        and (s[..., 2:].cpu().numpy() == np.float32(NEG_INF)).all()
+                        and set(np.unique(ids[..., :2]).tolist()) == {3, 700}):
+                    raise AssertionError(f"{name}: unfilled slots are not (NEG_INF, -1)")
+        log(f"[adc] {label}: all three ADC wrappers match their plain versions")
+    del luts
+
+    for nv in (10_000, 1_000_000):
+        lut = torch.randn((8, 256), generator=gen, device="cuda")
+        codes = torch.randint(0, 256, (nv, 8), generator=gen, device="cuda", dtype=torch.uint8)
+        valid = torch.rand((nv,), generator=gen, device="cuda") < 0.7
+        k = 40
+        row = {"case": "one_query", "NV": nv, "M": 8, "k": k}
+        row["err"] = check("pq_scan", adc.pq_scan(lut, codes, valid, k=k),
+                           adc.pq_scan_plain(lut, codes, valid, k=k))
+        row["ms"] = cuda_ms(lambda: adc.pq_scan(lut, codes, valid, k=k))
+        row["plain_ms"] = cuda_ms(lambda: adc.pq_scan_plain(lut, codes, valid, k=k))
+        row["yardstick_ms"] = cuda_ms(lambda: adc_yardstick_one(lut, codes, valid, k))
+        row["bound"] = adc_bound(codes[None], valid[None], k, torch.ones((1, 1), dtype=torch.bool,
+                                 device="cuda"), 1)
+        rows.append(row)
+        log("[adc] " + json.dumps(row))
+    rec["adc_kernel_cases"] = rows
+
+
+# ------------------------------------------------------- compressed path
+
+
+def counters():
+    """Every kernel wrapper's launch count and every plain version's call
+    count, by name."""
+    from repro_torch.kernels import fused_knn as fk
+    from repro_torch.kernels import pq_scan as adc
+
+    return {
+        "fused_knn": fk.fused_knn, "fused_knn_db_stationary": fk.fused_knn_db_stationary,
+        "workunit_pq_scan_streamed": adc.workunit_pq_scan_streamed,
+        "workunit_pq_scan": adc.workunit_pq_scan, "pq_scan": adc.pq_scan,
+    }, {
+        "fused_knn_plain": fk.fused_knn_plain,
+        "workunit_pq_scan_streamed_plain": adc.workunit_pq_scan_streamed_plain,
+        "workunit_pq_scan_plain": adc.workunit_pq_scan_plain, "pq_scan_plain": adc.pq_scan_plain,
+    }
+
+
+def zero_counters() -> None:
+    kernels, plains = counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plains.values():
+        fn.calls = 0
+
+
+def read_counters() -> dict:
+    kernels, plains = counters()
+    out = {n: fn.launches for n, fn in kernels.items()}
+    out.update({n: fn.calls for n, fn in plains.items()})
+    return out
+
+
+def phase_pq_main(rec: dict, main: dict) -> dict:
+    import torch
+
+    from repro_torch.core import HQIConfig, HQIIndex, recall_at_k
+    from repro_torch.kernels import ops
+
+    kg, wl, truth = main["kg"], main["wl"], main["truth"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq"), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    times = []
+    for i in range(4):  # one cold (arena upload + encode), three warm; the last one is counted
+        if i == 3:
+            zero_counters()
+            before = ops.dispatch_stats().snapshot()
+        t0 = time.perf_counter()
+        res = index.search(wl, nprobe=8)
+        times.append(time.perf_counter() - t0)
+    counts = read_counters()
+    delta = ops.dispatch_stats().delta_since(before)
+    warm_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[pq] build {build_s:.3f} s ({index.build_info}); {len(index.partitions)} partitions")
+    log(f"[pq] search cold {times[0]:.3f} s, warm {[round(t, 4) for t in times[1:]]} s: "
+        f"{wl.m / warm_s:.1f} queries/s warm (median)")
+    log(f"[pq] one warm search: counts {counts}; dispatch knn_calls={delta.knn_calls} "
+        f"merge_calls={delta.merge_calls} shapes={sorted(delta.shapes, key=str)} "
+        f"lut_expand_bytes={delta.lut_expand_bytes} lut_bytes={res.lut_bytes} "
+        f"bytes_scanned={res.bytes_scanned} peak_candidate_bytes={res.peak_candidate_bytes}; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    if counts["workunit_pq_scan_streamed"] <= 0 or counts["fused_knn_db_stationary"] <= 0:
+        raise AssertionError(f"a kernel of the PQ path was never launched: {counts}")
+    plain = {n: c for n, c in counts.items() if n.endswith("_plain") and c}
+    if plain:
+        raise AssertionError(f"a plain version ran on the PQ path: {plain}")
+    if delta.lut_expand_bytes != 0:
+        raise AssertionError(f"the segmented PQ path expanded LUTs: {delta.lut_expand_bytes} bytes")
+    check_results(kg, wl, res)
+    recall = recall_at_k(res, truth)
+    t0 = time.perf_counter()
+    exact = index.search(wl, nprobe=8, scan_mode="f32")
+    f32_s = time.perf_counter() - t0
+    recall_f32 = recall_at_k(res, exact)
+    log(f"[pq] recall@10 {recall:.4f} against exhaustive_search, {recall_f32:.4f} against "
+        f"the same index searched with scan_mode='f32' ({f32_s:.3f} s)")
+    traced_s, spans = traced_search(index, wl, "pq")
+    prof_s, busy_s, top = profiled_search(index, wl, "pq")
+    rec["pq_path"] = {
+        "n": MAIN_ROWS, "d": 64, "queries": wl.m, "partitions": len(index.partitions),
+        "build_seconds": build_s, "build_info": str(index.build_info),
+        "search_seconds_cold": times[0], "search_seconds_warm": times[1:],
+        "qps_warm": wl.m / warm_s, "recall_at_10": recall, "recall_at_10_vs_f32": recall_f32,
+        "f32_search_seconds": f32_s, "counts": counts, "knn_calls": delta.knn_calls,
+        "merge_calls": delta.merge_calls, "shapes": sorted(delta.shapes, key=str),
+        "lut_expand_bytes": delta.lut_expand_bytes, "lut_bytes": res.lut_bytes,
+        "bytes_scanned": res.bytes_scanned, "peak_candidate_bytes": res.peak_candidate_bytes,
+        "peak_device_bytes": peak, "traced_search_seconds": traced_s, "span_ms": spans,
+        "profiled_search_seconds": prof_s, "device_busy_seconds": busy_s, "device_ops_ms": top,
+    }
+    return {"index": index, "wl": wl, "counts": counts}
+
+
+def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
+    """The ADC kernel on every bucket a search gives it (resident table, or
+    the dense layout's expanded LUTs): checked against its plain version and
+    timed; the heaviest bucket is also timed plain and by the yardstick."""
+    import torch
+
+    from repro_torch.core.ivf import ScanStats
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.planner import pq_bucket_operands, resident_luts
+    from repro_torch.kernels import pq_scan as adc
+
+    name = "workunit_pq_scan_streamed" if resident else "workunit_pq_scan"
+    kernel = getattr(adc, name)
+    plain = getattr(adc, name + "_plain")
+    arena = index.arena
+    tasks, _, _ = index._engine_tasks(wl, nprobe=8, batch_vec=True, stats=ScanStats())
+    plan = build_plan(arena, tasks, wl.vectors, m=wl.m, k=wl.k, cfg=index.cfg.plan)
+    table, lut_pos = resident_luts(plan, arena, wl.vectors)
+    kprime = index.cfg.plan.refine_factor * wl.k
+    M = arena.pq.m
+    buckets, heavy = [], None
+    for lp in sorted(plan.buckets):
+        qrow_of, _, _, lut_idx, codes, valid = pq_bucket_operands(plan, arena, lut_pos, lp)
+        q_live = torch.from_numpy(qrow_of >= 0).to(arena.device)
+        k = min(kprime, lp)
+        if resident:
+            args = (table, lut_idx, codes, valid)
+            lut_rows = int(torch.unique(lut_idx[q_live]).numel())
+        else:
+            luts = table.index_select(0, lut_idx.reshape(-1)).reshape(*lut_idx.shape, M, 256)
+            args = (luts, codes, valid)
+            lut_rows = int(q_live.sum())
+        err = compare(kernel(*args, k=k), plain(*args, k=k), 1e-4)
+        max_err[name] = max(max_err[name], err)
+        row = {"kernel": name, "shape": [lut_idx.shape[0], lut_idx.shape[1], lp, M, k],
+               "ms": cuda_ms(lambda: kernel(*args, k=k), reps=21), "max_abs_err": err}
+        row.update(adc_bound(codes, valid, k, q_live, lut_rows))
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+        buckets.append(row)
+        log(f"[{tag}] " + json.dumps(row))
+        work = lut_idx.shape[0] * lp
+        if heavy is None or work > heavy[0]:
+            heavy = (work, row, args, k)
+        del args
+    _, row, args, k = heavy
+    row = dict(row)
+    row["plain_ms"] = cuda_ms(lambda: plain(*args, k=k), reps=11)
+    row["yardstick_ms"] = cuda_ms(
+        lambda: adc_yardstick(args[0] if not resident else args[0][args[1].long()],
+                              args[-2], args[-1], k), reps=11)
+    log(f"[{tag} heaviest] " + json.dumps(row))
+    return {"heaviest": row, "buckets": buckets}
+
+
+def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
+    """PQ at 100k rows on the card against its CPU reload: both layouts, and
+    a PQIndex (one pq_scan launch per query)."""
+    import torch
+
+    from repro_torch.core import HQIConfig, HQIIndex, PQIndex, kg_style
+    from repro_torch.core.pq import adc_tables
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_scan as adc
+
+    kg = kg_style(n=100_000, d=64, seed=0)
+    wl = kg.splits[1]
+    gpu = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq"), device="cuda")
+    state = gpu.to_state()
+    a = gpu.search(wl, nprobe=8)
+    agree(a, HQIIndex.from_state(state, device="cpu").search(wl, nprobe=8), "PQ segmented, card and CPU")
+    log(f"[pq-card-vs-cpu] segmented: {wl.m} queries on a 100k-row PQ index agree")
+
+    dense = dict(state, cfg=dict(state["cfg"], plan=dict(state["cfg"]["plan"], merge_layout="dense")))
+    gpu_d = HQIIndex.from_state(dense, device="cuda")
+    adc.workunit_pq_scan.launches = 0
+    before = ops.dispatch_stats().snapshot()
+    a_d = gpu_d.search(wl, nprobe=8)
+    launches4 = adc.workunit_pq_scan.launches
+    expand = ops.dispatch_stats().delta_since(before).lut_expand_bytes
+    if launches4 <= 0 or expand <= 0:
+        raise AssertionError(f"the dense layout did not run workunit_pq_scan ({launches4}, {expand})")
+    agree(a_d, HQIIndex.from_state(dense, device="cpu").search(wl, nprobe=8), "PQ dense, card and CPU")
+    agree(a_d, a, "PQ dense and segmented on the card")
+    log(f"[pq-card-vs-cpu] dense: agree; workunit_pq_scan launched {launches4} times, "
+        f"{expand} LUT bytes expanded")
+    dense_run = adc_buckets(gpu_d, wl, resident=False, max_err=max_err, tag="dense")
+    del gpu_d
+    torch.cuda.empty_cache()
+
+    vecs = kg.db.vectors
+    q = wl.vectors[:64]
+    pq_gpu = PQIndex.build(vecs, m=8, metric=kg.db.metric, device="cuda")
+    pq_cpu = PQIndex(cb=pq_gpu.cb, codes=pq_gpu.codes.cpu(), vectors=vecs)
+    adc.pq_scan.launches = 0
+    sa, ia = pq_gpu.search(q, 10, rerank=4)
+    launches5 = adc.pq_scan.launches
+    sb, ib = pq_cpu.search(q, 10, rerank=4)
+    np.testing.assert_allclose(np.where(np.isfinite(sa), sa, -1e30), np.where(np.isfinite(sb), sb, -1e30),
+                               rtol=1e-4, atol=1e-4)
+    for r in range(len(q)):
+        if set(ia[r][ia[r] >= 0].tolist()) != set(ib[r][ib[r] >= 0].tolist()):
+            raise AssertionError(f"PQIndex: card and CPU disagree on query {r}")
+    if launches5 != len(q):
+        raise AssertionError(f"PQIndex.search launched pq_scan {launches5} times for {len(q)} queries")
+    log(f"[pq-card-vs-cpu] PQIndex: {len(q)} queries (rerank=4) agree; pq_scan launched {launches5} times")
+
+    lut = torch.from_numpy(adc_tables(pq_gpu.cb, q[:1])[0]).cuda()
+    valid = torch.ones(vecs.shape[0], dtype=torch.bool, device="cuda")
+    codes, k = pq_gpu.codes, 40
+    err = compare(adc.pq_scan(lut, codes, valid, k=k), adc.pq_scan_plain(lut, codes, valid, k=k), 1e-4)
+    max_err["pq_scan"] = max(max_err["pq_scan"], err)
+    one = {"kernel": "pq_scan", "shape": [vecs.shape[0], 8, k], "max_abs_err": err,
+           "ms": cuda_ms(lambda: adc.pq_scan(lut, codes, valid, k=k)),
+           "plain_ms": cuda_ms(lambda: adc.pq_scan_plain(lut, codes, valid, k=k)),
+           "yardstick_ms": cuda_ms(lambda: adc_yardstick_one(lut, codes, valid, k))}
+    one.update(adc_bound(codes[None], valid[None], k, torch.ones((1, 1), dtype=torch.bool, device="cuda"), 1))
+    one["ms_over_bound"] = one["ms"] / one["bound_ms"]
+    log("[pq_scan heaviest] " + json.dumps(one))
+    rec["pq_card_vs_cpu"] = {"n": 100_000, "queries": wl.m, "agree": True,
+                             "dense_launches": launches4, "dense_lut_expand_bytes": expand,
+                             "pq_index_queries": len(q), "pq_scan_launches": launches5,
+                             "dense_buckets": dense_run["buckets"]}
+    return {"workunit_pq_scan": (launches4, dense_run["heaviest"]), "pq_scan": (launches5, one)}
 
 
 def main() -> int:
@@ -448,7 +864,7 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     t_start = time.perf_counter()
     rec: dict = {"nvidia_smi": smi, "torch": torch.__version__}
-    max_err = {"fused_knn": 0.0, "fused_knn_db_stationary": 0.0}
+    max_err = {name: 0.0 for name in KERNELS}
 
     phase_build(rec, args.out)
     phase_kernels(rec, max_err)
@@ -457,18 +873,40 @@ def main() -> int:
     del main_run["index"]
     torch.cuda.empty_cache()
     phase_card_vs_cpu(rec)
+    phase_adc_kernels(rec, max_err)
+    torch.cuda.empty_cache()
+    pq_run = phase_pq_main(rec, main_run)
+    pq_heavy = adc_buckets(pq_run["index"], pq_run["wl"], resident=True, max_err=max_err, tag="pq")
+    rec["pq_path_buckets"] = pq_heavy["buckets"]
+    del pq_run["index"], main_run["kg"]
+    torch.cuda.empty_cache()
+    per_phase = phase_pq_card_vs_cpu(rec, max_err)
 
+    timed = {
+        "fused_knn": (main_run["counts"]["fused_knn"], heaviest["fused_knn"]),
+        "fused_knn_db_stationary": (main_run["counts"]["fused_knn_db_stationary"],
+                                    heaviest["fused_knn_db_stationary"]),
+        "workunit_pq_scan_streamed": (pq_run["counts"]["workunit_pq_scan_streamed"],
+                                      pq_heavy["heaviest"]),
+        **per_phase,
+    }
     kernels = []
-    for name in ("fused_knn", "fused_knn_db_stationary"):
-        h = heaviest[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-            "launches": main_run["counts"][name], "max_abs_err": max_err[name],
+    for name in KERNELS:
+        launches, h = timed[name]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": max_err[name],
             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": None,
             "ms_over_bound": h["ms_over_bound"], "yardstick_ms": h["yardstick_ms"],
             "shape": h["shape"],
-        })
+        }
+        if "lut_streamed_bytes" in h:
+            entry["bound_bytes"] = h["bound_bytes"]
+            entry["lut_streamed_bytes"] = h["lut_streamed_bytes"]
+        if launches <= 0:
+            raise AssertionError(f"{name}: no launch on its path")
+        kernels.append(entry)
     rec["kernels"] = kernels
     rec["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -14,9 +14,12 @@ ids, so executor output needs no per-partition id translation. The
 posting-list table and the row maps the planner reads on the host stay
 numpy.
 
-Compressed storage: a ``PQCodebook`` and its uint8 ``codes`` are carried
-(and saved) when present, but no search path reads them yet (ROADMAP.md §1
-item 4). Sharding the arena waits for the sharded engine (item 9).
+Compressed storage: when a ``PQCodebook`` is attached, the arena also
+carries ``codes``, uint8 [N, M] PQ codes on the device, row-aligned with
+``packed``, so the engine's ADC scan stage gathers M-byte code rows instead
+of d·4-byte vectors and the exact re-rank gathers the surviving f32 rows
+from the same arena. Sharding the arena waits for the sharded engine
+(ROADMAP.md §1 item 9).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ class PackedArena:
     centroids: List[np.ndarray]  # per-partition coarse quantizer
     metric: str
     pq: Optional[PQCodebook] = None  # index-wide codebook (compressed mode)
-    codes: Optional[np.ndarray] = None  # uint8 [N, M], row-aligned with packed
+    codes: Optional[torch.Tensor] = None  # uint8 [N, M] on ``device``, row-aligned with packed
     # the quantizers on the device, for ``probe``
     _cent_dev: List[torch.Tensor] = dataclasses.field(
         default_factory=list, repr=False, compare=False
@@ -96,6 +99,24 @@ class PackedArena:
         s, e = int(self.part_row[part]), int(self.part_row[part + 1])
         return local_bitmap[self.local_of[s:e]]
 
+    def attach_pq(self, pq: PQCodebook) -> None:
+        """Encode the packed rows under ``pq`` (idempotent per codebook).
+
+        Used by the single-index path (``batch_search_ivf``) where the arena
+        is built before a codebook exists; ``HQIIndex`` instead passes ``pq``
+        at construction.
+        """
+        if self.pq is pq and self.codes is not None:
+            return
+        if pq.d != self.d:
+            raise ValueError(
+                f"PQ codebook shape mismatch: codebook encodes d={pq.d} "
+                f"(m={pq.m} subspaces × dsub={pq.dsub}), arena rows have "
+                f"d={self.d}"
+            )
+        self.pq = pq
+        self.codes = _encode(pq, self.packed.cpu().numpy(), self.device)
+
     # ------------------------------------------------------------ persistence
 
     def to_state(self) -> dict:
@@ -111,7 +132,7 @@ class PackedArena:
             "part_row": self.part_row,
             "centroids": {str(p): c for p, c in enumerate(self.centroids)},
             "pq": None if self.pq is None else self.pq.to_state(),
-            "codes": self.codes,
+            "codes": None if self.codes is None else self.codes.cpu().numpy(),
         }
 
     @staticmethod
@@ -128,7 +149,10 @@ class PackedArena:
             centroids=[np.asarray(cents[str(p)]) for p in range(len(cents))],
             metric=state["metric"],
             pq=None if state["pq"] is None else PQCodebook.from_state(state["pq"]),
-            codes=None if state["codes"] is None else np.asarray(state["codes"]),
+            codes=(
+                None if state["codes"] is None
+                else torch.from_numpy(np.array(state["codes"], dtype=np.uint8)).to(device)
+            ),
         )
 
     # ------------------------------------------------------------ constructors
@@ -168,5 +192,23 @@ class PackedArena:
             centroids=cents,
             metric=metric,
             pq=pq,
-            codes=None if pq is None else encode_pq(pq, packed_all),
+            codes=None if pq is None else _encode(pq, packed_all, device),
         )
+
+    @staticmethod
+    def from_ivf(ivf: IVFIndex) -> "PackedArena":
+        """Single-index arena on the index's device; ``gid`` is the ivf-local
+        vector index. Memoized on the index instance, so repeated
+        ``batch_search_ivf`` calls over one IVF pay the O(n) packing once."""
+        arena = getattr(ivf, "_arena_cache", None)
+        if arena is None:
+            arena = PackedArena.from_partitions(
+                [(np.arange(ivf.n, dtype=np.int64), ivf)], device=ivf.device
+            )
+            ivf._arena_cache = arena
+        return arena
+
+
+def _encode(pq: PQCodebook, rows: np.ndarray, device) -> torch.Tensor:
+    """uint8 PQ codes of ``rows`` as a tensor on ``device``."""
+    return torch.from_numpy(encode_pq(pq, rows, device=device)).to(device)

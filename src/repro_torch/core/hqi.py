@@ -21,11 +21,15 @@ engine over the whole workload:
 Kernel dispatches per workload are therefore O(#buckets) ≤
 ``max_bucket_shapes`` instead of O(templates × partitions).
 
+Compressed execution (``scan_mode="pq"``): ``build`` also trains an
+index-wide PQ codebook, the arena carries uint8 codes, and the engine runs
+an ADC scan over them followed by an exact f32 re-rank (core/planner.py).
+
 Device: k-means, probing, the arena and the engine run on the index's
 ``device`` ("cuda" unless the caller passes another, as the CPU tests pass
 "cpu"); the qd-tree, routing and plan are host numpy. Not ported yet: the
-compressed scan (``scan_mode="pq"``, ROADMAP.md §1 item 4), the sharded
-engine (``mesh``, item 9) and live updates (``extend``, item 5).
+sharded engine (``mesh``, ROADMAP.md §1 item 9) and live updates
+(``extend``, item 5).
 
 Online search: same routing, per-query IVF scans (used standalone — the
 "workload-aware index only" configuration of Section 6.5). The "auto" mode
@@ -50,7 +54,7 @@ from .arena import PackedArena
 from .ivf import IVFIndex, ScanStats
 from .plan import EngineTask, PlanConfig, build_plan
 from .planner import ExtraCandidates, execute_plan
-from .pq import PQ_NOT_PORTED, PQCodebook
+from .pq import PQCodebook, train_pq
 from .predicates import evaluate_filter, filter_from_state, filter_to_state
 from .qdtree import QDTree, build_qdtree
 from .types import SearchResult, VectorDatabase, Workload
@@ -218,6 +222,17 @@ class HQIIndex:
             )
         return self._arena
 
+    def attach_pq(self, pq: PQCodebook) -> None:
+        """Attach a codebook to an index built without one (scan_mode="f32").
+
+        Enables per-call ``search(scan_mode="pq")`` overrides (the serving
+        layer's overload degradation) while default searches stay exact. An
+        already-materialized arena is re-encoded in place.
+        """
+        self.pq = pq
+        if self._arena is not None:
+            self._arena.attach_pq(pq)
+
     # ------------------------------------------------------------------ build
 
     @staticmethod
@@ -232,8 +247,8 @@ class HQIIndex:
         device = torch.device("cuda" if device is None else device)
         if cfg.mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
-        if cfg.plan.scan_mode == "pq":
-            raise NotImplementedError(PQ_NOT_PORTED)
+        if cfg.plan.scan_mode == "pq" and db.d % cfg.pq_m:
+            raise ValueError(f"scan_mode='pq': d={db.d} not divisible by pq_m={cfg.pq_m}")
         info = BuildInfo()
         centroid_of = None
         query_centroids = None
@@ -274,7 +289,16 @@ class HQIIndex:
             )
             partitions.append(Partition(rows=leaf.rows, ivf=ivf))
         info.ivf_seconds = time.perf_counter() - t0
-        return HQIIndex(db, tree, partitions, cfg, coarse, info, device=device)
+
+        pq_cb = None
+        if cfg.plan.scan_mode == "pq":
+            t0 = time.perf_counter()
+            pq_cb = train_pq(
+                db.vectors, cfg.pq_m, metric=db.metric,
+                iters=cfg.kmeans_iters, seed=cfg.seed, device=device,
+            )
+            info.pq_seconds = time.perf_counter() - t0
+        return HQIIndex(db, tree, partitions, cfg, coarse, info, pq=pq_cb, device=device)
 
     # ------------------------------------------------------------ batch search
 
@@ -374,10 +398,17 @@ class HQIIndex:
         layer's tombstones; dead rows are excluded from every result exactly.
 
         scan_mode / refine_factor: per-call overrides of the build-time plan
-        config; ``scan_mode="pq"`` is not ported yet and raises.
+        config: the serving layer's overload degradation sheds an exact f32
+        deployment to ``scan_mode="pq"`` per flush without touching the
+        index. ``scan_mode="pq"`` needs a codebook (``attach_pq`` adds one
+        to an f32-built index).
         """
         plan_cfg = self.cfg.plan
         if scan_mode is not None or refine_factor is not None:
+            if (scan_mode or plan_cfg.scan_mode) == "pq" and self.pq is None:
+                raise ValueError(
+                    "scan_mode='pq' override needs a codebook: HQIIndex.attach_pq() first"
+                )
             plan_cfg = dataclasses.replace(
                 plan_cfg,
                 scan_mode=plan_cfg.scan_mode if scan_mode is None else scan_mode,

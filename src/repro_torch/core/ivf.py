@@ -3,8 +3,9 @@
 The index stores vectors re-ordered so that every posting list is a dense,
 contiguous slice (accelerator adaptation: scans become dense tiles instead of pointer
 chases). ``search_group`` is the host-side multi-query scan the adaptive executor
-(``batch_vec=False`` / ``"auto"``) takes (numpy/BLAS — a stand-in for FAISS's
-per-query IVF scan incl. its IDSelector bitmap pushdown). k-means training,
+(``batch_vec=False`` / ``"auto"``) takes, ``search_single`` the per-query one of the
+baselines (numpy/BLAS — a stand-in for FAISS's per-query IVF scan incl. its
+IDSelector bitmap pushdown). k-means training,
 assignment and probing run on the index's ``device``. Batched execution
 (Algorithm 3) lives in planner.py.
 """
@@ -133,6 +134,21 @@ class IVFIndex:
         )
 
     # -- online (per-query) scan ----------------------------------------------
+
+    def search_single(
+        self,
+        q: np.ndarray,  # [d]
+        *,
+        nprobe: int,
+        k: int,
+        bitmap: Optional[np.ndarray] = None,  # bool [n] in LOCAL vector order
+        stats: Optional[ScanStats] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k (scores f32 [k] desc, local idx i64 [k]) of one query: the
+        FAISS-like per-query path the baselines take, ``search_group`` for a
+        group of one."""
+        s, i = self.search_group(q[None, :], nprobe=nprobe, k=k, bitmap=bitmap, stats=stats)
+        return s[0], i[0]
 
     def search_group(
         self,

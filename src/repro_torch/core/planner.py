@@ -20,10 +20,24 @@ This module executes that plan on the arena's device:
      layouts are bit-identical: the segmented merge's stable sort keeps the
      dense layout's slot-major tie order.
 
-Only ``scan_mode="f32"`` runs here; the compressed path and the sharded
-executor are not ported yet (ROADMAP.md §1 items 4 and 9). The reference's
-per-dispatch profiler records return with the port of ``obs/profile.py``
-(item 7); the tracer spans are kept.
+Compressed execution (``PlanConfig.scan_mode="pq"``): the scan stage reads
+the arena's uint8 PQ codes instead of f32 vectors. The workload's ADC tables
+go to the device once as a resident [U, M, 256] table; each bucket is one ADC
+dispatch keeping k′ = refine_factor · k candidates per (query, posting list):
+``ops.workunit_pq_topk_resident`` on the segmented layout (the kernel reads
+each slot's LUT row from the table, so nothing is expanded),
+``ops.workunit_pq_topk`` over per-bucket expanded [W, TQ, M, 256] LUTs on the
+dense one (``DispatchStats.lut_expand_bytes`` meters them). One merge keeps
+each query's top-k′ rows, their f32 rows are gathered from the arena once,
+and one ``workunit_topk`` dispatch re-ranks them exactly; the final merge
+folds in the adaptive executor's (exact) host-side candidates as on the f32
+path.
+
+``batch_search_ivf`` is the single-index entry point (the baselines use it):
+a one-partition arena, a one-task plan, executed here. The sharded executor
+is not ported yet (ROADMAP.md §1 item 9). The reference's per-dispatch
+profiler records return with the port of ``obs/profile.py`` (item 7); the
+tracer spans are kept.
 """
 from __future__ import annotations
 
@@ -34,11 +48,12 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.fused_knn import check_kernel_limits
+from ..kernels.pq_scan import NBOOK, check_pq_kernel_limits, pick_qb
 from ..obs.trace import fence, get_tracer
 from .arena import PackedArena
-from .ivf import ScanStats
-from .plan import ExecutionPlan, PlanConfig, WorkUnit, _next_pow2
-from .pq import PQ_NOT_PORTED
+from .ivf import IVFIndex, ScanStats
+from .plan import EngineTask, ExecutionPlan, PlanConfig, WorkUnit, _next_pow2, build_plan
+from .pq import PQCodebook, adc_tables
 
 # Extra per-query candidates merged alongside the plan's output (the adaptive
 # executor's host-side scans): (qrows i64 [mq], scores f32 [mq, k], ids i64 [mq, k])
@@ -55,6 +70,17 @@ def _account_candidates(stats: Optional[ScanStats], nbytes: int) -> None:
     kops.dispatch_stats().record_candidate_bytes(nbytes)
     if stats is not None:
         stats.peak_candidate_bytes = max(stats.peak_candidate_bytes, int(nbytes))
+
+
+def _account_lut(stats: Optional[ScanStats], nbytes: int, *, expanded: bool) -> None:
+    """Record ADC LUT bytes materialized on the device. ``expanded=True``
+    marks a per-unit [W, TQ, M, 256] expansion (the dense layout's operand)
+    and also feeds ``DispatchStats.lut_expand_bytes``, which the segmented
+    path leaves untouched."""
+    if expanded:
+        kops.dispatch_stats().record_lut_expand(nbytes)
+    if stats is not None:
+        stats.lut_bytes += int(nbytes)
 
 
 def _seg_offsets(
@@ -128,12 +154,18 @@ def execute_plan(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (scores f32 [m, k] best-first, arena gids i64 [m, k]; -1 pad)."""
     cfg = PlanConfig() if cfg is None else cfg
-    if cfg.scan_mode == "pq":
-        raise NotImplementedError(PQ_NOT_PORTED)
-    if cfg.scan_mode != "f32":
+    if cfg.scan_mode not in ("f32", "pq"):
         raise ValueError(f"unknown scan_mode {cfg.scan_mode!r}")
     if cfg.merge_layout not in ("segmented", "dense"):
         raise ValueError(f"unknown merge_layout {cfg.merge_layout!r}")
+    if cfg.scan_mode == "pq" and plan.buckets:
+        if arena.codes is None or arena.pq is None:
+            raise ValueError(
+                "scan_mode='pq' needs a PQ-encoded arena: build the HQIIndex "
+                "with HQIConfig(scan_mode='pq') or attach_pq() a codebook, or "
+                "pass pq= to batch_search_ivf"
+            )
+        return _execute_plan_pq(plan, arena, q_vecs, cfg=cfg, extra=extra, stats=stats)
     m, k = plan.m, plan.k
     # extras get per-query-dense slot columns after the plan's own slots
     n_slots = plan.n_slots + _extra_slot_width(extra, m)
@@ -196,12 +228,20 @@ def _iter_f32_buckets(plan, arena, q_vecs, stats):
         with get_tracer().span("dispatch.scan", mode="f32", lp=lp, units=n_units):
             s, i_loc = kops.workunit_topk(Q, V, valid, min(plan.k, lp), metric=arena.metric)
             s, i_loc = fence(s, i_loc)  # device time is real iff tracing is on
-        i_loc = i_loc.to(torch.int64)  # index within the unit's lp rows (-1 = none)
-        packed_rows = torch.gather(rows[:, None, :].expand(-1, plan.tq, -1), 2, i_loc.clamp(min=0))
-        gidx = torch.where(i_loc < 0, -1, arena.gid[packed_rows])
+        packed_rows = _unit_rows(rows, i_loc)
+        gidx = torch.where(packed_rows < 0, -1, arena.gid[packed_rows.clamp(min=0)])
         wmask = qrow_of >= 0  # [W, tq]
         wmask_t = torch.from_numpy(wmask).to(dev)
         yield s.shape[-1], qrow_of[wmask], slot_of[wmask], s[wmask_t], gidx[wmask_t]
+
+
+def _unit_rows(rows: torch.Tensor, i_loc: torch.Tensor) -> torch.Tensor:
+    """Packed rows of a bucket's per-unit top-k: rows i64 [W, lp], i_loc
+    [W, tq, kk] indices into each unit's lp rows (-1 = none) -> i64
+    [W, tq, kk], -1 where none."""
+    i_loc = i_loc.to(torch.int64)
+    packed_rows = torch.gather(rows[:, None, :].expand(-1, i_loc.shape[1], -1), 2, i_loc.clamp(min=0))
+    return torch.where(i_loc < 0, -1, packed_rows)
 
 
 def _plan_seg_counts(plan: ExecutionPlan) -> np.ndarray:
@@ -310,3 +350,233 @@ def _padded_merge(
         s, i = kops.merge_topk(flat_s, flat_i, k)
         s, i = fence(s, i)
     return s, i
+
+
+# ------------------------------------------------------------- compressed
+
+
+def _execute_plan_pq(
+    plan: ExecutionPlan,
+    arena: PackedArena,
+    q_vecs: np.ndarray,  # f32 [m, d]
+    *,
+    cfg: PlanConfig,
+    extra: Sequence[ExtraCandidates] = (),
+    stats: Optional[ScanStats] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Compressed two-stage execution: ADC scan over codes, then exact re-rank.
+
+    Stage A: per shape bucket one ADC dispatch over the unit's uint8 code
+    rows keeps k′ = refine_factor · k candidates per (query, posting list).
+    Stage B: one merge per query to the top-k′ (over ADC scores), one gather
+    of their f32 rows, one ``workunit_topk`` dispatch re-scoring them
+    exactly, then the final merge with the host-side extras.
+    """
+    m, k = plan.m, plan.k
+    dev = arena.device
+    kprime = max(k, int(cfg.refine_factor) * k)
+    M = arena.pq.m
+    if dev.type == "cuda":  # fail before any bucket is assembled
+        check_pq_kernel_limits(min(kprime, max(plan.buckets)), M, pick_qb(M, plan.tq))
+        check_kernel_limits(min(k, kprime), arena.d, 1)
+
+    luts_dev, lut_pos = resident_luts(plan, arena, q_vecs)
+    _account_lut(stats, _nbytes(luts_dev), expanded=False)
+
+    stage_a = _pq_stage_a_segmented if cfg.merge_layout == "segmented" else _pq_stage_a_dense
+    rows = stage_a(plan, arena, luts_dev, lut_pos, kprime, stats=stats)
+    return _pq_rerank_and_fold(arena, q_vecs, rows, k=k, kprime=kprime, extra=extra, stats=stats)
+
+
+def resident_luts(plan: ExecutionPlan, arena: PackedArena, q_vecs: np.ndarray):
+    """The workload's resident ADC table on the arena's device: (f32
+    [U, M, 256] for the U queries the plan scans, i64 [m] table row of each
+    workload query). Queries the adaptive executor sent to host-side
+    extras get no row."""
+    used = np.unique(np.concatenate([u.qrows for units in plan.buckets.values() for u in units]))
+    lut_pos = np.zeros(plan.m, dtype=np.int64)
+    lut_pos[used] = np.arange(len(used))
+    return torch.from_numpy(adc_tables(arena.pq, q_vecs[used])).to(arena.device), lut_pos
+
+
+def pq_bucket_operands(plan: ExecutionPlan, arena: PackedArena, lut_pos: np.ndarray, lp: int):
+    """One bucket's ADC scan operands on the arena's device.
+
+    Returns (qrow_of i64 [W, tq] host, slot_of i64 [W, tq] host, rows [W, lp]
+    packed rows, lut_idx i32 [W, tq] row of the resident LUT table per slot
+    (``lut_pos`` of its query; padding slots read row 0, their outputs are
+    dropped), codes uint8 [W, lp, M] gathered by one ``index_select``,
+    valid bool [W, lp]).
+    """
+    Vrows, valid, qrow_of, slot_of = _assemble_bucket(plan.buckets[lp], lp, plan, arena)
+    dev = arena.device
+    rows = torch.from_numpy(Vrows).to(dev)
+    lut_idx = torch.from_numpy(lut_pos[np.maximum(qrow_of, 0)].astype(np.int32)).to(dev)
+    codes = arena.codes.index_select(0, rows.reshape(-1)).reshape(Vrows.shape[0], lp, arena.pq.m)
+    return qrow_of, slot_of, rows, lut_idx, codes, torch.from_numpy(valid).to(dev)
+
+
+def _iter_pq_buckets(plan, arena, luts_dev, lut_pos, kprime, *, resident: bool, stats):
+    """Run the ADC scan stage bucket by bucket, yielding (kk, qrows, slots,
+    scores [n, kk], packed rows [n, kk]) for the real unit slots. With
+    ``resident`` each dispatch reads the [U, M, 256] table through per-slot
+    row indices; otherwise the bucket's [W, tq, M, 256] LUTs are expanded
+    first (the dense layout)."""
+    dev = arena.device
+    M = arena.pq.m
+    for lp in sorted(plan.buckets):
+        n_units = len(plan.buckets[lp])
+        qrow_of, slot_of, rows, lut_idx, codes, valid_t = pq_bucket_operands(plan, arena, lut_pos, lp)
+        W = rows.shape[0]
+        if stats is not None:
+            stats.bytes_scanned += n_units * lp * M  # real work units only
+        kk = min(kprime, lp)
+        if resident:
+            with get_tracer().span("dispatch.scan", mode="pq-res", lp=lp, units=n_units):
+                s, i_loc = kops.workunit_pq_topk_resident(luts_dev, lut_idx, codes, valid_t, kk)
+                s, i_loc = fence(s, i_loc)
+        else:
+            luts = luts_dev.index_select(0, lut_idx.reshape(-1)).reshape(W, plan.tq, M, NBOOK)
+            _account_lut(stats, _nbytes(luts), expanded=True)
+            with get_tracer().span("dispatch.scan", mode="pq", lp=lp, units=n_units):
+                s, i_loc = kops.workunit_pq_topk(luts, codes, valid_t, kk)
+                s, i_loc = fence(s, i_loc)
+            del luts
+        wmask = qrow_of >= 0
+        wmask_t = torch.from_numpy(wmask).to(dev)
+        yield kk, qrow_of[wmask], slot_of[wmask], s[wmask_t], _unit_rows(rows, i_loc)[wmask_t]
+
+
+def _pq_stage_a_segmented(plan, arena, luts_dev, lut_pos, kprime, *, stats) -> torch.Tensor:
+    """Segmented ADC stage A: flat [Σ seg_counts, k′] scatter + one ragged
+    merge. Returns the surviving packed rows i64 [m, k′] (-1 pad) on the
+    arena's device."""
+    m = plan.m
+    dev = arena.device
+    counts = _plan_seg_counts(plan)  # stage A has no extras; they fold after the re-rank
+    offsets = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    C_total = int(offsets[-1])
+    C_pad = _next_pow2(C_total, 1)
+    flat_s = torch.full((C_pad, kprime), -float("inf"), dtype=torch.float32, device=dev)
+    flat_rows = torch.full((C_pad, kprime), -1, dtype=torch.int64, device=dev)
+    seg_of = np.full(C_pad, m, dtype=np.int32)
+    seg_of[:C_total] = np.repeat(np.arange(m, dtype=np.int32), counts)
+    _account_candidates(stats, _nbytes(flat_s, flat_rows))
+
+    for kk, qr, sl, s_w, rows_w in _iter_pq_buckets(
+        plan, arena, luts_dev, lut_pos, kprime, resident=True, stats=stats
+    ):
+        rows_f = torch.from_numpy(offsets[qr] + sl).to(dev)
+        flat_s[rows_f, :kk] = s_w
+        flat_rows[rows_f, :kk] = rows_w
+
+    with get_tracer().span("merge.segmented", m=m, candidates=C_total):
+        _, top_rows = kops.segmented_merge_topk(
+            flat_s, flat_rows, torch.from_numpy(seg_of).to(dev), m, kprime
+        )
+        top_rows = fence(top_rows)
+    return top_rows
+
+
+def _pq_stage_a_dense(plan, arena, luts_dev, lut_pos, kprime, *, stats) -> torch.Tensor:
+    """Dense ADC stage A: [m, n_slots, k′] scatter + rectangular merge.
+    Returns the surviving packed rows i64 [m, k′] (-1 pad)."""
+    m = plan.m
+    dev = arena.device
+    cand_s = torch.full((m, plan.n_slots, kprime), -float("inf"), dtype=torch.float32, device=dev)
+    cand_rows = torch.full((m, plan.n_slots, kprime), -1, dtype=torch.int64, device=dev)
+    _account_candidates(stats, _nbytes(cand_s, cand_rows))
+    for kk, qr, sl, s_w, rows_w in _iter_pq_buckets(
+        plan, arena, luts_dev, lut_pos, kprime, resident=False, stats=stats
+    ):
+        qr_t, sl_t = torch.from_numpy(qr).to(dev), torch.from_numpy(sl).to(dev)
+        cand_s[qr_t, sl_t, :kk] = s_w
+        cand_rows[qr_t, sl_t, :kk] = rows_w
+    _, top_rows = _padded_merge(cand_s.reshape(m, -1), cand_rows.reshape(m, -1), kprime)
+    return top_rows
+
+
+def _pq_rerank_and_fold(
+    arena: PackedArena,
+    q_vecs: np.ndarray,
+    rows: torch.Tensor,  # i64 [m, k′] surviving packed rows (-1 pad), on the arena's device
+    *,
+    k: int,
+    kprime: int,
+    extra: Sequence[ExtraCandidates],
+    stats: Optional[ScanStats],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Stage B shared by both layouts: exact re-rank + extras fold.
+
+    One gather of the surviving f32 rows and one dispatch: units are per
+    query (TQ = 1), so each query re-scores only its own candidates; m pads
+    to a power of two, as in the reference."""
+    m, d = q_vecs.shape
+    dev = arena.device
+    mp = _next_pow2(m, 1)
+    Qr = torch.zeros((mp, 1, d), dtype=torch.float32, device=dev)
+    Qr[:m, 0] = torch.from_numpy(np.ascontiguousarray(q_vecs, dtype=np.float32)).to(dev)
+    rows_p = torch.full((mp, kprime), -1, dtype=torch.int64, device=dev)
+    rows_p[:m] = rows
+    valid_r = rows_p >= 0
+    Vr = arena.packed.index_select(0, rows_p.clamp(min=0).reshape(-1)).reshape(mp, kprime, d)
+    if stats is not None:
+        # real surviving candidates only
+        stats.bytes_scanned += int(valid_r.sum()) * d * 4
+    with get_tracer().span("rerank.exact", m=m, kprime=kprime):
+        s, i_loc = kops.workunit_topk(Qr, Vr, valid_r, min(k, kprime), metric=arena.metric)
+        s, i_loc = fence(s, i_loc)
+    s = s[:m, 0]  # [m, kk] exact scores
+    i_loc = i_loc[:m, 0].to(torch.int64)  # [m, kk] index into the k′ candidates
+    kk = s.shape[-1]
+    packed_rows = torch.gather(rows, 1, i_loc.clamp(min=0))
+    gidx = torch.where(
+        (i_loc < 0) | (packed_rows < 0), -1, arena.gid[packed_rows.clamp(min=0)]
+    )
+
+    # final merge: re-ranked (exact) plan results in slot 0 + host-side exact
+    # extras in the columns after it, the same tail as the f32 path
+    n_slots = 1 + _extra_slot_width(extra, m)
+    out_scores = torch.full((m, n_slots, k), -float("inf"), dtype=torch.float32, device=dev)
+    out_idx = torch.full((m, n_slots, k), -1, dtype=torch.int64, device=dev)
+    _account_candidates(stats, _nbytes(out_scores, out_idx))
+    out_scores[:, 0, :kk] = torch.where(gidx >= 0, s, -float("inf"))
+    out_idx[:, 0, :kk] = gidx
+    return _fold_extras_and_merge(out_scores, out_idx, extra, 1, k)
+
+
+def batch_search_ivf(
+    ivf: IVFIndex,
+    q_vecs: np.ndarray,  # [m, d] — one template group
+    *,
+    nprobe: int,
+    k: int,
+    bitmap: Optional[np.ndarray] = None,  # bool [n] in LOCAL vector order
+    stats: Optional[ScanStats] = None,
+    cfg: Optional[PlanConfig] = None,
+    pq: Optional[PQCodebook] = None,  # required iff cfg.scan_mode == "pq"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Plan + execute one IVF index on its device: (scores f32 [m, k], local
+    idx i64 [m, k])."""
+    cfg = PlanConfig() if cfg is None else cfg
+    m = q_vecs.shape[0]
+    if m == 0:
+        return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
+    arena = PackedArena.from_ivf(ivf)
+    if cfg.scan_mode == "pq":
+        # an explicit codebook per call: the arena is memoized on the IVF, so
+        # falling back to arena.pq would reuse whatever a previous caller
+        # attached (attach_pq skips the re-encode for the same codebook)
+        if pq is None:
+            raise ValueError("batch_search_ivf(scan_mode='pq') needs an explicit pq=")
+        arena.attach_pq(pq)
+    packed_bitmap = None if bitmap is None else arena.packed_bitmap(0, bitmap)
+    task = EngineTask(
+        part=0,
+        qrows=np.arange(m, dtype=np.int64),
+        nprobe=int(min(nprobe, ivf.n_lists)),
+        packed_bitmap=packed_bitmap,
+    )
+    plan = build_plan(arena, [task], q_vecs, m=m, k=k, cfg=cfg, stats=stats)
+    return execute_plan(plan, arena, q_vecs, cfg=cfg, stats=stats)

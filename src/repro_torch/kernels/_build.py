@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into ``_build/lib<name>-<hash>.so``
 (``.gitignore`` lists the directory): a shared library with a plain C
-interface, built for Hopper (``sm_90a``). The hash covers the source and the
-flags, so an edited kernel rebuilds. ``build_all`` starts one ``nvcc`` per
+interface, built for Hopper (``sm_90a``). The hash covers the source, every
+shared header ``csrc/*.cuh`` and the flags, so an edited kernel or header
+rebuilds. ``build_all`` starts one ``nvcc`` per
 source at once. A build or launch failure raises; nothing falls back to the
 plain PyTorch version.
 
@@ -23,7 +24,7 @@ from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_knn",)
+SOURCES = ("fused_knn", "pq_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +38,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fused_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "fused_knn_db_stationary_launch": (
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        ),
+    },
+    "pq_scan": {
+        "adc_scan_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
     },
 }
@@ -56,6 +62,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

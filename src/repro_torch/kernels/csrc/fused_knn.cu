@@ -47,65 +47,29 @@
 // scoring several rows per pass, or tensor-core 3xTF32 scoring, is the next
 // step and later work.
 //
-// Plain C interface for ctypes: pointers and the stream are void*, each
-// entry returns cudaGetLastError() (0 = launched).
+// The register top-K list, the partial merge and the error-string entry
+// are shared with pq_scan.cu through topk.cuh. Plain C interface for
+// ctypes: pointers and the stream are void*, each entry returns
+// cudaGetLastError() (0 = launched).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "topk.cuh"
+
 namespace {
+
+using hqi::TopK;
+using hqi::prepare;
+using hqi::write_final;
 
 constexpr int kThreads = 256;   // threads per scan block
 constexpr int kTileRows = 64;   // rows of V staged in shared memory per step
-constexpr float kNegInf = -3.4e38f;
-constexpr int kNoIdx = 0x7fffffff;  // internal empty-slot index
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// (s, i) ranks before (s2, i2): score descending, then index ascending.
-__device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
-  return s > s2 || (s == s2 && i < i2);
-}
-
-// A sorted top-K list in registers (K is a compile-time bound >= k, so every
-// index below is static after unrolling). The first k entries of the top-K
-// are the top-k.
-template <int K>
-struct TopK {
-  float s[K];
-  int i[K];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      s[p] = -INFINITY;
-      i[p] = kNoIdx;
-    }
-  }
-
-  __device__ __forceinline__ bool admits(float cs, int ci) const {
-    return better(cs, ci, s[K - 1], i[K - 1]);
-  }
-
-  // Insert by swapping down the list; the old K-th entry drops out.
-  __device__ __forceinline__ void push(float cs, int ci) {
-    if (!admits(cs, ci)) return;
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      if (better(cs, ci, s[p], i[p])) {
-        const float ts = s[p];
-        const int ti = i[p];
-        s[p] = cs;
-        i[p] = ci;
-        cs = ts;
-        ci = ti;
-      }
-    }
-  }
-};
 
 struct ScanShape {
   int TQ, TV, D, k, l2;
@@ -197,39 +161,12 @@ __device__ __forceinline__ void scan_block(const T* __restrict__ q, const T* __r
   __syncthreads();
   float* ls = smem;                                           // [kThreads][K]
   int* li = reinterpret_cast<int*>(ls + (size_t)kThreads * K);  // [kThreads][K]
-#pragma unroll
-  for (int p = 0; p < K; ++p) {
-    ls[threadIdx.x * K + p] = top.s[p];
-    li[threadIdx.x * K + p] = top.i[p];
-  }
+  top.store(ls + threadIdx.x * K, li + threadIdx.x * K, K);
   __syncthreads();
   if (lane == 0 && live) {
     for (int l = 1; l < lanes; ++l) {
       const int src = (l * qb + tq) * K;
-      for (int p = 0; p < K; ++p) {
-        if (!top.admits(ls[src + p], li[src + p])) break;  // lists are sorted
-        top.push(ls[src + p], li[src + p]);
-      }
-    }
-  }
-}
-
-// Writes the first k entries of a finished list in the public encoding.
-template <int K>
-__device__ __forceinline__ void write_final(const TopK<K>& top, int k, float* out_s, int* out_i) {
-#pragma unroll
-  for (int p = 0; p < K; ++p) {
-    if (p < k) {
-      float s = top.s[p];
-      int i = top.i[p];
-      if (i == kNoIdx) {
-        s = kNegInf;
-        i = -1;
-      } else if (s <= kNegInf * 0.5f) {
-        i = -1;
-      }
-      out_s[p] = s;
-      out_i[p] = i;
+      top.push_sorted(ls + src, li + src, K);
     }
   }
 }
@@ -268,49 +205,14 @@ __global__ void __launch_bounds__(kThreads)
   const int qi = q0 + threadIdx.x % sh.qb;
   if (threadIdx.x / sh.qb == 0 && qi < sh.TQ) {
     const size_t base = (((size_t)w * gridDim.z + split) * sh.TQ + qi) * sh.k;
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      if (p < sh.k) {
-        part_s[base + p] = top.s[p];
-        part_i[base + p] = top.i[p];
-      }
-    }
+    top.store(part_s + base, part_i + base, sh.k);
   }
-}
-
-// Kernel 2b: one thread per (unit, query) merges its S sorted partial lists.
-template <int K>
-__global__ void merge_partials_kernel(const float* __restrict__ part_s,
-                                      const int* __restrict__ part_i, float* __restrict__ out_s,
-                                      int* __restrict__ out_i, int W, int S, int TQ, int k) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)W * TQ) return;
-  const int w = (int)(t / TQ), qi = (int)(t - (long)w * TQ);
-  TopK<K> top;
-  top.init();
-  for (int s = 0; s < S; ++s) {
-    const size_t base = (((size_t)w * S + s) * TQ + qi) * k;
-    for (int p = 0; p < k; ++p) {
-      if (!top.admits(part_s[base + p], part_i[base + p])) break;  // sorted
-      top.push(part_s[base + p], part_i[base + p]);
-    }
-  }
-  const size_t ob = ((size_t)w * TQ + qi) * k;
-  write_final<K>(top, k, out_s + ob, out_i + ob);
 }
 
 int pick_qb(int TQ) {
   int qb = 1;
   while (qb < TQ && qb < 64) qb <<= 1;
   return qb;
-}
-
-template <typename Kern>
-cudaError_t prepare(Kern kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  return cudaSuccess;
 }
 
 template <typename T, int K>
@@ -339,29 +241,8 @@ cudaError_t launch_split(const void* q, const void* v, const void* valid, void* 
       static_cast<float*>(part_s), static_cast<int*>(part_i), sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long n = (long)W * sh.TQ;
-  const int threads = 128;
-  merge_partials_kernel<K><<<(unsigned)((n + threads - 1) / threads), threads, 0, stream>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), W, S, sh.TQ, sh.k);
-  return cudaGetLastError();
+  return hqi::launch_merge_partials<K>(part_s, part_i, out_s, out_i, W, S, sh.TQ, sh.k, stream);
 }
-
-// K bound for a runtime k: 8, 16, 32 or 64 (the wrapper rejects k > 64).
-#define DISPATCH_K(k, BODY)          \
-  if ((k) <= 8) {                    \
-    constexpr int KB = 8;            \
-    BODY;                            \
-  } else if ((k) <= 16) {            \
-    constexpr int KB = 16;           \
-    BODY;                            \
-  } else if ((k) <= 32) {            \
-    constexpr int KB = 32;           \
-    BODY;                            \
-  } else {                           \
-    constexpr int KB = 64;           \
-    BODY;                            \
-  }
 
 }  // namespace
 
@@ -374,9 +255,9 @@ int fused_knn_launch(const void* q, const void* v, const void* valid, void* out_
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    DISPATCH_K(k, err = (launch_knn<__nv_bfloat16, KB>(q, v, valid, out_s, out_i, sh, W, st)))
+    HQI_DISPATCH_K(k, err = (launch_knn<__nv_bfloat16, KB>(q, v, valid, out_s, out_i, sh, W, st)))
   } else {
-    DISPATCH_K(k, err = (launch_knn<float, KB>(q, v, valid, out_s, out_i, sh, W, st)))
+    HQI_DISPATCH_K(k, err = (launch_knn<float, KB>(q, v, valid, out_s, out_i, sh, W, st)))
   }
   return (int)err;
 }
@@ -391,15 +272,15 @@ int fused_knn_db_stationary_launch(const void* q, const void* v, const void* val
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16) {
-    DISPATCH_K(k, err = (launch_split<__nv_bfloat16, KB>(q, v, valid, part_s, part_i, out_s, out_i,
+    HQI_DISPATCH_K(k, err = (launch_split<__nv_bfloat16, KB>(q, v, valid, part_s, part_i, out_s, out_i,
                                                          sh, W, S, st)))
   } else {
-    DISPATCH_K(k, err = (launch_split<float, KB>(q, v, valid, part_s, part_i, out_s, out_i, sh, W,
+    HQI_DISPATCH_K(k, err = (launch_split<float, KB>(q, v, valid, part_s, part_i, out_s, out_i, sh, W,
                                                  S, st)))
   }
   return (int)err;
 }
 
-const char* fused_knn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
 }  // extern "C"
+
+HQI_ERROR_STRING_ENTRY(fused_knn_error_string)

@@ -1,10 +1,13 @@
 """Dispatch layer of the kernels package: what the engine calls.
 
-``workunit_topk`` is the engine's scan entry point; it picks one of the two
-``fused_knn`` grids (CUDA kernels on a CUDA tensor, their plain version on a
-CPU tensor: the device decides, there is no backend switch). The merges,
-``pairwise_scores`` and ``masked_topk`` are plain PyTorch on the tensors'
-device, as the reference leaves them to XLA.
+``workunit_topk`` is the engine's f32 scan entry point; it picks one of the
+two ``fused_knn`` grids. ``workunit_pq_topk`` (expanded LUTs) and
+``workunit_pq_topk_resident`` (the resident LUT table) are the compressed
+scan's, over the ADC kernel of ``pq_scan``. Each runs its CUDA kernel on a
+CUDA tensor and its plain version on a CPU tensor: the device decides, there
+is no backend switch. The merges, ``pairwise_scores`` and ``masked_topk``
+are plain PyTorch on the tensors' device, as the reference leaves them to
+XLA.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from . import ref as _ref
 from .fused_knn import fused_knn, fused_knn_db_stationary
+from .pq_scan import workunit_pq_scan, workunit_pq_scan_streamed
 
 # TV/TQ ratio from which a work-unit bucket takes the split-V (db-stationary)
 # grid: the one place the kernel choice lives
@@ -25,12 +29,16 @@ DB_STATIONARY_RATIO = 4
 class DispatchStats:
     """Process-wide kernel-dispatch accounting (see core/planner.py).
 
-    ``knn_calls`` counts similarity-scan dispatches (one per shape bucket);
-    ``merge_calls`` counts top-k merges. ``shapes`` holds the distinct
-    (W, TQ, TV, k) problem shapes seen. ``peak_candidate_bytes`` is the
-    largest candidate merge buffer any single execution materialized (scores
-    + ids). ``lut_expand_bytes`` belongs to the compressed path, which this
-    package does not run yet; it stays 0.
+    ``knn_calls`` counts scan dispatches (one per shape bucket, plus the
+    compressed path's re-rank); ``merge_calls`` counts top-k merges.
+    ``shapes`` holds the distinct problem shapes seen: (W, TQ, TV, k) for
+    the f32 scan, ("pq", W, TQ, TV, k) and ("pq-res", W, TQ, TV, k) for the
+    two ADC dispatches. ``peak_candidate_bytes`` is the largest candidate
+    merge buffer any single execution materialized (scores + ids).
+    ``lut_expand_bytes`` accumulates the bytes of every expanded per-unit
+    [W, TQ, M, 256] ADC LUT operand (the dense layout's); the resident-table
+    dispatch never records here, so a zero delta across a compressed search
+    shows that no LUT was expanded.
 
     Thread-safe: all mutation goes through a lock; read a consistent copy
     with ``snapshot()``.
@@ -58,6 +66,10 @@ class DispatchStats:
         with self._lock:
             self.peak_candidate_bytes = max(self.peak_candidate_bytes, int(nbytes))
 
+    def record_lut_expand(self, nbytes: int) -> None:
+        with self._lock:
+            self.lut_expand_bytes += int(nbytes)
+
     def reset(self) -> None:
         with self._lock:
             self.knn_calls = 0
@@ -76,6 +88,22 @@ class DispatchStats:
                 peak_candidate_bytes=self.peak_candidate_bytes,
                 lut_expand_bytes=self.lut_expand_bytes,
             )
+
+    def delta_since(self, prev: "DispatchStats") -> "DispatchStats":
+        """What happened between two snapshots: ``after.delta_since(before)``.
+
+        Running counters subtract; ``shapes`` is the set of shapes first seen
+        in the interval; ``peak_candidate_bytes`` is a lifetime high-water
+        mark, not a rate, so the delta carries the current value unchanged.
+        """
+        a, b = self.snapshot(), prev
+        return DispatchStats(
+            knn_calls=a.knn_calls - b.knn_calls,
+            merge_calls=a.merge_calls - b.merge_calls,
+            shapes=a.shapes - b.shapes,
+            peak_candidate_bytes=a.peak_candidate_bytes,
+            lut_expand_bytes=a.lut_expand_bytes - b.lut_expand_bytes,
+        )
 
 
 _DISPATCH = DispatchStats()
@@ -123,6 +151,34 @@ def workunit_topk(
     _DISPATCH.record_knn((q.shape[0], q.shape[1], v.shape[1], int(k)))
     fn = fused_knn_db_stationary if use_db_stationary(q.shape[1], v.shape[1]) else fused_knn
     return fn(q, v, valid, k=int(k), metric=metric)
+
+
+def workunit_pq_topk(
+    luts: torch.Tensor,  # f32 [W, TQ, M, 256] — per-query ADC tables per unit
+    codes: torch.Tensor,  # uint8 [W, TV, M] — gathered PQ code rows per unit
+    valid: torch.Tensor,  # bool [W, TV]
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compressed (ADC) work-unit entry point over expanded LUTs: one bucket
+    of the dense layout's scan stage, one ``workunit_pq_scan`` dispatch.
+    Codes stay uint8 across the dispatch boundary."""
+    _DISPATCH.record_knn(("pq", luts.shape[0], luts.shape[1], codes.shape[1], int(k)))
+    return workunit_pq_scan(luts, codes, valid, k=int(k))
+
+
+def workunit_pq_topk_resident(
+    table: torch.Tensor,  # f32 [U, M, 256] — the workload's resident ADC tables
+    lut_idx: torch.Tensor,  # i32 [W, TQ] — per-slot row into ``table``
+    codes: torch.Tensor,  # uint8 [W, TV, M]
+    valid: torch.Tensor,  # bool [W, TV]
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compressed work-unit dispatch indexing the resident LUT table: the
+    kernel reads each slot's row from ``table`` (``workunit_pq_scan_streamed``),
+    so no [W, TQ, M, 256] operand exists. Equal to ``workunit_pq_topk`` over
+    ``table[lut_idx]``, bit for bit."""
+    _DISPATCH.record_knn(("pq-res", lut_idx.shape[0], lut_idx.shape[1], codes.shape[1], int(k)))
+    return workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=int(k))
 
 
 def merge_topk(

@@ -127,8 +127,80 @@ def masked_topk_ref(
     masked-out or absent entries have score ``NEG_INF`` and idx -1.
     """
     scores = pairwise_scores_ref(q, v, metric)
+    return _masked_topk_of_scores(scores, valid, k)
+
+
+def _masked_topk_of_scores(
+    scores: torch.Tensor, valid: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mask scores [..., nq, nv] by valid [..., nv] and take the top-k under
+    (score desc, index asc); absent slots are (NEG_INF, -1)."""
     scores = torch.where(valid[..., None, :], scores, torch.full_like(scores, NEG_INF))
     top, idx = stable_topk(scores.reshape(-1, scores.shape[-1]), k)
     idx = torch.where(top <= NEG_INF / 2, torch.full_like(idx, -1), idx)
     out_shape = scores.shape[:-1] + (k,)
     return top.reshape(out_shape), idx.to(torch.int32).reshape(out_shape)
+
+
+def adc_scores_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """ADC scores: luts f32 [..., nq, M, 256], codes uint8/int [..., nv, M] ->
+    f32 [..., nq, nv], ``score[q, v] = Σ_m lut[q, m, code[v, m]]``.
+
+    The M lookups are summed in fp32 in the order m = 0, 1, …, M-1, one
+    rounding per add, as the CUDA kernels sum them; so on the same inputs
+    the kernels match this function bit for bit.
+    """
+    lead = luts.shape[:-3]
+    nq, m = luts.shape[-3], luts.shape[-2]
+    nv = codes.shape[-2]
+    c = codes.to(torch.int64)
+    scores = torch.zeros(lead + (nq, nv), dtype=torch.float32, device=luts.device)
+    for j in range(m):
+        idx = c[..., None, :, j].expand(lead + (nq, nv))
+        scores = scores + torch.gather(luts[..., j, :].to(torch.float32), -1, idx)
+    return scores
+
+
+def adc_topk_ref(
+    luts: torch.Tensor,  # f32 [..., nq, M, 256] — per-query ADC lookup tables
+    codes: torch.Tensor,  # uint8/int [..., nv, M]
+    valid: torch.Tensor,  # bool [..., nv]
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """ADC scan + top-k (the compressed counterpart of ``masked_topk_ref``).
+
+    score[q, v] = Σ_m lut[q, m, code[v, m]], summed as ``adc_scores_ref``
+    says — higher is better (``adc_tables`` negates l2). Returns (scores f32
+    [..., nq, k] best-first under (score desc, index asc), idx int32
+    [..., nq, k]); masked-out or absent entries are (NEG_INF, -1).
+    """
+    return _masked_topk_of_scores(adc_scores_ref(luts, codes), valid, int(k))
+
+
+def workunit_pq_topk_ref(
+    luts: torch.Tensor,  # f32 [W, TQ, M, 256]
+    codes: torch.Tensor,  # uint8/int [W, TV, M]
+    valid: torch.Tensor,  # bool [W, TV]
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched work-unit ADC: ``adc_topk_ref`` over the unit dim."""
+    return adc_topk_ref(luts, codes, valid, k)
+
+
+def workunit_pq_topk_resident_ref(
+    table: torch.Tensor,  # f32 [U, M, 256] — resident ADC tables
+    lut_idx: torch.Tensor,  # int [W, TQ] — row of ``table`` per unit slot
+    codes: torch.Tensor,  # uint8/int [W, TV, M]
+    valid: torch.Tensor,  # bool [W, TV]
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``workunit_pq_topk_ref`` over ``table[lut_idx]``, bit for bit, without
+    expanding the table: each subspace's lookup reads (LUT row, code)
+    straight from ``table``, summed in the same order."""
+    li = lut_idx.to(torch.int64)[:, :, None]  # [W, TQ, 1]
+    c = codes.to(torch.int64)
+    W, TQ = lut_idx.shape
+    scores = torch.zeros((W, TQ, c.shape[1]), dtype=torch.float32, device=table.device)
+    for j in range(table.shape[1]):
+        scores = scores + table[:, j, :].to(torch.float32)[li, c[:, None, :, j]]
+    return _masked_topk_of_scores(scores, valid, int(k))

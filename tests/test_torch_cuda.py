@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card. Every test here is marked ``cuda`` and skips without a CUDA device
-(the kernels are CUDA C++ with no CPU mode).
+card: both ``fused_knn`` grids and the three ADC wrappers of ``pq_scan``.
+Every test here is marked ``cuda`` and skips without a CUDA device (the
+kernels are CUDA C++ with no CPU mode).
 
 This file imports neither jax nor the reference package, so it also runs
 where only PyTorch is installed:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core import HQIConfig, HQIIndex, kg_style
+from repro_torch.kernels import pq_scan as adc
 from repro_torch.kernels.fused_knn import MAX_K, fused_knn, fused_knn_db_stationary, fused_knn_plain
 
 GRIDS = {"fused_knn": fused_knn, "fused_knn_db_stationary": fused_knn_db_stationary}
@@ -146,3 +148,127 @@ def test_engine_names_the_kernel_limits(dev):
     assert fused_knn.launches + fused_knn_db_stationary.launches == n0
     res = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
     assert res.ids.shape == (wl.m, MAX_K + 1)
+
+
+# ------------------------------------------------------------- ADC kernels
+
+
+def _adc_case(dev, seed, W, TQ, TV, M, density=0.7, U=None):
+    """Random LUTs (as a resident table of U rows, with per-slot indices and
+    some padding slots at row 0), uint8 codes and a mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    U = U or W * TQ
+    table = torch.randn((U, M, 256), generator=g, device=dev)
+    lut_idx = torch.randint(0, U, (W, TQ), generator=g, device=dev, dtype=torch.int32)
+    lut_idx[:, TQ - TQ // 4:] = 0  # padding slots read row 0
+    codes = torch.randint(0, 256, (W, TV, M), generator=g, device=dev, dtype=torch.uint8)
+    valid = torch.rand((W, TV), generator=g, device=dev) < density
+    return table, lut_idx, codes, valid
+
+
+def _adc_run(name, table, lut_idx, codes, valid, k):
+    """(kernel result, plain result) of one ADC wrapper on the same inputs."""
+    if name == "workunit_pq_scan_streamed":
+        return (adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k),
+                adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k))
+    if name == "workunit_pq_scan":
+        luts = table[lut_idx.long()].contiguous()
+        return (adc.workunit_pq_scan(luts, codes, valid, k=k),
+                adc.workunit_pq_scan_plain(luts, codes, valid, k=k))
+    lut, c, v = table[lut_idx[0, 0].long()].contiguous(), codes[0], valid[0]
+    return adc.pq_scan(lut, c, v, k=k), adc.pq_scan_plain(lut, c, v, k=k)
+
+
+ADC = ["workunit_pq_scan_streamed", "workunit_pq_scan", "pq_scan"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ADC)
+@pytest.mark.parametrize("k", [1, 8, 10, 16, 32, 40, MAX_K])  # every register-list size
+def test_adc_every_list_size(dev, name, k):
+    """The kernel sums the M lookups in the plain version's order, so the two
+    agree bit for bit: equal scores and equal ids."""
+    table, lut_idx, codes, valid = _adc_case(dev, k, 16, 64, 1500, 8)
+    fn = getattr(adc, name)
+    n0 = fn.launches
+    (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, k)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ADC)
+@pytest.mark.parametrize(
+    "W,TQ,TV,M",
+    [(1, 1, 16, 4), (3, 5, 37, 8), (4, 100, 300, 16), (2, 130, 1100, 8), (2, 64, 4096, 8),
+     (5, 3, 70, 12), (1, 1, 200_003, 8)],
+)
+def test_adc_ragged_shapes(dev, name, W, TQ, TV, M):
+    """Query counts off the chunk, M in {4, 8, 12, 16}, TV off the 256-row
+    tile and the 1024-row split, and a long single query (the one-query
+    grid's block split)."""
+    table, lut_idx, codes, valid = _adc_case(dev, W * TQ + TV, W, TQ, TV, M)
+    k = min(10, TV)
+    got, want = _adc_run(name, table, lut_idx, codes, valid, k)
+    _check(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ADC)
+def test_adc_sparse_masks(dev, name):
+    """All-invalid, and 2 valid rows of 1024 with k=4: unfilled slots are
+    (NEG_INF, -1), not the Pallas kernels' leaked ids."""
+    table, lut_idx, codes, valid = _adc_case(dev, 5, 4, 8, 1024, 8)
+    (s, i), _ = _adc_run(name, table, lut_idx, codes, torch.zeros_like(valid), 10)
+    assert (i == -1).all() and (s == -3.4e38).all()
+    two = torch.zeros_like(valid)
+    two[:, [3, 700]] = True
+    (s, i), (ws, wi) = _adc_run(name, table, lut_idx, codes, two, 4)
+    assert (i[..., 2:] == -1).all() and (s[..., 2:] == -3.4e38).all()
+    assert set(i[..., :2].unique().tolist()) == {3, 700}
+    assert torch.equal(s, ws) and torch.equal(i, wi)
+
+
+@pytest.mark.cuda
+def test_adc_limits(dev):
+    """k above MAX_K and an M whose LUT row overflows shared memory raise
+    before launch, naming the limit; the widest M runs and matches."""
+    table, lut_idx, codes, valid = _adc_case(dev, 6, 2, 8, 300, 8)
+    n0 = adc.workunit_pq_scan_streamed.launches
+    with pytest.raises(ValueError, match=f"k={MAX_K + 1}"):
+        adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=MAX_K + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        adc.workunit_pq_scan_streamed(table, lut_idx.t().contiguous().t(), codes, valid, k=4)
+    assert adc.workunit_pq_scan_streamed.launches == n0
+    for M, fits in ((adc.MAX_M, True), (adc.MAX_M + 1, False)):
+        table, lut_idx, codes, valid = _adc_case(dev, 7, 1, 1, 500, M)
+        if fits:
+            got, want = _adc_run("pq_scan", table, lut_idx, codes, valid, 10)
+            _check(got, want, 1e-4)
+        else:
+            with pytest.raises(ValueError, match=f"M={M}"):
+                _adc_run("pq_scan", table, lut_idx, codes, valid, 10)
+
+
+@pytest.mark.cuda
+def test_pq_engine_names_the_kernel_limits(dev):
+    """refine_factor=8 at k=10 asks the ADC kernel for k′ = 80: the engine
+    refuses before any launch, naming the limit; the default k′ = 40 runs
+    through the resident-LUT kernel and the re-rank grid, and agrees with
+    the same index searched on the CPU."""
+    kg = kg_style(n=20_000, d=16, queries_per_split=60, seed=0)
+    wl = kg.splits[1]
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq", pq_m=4), device=dev)
+    n0 = adc.workunit_pq_scan_streamed.launches
+    with pytest.raises(ValueError, match="k=80: the ADC kernels take k <= 64"):
+        index.search(wl, nprobe=8, refine_factor=8)
+    assert adc.workunit_pq_scan_streamed.launches == n0
+    r0 = fused_knn_db_stationary.launches
+    a = index.search(wl, nprobe=8)
+    assert adc.workunit_pq_scan_streamed.launches > n0 and fused_knn_db_stationary.launches > r0
+    b = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
+    torch.testing.assert_close(torch.from_numpy(a.scores), torch.from_numpy(b.scores),
+                               rtol=1e-4, atol=1e-4)
+    for ra, rb in zip(a.ids, b.ids):
+        assert set(ra[ra >= 0].tolist()) == set(rb[rb >= 0].tolist())

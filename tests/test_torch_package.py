@@ -85,14 +85,31 @@ def test_kernel_build_is_lazy():
     assert _build.SOURCES == tuple(sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")))
 
 
-@pytest.mark.parametrize("entry", sorted(_build.SIGNATURES["fused_knn"]))
-def test_ctypes_signatures_match_source(entry):
-    """Every bound C entry point takes as many arguments, of the same kinds
-    (pointer or int), as the .cu source declares."""
-    src = (_build.SRC_DIR / "fused_knn.cu").read_text()
+@pytest.mark.parametrize(
+    "source,entry",
+    [pytest.param(src, entry, id=entry)
+     for src in sorted(_build.SIGNATURES) for entry in sorted(_build.SIGNATURES[src])],
+)
+def test_ctypes_signatures_match_source(source, entry):
+    """Every bound C entry point of every source takes as many arguments, of
+    the same kinds (pointer or int), as the .cu source declares."""
+    src = (_build.SRC_DIR / f"{source}.cu").read_text()
     m = re.search(rf"int {entry}\(([^)]*)\)", src)
     assert m, entry
     params = [p.strip() for p in m.group(1).split(",")]
     kinds = ["p" if "*" in p else "i" for p in params]
-    want = ["p" if t is _build._P else "i" for t in _build.SIGNATURES["fused_knn"][entry]]
+    want = ["p" if t is _build._P else "i" for t in _build.SIGNATURES[source][entry]]
     assert kinds == want
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited shared header (csrc/*.cuh) changes every library's build
+    target, so the next launch rebuilds instead of loading a stale .so."""
+    for f in _build.SRC_DIR.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    header = next(tmp_path.glob("*.cuh"))
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)

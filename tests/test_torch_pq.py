@@ -1,0 +1,496 @@
+"""The port's compressed (PQ) path against the reference, on the CPU.
+
+On CPU tensors the ADC wrappers of ``repro_torch.kernels.pq_scan`` run their
+plain versions, so these tests hold those versions, the dispatch layer, the
+PQ module, the compressed engine and the baselines against ``repro`` on
+inputs made with seeded numpy. The CUDA kernel is held against the same
+plain versions on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
+
+Tolerances: ADC scores are sums of M fp32 lookups whose order XLA chooses on
+the reference side (the port sums m = 0 … M-1), and engine scores are fp32
+products taken by another BLAS, so scores are held within rtol/atol 1e-4
+(``assert_same_results``) and ids equal wherever scores are untied. Two
+runs of the port on the same inputs agree exactly.
+"""
+import copy
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import HQIConfig as RefConfig
+from repro.core import HQIIndex as RefIndex
+from repro.core import PostFilterIndex as RefPostFilter
+from repro.core import PreFilterIndex as RefPreFilter
+from repro.core import RangeIndex as RefRange
+from repro.core import recall_at_k
+from repro.core.ivf import IVFIndex as RefIVF
+from repro.core.planner import batch_search_ivf as ref_batch_search_ivf
+from repro.core.pq import PQIndex as RefPQIndex
+from repro.core.pq import adc_tables as ref_adc_tables
+from repro.core.pq import decode_pq as ref_decode_pq
+from repro.core.pq import encode_pq as ref_encode_pq
+from repro.core.pq import train_pq as ref_train_pq
+from repro.core.workload import kg_style
+from repro.kernels import ops as ref_ops
+from repro.kernels import pq_scan as pallas
+from repro.kernels import ref as jref
+from repro_torch.core import HQIConfig, HQIIndex, PlanConfig
+from repro_torch.core.baselines import PostFilterIndex, PreFilterIndex, RangeIndex
+from repro_torch.core.ivf import IVFIndex
+from repro_torch.core.planner import batch_search_ivf
+from repro_torch.core.pq import (
+    PQCodebook,
+    PQIndex,
+    adc_scan_ref,
+    adc_tables,
+    decode_pq,
+    encode_pq,
+    train_pq,
+)
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused_knn import MAX_K
+from repro_torch.kernels.pq_scan import (
+    MAX_M,
+    check_pq_kernel_limits,
+    pick_qb,
+    pq_scan,
+    pq_scan_plain,
+    workunit_pq_scan,
+    workunit_pq_scan_plain,
+    workunit_pq_scan_streamed,
+    workunit_pq_scan_streamed_plain,
+)
+
+from conftest import assert_same_results, small_db, small_workload
+
+CFG = dict(min_partition_size=128, max_leaves=32)
+TOL = 1e-4
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _adc_case(seed, w, tq, nv, m, density=0.7):
+    """LUTs from a trained codebook (realistic score spreads), codes of
+    random database rows, a random mask."""
+    rng = np.random.default_rng(seed)
+    d = m * 4
+    vecs = rng.normal(size=(max(nv, 300), d)).astype(np.float32)
+    cb = PQCodebook.from_state(ref_train_pq(vecs, m, iters=2, seed=seed).to_state())
+    luts = adc_tables(cb, rng.normal(size=(w * tq, d)).astype(np.float32)).reshape(w, tq, m, 256)
+    codes = encode_pq(cb, vecs, device="cpu")[rng.integers(0, len(vecs), (w, nv))]
+    valid = rng.random((w, nv)) < density
+    return luts, codes, valid
+
+
+def _assert_ids_untied(s, i, rs, ri, tol=TOL):
+    """Same ids wherever the reference score is untied (the last slot may tie
+    with the first row left out); the same absent slots."""
+    assert np.array_equal(i < 0, ri < 0)
+    rs = rs.astype(np.float64)
+    gap = tol * (1.0 + np.abs(rs))
+    near = np.abs(rs[..., 1:] - rs[..., :-1]) <= gap[..., 1:]
+    tied = np.zeros(rs.shape, bool)
+    tied[..., 1:] |= near
+    tied[..., :-1] |= near
+    tied[..., -1] = True
+    assert np.array_equal(i[~tied], ri[~tied])
+
+
+# ------------------------------------------------------------------ kernels
+
+
+@pytest.mark.parametrize(
+    "w,tq,nv,m,k",
+    [(3, 5, 100, 4, 6), (1, 8, 700, 8, 10), (4, 2, 30, 4, 3), (2, 7, 333, 16, 12), (2, 64, 37, 8, 37)],
+)
+def test_adc_plain_matches_reference(w, tq, nv, m, k):
+    """The plain ADC versions (CPU path of both work-unit wrappers) against
+    ``repro.kernels.ref.workunit_pq_topk_ref`` on the reference's sweep, with
+    M in {4, 8, 16}, ragged TV and k = TV."""
+    luts, codes, valid = _adc_case(w * 100 + m, w, tq, nv, m)
+    rs, ri = jref.workunit_pq_topk_ref(jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(valid), k)
+    rs, ri = np.asarray(rs), np.asarray(ri)
+    s, i = workunit_pq_scan(_t(luts), _t(codes), _t(valid), k=k)
+    np.testing.assert_allclose(s.numpy(), rs, rtol=TOL, atol=TOL)
+    _assert_ids_untied(s.numpy(), i.numpy(), rs, ri)
+    for w_ in range(w):  # per unit, the one-query oracles agree too
+        a = adc_scan_ref(_t(luts[w_]), _t(codes[w_]), _t(valid[w_]), k)
+        b = jref.adc_topk_ref(jnp.asarray(luts[w_]), jnp.asarray(codes[w_]), jnp.asarray(valid[w_]), k)
+        np.testing.assert_allclose(a[0].numpy(), np.asarray(b[0]), rtol=TOL, atol=TOL)
+        _assert_ids_untied(a[0].numpy(), a[1].numpy(), np.asarray(b[0]), np.asarray(b[1]))
+
+
+@pytest.mark.parametrize("grid", ["workunit_pq_scan", "workunit_pq_scan_streamed", "pq_scan"])
+def test_adc_all_invalid_and_k_above_valid(grid):
+    luts, codes, valid = _adc_case(3, 2, 3, 200, 8)
+    table = luts.reshape(6, 8, 256)
+    lut_idx = np.arange(6, dtype=np.int32).reshape(2, 3)
+
+    def run(valid, k):
+        if grid == "workunit_pq_scan":
+            return workunit_pq_scan(_t(luts), _t(codes), _t(valid), k=k)
+        if grid == "workunit_pq_scan_streamed":
+            return workunit_pq_scan_streamed(_t(table), _t(lut_idx), _t(codes), _t(valid), k=k)
+        s, i = pq_scan(_t(table[0]), _t(codes[0]), _t(valid[0]), k=k)
+        return s[None, None], i[None, None]
+
+    s, i = run(np.zeros_like(valid), 3)
+    assert (i == -1).all() and (s == np.float32(ref.NEG_INF)).all()
+    few = np.zeros_like(valid)
+    few[:, [10, 150]] = True
+    s, i = run(few, 5)
+    assert (i[..., 2:] == -1).all() and (s[..., 2:] == np.float32(ref.NEG_INF)).all()
+    assert all(set(row[:2].tolist()) == {10, 150} for row in i.reshape(-1, 5).numpy())
+
+
+def test_adc_matches_pallas_interpret():
+    """The port against the three Pallas kernels themselves (interpret mode),
+    on tiny shapes with more valid rows than k (away from the sentinel leak
+    of the next test)."""
+    luts, codes, valid = _adc_case(7, 2, 3, 300, 4)
+    k = 5
+    table = luts.reshape(6, 4, 256)
+    lut_idx = np.array([[4, 0, 2], [5, 5, 1]], dtype=np.int32)
+    got = {
+        "workunit_pq_scan": workunit_pq_scan(_t(luts), _t(codes), _t(valid), k=k),
+        "workunit_pq_scan_streamed": workunit_pq_scan_streamed(
+            _t(table), _t(lut_idx), _t(codes), _t(valid), k=k),
+    }
+    want = {
+        "workunit_pq_scan": pallas.workunit_pq_scan(
+            jnp.asarray(luts), jnp.asarray(codes), jnp.asarray(valid), k=k, tv=128, interpret=True),
+        "workunit_pq_scan_streamed": pallas.workunit_pq_scan_streamed(
+            jnp.asarray(table), jnp.asarray(lut_idx), jnp.asarray(codes), jnp.asarray(valid),
+            k=k, tv=128, interpret=True),
+    }
+    for name in got:
+        ws, wi = np.asarray(want[name][0]), np.asarray(want[name][1])
+        np.testing.assert_allclose(got[name][0].numpy(), ws, rtol=TOL, atol=TOL)
+        _assert_ids_untied(got[name][0].numpy(), got[name][1].numpy(), ws, wi)
+    for r in range(2):
+        s, i = pq_scan(_t(table[r]), _t(codes[r]), _t(valid[r]), k=k)
+        ps, pi = pallas.pq_scan(jnp.asarray(table[r]), jnp.asarray(codes[r]), jnp.asarray(valid[r]),
+                                k=k, tv=128, interpret=True)
+        np.testing.assert_allclose(s.numpy(), np.asarray(ps), rtol=TOL, atol=TOL)
+        _assert_ids_untied(s.numpy()[None], i.numpy()[None], np.asarray(ps)[None], np.asarray(pi)[None])
+
+
+def test_adc_unfilled_slots_are_absent_unlike_pallas():
+    """2 valid rows of 1024, k=4: the port follows ``adc_topk_ref``
+    ([700, 3, -1, -1] here); the Pallas ADC kernels share ``_merge_topk``'s
+    sentinel leak (ROADMAP.md §3) and return a real id in the unfilled slots
+    ([700, 3, 3, 3]), so they are compared on the filled slots only."""
+    rng = np.random.default_rng(5)
+    lut = rng.normal(size=(4, 256)).astype(np.float32)
+    codes = rng.integers(0, 256, size=(1024, 4), dtype=np.uint8)
+    valid = np.zeros(1024, bool)
+    valid[[3, 700]] = True
+    s, i = pq_scan(_t(lut), _t(codes), _t(valid), k=4)
+    assert i.tolist() == [700, 3, -1, -1]
+    assert (s[2:] == np.float32(ref.NEG_INF)).all()
+    s, i = workunit_pq_scan_streamed(_t(lut[None]), torch.zeros((1, 1), dtype=torch.int32),
+                                     _t(codes[None]), _t(valid[None]), k=4)
+    assert i.tolist() == [[[700, 3, -1, -1]]]
+    ri = jref.adc_topk_ref(jnp.asarray(lut[None]), jnp.asarray(codes), jnp.asarray(valid), 4)[1]
+    assert np.asarray(ri).tolist() == [[700, 3, -1, -1]]
+    _, pi = pallas.pq_scan(jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(valid), k=4,
+                           tv=512, interpret=True)
+    assert np.asarray(pi)[:2].tolist() == [700, 3]  # filled slots agree
+    assert np.asarray(pi)[2:].tolist() != [-1, -1]  # the leak, as recorded
+
+
+def test_resident_dispatch_equals_expanded():
+    """``workunit_pq_topk_resident`` is ``workunit_pq_topk`` over
+    ``table[lut_idx]``, bit for bit; the dispatches are recorded under the
+    reference's shape tags, and only the expanded one counts as such."""
+    luts, codes, valid = _adc_case(11, 3, 6, 90, 8)
+    table = luts.reshape(18, 8, 256)
+    rng = np.random.default_rng(0)
+    lut_idx = rng.integers(0, 18, size=(3, 6)).astype(np.int32)
+    lut_idx[2, 4:] = 0  # padding slots read row 0
+    ops.reset_dispatch_stats()
+    ref_ops.reset_dispatch_stats()
+    a = ops.workunit_pq_topk_resident(_t(table), _t(lut_idx), _t(codes), _t(valid), 7)
+    b = ops.workunit_pq_topk(_t(table[lut_idx]), _t(codes), _t(valid), 7)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    ref_ops.workunit_pq_topk_resident(jnp.asarray(table), jnp.asarray(lut_idx), jnp.asarray(codes),
+                                      jnp.asarray(valid), 7, use_pallas=False)
+    ref_ops.workunit_pq_topk(jnp.asarray(table[lut_idx]), jnp.asarray(codes), jnp.asarray(valid), 7,
+                             use_pallas=False)
+    assert ops.dispatch_stats().shapes == ref_ops.dispatch_stats().shapes
+    assert ops.dispatch_stats().knn_calls == 2
+    assert ops.dispatch_stats().lut_expand_bytes == 0  # recorded by the engine, not here
+
+
+def test_plain_call_counters():
+    luts, codes, valid = _adc_case(1, 1, 2, 40, 4)
+    table = luts.reshape(2, 4, 256)
+    before = (workunit_pq_scan_plain.calls, workunit_pq_scan_streamed_plain.calls, pq_scan_plain.calls)
+    workunit_pq_scan(_t(luts), _t(codes), _t(valid), k=3)
+    workunit_pq_scan_streamed(_t(table), torch.zeros((1, 2), dtype=torch.int32), _t(codes), _t(valid), k=3)
+    pq_scan(_t(table[0]), _t(codes[0]), _t(valid[0]), k=3)
+    after = (workunit_pq_scan_plain.calls, workunit_pq_scan_streamed_plain.calls, pq_scan_plain.calls)
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    assert workunit_pq_scan.launches == workunit_pq_scan_streamed.launches == pq_scan.launches == 0
+
+
+def test_wrappers_reject_bad_inputs():
+    luts, codes, valid = _adc_case(2, 1, 2, 40, 4)
+    with pytest.raises(TypeError, match="uint8"):
+        workunit_pq_scan(_t(luts), _t(codes.astype(np.int32)), _t(valid), k=3)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        workunit_pq_scan(_t(luts), _t(codes[..., :3]), _t(valid), k=3)
+    with pytest.raises(ValueError, match="k=41"):
+        workunit_pq_scan(_t(luts), _t(codes), _t(valid), k=41)
+    with pytest.raises(TypeError, match="int32"):
+        workunit_pq_scan_streamed(_t(luts[0]), torch.zeros((1, 2), dtype=torch.int64),
+                                  _t(codes), _t(valid), k=3)
+    with pytest.raises(TypeError, match="float32"):
+        pq_scan(_t(luts[0, 0]).double(), _t(codes[0]), _t(valid[0]), k=3)
+
+
+@pytest.mark.parametrize(
+    "k,m,qb,fits",
+    [(40, 8, 8, True), (MAX_K, 16, 4, True), (MAX_K + 1, 8, 8, False), (80, 8, 8, False),
+     (10, MAX_M, 1, True), (10, MAX_M + 1, 1, False), (10, 64, 4, False)],
+)
+def test_pq_kernel_limits(k, m, qb, fits):
+    """The ADC kernel's limits (k through the register lists, M through the
+    shared-memory LUT chunk) are checked before launch, naming the limit."""
+    if fits:
+        check_pq_kernel_limits(k, m, qb)
+    else:
+        with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}"):
+            check_pq_kernel_limits(k, m, qb)
+
+
+def test_pick_qb():
+    """64 KiB of LUT rows a block whatever M, never more queries than TQ."""
+    assert [pick_qb(m, 64) for m in (4, 8, 16, 32, 64, 100)] == [16, 8, 4, 2, 1, 1]
+    assert pick_qb(8, 1) == 1 and pick_qb(8, 3) == 4
+
+
+def test_dispatch_stats_delta_and_lut_expand():
+    st = ops.DispatchStats()
+    st.record_knn(("pq", 1, 2, 3, 4))
+    before = st.snapshot()
+    st.record_knn(("pq-res", 1, 2, 3, 4))
+    st.record_merge()
+    st.record_lut_expand(1000)
+    st.record_candidate_bytes(77)
+    d = st.delta_since(before)
+    assert (d.knn_calls, d.merge_calls, d.shapes, d.lut_expand_bytes, d.peak_candidate_bytes) == (
+        1, 1, {("pq-res", 1, 2, 3, 4)}, 1000, 77)
+
+
+# ---------------------------------------------------------------- PQ module
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_adc_tables_and_decode_bit_equal(metric):
+    rng = np.random.default_rng(4)
+    vecs = rng.normal(size=(600, 32)).astype(np.float32)
+    cb_ref = ref_train_pq(vecs, 8, metric=metric, iters=3, seed=1)
+    cb = PQCodebook.from_state(cb_ref.to_state())
+    q = rng.normal(size=(9, 32)).astype(np.float32)
+    assert np.array_equal(adc_tables(cb, q), ref_adc_tables(cb_ref, q))
+    codes = rng.integers(0, 256, size=(50, 8), dtype=np.uint8)
+    assert np.array_equal(decode_pq(cb, codes), ref_decode_pq(cb_ref, codes))
+
+
+def test_train_pq_reconstruction_near_reference():
+    """The port trains on the reference's sample with its own k-means on the
+    device: its reconstruction error is within 5% of the reference's."""
+    rng = np.random.default_rng(8)
+    vecs = rng.normal(size=(3000, 16)).astype(np.float32)
+    cb_ref = ref_train_pq(vecs, 4, iters=5, seed=2, sample_cap=2048)
+    cb = train_pq(vecs, 4, iters=5, seed=2, sample_cap=2048, device="cpu")
+    err_ref = ((ref_decode_pq(cb_ref, ref_encode_pq(cb_ref, vecs)) - vecs) ** 2).mean()
+    err = ((decode_pq(cb, encode_pq(cb, vecs, device="cpu")) - vecs) ** 2).mean()
+    assert abs(err - err_ref) <= 0.05 * err_ref, (err, err_ref)
+
+
+@pytest.mark.parametrize("rerank", [0, 4])
+def test_pq_index_matches_reference(rerank):
+    """A ``PQIndex`` over the reference's codebook and codes answers as the
+    reference does (ADC through ``pq_scan``, one launch per query on a card)."""
+    rng = np.random.default_rng(6)
+    vecs = rng.normal(size=(800, 32)).astype(np.float32)
+    r = RefPQIndex.build(vecs, m=4, metric="l2", seed=3)
+    p = PQIndex(cb=PQCodebook.from_state(r.cb.to_state()), codes=_t(r.codes), vectors=vecs)
+    q = rng.normal(size=(12, 32)).astype(np.float32)
+    bitmap = rng.random(800) < 0.5
+    for bm in (None, bitmap):
+        a = r.search(q, 6, bitmap=bm, rerank=rerank)
+        b = p.search(q, 6, bitmap=bm, rerank=rerank)
+        assert_same_results(a[0], a[1], b[0], b[1])
+    assert p.compression_ratio == r.compression_ratio
+
+
+# ------------------------------------------------------------------ engine
+
+
+@pytest.fixture(scope="module", params=["ip", "l2"])
+def built_pq(request):
+    db = small_db(metric=request.param)
+    wl = small_workload(db)
+    ref = RefIndex.build(db, wl, RefConfig(**CFG, scan_mode="pq"))
+    return db, wl, ref.to_state()
+
+
+def _with_layout(state, layout):
+    state = copy.copy(state)
+    state["cfg"] = dict(state["cfg"], plan=dict(state["cfg"]["plan"], merge_layout=layout))
+    return state
+
+
+@pytest.mark.parametrize("layout", ["segmented", "dense"])
+@pytest.mark.parametrize("nprobe", ["int", "dict"])
+@pytest.mark.parametrize("batch_vec", [True, False, "auto"])
+def test_pq_search_matches_reference(built_pq, layout, nprobe, batch_vec):
+    """A reference PQ index loaded into the port: same results, dispatch
+    counts, shapes and byte accounting; no LUT expansion on the segmented
+    layout, the reference's on the dense one."""
+    db, wl, state = built_pq
+    state = _with_layout(state, layout)
+    ref = RefIndex.from_state(state)
+    port = HQIIndex.from_state(state, device="cpu")
+    np_ = 6 if nprobe == "int" else {t: 2 + 2 * (t % 3) for t in range(len(wl.templates))}
+    ref_ops.reset_dispatch_stats()
+    ops.reset_dispatch_stats()
+    a = ref.search(wl, nprobe=np_, batch_vec=batch_vec)
+    b = port.search(wl, nprobe=np_, batch_vec=batch_vec)
+    assert_same_results(a.scores, a.ids, b.scores, b.ids)
+    ra, rb = ref_ops.dispatch_stats(), ops.dispatch_stats()
+    assert (ra.knn_calls, ra.merge_calls, ra.shapes) == (rb.knn_calls, rb.merge_calls, rb.shapes)
+    assert (a.tuples_scanned, a.bytes_scanned, a.lut_bytes, a.peak_candidate_bytes) == (
+        b.tuples_scanned, b.bytes_scanned, b.lut_bytes, b.peak_candidate_bytes)
+    assert ra.lut_expand_bytes == rb.lut_expand_bytes
+    if batch_vec is True:
+        assert (rb.lut_expand_bytes == 0) == (layout == "segmented")
+        assert b.lut_bytes > 0
+
+
+def test_attach_pq_override_matches_reference():
+    """An f32-built index with a codebook attached answers
+    ``search(scan_mode="pq")`` as the reference does, and its default
+    search stays exact."""
+    db = small_db(metric="l2", seed=2)
+    wl = small_workload(db, seed=3)
+    ref = RefIndex.build(db, wl, RefConfig(**CFG))
+    port = HQIIndex.from_state(ref.to_state(), device="cpu")
+    cb_ref = ref_train_pq(db.vectors, 4, metric=db.metric, iters=4, seed=0)
+    exact = port.search(wl, nprobe=5)
+    with pytest.raises(ValueError, match="attach_pq"):
+        port.search(wl, nprobe=5, scan_mode="pq")
+    ref.attach_pq(cb_ref)
+    port.attach_pq(PQCodebook.from_state(cb_ref.to_state()))
+    assert np.array_equal(port.arena.codes.numpy(), ref.arena.codes)
+    for rf in (None, 2):
+        a = ref.search(wl, nprobe=5, scan_mode="pq", refine_factor=rf)
+        b = port.search(wl, nprobe=5, scan_mode="pq", refine_factor=rf)
+        assert_same_results(a.scores, a.ids, b.scores, b.ids)
+    again = port.search(wl, nprobe=5)
+    assert_same_results(exact.scores, exact.ids, again.scores, again.ids)
+
+
+def test_batch_search_ivf_pq_k_exceeds_posting_lists():
+    """k past every list length: k′ covers every candidate, so the
+    compressed path re-ranks all of them and equals f32, and both equal the
+    reference's."""
+    db = small_db()
+    ref_ivf = RefIVF.build(db.vectors[:300], metric=db.metric, n_centroids=32, seed=0)
+    ivf = IVFIndex.from_state(ref_ivf.to_state(), device="cpu")
+    cb_ref = ref_train_pq(db.vectors[:300], 8, metric=db.metric, seed=0)
+    cb = PQCodebook.from_state(cb_ref.to_state())
+    q = np.random.default_rng(5).normal(size=(9, db.d)).astype(np.float32)
+    k = 64
+    cfg_f = PlanConfig(tq_unit=4, min_list_pad=8)
+    cfg_p = PlanConfig(tq_unit=4, min_list_pad=8, scan_mode="pq", refine_factor=4)
+    fs, fi = batch_search_ivf(ivf, q, nprobe=3, k=k, cfg=cfg_f)
+    ps, pi = batch_search_ivf(ivf, q, nprobe=3, k=k, cfg=cfg_p, pq=cb)
+    assert_same_results(ps, pi, fs, fi)
+    assert (pi == -1).any()
+    rs, ri = ref_batch_search_ivf(ref_ivf, q, nprobe=3, k=k, cfg=_ref_plan(cfg_p), pq=cb_ref)
+    assert_same_results(ps, pi, rs, ri)
+    with pytest.raises(ValueError, match="pq="):
+        batch_search_ivf(ivf, q, nprobe=3, k=k, cfg=cfg_p)
+
+
+def _ref_plan(cfg):
+    from repro.core import PlanConfig as RefPlan
+
+    return RefPlan(**{f: getattr(cfg, f) for f in ("tq_unit", "min_list_pad", "scan_mode", "refine_factor")})
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_independent_pq_build_recall(metric):
+    """A port-built PQ index reaches the reference build's recall (−0.02)
+    against the exact answer, and records its codebook training time."""
+    kg = kg_style(n=2500, d=32, queries_per_split=80, seed=0)
+    db = dataclasses.replace(kg.db, metric=metric)
+    wl = kg.splits[1]
+    cfg = dict(min_partition_size=256, max_leaves=8, scan_mode="pq", refine_factor=2)
+    ref = RefIndex.build(db, kg.splits[0], RefConfig(**cfg))
+    port = HQIIndex.build(db, kg.splits[0], HQIConfig(**cfg), device="cpu")
+    assert port.pq is not None and port.build_info.pq_seconds > 0
+    exact = port.search(wl, nprobe=8, scan_mode="f32")
+    r_ref = recall_at_k(ref.search(wl, nprobe=8), exact)
+    r_port = recall_at_k(port.search(wl, nprobe=8), exact)
+    assert r_port >= r_ref - 0.02, (r_port, r_ref)
+
+
+# --------------------------------------------------------------- baselines
+
+
+@pytest.fixture(scope="module")
+def baseline_case():
+    db = small_db(metric="l2", seed=4)
+    wl = small_workload(db, seed=5)
+    return db, wl
+
+
+@pytest.mark.parametrize("batch_vec", [False, True])
+def test_prefilter_matches_reference(baseline_case, batch_vec):
+    db, wl = baseline_case
+    ref = RefPreFilter.build(db, seed=0)
+    port = PreFilterIndex(db=db, ivf=IVFIndex.from_state(ref.ivf.to_state(), device="cpu"))
+    a = ref.search(wl, nprobe=4, batch_vec=batch_vec)
+    b = port.search(wl, nprobe=4, batch_vec=batch_vec)
+    assert_same_results(a.scores, a.ids, b.scores, b.ids)
+    assert a.tuples_scanned == b.tuples_scanned
+
+
+def test_postfilter_matches_reference(baseline_case):
+    db, wl = baseline_case
+    ref = RefPostFilter.build(db, seed=0)
+    port = PostFilterIndex(db=db, ivf=IVFIndex.from_state(ref.ivf.to_state(), device="cpu"))
+    a = ref.search(wl, nprobe=4, expansion=5)
+    b = port.search(wl, nprobe=4, expansion=5)
+    assert_same_results(a.scores, a.ids, b.scores, b.ids)
+    assert a.tuples_scanned == b.tuples_scanned
+
+
+def test_range_matches_reference(baseline_case):
+    db, wl = baseline_case
+    ref = RefRange.build(db, "A", n_buckets=4, seed=0)
+    port = RangeIndex(
+        db=db, attr="A", bounds=ref.bounds,
+        partitions=[(rows, IVFIndex.from_state(ivf.to_state(), device="cpu"))
+                    for rows, ivf in ref.partitions],
+    )
+    assert RangeIndex.applicable(wl) == RefRange.applicable(wl)
+    a = ref.search(wl, nprobe=3)
+    b = port.search(wl, nprobe=3)
+    assert_same_results(a.scores, a.ids, b.scores, b.ids)
+    assert a.tuples_scanned == b.tuples_scanned
+    built = RangeIndex.build(db, "A", n_buckets=4, seed=0, device="cpu")
+    assert np.array_equal(built.bounds, ref.bounds)
+    assert [len(r) for r, _ in built.partitions] == [len(r) for r, _ in ref.partitions]
