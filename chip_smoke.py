@@ -47,7 +47,34 @@
 7. PQ card against CPU at 100k rows: segmented and dense layouts (the dense
    one drives ``workunit_pq_scan``) and a ``PQIndex`` with 64 queries and
    ``rerank=4`` (``pq_scan``), each against its CPU reload;
-8. the ``kernels`` JSON line (all five kernels), the ``nvidia-smi`` line,
+8. ``flash_attention`` against its plain version on the card: gemma3 heads
+   (32/16, dh 128, bf16, batch 1) at S in {1024, 4096, 32768} x window in
+   {0, 1024}, minicpm (36/36, dh 64) and qwen3 (64/8, dh 128) heads at
+   4096, and small f32 shapes (ragged S, not causal, a window below the
+   64-key tile, S < T); within ``ATTN_TOL``: rtol 2e-2, atol 2e-3 and a
+   relative error (||got - want|| / ||want||) of 1e-2 in bf16 (both sides
+   compute in f32, so the rounded outputs differ by at most one bf16 ulp),
+   1e-4, 1e-4 and 5e-5 in f32 (sums in another order); kernel, plain version
+   and ``scaled_dot_product_attention`` (``enable_gqa``, the library
+   yardstick) timed with CUDA events (median of 10; 3 at 32k) beside the
+   bound: q, k, v, o bytes once over HBM, or 4·dh
+   operations per kept (query, key) pair and query head over the bf16
+   tensor-core (or f32) peak;
+9. the LM serving path at full width: gemma3-27b (d 5376, 32/16 heads, dh
+   128, d_ff 21504, vocab 262144, 1024-token windows on five layers of six)
+   in bf16, depth cut 62 -> 12, random weights from a seeded generator on
+   the card; ``SlotServer`` with 4 slots serves 8 requests of 1100-4096
+   tokens (numpy seed 0), 16 new tokens each. Counters are zeroed before
+   the run and read after it: the kernel must launch once per prefill layer
+   (8 x 12) and the plain version never. Prefill and decode tokens/s, peak
+   memory, a profiled prefill and a profiled decode step; then the first
+   request layer by layer, each layer's kernel output held against the
+   plain version on that layer's own q/k/v (``ATTN_TOL``), ending in the
+   token the server gave;
+10. the reduced gemma3 in f32 with the same weights on the card and the CPU:
+   prefill and decode logits within 2e-3, the served tokens equal, one
+   kernel launch per prefill layer on the card;
+11. the ``kernels`` JSON line (all six kernels), the ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -69,10 +96,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, CUDA cores (no tensor cores)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 MAIN_ROWS, MAIN_QUERIES = 1_000_000, 10_000  # the main path's kg_style size
 KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
-           "workunit_pq_scan", "pq_scan")
+           "workunit_pq_scan", "pq_scan", "flash_attention")
+# the LM serving phase: gemma3-27b at full width, depth cut 62 -> 12 (two 5:1 cycles)
+LM_LAYERS, LM_SLOTS, LM_NEW = 12, 4, 16
+LM_PROMPTS = (1100, 1536, 2048, 2500, 3000, 3500, 4000, 4096)
 SOURCE = {
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "fused_knn": "src/repro_torch/kernels/csrc/fused_knn.cu",
     "fused_knn_db_stationary": "src/repro_torch/kernels/csrc/fused_knn.cu",
     "workunit_pq_scan_streamed": "src/repro_torch/kernels/csrc/pq_scan.cu",
@@ -80,6 +112,7 @@ SOURCE = {
     "pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
 }
 REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "fused_knn": "src/repro/kernels/fused_knn.py:224",
     "fused_knn_db_stationary": "src/repro/kernels/fused_knn.py:165",
     "workunit_pq_scan_streamed": "src/repro/kernels/pq_scan.py:299",
@@ -87,6 +120,9 @@ REPLACES = {
     "pq_scan": "src/repro/kernels/pq_scan.py:86",
 }
 NEG_INF = -3.4e38
+# flash_attention kernel vs plain, by element size: (rtol, atol, limit on
+# ||got - want|| / ||want||); bf16 outputs differ by at most one ulp (2^-7 of |o|)
+ATTN_TOL = {2: (2e-2, 2e-3, 1e-2), 4: (1e-4, 1e-4, 5e-5)}
 
 
 def log(*a):
@@ -375,6 +411,22 @@ def traced_search(index, wl, tag: str, **kw):
     return traced_s, spans
 
 
+def device_split(prof, width: int = 70, n: int = 8) -> tuple[float, dict, dict]:
+    """Device-side events of a torch.profiler run (kernels, copies, memsets):
+    (busy seconds, the ``n`` largest items in ms by name cut to ``width``
+    characters, summed where cut names collide; every item in us by full
+    name)."""
+    device_us: dict = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            device_us[ev.key] = ev.self_device_time_total
+    short: dict = {}
+    for k, v in device_us.items():
+        short[k[:width]] = short.get(k[:width], 0.0) + v / 1e3
+    top = dict(sorted(short.items(), key=lambda kv: -kv[1])[:n])
+    return sum(device_us.values()) / 1e6, top, device_us
+
+
 def profiled_search(index, wl, tag: str, **kw):
     """One search under torch.profiler: (seconds, device busy seconds, the
     largest device items in ms)."""
@@ -384,12 +436,7 @@ def profiled_search(index, wl, tag: str, **kw):
         t0 = time.perf_counter()
         index.search(wl, nprobe=8, **kw)
         prof_s = time.perf_counter() - t0
-    kernel_us: dict = {}  # device-side events only (kernels, copies, memsets)
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            kernel_us[ev.key] = ev.self_device_time_total
-    busy_s = sum(kernel_us.values()) / 1e6
-    top = {k[:60]: v / 1e3 for k, v in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]}
+    busy_s, top, _ = device_split(prof, width=60)
     log(f"[{tag}] profiled search {prof_s:.3f} s, device busy {busy_s * 1e3:.3f} ms "
         f"({busy_s / prof_s:.2%}); top device ops (ms) " + json.dumps(top))
     return prof_s, busy_s, top
@@ -624,6 +671,7 @@ def phase_adc_kernels(rec: dict, max_err: dict) -> None:
 def counters():
     """Every kernel wrapper's launch count and every plain version's call
     count, by name."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_knn as fk
     from repro_torch.kernels import pq_scan as adc
 
@@ -631,10 +679,12 @@ def counters():
         "fused_knn": fk.fused_knn, "fused_knn_db_stationary": fk.fused_knn_db_stationary,
         "workunit_pq_scan_streamed": adc.workunit_pq_scan_streamed,
         "workunit_pq_scan": adc.workunit_pq_scan, "pq_scan": adc.pq_scan,
+        "flash_attention": fa.flash_attention,
     }, {
         "fused_knn_plain": fk.fused_knn_plain,
         "workunit_pq_scan_streamed_plain": adc.workunit_pq_scan_streamed_plain,
         "workunit_pq_scan_plain": adc.workunit_pq_scan_plain, "pq_scan_plain": adc.pq_scan_plain,
+        "flash_attention_plain": fa.flash_attention_plain,
     }
 
 
@@ -841,6 +891,357 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
                              "dense_buckets": dense_run["buckets"]}
     return {"workunit_pq_scan": (launches4, dense_run["heaviest"]), "pq_scan": (launches5, one)}
 
+# ------------------------------------------------------- flash attention
+
+
+def kept_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: row i (left-aligned) keeps keys in
+    [max(0, i - window + 1), min(i, T - 1)] (window > 0, causal)."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(s, dtype=np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attn_bound(q, k, causal: bool, window: int) -> dict:
+    """Least time (ms): q, k, v read once and o written once over HBM, or
+    4·dh operations per kept pair and query head over the peak of the input
+    type (bf16 tensor cores, or f32 on CUDA cores), the larger of the two."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    nbytes = (2 * b * s * hq * dh + 2 * b * t * hkv * dh) * q.element_size()
+    flops = 4.0 * dh * hq * b * kept_pairs(s, t, causal, window)
+    peak = BF16_FLOPS_PER_S if q.element_size() == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "flops": flops}
+
+
+def sdpa(q, k, v, causal: bool, window: int):
+    """``scaled_dot_product_attention`` with ``enable_gqa``: the library's one
+    call for the same function (a boolean mask where a window applies),
+    timed beside the kernel and used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window > 0:
+        s, t = q.shape[1], k.shape[1]
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(t, device=q.device)[None, :]
+        mask = j > i - window
+        if causal:
+            mask &= j <= i
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+
+def attn_agree(got, want, label: str, max_err: dict) -> tuple[float, float]:
+    """The kernel's output against its plain version's: finite, elementwise
+    within ATTN_TOL of the input type, and within its relative error
+    ||got - want|| / ||want||. Both compute in f32 and differ only in the
+    order of the sums, so in bf16 the rounded outputs differ by at most one
+    bf16 ulp, at most 2^-7 of |o|: rtol covers it, atol only outputs near 0.
+    Returns (max |got - want|, relative error)."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {label}: non-finite output")
+    rtol, atol, rel_tol = ATTN_TOL[got.element_size()]
+    g, w = got.float(), want.float()
+    torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    err = float((g - w).abs().max())
+    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))
+    if rel > rel_tol:
+        raise AssertionError(f"flash_attention {label}: relative error {rel:.3e} above {rel_tol}")
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    return err, rel
+
+
+def attn_case(rec_rows, max_err, label, q, k, v, causal, window, reps):
+    """Kernel against its plain version on the same card inputs, then kernel,
+    plain and the library call timed (median of ``reps``) beside the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    err, rel = attn_agree(got, want, label, max_err)
+    want_abs = want.float().abs()
+    median_abs = float(want_abs.flatten()[:: max(1, want_abs.numel() // (1 << 24))].median())
+    del got, want, want_abs
+    b, s, hq, dh = q.shape
+    row = {"case": label, "shape": [b, s, k.shape[1], hq, k.shape[2], dh], "dtype": str(q.dtype),
+           "causal": causal, "window": window, "max_abs_err": err, "rel_err": rel,
+           "median_abs_out": median_abs,
+           "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+                         reps=reps, warmup=1),
+           "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window),
+                               reps=reps, warmup=1)}
+    try:
+        row["library_ms"] = cuda_ms(lambda: sdpa(q, k, v, causal, window), reps=reps, warmup=1)
+    except (RuntimeError, torch.OutOfMemoryError) as e:  # a shape the library cannot run
+        row["library_ms"] = None
+        row["library_note"] = f"scaled_dot_product_attention failed: {type(e).__name__}: {str(e)[:160]}"
+        torch.cuda.empty_cache()
+    row.update(attn_bound(q, k, causal, window))
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+    rec_rows.append(row)
+    log("[attn] " + json.dumps(row))
+    return row
+
+
+def phase_attention_kernels(rec: dict, max_err: dict) -> dict:
+    """The sweep: gemma3 heads (32/16, dh 128, bf16) at S in {1024, 4096,
+    32768} x window in {0, 1024}; minicpm (36/36, dh 64) and qwen3 (64/8, dh
+    128) heads at 4096; small f32 shapes: ragged S, not causal, a window
+    below the 64-key tile. Returns the rows by label."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def qkv(b, s, hq, hkv, dh, dtype, t=None):
+        t = s if t is None else t
+        return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((b, s, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh)))
+
+    rows: list = []
+    out = {}
+    for s in (1024, 4096, 32768):
+        q, k, v = qkv(1, s, 32, 16, 128, torch.bfloat16)
+        for w in (0, 1024):
+            out[f"gemma3-s{s}-w{w}"] = attn_case(rows, max_err, f"gemma3-s{s}-w{w}", q, k, v, True, w,
+                                                 3 if s > 4096 else 10)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, hq, hkv, dh in (("minicpm", 36, 36, 64), ("qwen3", 64, 8, 128)):
+        q, k, v = qkv(1, 4096, hq, hkv, dh, torch.bfloat16)
+        out[f"{label}-s4096"] = attn_case(rows, max_err, f"{label}-s4096-w0", q, k, v, True, 0, 10)
+    for label, b, s, t, hq, hkv, dh, causal, w in (
+        ("f32-ragged", 2, 1000, 1000, 8, 2, 128, True, 0),
+        ("f32-ragged-window", 1, 777, 777, 4, 4, 64, True, 100),
+        ("f32-not-causal", 2, 300, 300, 8, 4, 64, False, 0),
+        ("f32-window-below-tile", 1, 2000, 2000, 8, 2, 128, True, 16),
+        ("f32-s-below-t", 1, 200, 500, 4, 2, 64, True, 0),
+    ):
+        q, k, v = qkv(b, s, hq, hkv, dh, torch.float32, t)
+        attn_case(rows, max_err, label, q, k, v, causal, w, 5)
+    rec["attention_kernel_cases"] = rows
+    return out
+
+
+def profiled_prefill(params, cfg, prompt) -> dict:
+    """One prefill under torch.profiler: device busy share and the largest
+    device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = api.serve_prefill(params, cfg, {"tokens": toks})
+        logits.sum().item()
+        wall = time.perf_counter() - t0
+    busy, top, device_us = device_split(prof, n=10)
+    flash_ms = sum(v for k, v in device_us.items() if "flash_fwd_kernel" in k) / 1e3
+    out = {"tokens": len(prompt), "wall_seconds": wall, "device_busy_seconds": busy,
+           "busy_share": busy / wall, "flash_kernel_ms": flash_ms, "device_ops_ms": top}
+    log(f"[serve] profiled prefill of {len(prompt)} tokens: {wall:.3f} s, device busy "
+        f"{busy * 1e3:.1f} ms ({busy / wall:.2%}); flash kernel {flash_ms:.1f} ms; top device "
+        f"ops (ms) " + json.dumps(top))
+    return out
+
+
+def profiled_decode(params, cfg, cache) -> dict:
+    """One full-slot decode step on the server's cache under torch.profiler:
+    wall time, device busy share and the largest device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import api
+
+    toks = torch.full((cache["len"].shape[0],), 2, dtype=torch.int32, device="cuda")
+    cache = dict(cache, len=torch.full_like(cache["len"], cache["k"].shape[2] - 1))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = api.serve_decode(params, cfg, toks, cache)
+        logits.sum().item()
+        wall = time.perf_counter() - t0
+    busy, top, _ = device_split(prof)
+    log(f"[serve] profiled decode step ({cache['len'].shape[0]} slots at {cache['k'].shape[2]} "
+        f"cached positions): {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
+        f"({busy / wall:.2%}); top device ops (ms) " + json.dumps(top))
+    return {"wall_seconds": wall, "device_busy_seconds": busy, "busy_share": busy / wall,
+            "device_ops_ms": top}
+
+
+def phase_serving(rec: dict, max_err: dict) -> dict:
+    """gemma3-27b at full width (d 5376, 32/16 heads, dh 128, d_ff 21504,
+    vocab 262144, 1024-token windows on five of six layers) in bf16, depth
+    cut to 12 layers, random weights from a seeded generator on the card:
+    SlotServer with 4 slots serves 8 requests of 1100-4096 tokens, 16 new
+    tokens each. Counters are zeroed before the run and read after it: one
+    kernel launch per prefill layer, no plain call."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.attention import qkv_project
+    from repro_torch.models.layers import mlp, rmsnorm
+    from repro_torch.models.transformer import embed_tokens, logits_of
+    from repro_torch.serve.server import Request, SlotServer
+
+    cfg = dataclasses.replace(get_config("gemma3-27b"), n_layers=LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.count_params(params)
+    log(f"[serve] gemma3-27b, {LM_LAYERS} of 62 layers, {n_params / 1e9:.2f} B parameters "
+        f"drawn in {init_s:.1f} s; windows {cfg.layer_windows()}; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=LM_NEW) for i, n in enumerate(LM_PROMPTS)]
+    srv = SlotServer(params, cfg, n_slots=LM_SLOTS, max_len=max(LM_PROMPTS) + LM_NEW)
+    spent = {"admit": 0.0, "tick": 0.0, "ticks": 0, "decoded": 0}
+    admit, tick = srv.admit, srv.tick
+
+    def timed_admit(req):
+        t = time.perf_counter()
+        ok = admit(req)  # ends in a host read of the first token
+        spent["admit"] += time.perf_counter() - t
+        return ok
+
+    def timed_tick():
+        busy = sum(r is not None for r in srv.slot_req)
+        t = time.perf_counter()
+        tick()  # ends in a host read of the next tokens
+        spent["tick"] += time.perf_counter() - t
+        spent["ticks"] += 1
+        spent["decoded"] += busy
+
+    srv.admit, srv.tick = timed_admit, timed_tick
+    zero_counters()
+    t0 = time.perf_counter()
+    srv.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = len(reqs) * LM_LAYERS
+    if counts["flash_attention"] != want or counts["flash_attention_plain"] != 0:
+        raise AssertionError(f"serving: flash_attention launched {counts['flash_attention']} "
+                             f"times (want {want}), plain called {counts['flash_attention_plain']}")
+    for r in reqs:
+        if not (r.done and len(r.out_tokens) == LM_NEW
+                and all(0 <= t < cfg.vocab for t in r.out_tokens)):
+            raise AssertionError(f"request {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens}")
+    prompt_tokens = sum(LM_PROMPTS)
+    serve = {
+        "arch": "gemma3-27b", "layers": LM_LAYERS, "params": n_params, "init_seconds": init_s,
+        "slots": LM_SLOTS, "requests": len(reqs), "prompt_tokens": prompt_tokens,
+        "new_tokens_per_request": LM_NEW, "run_seconds": run_s,
+        "prefill_seconds": spent["admit"], "prefill_tokens_per_s": prompt_tokens / spent["admit"],
+        "decode_seconds": spent["tick"], "decode_ticks": spent["ticks"],
+        "decoded_tokens": spent["decoded"], "decode_tokens_per_s": spent["decoded"] / spent["tick"],
+        "peak_device_bytes": peak, "launches": counts["flash_attention"],
+        "out_tokens_first": reqs[0].out_tokens,
+    }
+    log(f"[serve] {len(reqs)} requests in {run_s:.2f} s: prefill {prompt_tokens} tokens in "
+        f"{spent['admit']:.3f} s ({serve['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{spent['decoded']} tokens in {spent['ticks']} ticks, {spent['tick']:.3f} s "
+        f"({serve['decode_tokens_per_s']:.1f} tokens/s); flash launches {counts['flash_attention']}, "
+        f"plain calls {counts['flash_attention_plain']}; peak device memory {peak / 2**30:.2f} GiB")
+    serve["profile"] = profiled_prefill(params, cfg, reqs[-1].prompt)
+    serve["decode_profile"] = profiled_decode(params, cfg, srv.cache)
+    del srv
+    torch.cuda.empty_cache()
+
+    # Layer by layer on the first request at full width: each layer's kernel
+    # output against its plain version on that layer's own q/k/v, continuing
+    # with the kernel's output; the last logits give the served first token.
+    toks = torch.as_tensor(reqs[0].prompt[None], device="cuda")
+    x = embed_tokens(params, cfg, toks)
+    s = toks.shape[1]
+    positions = torch.arange(s, device="cuda")[None]
+    acfg = cfg.attn_cfg()
+    layers = []
+    for i, (lp, w) in enumerate(zip(params["layers"], cfg.layer_windows())):
+        q, k, v = qkv_project(lp["attn"], rmsnorm(x, lp["attn_norm"]), acfg, positions)
+        got = fa.flash_attention(q, k, v, window=w)
+        want = fa.flash_attention_plain(q, k, v, window=w)
+        err, rel = attn_agree(got, want, f"layer {i}", max_err)
+        layers.append({"layer": i, "window": w, "max_abs_err": err, "rel_err": rel,
+                       "median_abs_out": float(want.float().abs().median())})
+        x = x + got.reshape(1, s, -1) @ lp["attn"]["wo"]
+        x = x + mlp(lp["mlp"], rmsnorm(x, lp["mlp_norm"]))
+    first = int(torch.argmax(logits_of(params, cfg, x[:, -1:])[0, 0]))
+    if first != reqs[0].out_tokens[0]:
+        raise AssertionError(f"layer-by-layer prefill gives token {first}, the server "
+                             f"{reqs[0].out_tokens[0]}")
+    serve["layer_by_layer"] = layers
+    log(f"[serve] layer by layer at {s} tokens: kernel = plain within ATTN_TOL on all "
+        f"{len(layers)} layers (max |err| {max(r['max_abs_err'] for r in layers):.2e}); "
+        f"first token {first} as served")
+    rec["serving"] = serve
+    del params, x
+    torch.cuda.empty_cache()
+    return serve
+
+
+def phase_lm_card_vs_cpu(rec: dict) -> None:
+    """Reduced gemma3 in f32, the same weights on the card and the CPU:
+    prefill and decode logits within 2e-3, and the same served tokens; the
+    card's server launches the kernel once per prefill layer.
+    ``tests/test_torch_cuda.py`` runs this phase as a card test."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.serve.server import Request, SlotServer
+
+    cfg = dataclasses.replace(get_reduced("gemma3-27b"), dtype=torch.float32)
+    gpu = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(3))
+    cpu = api.params_to(gpu, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(2, cfg.vocab, (2, 57)))
+    lg, cg = api.serve_prefill(gpu, cfg, {"tokens": toks.cuda()}, max_len=64)
+    lc, cc = api.serve_prefill(cpu, cfg, {"tokens": toks}, max_len=64)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+    err = float((lg.cpu() - lc).abs().max())
+    for i in range(3):
+        lg, cg = api.serve_decode(gpu, cfg, toks[:, i].cuda(), cg)
+        lc, cc = api.serve_decode(cpu, cfg, toks[:, i], cc)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (20, 60, 33, 47, 25)]
+    served = []
+    for params in (gpu, cpu):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        n0 = fa.flash_attention.launches
+        SlotServer(params, cfg, n_slots=3, max_len=66).run(reqs)
+        launched = fa.flash_attention.launches - n0
+        want = len(prompts) * cfg.n_layers if params is gpu else 0
+        if launched != want:
+            raise AssertionError(f"reduced gemma3: {launched} kernel launches, want {want}")
+        served.append([r.out_tokens for r in reqs])
+    if served[0] != served[1]:
+        raise AssertionError(f"reduced gemma3: card tokens {served[0]} != CPU tokens {served[1]}")
+    rec["lm_card_vs_cpu"] = {"max_abs_logit_err": err, "tokens": served[0]}
+    log(f"[lm-card-vs-cpu] reduced gemma3 f32: logits within {err:.2e}, 5 requests' tokens equal")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -881,6 +1282,10 @@ def main() -> int:
     del pq_run["index"], main_run["kg"]
     torch.cuda.empty_cache()
     per_phase = phase_pq_card_vs_cpu(rec, max_err)
+    torch.cuda.empty_cache()
+    attn = phase_attention_kernels(rec, max_err)
+    serve = phase_serving(rec, max_err)
+    phase_lm_card_vs_cpu(rec)
 
     timed = {
         "fused_knn": (main_run["counts"]["fused_knn"], heaviest["fused_knn"]),
@@ -889,6 +1294,8 @@ def main() -> int:
         "workunit_pq_scan_streamed": (pq_run["counts"]["workunit_pq_scan_streamed"],
                                       pq_heavy["heaviest"]),
         **per_phase,
+        # the serving run's local layers (5 of 6) at its longest prompt
+        "flash_attention": (serve["launches"], attn["gemma3-s4096-w1024"]),
     }
     kernels = []
     for name in KERNELS:
@@ -897,10 +1304,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": max_err[name],
             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-            "bound_by": h["bound_by"], "library_ms": None,
-            "ms_over_bound": h["ms_over_bound"], "yardstick_ms": h["yardstick_ms"],
+            "bound_by": h["bound_by"], "library_ms": h.get("library_ms"),
+            "ms_over_bound": h["ms_over_bound"], "yardstick_ms": h.get("yardstick_ms"),
             "shape": h["shape"],
         }
+        if name == "flash_attention":
+            g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
+            entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         if "lut_streamed_bytes" in h:
             entry["bound_bytes"] = h["bound_bytes"]
             entry["lut_streamed_bytes"] = h["lut_streamed_bytes"]

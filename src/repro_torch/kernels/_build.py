@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_knn", "pq_scan")
+SOURCES = ("flash_attention", "fused_knn", "pq_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,8 +32,12 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of every entry point: name -> argument types (all return int)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "flash_attention": {
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    },
     "fused_knn": {
         "fused_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "fused_knn_db_stationary_launch": (

@@ -1,0 +1,152 @@
+"""Forward flash attention: online softmax, causal and sliding-window masks,
+grouped-query heads (the prefill hot path of the LM serving path).
+
+``flash_attention`` takes ``q [B, S, Hq, dh]``, ``k``/``v [B, T, Hkv, dh]``
+(f32 or bf16, one type) and returns ``[B, S, Hq, dh]`` in q's type. On a
+CUDA tensor it launches the kernel of ``csrc/flash_attention.cu`` (or
+raises); on a CPU tensor it runs the plain version, ``flash_attention_plain``.
+``launches`` on the wrapper counts kernel launches, ``calls`` on the plain
+version its calls.
+
+Replaces (TPU): ``src/repro/kernels/flash_attention.py::flash_attention_pallas``;
+the plain version is the port of the chunked online softmax of
+``src/repro/models/attention.py::flash_attention``, which the reference
+runs on this path. Both put query row i at position i (left-aligned) and
+keep key j for row i iff j < T, j <= i when causal, and j > i - window when
+window > 0; a row that keeps no key returns 0. What bounds the kernel on
+the H100 (operations, 4·dh per kept pair) and what its design does about it
+is in the CUDA source.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
+MAX_HEAD_DIM = 256  # widest compiled width of csrc/flash_attention.cu (dh is zero-padded up to 32/64/128/256)
+
+
+def check_kernel_limits(dh: int) -> None:
+    """Raise ``ValueError`` for a head width the CUDA kernel cannot take: its
+    tiles at the next width above 256 (512) would need 289 KiB of shared
+    memory, beyond the 227 KiB a block may hold (``flash_smem_bytes`` in the
+    CUDA source). The plain version, on the CPU, has no limit."""
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"dh={dh}: the CUDA flash-attention kernel takes dh <= {MAX_HEAD_DIM} "
+                         "(wider tiles exceed the 227 KiB of shared memory a block may hold); "
+                         "run attention on the CPU")
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # [B, S, Hq, dh]
+    k: torch.Tensor,  # [B, T, Hkv, dh]
+    v: torch.Tensor,  # [B, T, Hkv, dh]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Double-chunked online-softmax attention in f32 (the reference's
+    ``models.attention.flash_attention`` with ``q_offset=0``). KV chunks that
+    no row of a query chunk keeps are skipped, and masked entries add p = 0;
+    for every row that keeps a key both leave the result as the reference's
+    (its skipped chunks are scaled by exactly 0 once a kept key arrives)."""
+    flash_attention_plain.calls += 1
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = dh**-0.5
+    qc, kc = min(q_chunk, s), min(kv_chunk, t)
+    qf = (q.to(torch.float32) * scale).reshape(b, s, hkv, g, dh)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    out = torch.empty((b, s, hkv, g, dh), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, qc):
+        q1 = min(q0 + qc, s)
+        q_pos = torch.arange(q0, q1, device=q.device)
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        hi = min(t, q1) if causal else t
+        m = torch.full((b, hkv, g, q1 - q0), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, q1 - q0, dh), dtype=torch.float32, device=q.device)
+        for k0 in range((lo // kc) * kc, hi, kc):
+            k1 = min(k0 + kc, t)
+            k_pos = torch.arange(k0, k1, device=q.device)
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, q0:q1], kf[:, k0:k1])
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            logits = logits.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None]).masked_fill(~mask, 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vf[:, k0:k1])
+            m = m_new
+        res = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q1] = res.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, s, hq, dh).to(q.dtype)
+
+
+flash_attention_plain.calls = 0
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"want q [B,S,Hq,dh], k/v [B,T,Hkv,dh]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, hq, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh or hq % k.shape[2] != 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} (Hq must be a multiple of Hkv)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q, k and v must all be float32 or bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"tensors on different devices: {q.device}, {k.device}, {v.device}")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """See the module docstring. ``window`` 0 is global attention.
+    ``q_chunk``/``kv_chunk`` are the plain version's chunks (CPU tensors);
+    the kernel tiles by 64 queries and 64 keys."""
+    _check(q, k, v)
+    window = int(window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    B, S, Hq, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    check_kernel_limits(dh)
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    o = torch.empty_like(q)
+    if o.numel() == 0 or T == 0:
+        return o.zero_()
+    lib = _build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, T, Hq, Hkv, dh, int(bool(causal)), window, dh**-0.5,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, rc, "flash_attention")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the kernels' functions and of the engine merges.
 
-Every CUDA kernel in this package has its plain version here; the CPU tests
+Every scan kernel in this package has its plain version here; the CPU tests
 hold these against ``repro.kernels.ref`` and ``chip_smoke.py`` holds each
-kernel against them on the card.
+kernel against them on the card. Attention's plain version (the chunked
+online softmax) lives beside its kernel in ``flash_attention.py``;
+``flash_attention_ref`` here is the whole-row oracle.
 
 Tie rule everywhere: (score descending, index ascending) — ``lax.top_k``'s
 smallest-index-first order. ``torch.topk`` gives no tie order, so ranks come
@@ -204,3 +206,39 @@ def workunit_pq_topk_resident_ref(
     for j in range(table.shape[1]):
         scores = scores + table[:, j, :].to(torch.float32)[li, c[:, None, :, j]]
     return _masked_topk_of_scores(scores, valid, int(k))
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Hq, S, dh]
+    k: torch.Tensor,  # [B, Hkv, T, dh]
+    v: torch.Tensor,  # [B, Hkv, T, dh]
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Reference attention over whole rows (GQA: Hq % Hkv == 0), in f32.
+
+    Query positions are right-aligned (``qpos = i + T - S``, the decode
+    convention); the kernel and its plain version put them at ``i``, which
+    agrees wherever S = T. ``window`` (if set) = W: position i attends to
+    (i - W, i].
+    """
+    b, hq, s, dh = q.shape
+    group = hq // k.shape[1]
+    scale = scale if scale is not None else 1.0 / (dh**0.5)
+    qf = q.to(torch.float32) * scale
+    kf = k.to(torch.float32).repeat_interleave(group, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf)
+    t = kf.shape[2]
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)

@@ -1,5 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: both ``fused_knn`` grids and the three ADC wrappers of ``pq_scan``.
+card: both ``fused_knn`` grids, the three ADC wrappers of ``pq_scan`` and
+``flash_attention`` (with the reduced LM served on the card against the CPU).
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels are CUDA C++ with no CPU mode).
 
@@ -9,14 +10,18 @@ where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import pytest
 import torch
 
 from repro_torch.core import HQIConfig, HQIIndex, kg_style
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import pq_scan as adc
 from repro_torch.kernels.fused_knn import MAX_K, fused_knn, fused_knn_db_stationary, fused_knn_plain
 
+ROOT = Path(__file__).resolve().parents[1]
 GRIDS = {"fused_knn": fused_knn, "fused_knn_db_stationary": fused_knn_db_stationary}
 
 
@@ -272,3 +277,83 @@ def test_pq_engine_names_the_kernel_limits(dev):
                                rtol=1e-4, atol=1e-4)
     for ra, rb in zip(a.ids, b.ids):
         assert set(ra[ra >= 0].tolist()) == set(rb[rb >= 0].tolist())
+
+
+# --------------------------------------------------------- flash attention
+
+
+def _attn_case(dev, seed, b, s, hq, hkv, dh, dtype, t=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = s if t is None else t
+    q = torch.randn((b, s, hq, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, t, hkv, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, t, hkv, dh), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+ATTN = [
+    # b, s, t, hq, hkv, dh, causal, window
+    (1, 1024, 1024, 32, 16, 128, True, 0),  # gemma3 heads, global layer
+    (1, 1100, 1100, 32, 16, 128, True, 1024),  # gemma3 heads, local layer
+    (1, 600, 600, 36, 36, 64, True, 0),  # minicpm heads: GQA group 1, dh 64
+    (1, 700, 700, 64, 8, 128, True, 100),  # qwen3 heads: group 8
+    (2, 100, 100, 4, 2, 64, True, 0),  # group 2, S off the 64-row tile
+    (1, 1000, 1000, 4, 2, 128, True, 16),  # window below the tile, S >> window
+    (2, 77, 77, 4, 2, 64, False, 0),  # not causal, ragged
+    (1, 130, 130, 4, 1, 64, False, 24),  # not causal with a window
+    (1, 40, 100, 4, 2, 64, True, 0),  # S < T (query positions left-aligned)
+    (1, 90, 30, 4, 2, 32, False, 8),  # S > T: late rows keep no key and return 0
+    (1, 33, 33, 2, 1, 16, True, 0),  # dh 16, padded to the 32-wide build
+    (1, 70, 70, 2, 2, 200, True, 0),  # dh 200, padded to 256
+    (1, 65, 65, 2, 1, 256, True, 3),  # the widest dh the tiles hold
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.bfloat16, 2e-2, 2e-3), (torch.float32, 1e-4, 1e-4)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", ATTN)
+def test_flash_attention_matches_plain(dev, dtype, rtol, atol, b, s, t, hq, hkv, dh, causal, window):
+    """The kernel against its plain version on the same card inputs: one
+    launch, no plain call, finite output (no NaN from fully masked tiles).
+    Both compute in f32 and differ only in the order of the sums, so in bf16
+    the rounded outputs differ by at most one ulp (2^-7 of |o|): rtol covers
+    that, atol only outputs near 0, and the relative error stays within rtol/2."""
+    q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, dtype, t)
+    n0, c0 = fa.flash_attention.launches, fa.flash_attention_plain.calls
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1 and fa.flash_attention_plain.calls == c0
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    diff = torch.linalg.vector_norm(got.float() - want.float())
+    assert diff <= rtol / 2 * torch.linalg.vector_norm(want.float())
+
+
+@pytest.mark.cuda
+def test_flash_attention_limits(dev):
+    """dh beyond the tiles raises before launch, naming the limit; so does a
+    non-contiguous input."""
+    n0 = fa.flash_attention.launches
+    q, k, v = _attn_case(dev, 1, 1, 16, 2, 1, 257, torch.bfloat16)
+    with pytest.raises(ValueError, match="dh=257"):
+        fa.flash_attention(q, k, v)
+    q, k, v = _attn_case(dev, 2, 1, 16, 2, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    assert fa.flash_attention.launches == n0
+
+
+@pytest.mark.cuda
+def test_reduced_lm_serves_alike_on_card_and_cpu(dev):
+    """Reduced gemma3 in f32, the same weights on both devices: prefill and
+    decode logits within 2e-3, the SlotServer's tokens equal, and every
+    prefill layer launched the kernel on the card. The steps are
+    ``chip_smoke.py``'s card-against-CPU phase, run here as it runs there."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rec = {}
+    smoke.phase_lm_card_vs_cpu(rec)
+    assert rec["lm_card_vs_cpu"]["max_abs_logit_err"] <= 2e-3

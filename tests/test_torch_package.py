@@ -39,8 +39,19 @@ def test_import_leaves_out_jax_and_reference():
         env=dict(os.environ, PYTHONPATH=str(SRC)),
     )
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 15, out.stdout
+    # every module of the package imported: one per .py file, __init__ files included
+    files = sum(1 for _ in (SRC / "repro_torch").rglob("*.py"))
+    assert int(n) == files, out.stdout
     assert bad.strip() == "[]", out.stdout
+
+
+def test_no_library_attention_or_compile_in_the_package():
+    """The port's attention is its own kernel: no file of the package calls
+    ``scaled_dot_product_attention`` or ``torch.compile``."""
+    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+        text = path.read_text()
+        assert "scaled_dot_product_attention" not in text, path
+        assert "torch.compile" not in text, path
 
 
 def _ref_db_workload():
@@ -92,13 +103,14 @@ def test_kernel_build_is_lazy():
 )
 def test_ctypes_signatures_match_source(source, entry):
     """Every bound C entry point of every source takes as many arguments, of
-    the same kinds (pointer or int), as the .cu source declares."""
+    the same kinds (pointer, float or int), as the .cu source declares."""
     src = (_build.SRC_DIR / f"{source}.cu").read_text()
     m = re.search(rf"int {entry}\(([^)]*)\)", src)
     assert m, entry
     params = [p.strip() for p in m.group(1).split(",")]
-    kinds = ["p" if "*" in p else "i" for p in params]
-    want = ["p" if t is _build._P else "i" for t in _build.SIGNATURES[source][entry]]
+    kinds = ["p" if "*" in p else "f" if p.startswith("float ") else "i" for p in params]
+    kind_of = {_build._P: "p", _build._F: "f", _build._I: "i"}
+    want = [kind_of[t] for t in _build.SIGNATURES[source][entry]]
     assert kinds == want
 
 
