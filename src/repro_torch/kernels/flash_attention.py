@@ -3,8 +3,10 @@ grouped-query heads (the prefill hot path of the LM serving path).
 
 ``flash_attention`` takes ``q [B, S, Hq, dh]``, ``k``/``v [B, T, Hkv, dh]``
 (f32 or bf16, one type) and returns ``[B, S, Hq, dh]`` in q's type. On a
-CUDA tensor it launches the kernel of ``csrc/flash_attention.cu`` (or
-raises); on a CPU tensor it runs the plain version, ``flash_attention_plain``.
+CUDA tensor it launches a kernel of ``csrc/flash_attention.cu`` (or raises):
+bf16 inputs the tensor-core kernel (wgmma products, K/V tiles through a TMA
+ring), f32 inputs the CUDA-core kernel. On a CPU tensor it runs the plain
+version, ``flash_attention_plain``.
 ``launches`` on the wrapper counts kernel launches, ``calls`` on the plain
 version its calls.
 
@@ -24,14 +26,16 @@ import torch
 from . import _build
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
-MAX_HEAD_DIM = 256  # widest compiled width of csrc/flash_attention.cu (dh is zero-padded up to 32/64/128/256)
+MAX_HEAD_DIM = 256  # widest compiled width of csrc/flash_attention.cu (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
 
 
 def check_kernel_limits(dh: int) -> None:
-    """Raise ``ValueError`` for a head width the CUDA kernel cannot take: its
-    tiles at the next width above 256 (512) would need 289 KiB of shared
-    memory, beyond the 227 KiB a block may hold (``flash_smem_bytes`` in the
-    CUDA source). The plain version, on the CPU, has no limit."""
+    """Raise ``ValueError`` for a head width the CUDA kernels cannot take:
+    their tiles at the next width above 256 (512) would exceed the 227 KiB
+    of shared memory a block may hold (the f32 kernel's would need 289 KiB,
+    ``flash_smem_bytes``; the bf16 kernel's Q tile alone 128 KiB beside a
+    ring of two 128 KiB K/V stages, ``Smem``). The plain version, on the
+    CPU, has no limit."""
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"dh={dh}: the CUDA flash-attention kernel takes dh <= {MAX_HEAD_DIM} "
                          "(wider tiles exceed the 227 KiB of shared memory a block may hold); "
@@ -121,7 +125,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """See the module docstring. ``window`` 0 is global attention.
     ``q_chunk``/``kv_chunk`` are the plain version's chunks (CPU tensors);
-    the kernel tiles by 64 queries and 64 keys."""
+    the kernels tile by their own sizes (bf16: 128 queries and 64 or 128
+    keys; f32: 64 and 64)."""
     _check(q, k, v)
     window = int(window)
     if q.device.type == "cpu":
@@ -134,19 +139,29 @@ def flash_attention(
     check_kernel_limits(dh)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if q.numel() == 0 or T == 0:
+        return torch.zeros_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    # The bf16 kernel reads q, k and v with TMA, whose row strides must be
+    # multiples of 16 bytes: other widths are zero-padded to a multiple of 8
+    # on the card (zero columns add nothing to q·k and give zero outputs,
+    # which are cut off). TMA also wants 16-byte aligned bases.
+    dp = -(-dh // 8) * 8 if bf16 else dh
+    if dp != dh:
+        q, k, v = (torch.nn.functional.pad(x, (0, dp - dh)) for x in (q, k, v))
+    elif bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        q, k, v = (x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
-    if o.numel() == 0 or T == 0:
-        return o.zero_()
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, T, Hq, Hkv, dh, int(bool(causal)), window, dh**-0.5,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+            B, S, T, Hq, Hkv, dp, int(bool(causal)), window, dh**-0.5,
+            int(bf16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
-    return o
+    return o if dp == dh else o[..., :dh].contiguous()
 
 
 flash_attention.launches = 0

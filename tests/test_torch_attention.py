@@ -4,6 +4,9 @@ and the whole-row oracle, the plain chunked version against the reference's
 chunked ``models.attention.flash_attention``, the oracle itself, and the
 layers around attention (norm, rotary, MLP, projections, decode step).
 Inputs come from numpy and go to both packages."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -148,6 +151,108 @@ def test_wrapper_rejects_bad_inputs():
     q, k, v = _t(*_qkv(1, 8, 2, 1, 8))
     with pytest.raises(TypeError):
         fa.flash_attention(q.double(), k.double(), v.double())
+
+
+# ------------------------------------- the bf16 kernel's arithmetic, emulated
+
+ROOT = Path(__file__).resolve().parents[1]
+LOG2E = 1.4426950408889634
+
+
+def _attn_tol():
+    """``chip_smoke.py``'s ATTN_TOL, the limits the card holds the kernel to."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.ATTN_TOL
+
+
+def _bf16_kernel_emulation(q, k, v, *, causal, window, bn, exact_keys=64.0):
+    """The arithmetic of the bf16 kernel (``flash_fwd_wgmma_kernel`` in
+    ``csrc/flash_attention.cu``) in plain torch, for this test only. Per
+    64-row warpgroup, the BN-key tiles of its band in ascending order:
+    logits are bf16 q·k products summed in f32, multiplied by
+    scale·log2(e) after the product; only tiles that cross the diagonal,
+    the window's lower edge or T are masked (to -inf); the running max is
+    in log2 units from -3e38; p = exp2(logit - max) in f32 feeds the row
+    sums; P enters P·V (f32 sums) rounded to bf16, plus its bf16 remainder
+    on the tiles where some row of the warpgroup has fewer than
+    ``exact_keys`` effective keys, (sum p)^2 / sum p^2 (0 turns that off);
+    the output is acc / max(l, 1e-30), rounded to bf16."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    c = torch.tensor(dh**-0.5, dtype=torch.float32) * LOG2E
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    out = torch.zeros((b, s, hq, dh), dtype=torch.float32)
+    for wq0 in range(0, s, 64):
+        rows = min(64, s - wq0)
+        qpos = torch.arange(wq0, wq0 + 64)
+        w_lo = max(0, wq0 - window + 1) if window > 0 else 0
+        w_hi = min(t, wq0 + rows) if causal else t
+        for h in range(hq):
+            qh = torch.zeros((b, 64, dh))
+            qh[:, :rows] = qf[:, wq0:wq0 + rows, h]
+            kh, vh = kf[:, :, h // (hq // hkv)], vf[:, :, h // (hq // hkv)]
+            m = torch.full((b, 64), -3.0e38)
+            l = torch.zeros((b, 64))
+            l2 = torch.zeros((b, 64))
+            acc = torch.zeros((b, 64, dh))
+            for t0 in range((w_lo // bn) * bn, w_hi, bn):
+                kpos = torch.arange(t0, t0 + bn)
+                kt = torch.zeros((b, bn, dh))
+                vt = torch.zeros((b, bn, dh))
+                n = min(bn, t - t0)
+                kt[:, :n], vt[:, :n] = kh[:, t0:t0 + n], vh[:, t0:t0 + n]
+                logits = torch.einsum("bqd,bkd->bqk", qh, kt)
+                if (t0 + bn > t or (causal and t0 + bn - 1 > wq0)
+                        or (window > 0 and t0 <= wq0 + 63 - window)):
+                    keep = kpos[None, :] < t
+                    if causal:
+                        keep = keep & (kpos[None, :] <= qpos[:, None])
+                    if window > 0:
+                        keep = keep & (kpos[None, :] > qpos[:, None] - window)
+                    logits = logits.masked_fill(~keep, float("-inf"))
+                m_new = torch.maximum(m, logits.amax(-1) * c)
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(logits * c - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                l2 = l2 * alpha * alpha + (p * p).sum(-1)
+                hi = p.to(torch.bfloat16).float()
+                split = (l[:, :rows] ** 2 < exact_keys * l2[:, :rows]).any(-1)
+                lo = (p - hi).to(torch.bfloat16).float() * split[:, None, None]
+                acc = acc * alpha[..., None] + torch.einsum("bqk,bkd->bqd", hi + lo, vt)
+                m = m_new
+            out[:, wq0:wq0 + rows, h] = (acc / l.clamp_min(1e-30)[..., None])[:, :rows]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "s,window,dh,bn",
+    [(1100, 1024, 128, 128), (1024, 0, 128, 128), (300, 0, 256, 64)],
+    ids=["gemma3-window-1024", "gemma3-global", "dh256-bn64"],
+)
+def test_bf16_kernel_arithmetic_within_attn_tol(s, window, dh, bn):
+    """Justifies ``ATTN_TOL`` in bf16 before any card run. The kernel's new
+    roundings are P to bf16 before P·V and the scale applied after the
+    product (f32 rounding only). One bf16 rounding of P errs by up to 2^-9
+    of each p, about 1e-3 of |o| on average; on rows with few effective
+    keys that reaches the atol of 2e-3 where outputs cancel to near 0, so
+    the kernel adds P's bf16 remainder there (exact to ~2^-17). At
+    gemma3-like heads (4/2) its emulation stays within rtol 2e-2, atol 2e-3
+    of the plain version on the same bf16 inputs, at most a third of the
+    limit elementwise (the outputs' own bf16 rounding), with
+    ||got - want|| / ||want|| far under the 1e-2 limit."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(torch.bfloat16)
+               for sh in ((1, s, 4, dh), (1, s, 2, dh), (1, s, 2, dh)))
+    got = _bf16_kernel_emulation(q, k, v, causal=True, window=window, bn=bn).float()
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window).float()
+    rtol, atol, rel_tol = _attn_tol()[2]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    worst = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+    assert worst <= 0.5 and rel <= rel_tol / 4
 
 
 # ---------------------------------------------------------------- layers
