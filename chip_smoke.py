@@ -30,11 +30,17 @@
    through random ``lut_idx``, an eighth of each unit's slots padding at row
    0) and ``workunit_pq_scan`` (the same LUTs expanded) at W=256, TQ=64,
    M in {8, 16}, TV in {32..4096}, k in {10, 40}, valid density 0.7;
-   ``pq_scan`` at NV in {10^4, 10^6}, M=8, k=40; plus all-invalid, k above
-   the valid count and 2 valid rows of 1024 at k=4 (unfilled slots
-   (NEG_INF, -1)); scores within 1e-4, ids equal where untied; kernel, plain
-   version and the yardstick (``torch.gather`` + sum + masked
-   ``torch.topk``) timed beside each shape's bound;
+   plus all-invalid, k above the valid count and 2 valid rows of 1024 at
+   k=4 (unfilled slots (NEG_INF, -1)); scores within 1e-4, ids equal where
+   untied; kernel, plain version and the yardstick (``torch.gather`` + sum
+   + masked ``torch.topk``) timed beside each shape's bound. Then the
+   LUT-stationary kernels, bit-equal to their plain versions: the units
+   kernel at the engine's heaviest bucket shape [16384, 64, 64, 8, 40] with
+   a quarter of the slots real (the rest -1), the same with every real slot
+   on one row, every slot -1, and k′ 64 at TV 4096, each beside its bound,
+   plain version, yardstick, work-list time and staged LUT bytes;
+   ``pq_scan`` at NV in {10^4, 10^5, 10^6}, M=8, k=40, with its kernel's
+   own time from the profiler;
 6. the compressed (PQ) path at real size: the same data and workload,
    ``HQIConfig(scan_mode="pq")`` built on the card, ``search(nprobe=8)``
    once cold and three times warm; counters zeroed before the last search:
@@ -42,8 +48,9 @@
    version's count must stay 0 and no LUT may be expanded
    (``lut_expand_bytes``). Ids pass their filters with exact f32 scores;
    recall@10 against the exhaustive answer and against the f32 engine; a
-   traced and a profiled search; then the ADC kernel checked on every bucket
-   the path gave it and timed on the heaviest;
+   traced and a profiled search; then the ADC kernel checked bit for bit on
+   every bucket the path gave it (real slots, staged LUT bytes, time and
+   bound per bucket, and their sums) and timed on the heaviest;
 7. PQ card against CPU at 100k rows: segmented and dense layouts (the dense
    one drives ``workunit_pq_scan``) and a ``PQIndex`` with 64 queries and
    ``rerank=4`` (``pq_scan``), each against its CPU reload;
@@ -125,6 +132,15 @@ REPLACES = {
     "workunit_pq_scan": "src/repro/kernels/pq_scan.py:180",
     "pq_scan": "src/repro/kernels/pq_scan.py:86",
 }
+# each kernel's design: the kernels line marks the redesigned ones
+DESIGN = {
+    "flash_attention": "redesigned: bf16 wgmma products fed by a TMA ring",
+    "fused_knn": "query-stationary",
+    "fused_knn_db_stationary": "db-stationary, rows split over blocks, merge kernel",
+    "workunit_pq_scan_streamed": "redesigned: LUT-stationary, slots sorted by LUT row, warp select",
+    "workunit_pq_scan": "qb query slots a block, rows split over blocks, merge kernel",
+    "pq_scan": "redesigned: LUT-stationary, one launch, last block merges",
+}
 NEG_INF = -3.4e38
 # flash_attention kernel vs plain, by element size: (rtol, atol, limit on
 # ||got - want|| / ||want||); in bf16, P's rounding (~1e-3 of |o|, with its
@@ -160,6 +176,25 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """The device time (ms) of the launches whose name holds ``kernel``, per
+    call of ``fn``, from ``torch.profiler`` (a call's own host time, which
+    CUDA events around one small call also see, left out)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no launch of {kernel}")
+    return total / reps / 1e3
 
 
 def bound(q, v, valid, k: int, metric: str, q_live=None) -> tuple[float, str]:
@@ -538,22 +573,34 @@ def adc_bound(codes, valid, k: int, q_live, lut_rows: int) -> dict:
     """Least time (ms) of an ADC scan on these inputs, counting only what
     this data needs. Bytes over HBM: the codes of the valid rows (M bytes
     each), the mask of each unit holding a real query, each distinct LUT row
-    the real slots index read once (M·1 KiB; ``lut_rows`` of them), the real
-    slots' top-k written once. Operations over the fp32 peak: M adds per
-    (real query, valid row of its unit). Beside it, the LUT bytes streamed
-    per (unit, real slot), the count of the reference's profiler."""
+    the real slots index read once (M·1 KiB; ``lut_rows`` of them), and the
+    output the function writes: every slot's top-k (W·TQ·k·8 bytes, padding
+    slots included). Operations over the fp32 peak: M adds per (real query,
+    valid row of its unit). Beside it, the LUT bytes streamed per (unit,
+    real slot), the count of the reference's profiler."""
     W, TV, M = codes.shape
     nq_w = q_live.sum(1).double()
     nv_w = valid.sum(1).double()
     n_q, n_v = float(nq_w.sum()), float(nv_w.sum())
     n_units = int((nq_w > 0).sum())
     lut_row_bytes = M * 256 * 4
-    nbytes = n_v * M + n_units * TV + lut_rows * lut_row_bytes + n_q * k * 8
+    nbytes = n_v * M + n_units * TV + lut_rows * lut_row_bytes + q_live.numel() * k * 8
     ops_ = float(M) * float((nq_w * nv_w).sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "lut_streamed_bytes": n_q * lut_row_bytes,
             "valid_rows": int(n_v), "real_query_slots": int(n_q), "lut_rows": int(lut_rows)}
+
+
+def lut_staging(lut_idx, table_rows: int, tv: int, m: int) -> dict:
+    """What the LUT-stationary units kernel stages for these slots: one LUT
+    row per (block, run of one row), M·1 KiB each."""
+    from repro_torch.kernels import pq_scan as adc
+
+    p, g = adc.units_split(tv)
+    rows = adc.staged_lut_rows(adc.slot_order(lut_idx)[0], table_rows, p)
+    return {"slots_per_block": p, "warps_per_slot": g, "blocks": -(-lut_idx.numel() // p),
+            "staged_lut_rows": rows, "staged_lut_bytes": rows * m * 256 * 4}
 
 
 def adc_yardstick(luts, codes, valid, k: int):
@@ -575,6 +622,62 @@ def adc_yardstick_one(lut, codes, valid, k: int):
 
     s = torch.gather(lut, 1, codes.t().long()).sum(0)
     return torch.topk(s.masked_fill(~valid, NEG_INF), k)
+
+
+def exact(got, want, what: str) -> None:
+    """The card and the plain version agree bit for bit (same sums in the
+    same order, same ranks)."""
+    import torch
+
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{what}: the kernel and its plain version differ")
+
+
+def lut_stationary_cases(gen, check) -> list:
+    """The LUT-stationary units kernel (``workunit_pq_scan_streamed``) on the
+    engine's heaviest bucket shape [16384, 64, 64, 8, 40] with a quarter of
+    the slots real (rows drawn from 10,000 queries' tables), the same with
+    every real slot on one row, every slot padding (-1), and k′ 64 at TV
+    4096: bit-equal to the plain version, timed beside the bound, the plain
+    version and the yardstick."""
+    import torch
+
+    from repro_torch.kernels import pq_scan as adc
+
+    rows = []
+    U = 10_000
+    for label, W, TV, k in (("heavy", 16384, 64, 40), ("hot_row", 16384, 64, 40),
+                            ("all_padding", 16384, 64, 40), ("k64_tv4096", 256, 4096, 64)):
+        TQ, M = 64, 8
+        table = torch.randn((U, M, 256), generator=gen, device="cuda")
+        lut_idx = torch.randint(0, U, (W, TQ), generator=gen, device="cuda", dtype=torch.int32)
+        if label == "hot_row":
+            lut_idx[:] = 7
+        lut_idx[torch.rand((W, TQ), generator=gen, device="cuda") >= 0.25] = -1
+        if label == "all_padding":
+            lut_idx[:] = -1
+        codes = torch.randint(0, 256, (W, TV, M), generator=gen, device="cuda", dtype=torch.uint8)
+        valid = torch.rand((W, TV), generator=gen, device="cuda") < 0.7
+        q_live = lut_idx >= 0
+        args = (table, lut_idx, codes, valid)
+        got = adc.workunit_pq_scan_streamed(*args, k=k)
+        want = adc.workunit_pq_scan_streamed_plain(*args, k=k)
+        row = {"case": f"lut_stationary_{label}", "W": W, "TQ": TQ, "TV": TV, "M": M, "k": k,
+               "err": check("workunit_pq_scan_streamed", got, want)}
+        exact(got, want, f"workunit_pq_scan_streamed, {label}")
+        del got, want
+        row["ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed(*args, k=k), reps=21)
+        row["work_list_ms"] = cuda_ms(lambda: adc.slot_order(lut_idx), reps=21)
+        row["plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed_plain(*args, k=k), reps=5)
+        row["yardstick_ms"] = cuda_ms(lambda: adc_yardstick(table[lut_idx.clamp(min=0).long()], codes,
+                                                            valid, k), reps=5)
+        row["bound"] = adc_bound(codes, valid, k, q_live, int(torch.unique(lut_idx[q_live]).numel()))
+        row.update(lut_staging(lut_idx, U, TV, M))
+        rows.append(row)
+        log("[adc] " + json.dumps(row))
+        del table, lut_idx, codes, valid, args
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_adc_kernels(rec: dict, max_err: dict) -> None:
@@ -654,15 +757,19 @@ def phase_adc_kernels(rec: dict, max_err: dict) -> None:
         log(f"[adc] {label}: all three ADC wrappers match their plain versions")
     del luts
 
-    for nv in (10_000, 1_000_000):
+    rows += lut_stationary_cases(gen, check)
+
+    for nv in (10_000, 100_000, 1_000_000):
         lut = torch.randn((8, 256), generator=gen, device="cuda")
         codes = torch.randint(0, 256, (nv, 8), generator=gen, device="cuda", dtype=torch.uint8)
         valid = torch.rand((nv,), generator=gen, device="cuda") < 0.7
         k = 40
         row = {"case": "one_query", "NV": nv, "M": 8, "k": k}
-        row["err"] = check("pq_scan", adc.pq_scan(lut, codes, valid, k=k),
-                           adc.pq_scan_plain(lut, codes, valid, k=k))
+        got, want = adc.pq_scan(lut, codes, valid, k=k), adc.pq_scan_plain(lut, codes, valid, k=k)
+        row["err"] = check("pq_scan", got, want)
+        exact(got, want, f"pq_scan at NV {nv}")
         row["ms"] = cuda_ms(lambda: adc.pq_scan(lut, codes, valid, k=k))
+        row["device_ms"] = device_ms(lambda: adc.pq_scan(lut, codes, valid, k=k), "lut_stationary_rows_kernel")
         row["plain_ms"] = cuda_ms(lambda: adc.pq_scan_plain(lut, codes, valid, k=k))
         row["yardstick_ms"] = cuda_ms(lambda: adc_yardstick_one(lut, codes, valid, k))
         row["bound"] = adc_bound(codes[None], valid[None], k, torch.ones((1, 1), dtype=torch.bool,
@@ -802,15 +909,20 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
         if resident:
             args = (table, lut_idx, codes, valid)
             lut_rows = int(torch.unique(lut_idx[q_live]).numel())
-        else:
-            luts = table.index_select(0, lut_idx.reshape(-1)).reshape(*lut_idx.shape, M, 256)
+        else:  # padding slots expand row 0, as the engine's dense layout does
+            luts = table.index_select(0, lut_idx.clamp(min=0).reshape(-1)).reshape(*lut_idx.shape, M, 256)
             args = (luts, codes, valid)
             lut_rows = int(q_live.sum())
-        err = compare(kernel(*args, k=k), plain(*args, k=k), 1e-4)
+        got, want = kernel(*args, k=k), plain(*args, k=k)
+        err = compare(got, want, 1e-4)
+        exact(got, want, f"{name} on the bucket of lists padded to {lp}")
+        del got, want
         max_err[name] = max(max_err[name], err)
         row = {"kernel": name, "shape": [lut_idx.shape[0], lut_idx.shape[1], lp, M, k],
                "ms": cuda_ms(lambda: kernel(*args, k=k), reps=21), "max_abs_err": err}
         row.update(adc_bound(codes, valid, k, q_live, lut_rows))
+        if resident:
+            row.update(lut_staging(lut_idx, table.shape[0], lp, M))
         row["ms_over_bound"] = row["ms"] / row["bound_ms"]
         buckets.append(row)
         log(f"[{tag}] " + json.dumps(row))
@@ -820,12 +932,18 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
         del args
     _, row, args, k = heavy
     row = dict(row)
+    row["device_ms"] = device_ms(lambda: kernel(*args, k=k),
+                                 "lut_stationary_units_kernel" if resident else "adc_scan_kernel")
+    if resident:
+        row["work_list_ms"] = cuda_ms(lambda: adc.slot_order(args[1]), reps=21)
     row["plain_ms"] = cuda_ms(lambda: plain(*args, k=k), reps=11)
     row["yardstick_ms"] = cuda_ms(
-        lambda: adc_yardstick(args[0] if not resident else args[0][args[1].long()],
+        lambda: adc_yardstick(args[0] if not resident else args[0][args[1].clamp(min=0).long()],
                               args[-2], args[-1], k), reps=11)
     log(f"[{tag} heaviest] " + json.dumps(row))
-    return {"heaviest": row, "buckets": buckets}
+    total = {"ms": sum(b["ms"] for b in buckets), "bound_ms": sum(b["bound_ms"] for b in buckets)}
+    log(f"[{tag}] summed over the search's {len(buckets)} buckets: " + json.dumps(total))
+    return {"heaviest": row, "buckets": buckets, "summed": total}
 
 
 def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
@@ -887,10 +1005,15 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     max_err["pq_scan"] = max(max_err["pq_scan"], err)
     one = {"kernel": "pq_scan", "shape": [vecs.shape[0], 8, k], "max_abs_err": err,
            "ms": cuda_ms(lambda: adc.pq_scan(lut, codes, valid, k=k)),
+           "device_ms": device_ms(lambda: adc.pq_scan(lut, codes, valid, k=k), "lut_stationary_rows_kernel"),
            "plain_ms": cuda_ms(lambda: adc.pq_scan_plain(lut, codes, valid, k=k)),
            "yardstick_ms": cuda_ms(lambda: adc_yardstick_one(lut, codes, valid, k))}
     one.update(adc_bound(codes[None], valid[None], k, torch.ones((1, 1), dtype=torch.bool, device="cuda"), 1))
     one["ms_over_bound"] = one["ms"] / one["bound_ms"]
+    # the scan of one 64-query PQIndex.search (rerank=4): 64 launches back to back
+    luts = torch.from_numpy(adc_tables(pq_gpu.cb, q)).cuda()
+    one["ms_64_queries"] = cuda_ms(lambda: [adc.pq_scan(luts[r], codes, valid, k=k) for r in range(len(q))],
+                                   reps=11)
     log("[pq_scan heaviest] " + json.dumps(one))
     rec["pq_card_vs_cpu"] = {"n": 100_000, "queries": wl.m, "agree": True,
                              "dense_launches": launches4, "dense_lut_expand_bytes": expand,
@@ -1306,6 +1429,7 @@ def main() -> int:
     pq_run = phase_pq_main(rec, main_run)
     pq_heavy = adc_buckets(pq_run["index"], pq_run["wl"], resident=True, max_err=max_err, tag="pq")
     rec["pq_path_buckets"] = pq_heavy["buckets"]
+    rec["pq_path_buckets_summed"] = pq_heavy["summed"]
     del pq_run["index"], main_run["kg"]
     torch.cuda.empty_cache()
     per_phase = phase_pq_card_vs_cpu(rec, max_err)
@@ -1329,6 +1453,7 @@ def main() -> int:
         launches, h = timed[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+            "design": DESIGN[name],
             "launches": launches, "max_abs_err": max_err[name],
             "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h.get("library_ms"),
@@ -1341,9 +1466,12 @@ def main() -> int:
             entry["tflops"] = h["tflops"]
             entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                               "tflops", "bound_share")}
-        if "lut_streamed_bytes" in h:
-            entry["bound_bytes"] = h["bound_bytes"]
-            entry["lut_streamed_bytes"] = h["lut_streamed_bytes"]
+        for key in ("bound_bytes", "lut_streamed_bytes", "staged_lut_bytes", "real_query_slots",
+                    "device_ms", "work_list_ms", "ms_64_queries"):
+            if key in h:
+                entry[key] = h[key]
+        if name == "workunit_pq_scan_streamed":
+            entry["summed_over_buckets"] = pq_heavy["summed"]
         if launches <= 0:
             raise AssertionError(f"{name}: no launch on its path")
         kernels.append(entry)

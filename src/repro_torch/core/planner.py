@@ -48,7 +48,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.fused_knn import check_kernel_limits
-from ..kernels.pq_scan import NBOOK, check_pq_kernel_limits, pick_qb
+from ..kernels.pq_scan import NBOOK, check_lut_stationary_limits, check_pq_kernel_limits, pick_qb
 from ..obs.trace import fence, get_tracer
 from .arena import PackedArena
 from .ivf import IVFIndex, ScanStats
@@ -376,8 +376,12 @@ def _execute_plan_pq(
     dev = arena.device
     kprime = max(k, int(cfg.refine_factor) * k)
     M = arena.pq.m
-    if dev.type == "cuda":  # fail before any bucket is assembled
-        check_pq_kernel_limits(min(kprime, max(plan.buckets)), M, pick_qb(M, plan.tq))
+    if dev.type == "cuda":  # fail before any bucket is assembled, on the kernel that will run
+        kk = min(kprime, max(plan.buckets))
+        if cfg.merge_layout == "segmented":
+            check_lut_stationary_limits(kk, M)
+        else:
+            check_pq_kernel_limits(kk, M, pick_qb(M, plan.tq))
         check_kernel_limits(min(k, kprime), arena.d, 1)
 
     luts_dev, lut_pos = resident_luts(plan, arena, q_vecs)
@@ -404,14 +408,16 @@ def pq_bucket_operands(plan: ExecutionPlan, arena: PackedArena, lut_pos: np.ndar
 
     Returns (qrow_of i64 [W, tq] host, slot_of i64 [W, tq] host, rows [W, lp]
     packed rows, lut_idx i32 [W, tq] row of the resident LUT table per slot
-    (``lut_pos`` of its query; padding slots read row 0, their outputs are
-    dropped), codes uint8 [W, lp, M] gathered by one ``index_select``,
+    (``lut_pos`` of its query; -1 for a padding slot, which the resident
+    kernel never scores: ``repro`` points it at row 0, and both engines drop
+    its output), codes uint8 [W, lp, M] gathered by one ``index_select``,
     valid bool [W, lp]).
     """
     Vrows, valid, qrow_of, slot_of = _assemble_bucket(plan.buckets[lp], lp, plan, arena)
     dev = arena.device
     rows = torch.from_numpy(Vrows).to(dev)
-    lut_idx = torch.from_numpy(lut_pos[np.maximum(qrow_of, 0)].astype(np.int32)).to(dev)
+    lut_idx = torch.from_numpy(np.where(qrow_of >= 0, lut_pos[np.maximum(qrow_of, 0)], -1)
+                               .astype(np.int32)).to(dev)
     codes = arena.codes.index_select(0, rows.reshape(-1)).reshape(Vrows.shape[0], lp, arena.pq.m)
     return qrow_of, slot_of, rows, lut_idx, codes, torch.from_numpy(valid).to(dev)
 
@@ -436,7 +442,8 @@ def _iter_pq_buckets(plan, arena, luts_dev, lut_pos, kprime, *, resident: bool, 
                 s, i_loc = kops.workunit_pq_topk_resident(luts_dev, lut_idx, codes, valid_t, kk)
                 s, i_loc = fence(s, i_loc)
         else:
-            luts = luts_dev.index_select(0, lut_idx.reshape(-1)).reshape(W, plan.tq, M, NBOOK)
+            # padding slots expand row 0, as in ``repro``; their outputs are dropped
+            luts = luts_dev.index_select(0, lut_idx.clamp(min=0).reshape(-1)).reshape(W, plan.tq, M, NBOOK)
             _account_lut(stats, _nbytes(luts), expanded=True)
             with get_tracer().span("dispatch.scan", mode="pq", lp=lp, units=n_units):
                 s, i_loc = kops.workunit_pq_topk(luts, codes, valid_t, kk)

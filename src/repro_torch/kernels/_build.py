@@ -45,9 +45,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
     },
     "pq_scan": {
-        "adc_scan_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        "adc_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "lut_stationary_units_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
+        "lut_stationary_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, wgmma descriptors and products, register reallocation, and the host
-// side of a TMA tensor map. The attention kernel (flash_attention.cu) is
+// loads, cp.async, wgmma descriptors and products, register reallocation,
+// and the host side of a TMA tensor map. The attention kernel
+// (flash_attention.cu) and the LUT-stationary ADC scan (pq_scan.cu) are
 // written on them; each helper is one PTX instruction or a short fixed idiom.
 //
 // Shared-memory tiles here use the 128-byte swizzle: TMA writes a box whose
@@ -73,6 +74,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// -------------------------------------------------------------- cp.async
+
+// 16 bytes from global into shared memory without passing through registers
+// (both addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's most recent cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ----------------------------------------------------------------- wgmma

@@ -168,7 +168,7 @@ def workunit_pq_topk(
 
 def workunit_pq_topk_resident(
     table: torch.Tensor,  # f32 [U, M, 256] — the workload's resident ADC tables
-    lut_idx: torch.Tensor,  # i32 [W, TQ] — per-slot row into ``table``
+    lut_idx: torch.Tensor,  # i32 [W, TQ] — per-slot row into ``table`` (-1: no query)
     codes: torch.Tensor,  # uint8 [W, TV, M]
     valid: torch.Tensor,  # bool [W, TV]
     k: int,
@@ -176,7 +176,8 @@ def workunit_pq_topk_resident(
     """Compressed work-unit dispatch indexing the resident LUT table: the
     kernel reads each slot's row from ``table`` (``workunit_pq_scan_streamed``),
     so no [W, TQ, M, 256] operand exists. Equal to ``workunit_pq_topk`` over
-    ``table[lut_idx]``, bit for bit."""
+    ``table[lut_idx]``, bit for bit, on every slot of index >= 0; a slot of
+    index -1 holds no query and gives ``(NEG_INF, -1)``."""
     _DISPATCH.record_knn(("pq-res", lut_idx.shape[0], lut_idx.shape[1], codes.shape[1], int(k)))
     return workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=int(k))
 

@@ -1,15 +1,19 @@
 """ADC scan (PQ lookup-table scores) + top-k over uint8 codes.
 
-Three wrappers over the one CUDA kernel of ``csrc/pq_scan.cu``, each named
-and shaped as the Pallas kernel it replaces (``repro.kernels.pq_scan``):
+Three wrappers over the kernels of ``csrc/pq_scan.cu``, each named and
+shaped as the Pallas kernel it replaces (``repro.kernels.pq_scan``):
 
   * ``workunit_pq_scan_streamed`` — the engine's segmented path: each unit
     slot's LUT row is read from the resident table ``[U, M, 256]`` through
-    ``lut_idx [W, TQ]``, so no ``[W, TQ, M, 256]`` operand exists;
+    ``lut_idx [W, TQ]``, so no ``[W, TQ, M, 256]`` operand exists. A slot
+    whose index is -1 holds no query. The LUT-stationary kernel: the slots
+    are sorted by table row (``slot_order``), a block takes ``P`` of them in
+    that order and stages each run's LUT row once;
   * ``workunit_pq_scan`` — the dense layout: per-unit expanded LUTs
-    ``[W, TQ, M, 256]``;
+    ``[W, TQ, M, 256]`` (``adc_scan_kernel``, ``qb`` query slots a block);
   * ``pq_scan`` — one query's LUT ``[M, 256]`` against ``NV`` code rows, the
-    rows split over about one block per SM.
+    rows split over about one block per SM, the blocks' lists merged by the
+    last block in the same launch (the LUT-stationary kernel again).
 
 ``score[q, v] = Σ_m lut[q, m, code[v, m]]`` (summed in the order m = 0 …
 M-1, see ``ref.adc_scores_ref``), rows with ``valid`` false never
@@ -21,6 +25,9 @@ counter). ``launches`` on each wrapper counts kernel launches.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 from . import _build
@@ -30,12 +37,14 @@ from .fused_knn import MAX_K, SMEM_OPTIN_BYTES
 SPLIT_ROWS = 1024  # rows per block of a work unit beyond which its rows split over blocks
 NBOOK = 256  # entries per PQ codebook (8-bit codes)
 _THREADS, _CODE_ROWS, _LUT_PAD = 256, 256, 4  # kThreads, kCodeRows, kLutPad of csrc/pq_scan.cu
-_ONE_QUERY_BLOCKS = 132  # pq_scan splits its rows over about one block per SM (H100: 132)
+# lutst::kWarps, kStages, kChunk, kMaxRange of csrc/pq_scan.cu, and topk.cuh's kSelectBuf
+_WARPS, _STAGES, _CHUNK, _MAX_RANGE, _SELECT_BUF = 8, 4, 32, 128, 64
 
 
 def pick_qb(m: int, tq: int) -> int:
-    """Queries per block: the largest power of two with qb·M ≤ 64 (64 KiB of
-    LUT rows in shared memory, whatever M), and no more than TQ needs."""
+    """Queries per block of ``adc_scan_kernel``: the largest power of two with
+    qb·M ≤ 64 (64 KiB of LUT rows in shared memory, whatever M), and no more
+    than TQ needs."""
     qb = 1
     while 2 * qb * m <= 64 and qb < tq:
         qb *= 2
@@ -43,32 +52,121 @@ def pick_qb(m: int, tq: int) -> int:
 
 
 def adc_smem_bytes(m: int, qb: int, k: int) -> int:
-    """Dynamic shared memory of one ADC block (mirrors ``adc_smem_bytes`` in
-    ``csrc/pq_scan.cu``): the chunk's LUT rows plus a code and valid tile, or
-    the lane-fold area, whichever is larger."""
+    """Dynamic shared memory of one ``adc_scan_kernel`` block (mirrors
+    ``adc_smem_bytes`` in ``csrc/pq_scan.cu``): the chunk's LUT rows plus a
+    code and valid tile, or the lane-fold area, whichever is larger."""
     kb = next(b for b in (8, 16, 32, 64) if k <= b)
     tile = qb * (m * NBOOK + _LUT_PAD) * 4 + _CODE_ROWS * m + _CODE_ROWS
     return max(tile, _THREADS * (kb * 8 + 4))
 
 
-# widest M the kernel takes: one query's LUT row and the code tile in shared memory
+# widest M adc_scan_kernel takes: one query's LUT row and the code tile in shared memory
 MAX_M = max(m for m in range(1, 1024) if adc_smem_bytes(m, 1, MAX_K) <= SMEM_OPTIN_BYTES)
 
 
-def check_pq_kernel_limits(k: int, m: int, qb: int) -> None:
-    """Raise ``ValueError`` for a problem the ADC kernel cannot take: k above
-    ``MAX_K`` (register lists), or M whose LUT chunk of ``qb`` queries does
-    not fit shared memory (the widest is ``MAX_M`` at one query a block). The
-    plain versions, on the CPU, have neither limit."""
+def lut_stationary_smem_bytes(m: int) -> int:
+    """Dynamic shared memory of one LUT-stationary block (mirrors
+    ``lutst::smem_bytes`` in ``csrc/pq_scan.cu``): one query's LUT row, each
+    warp's ring of item stages (32 rows of codes, 16-byte padded, and their
+    mask) and candidate buffer, and the block's range of slots with its
+    runs."""
+    stage = (_CHUNK * m + 15) // 16 * 16 + _CHUNK
+    return (m * NBOOK * 4 + _WARPS * _STAGES * stage + _WARPS * _SELECT_BUF * 8
+            + _MAX_RANGE * 3 * 4 + (_MAX_RANGE + 1) * 4 + 16)
+
+
+# widest M the LUT-stationary kernels take: one query's LUT row plus the rings
+LUT_STATIONARY_MAX_M = max(m for m in range(1, 1024)
+                           if lut_stationary_smem_bytes(m) <= SMEM_OPTIN_BYTES)
+
+
+def _check_k(k: int) -> None:
     if k > MAX_K:
         raise ValueError(f"k={k}: the ADC kernels take k <= {MAX_K} (with refine_factor, "
                          f"k' = refine_factor·k); use a smaller k or refine_factor, or an "
                          f"index on the CPU")
+
+
+def check_pq_kernel_limits(k: int, m: int, qb: int) -> None:
+    """Raise ``ValueError`` for a problem ``adc_scan_kernel`` (the dense
+    layout's ``workunit_pq_scan``) cannot take: k above ``MAX_K`` (register
+    lists), or M whose LUT chunk of ``qb`` queries does not fit shared
+    memory (the widest is ``MAX_M`` at one query a block). The plain
+    versions, on the CPU, have neither limit."""
+    _check_k(k)
     need = adc_smem_bytes(m, qb, k)
     if need > SMEM_OPTIN_BYTES:
         raise ValueError(f"M={m}: the ADC kernel's LUT chunk of {qb} queries needs {need} "
                          f"bytes of shared memory, above {SMEM_OPTIN_BYTES} (the widest M "
                          f"is {MAX_M}); use an index on the CPU")
+
+
+def check_lut_stationary_limits(k: int, m: int) -> None:
+    """Raise ``ValueError`` for a problem the LUT-stationary kernels
+    (``workunit_pq_scan_streamed``, ``pq_scan``) cannot take: k above
+    ``MAX_K`` (warp lists of 64), or M whose LUT row and rings do not fit
+    shared memory (the widest is ``LUT_STATIONARY_MAX_M``)."""
+    _check_k(k)
+    need = lut_stationary_smem_bytes(m)
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"M={m}: the LUT-stationary ADC kernel's LUT row and rings need "
+                         f"{need} bytes of shared memory, above {SMEM_OPTIN_BYTES} (the "
+                         f"widest M is {LUT_STATIONARY_MAX_M}); use an index on the CPU")
+
+
+# --------------------------------------------------- the units kernel's work
+
+
+def slot_order(lut_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The work list of ``workunit_pq_scan_streamed``: the W·TQ slots sorted
+    by table row, stably. Returns (rows int32 [W·TQ] ascending, slot indices
+    int64 [W·TQ], w·TQ + t); the -1 slots form one run, each row's slots
+    keep their slot order. Runs on the tensor's device with no host copy."""
+    return torch.sort(lut_idx.reshape(-1), stable=True)
+
+
+def units_split(tv: int) -> tuple[int, int]:
+    """(P, g) of the units kernel: a block takes P slots, a slot's 32-row
+    chunks go to g warps. Up to 16 chunks (TV 512) a warp takes a slot and a
+    block about 32 chunks a warp (P = 128 at TV 64, 16 at TV 512); longer
+    units split over the block's 8 warps, P giving each about 16 chunks (P =
+    4 at TV 1024, 1 at TV 4096), so a row that few slots share does not
+    leave most warps waiting for the next."""
+    chunks = -(-tv // _CHUNK)
+    if chunks <= 16:
+        return min(_MAX_RANGE, 256 // chunks), 1
+    return max(1, 128 // chunks), _WARPS
+
+
+def staged_lut_rows(rows: torch.Tensor, u: int, p: int) -> int:
+    """LUT rows the units kernel stages for sorted rows ``rows`` (from
+    ``slot_order``) and ``p`` slots a block: one per run of a real row
+    inside each block's range (indices other than -1 clamped into ``[0,
+    u)``, as the kernel does)."""
+    r = torch.where(rows == -1, rows, rows.clamp(0, u - 1))
+    pos = torch.arange(r.numel(), device=r.device)
+    first = (pos % p == 0) | (r != torch.roll(r, 1))
+    return int((first & (r != -1)).sum())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _on(dev: torch.device):
+    """A launch's device guard, skipped when ``dev`` is already current (it
+    costs host time on every call, and ``pq_scan`` is host-bound)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def row_blocks(nv: int, sms: int) -> int:
+    """Blocks of ``pq_scan``'s launch: about one per SM, fewer where a warp
+    would get under two chunks of 32 rows."""
+    chunks = -(-nv // _CHUNK)
+    return max(1, min(sms, -(-chunks // (2 * _WARPS))))
 
 
 # ------------------------------------------------------------ plain versions
@@ -82,7 +180,8 @@ def workunit_pq_scan_plain(luts, codes, valid, *, k: int):
 
 def workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, *, k: int):
     """Plain version of ``workunit_pq_scan_streamed``:
-    ``ref.workunit_pq_topk_resident_ref``."""
+    ``ref.workunit_pq_topk_resident_ref`` (-1 slots are ``(NEG_INF, -1)``,
+    any other index outside ``[0, U)`` raises)."""
     workunit_pq_scan_streamed_plain.calls += 1
     return _ref.workunit_pq_topk_resident_ref(table, lut_idx, codes, valid, int(k))
 
@@ -124,49 +223,27 @@ def _check_lut(lut, lead: tuple) -> None:
 
 
 def _same_device(*tensors) -> None:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError(f"tensors on different devices: {sorted({str(t.device) for t in tensors})}")
 
 
-# ------------------------------------------------------------------ launch
-
-
-def _launch(lut, lut_idx, codes, valid, *, k: int, W: int, TQ: int, U: int,
-            chunk_rows: int, what: str):
-    """Launch the ADC kernel on CUDA tensors; returns (f32 [W, TQ, k], i32
-    [W, TQ, k])."""
-    if codes.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu tensors, got {codes.device}")
-    TV, M = codes.shape[-2], codes.shape[-1]
-    qb = pick_qb(M, TQ)
-    check_pq_kernel_limits(k, M, qb)
-    tensors = [lut, codes, valid] + ([] if lut_idx is None else [lut_idx])
-    if not all(t.is_contiguous() for t in tensors):
+def _check_launch(what: str, lut, *tensors) -> None:
+    """CUDA tensors, contiguous, the LUTs on a 16-byte boundary."""
+    if lut.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {lut.device}")
+    if not all(t.is_contiguous() for t in (lut,) + tensors):
         raise ValueError(f"{what}: every input must be contiguous")
     if lut.data_ptr() % 16:
         raise ValueError(f"{what}: the LUTs must start on a 16-byte boundary")
-    out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=codes.device)
-    S = -(-TV // chunk_rows)
-    part_s = torch.empty((W, S, TQ, k) if S > 1 else (0,), dtype=torch.float32, device=codes.device)
-    part_i = torch.empty((W, S, TQ, k) if S > 1 else (0,), dtype=torch.int32, device=codes.device)
-    lib = _build.library("pq_scan")
-    with torch.cuda.device(codes.device):
-        rc = lib.adc_scan_launch(
-            lut.data_ptr(), None if lut_idx is None else lut_idx.data_ptr(),
-            codes.data_ptr(), valid.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            W, TQ, TV, M, U, k, qb, chunk_rows,
-            torch.cuda.current_stream(codes.device).cuda_stream,
-        )
-    _build.check(lib, rc, what)
-    return out_s, out_i
+
+
+# ------------------------------------------------------------------ wrappers
 
 
 def workunit_pq_scan_streamed(
     table: torch.Tensor,  # f32 [U, M, 256] — resident per-query ADC tables
-    lut_idx: torch.Tensor,  # i32 [W, TQ] — table row per unit slot (0 for padding)
+    lut_idx: torch.Tensor,  # i32 [W, TQ] — table row per unit slot (-1: no query)
     codes: torch.Tensor,  # uint8 [W, TV, M] — gathered code rows per unit
     valid: torch.Tensor,  # bool [W, TV]
     *,
@@ -174,8 +251,9 @@ def workunit_pq_scan_streamed(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Work-unit ADC scan reading each slot's LUT row from the resident
     table. Returns (scores f32 [W, TQ, k] best-first, idx i32 [W, TQ, k]).
-    An index outside ``[0, U)`` is a caller's error: the plain version
-    raises, the kernel clamps it into the table."""
+    A slot of index -1 holds no query: it gives ``(NEG_INF, -1)`` and is
+    never scored. Any other index outside ``[0, U)`` is a caller's error:
+    the plain version raises, the kernel clamps it into the table."""
     k = int(k)
     _check_lut(table, (table.shape[0],))
     if lut_idx.dim() != 2 or lut_idx.dtype != torch.int32:
@@ -187,10 +265,24 @@ def workunit_pq_scan_streamed(
     if codes.device.type == "cpu":
         return workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
     W, TQ = lut_idx.shape
-    out = _launch(table, lut_idx, codes, valid, k=k, W=W, TQ=TQ, U=table.shape[0],
-                  chunk_rows=SPLIT_ROWS, what="workunit_pq_scan_streamed")
+    TV, M = codes.shape[1], codes.shape[2]
+    check_lut_stationary_limits(k, M)
+    _check_launch("workunit_pq_scan_streamed", table, lut_idx, codes, valid)
+    if table.shape[0] < 1:
+        raise ValueError("workunit_pq_scan_streamed: the table has no row")
+    rows, order = slot_order(lut_idx)
+    out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=codes.device)
+    lib = _build.library("pq_scan")
+    with _on(codes.device):
+        rc = lib.lut_stationary_units_launch(
+            table.data_ptr(), rows.data_ptr(), order.data_ptr(), codes.data_ptr(), valid.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, table.shape[0], k, *units_split(TV),
+            torch.cuda.current_stream(codes.device).cuda_stream,
+        )
+    _build.check(lib, rc, "workunit_pq_scan_streamed")
     workunit_pq_scan_streamed.launches += 1
-    return out
+    return out_s, out_i
 
 
 workunit_pq_scan_streamed.launches = 0
@@ -217,10 +309,25 @@ def workunit_pq_scan(
     if codes.device.type == "cpu":
         return workunit_pq_scan_plain(luts, codes, valid, k=k)
     W, TQ = luts.shape[:2]
-    out = _launch(luts, None, codes, valid, k=k, W=W, TQ=TQ, U=W * TQ,
-                  chunk_rows=SPLIT_ROWS, what="workunit_pq_scan")
+    TV, M = codes.shape[1], codes.shape[2]
+    qb = pick_qb(M, TQ)
+    check_pq_kernel_limits(k, M, qb)
+    _check_launch("workunit_pq_scan", luts, codes, valid)
+    out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=codes.device)
+    out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=codes.device)
+    S = -(-TV // SPLIT_ROWS)
+    part_s = torch.empty((W, S, TQ, k) if S > 1 else (0,), dtype=torch.float32, device=codes.device)
+    part_i = torch.empty((W, S, TQ, k) if S > 1 else (0,), dtype=torch.int32, device=codes.device)
+    lib = _build.library("pq_scan")
+    with _on(codes.device):
+        rc = lib.adc_scan_launch(
+            luts.data_ptr(), codes.data_ptr(), valid.data_ptr(), part_s.data_ptr(),
+            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, k, qb,
+            SPLIT_ROWS, torch.cuda.current_stream(codes.device).cuda_stream,
+        )
+    _build.check(lib, rc, "workunit_pq_scan")
     workunit_pq_scan.launches += 1
-    return out
+    return out_s, out_i
 
 
 workunit_pq_scan.launches = 0
@@ -243,13 +350,26 @@ def pq_scan(
     _same_device(lut, codes, valid)
     if codes.device.type == "cpu":
         return pq_scan_plain(lut, codes, valid, k=k)
-    nv = codes.shape[0]
-    per_block = -(-nv // _ONE_QUERY_BLOCKS)
-    chunk = max(SPLIT_ROWS, -(-per_block // _CODE_ROWS) * _CODE_ROWS)
-    s, i = _launch(lut, None, codes, valid, k=k, W=1, TQ=1, U=1,
-                   chunk_rows=chunk, what="pq_scan")
+    nv, M = codes.shape
+    check_lut_stationary_limits(k, M)
+    _check_launch("pq_scan", lut, codes, valid)
+    dev = codes.device
+    G = row_blocks(nv, _sm_count(dev.index))
+    # one allocation (int32 words): the output's scores and ids, the blocks'
+    # lists (scores, then ids), and the counter, which the launch entry
+    # zeroes on the stream just before the kernel
+    buf = torch.empty((2 * (G + 1) * k + 1,), dtype=torch.int32, device=dev)
+    out_s, out_i = buf[:k].view(torch.float32), buf[k:2 * k]
+    base = buf.data_ptr()
+    lib = _build.library("pq_scan")
+    with _on(dev):
+        rc = lib.lut_stationary_rows_launch(
+            lut.data_ptr(), codes.data_ptr(), valid.data_ptr(), base + 8 * k, base + 8 * k + 4 * G * k,
+            base + 8 * (G + 1) * k, base, base + 4 * k, nv, M, k, G, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "pq_scan")
     pq_scan.launches += 1
-    return s[0, 0], i[0, 0]
+    return out_s, out_i
 
 
 pq_scan.launches = 0

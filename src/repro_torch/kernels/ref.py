@@ -191,21 +191,36 @@ def workunit_pq_topk_ref(
 
 def workunit_pq_topk_resident_ref(
     table: torch.Tensor,  # f32 [U, M, 256] — resident ADC tables
-    lut_idx: torch.Tensor,  # int [W, TQ] — row of ``table`` per unit slot
+    lut_idx: torch.Tensor,  # int [W, TQ] — row of ``table`` per unit slot (-1: no query)
     codes: torch.Tensor,  # uint8/int [W, TV, M]
     valid: torch.Tensor,  # bool [W, TV]
     k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``workunit_pq_topk_ref`` over ``table[lut_idx]``, bit for bit, without
     expanding the table: each subspace's lookup reads (LUT row, code)
-    straight from ``table``, summed in the same order."""
-    li = lut_idx.to(torch.int64)[:, :, None]  # [W, TQ, 1]
-    c = codes.to(torch.int64)
-    W, TQ = lut_idx.shape
-    scores = torch.zeros((W, TQ, c.shape[1]), dtype=torch.float32, device=table.device)
+    straight from ``table``, summed in the same order. A slot of index -1
+    holds no query: it is ``(NEG_INF, -1)`` and reads nothing. Any other
+    index outside ``[0, U)`` raises ``IndexError`` (no wrap-around)."""
+    li = lut_idx.to(torch.int64)
+    U = table.shape[0]
+    bad = (li < -1) | (li >= U)
+    if bool(bad.any()):
+        raise IndexError(f"lut_idx {int(li[bad][0])} outside [0, {U}) (-1 marks a slot with no query)")
+    W, TQ = li.shape
+    k = int(k)
+    out_s = torch.full((W, TQ, k), NEG_INF, dtype=torch.float32, device=table.device)
+    out_i = torch.full((W, TQ, k), -1, dtype=torch.int32, device=table.device)
+    w, t = torch.nonzero(li >= 0, as_tuple=True)
+    if w.numel() == 0:
+        return out_s, out_i
+    rows = li[w, t][:, None]  # [n, 1]
+    scores = torch.zeros((w.numel(), codes.shape[1]), dtype=torch.float32, device=table.device)
     for j in range(table.shape[1]):
-        scores = scores + table[:, j, :].to(torch.float32)[li, c[:, None, :, j]]
-    return _masked_topk_of_scores(scores, valid, int(k))
+        scores = scores + table[:, j, :].to(torch.float32)[rows, codes[:, :, j].to(torch.int64)[w]]
+    s, i = _masked_topk_of_scores(scores[:, None, :], valid[w], k)
+    out_s[w, t] = s[:, 0]
+    out_i[w, t] = i[:, 0]
+    return out_s, out_i
 
 
 def flash_attention_ref(

@@ -1,5 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: both ``fused_knn`` grids, the three ADC wrappers of ``pq_scan`` and
+card: both ``fused_knn`` grids, the three ADC wrappers of ``pq_scan`` (the
+LUT-stationary kernels and ``adc_scan_kernel``) and
 ``flash_attention`` (with the reduced LM served on the card against the CPU).
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels are CUDA C++ with no CPU mode).
@@ -238,7 +239,9 @@ def test_adc_sparse_masks(dev, name):
 @pytest.mark.cuda
 def test_adc_limits(dev):
     """k above MAX_K and an M whose LUT row overflows shared memory raise
-    before launch, naming the limit; the widest M runs and matches."""
+    before launch, naming the limit; the widest M runs and matches (the
+    LUT-stationary kernels: ``LUT_STATIONARY_MAX_M``; ``adc_scan_kernel``:
+    ``MAX_M``)."""
     table, lut_idx, codes, valid = _adc_case(dev, 6, 2, 8, 300, 8)
     n0 = adc.workunit_pq_scan_streamed.launches
     with pytest.raises(ValueError, match=f"k={MAX_K + 1}"):
@@ -246,14 +249,102 @@ def test_adc_limits(dev):
     with pytest.raises(ValueError, match="contiguous"):
         adc.workunit_pq_scan_streamed(table, lut_idx.t().contiguous().t(), codes, valid, k=4)
     assert adc.workunit_pq_scan_streamed.launches == n0
-    for M, fits in ((adc.MAX_M, True), (adc.MAX_M + 1, False)):
-        table, lut_idx, codes, valid = _adc_case(dev, 7, 1, 1, 500, M)
-        if fits:
-            got, want = _adc_run("pq_scan", table, lut_idx, codes, valid, 10)
-            _check(got, want, 1e-4)
-        else:
-            with pytest.raises(ValueError, match=f"M={M}"):
-                _adc_run("pq_scan", table, lut_idx, codes, valid, 10)
+    for name, widest in (("pq_scan", adc.LUT_STATIONARY_MAX_M), ("workunit_pq_scan", adc.MAX_M)):
+        for M, fits in ((widest, True), (widest + 1, False)):
+            table, lut_idx, codes, valid = _adc_case(dev, 7, 1, 1, 500, M)
+            if fits:
+                got, want = _adc_run(name, table, lut_idx, codes, valid, 10)
+                _check(got, want, 1e-4)
+            else:
+                with pytest.raises(ValueError, match=f"M={M}"):
+                    _adc_run(name, table, lut_idx, codes, valid, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["workunit_pq_scan_streamed", "pq_scan"])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_lut_stationary_m_limit(dev, name, delta):
+    """M at the LUT-stationary limit ± 1: below and at it the kernel runs and
+    equals its plain version bit for bit; above it the wrapper raises before
+    any launch."""
+    M = adc.LUT_STATIONARY_MAX_M + delta
+    table, lut_idx, codes, valid = _adc_case(dev, 8 + delta, 3, 16, 200, M)
+    fn = getattr(adc, name)
+    n0 = fn.launches
+    if delta > 0:
+        with pytest.raises(ValueError, match=f"M={M}: the LUT-stationary"):
+            _adc_run(name, table, lut_idx, codes, valid, 10)
+        assert fn.launches == n0
+        return
+    (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, 10)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "W,TQ,TV,M,k",
+    [(64, 64, 64, 8, 40), (8, 64, 4096, 8, 64), (5, 3, 37, 12, 10), (7, 9, 100, 5, 33), (3, 64, 1100, 16, 64)],
+)
+def test_lut_stationary_units(dev, W, TQ, TV, M, k):
+    """The units kernel on the engine's heaviest bucket shape, k′ 64 at TV
+    4096 (eight warps a slot), and sources off the 16-byte grid (TV 37, M
+    5): a quarter of the slots are padding (-1), the rest read random rows;
+    bit-equal to the plain version, padding (NEG_INF, -1)."""
+    table, lut_idx, codes, valid = _adc_case(dev, W + TV + k, W, TQ, TV, M, U=97)
+    lut_idx[:, TQ - TQ // 4:] = -1
+    got = adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k)
+    want = adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    pad = lut_idx == -1
+    assert (got[1][pad] == -1).all() and (got[0][pad] == -3.4e38).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tv", [64, 1100])  # a warp a slot; eight warps a slot
+@pytest.mark.parametrize("case", ["one_row", "all_padding", "one_row_and_padding"])
+def test_lut_stationary_heavy_row_and_padding(dev, case, tv):
+    """Every slot on one table row (a hot query spread over all blocks), every
+    slot -1, and one row beside padding; W·TQ off every block range."""
+    table, lut_idx, codes, valid = _adc_case(dev, 9, 333, 7, tv, 8, U=5)
+    if case == "one_row":
+        lut_idx[:] = 3
+    elif case == "all_padding":
+        lut_idx[:] = -1
+    else:
+        lut_idx[:] = 3
+        lut_idx[::2, 1:] = -1
+    n0 = adc.workunit_pq_scan_streamed.launches
+    got = adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=40)
+    want = adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=40)
+    torch.cuda.synchronize()
+    assert adc.workunit_pq_scan_streamed.launches == n0 + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_pq_scan_is_one_launch_at_a_million_rows(dev):
+    """pq_scan at NV 10^6: one launch of the LUT-stationary rows kernel (the
+    blocks' lists merge inside it), no merge kernel, bit-equal to the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    lut = torch.randn((8, 256), generator=g, device=dev)
+    codes = torch.randint(0, 256, (1_000_000, 8), generator=g, device=dev, dtype=torch.uint8)
+    valid = torch.rand((1_000_000,), generator=g, device=dev) < 0.7
+    adc.pq_scan(lut, codes, valid, k=40)  # built and warm
+    torch.cuda.synchronize()
+    n0 = adc.pq_scan.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = adc.pq_scan(lut, codes, valid, k=40)
+        torch.cuda.synchronize()
+    assert adc.pq_scan.launches == n0 + 1
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("lut_stationary_rows_kernel" in n for n in names) == 1, names
+    assert not any("merge_partials" in n or "adc_scan_kernel" in n for n in names), names
+    want = adc.pq_scan_plain(lut, codes, valid, k=40)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

@@ -54,12 +54,20 @@ from repro_torch.core.pq import (
 )
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_knn import MAX_K
+from repro_torch.core.ivf import ScanStats
+from repro_torch.core.plan import build_plan
+from repro_torch.core.planner import pq_bucket_operands, resident_luts
 from repro_torch.kernels.pq_scan import (
+    LUT_STATIONARY_MAX_M,
     MAX_M,
+    check_lut_stationary_limits,
     check_pq_kernel_limits,
     pick_qb,
     pq_scan,
     pq_scan_plain,
+    slot_order,
+    staged_lut_rows,
+    units_split,
     workunit_pq_scan,
     workunit_pq_scan_plain,
     workunit_pq_scan_streamed,
@@ -277,6 +285,232 @@ def test_pick_qb():
     assert pick_qb(8, 1) == 1 and pick_qb(8, 3) == 4
 
 
+@pytest.mark.parametrize(
+    "k,m,fits",
+    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, False), (10, LUT_STATIONARY_MAX_M, True),
+     (10, LUT_STATIONARY_MAX_M + 1, False)],
+)
+def test_lut_stationary_limits(k, m, fits):
+    """The LUT-stationary kernels' limits: k through the warp lists, M
+    through one LUT row plus the rings; narrower than ``adc_scan_kernel``'s
+    M limit, which serves the dense layout."""
+    assert LUT_STATIONARY_MAX_M < MAX_M
+    if fits:
+        check_lut_stationary_limits(k, m)
+    else:
+        with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}: the LUT-stationary"):
+            check_lut_stationary_limits(k, m)
+
+
+# ------------------------------------------------- the -1 slot and the work list
+
+
+def _resident_case(seed, w, tq, nv, m, u):
+    """A resident table of u rows (from a trained codebook), per-slot row
+    indices, codes and a mask."""
+    luts, codes, valid = _adc_case(seed, 1, u, nv, m)
+    table = luts[0]
+    rng = np.random.default_rng(seed + 1)
+    lut_idx = rng.integers(0, u, size=(w, tq)).astype(np.int32)
+    codes = codes[0][rng.integers(0, nv, size=(w, nv))]
+    valid = rng.random((w, nv)) < 0.7
+    return table, lut_idx, codes, valid
+
+
+def test_padding_slots_are_absent_and_never_read():
+    """A -1 slot beside real ones: (NEG_INF, -1), whatever the table holds
+    (NaN rows would poison any read); the real slots equal ``repro``'s
+    resident reference on the same inputs (the reference reads row 0 for
+    its padding, whose output the engines drop)."""
+    table, lut_idx, codes, valid = _resident_case(21, 4, 6, 120, 8, 9)
+    lut_idx[1, 2:] = -1
+    lut_idx[3, 0] = -1
+    k = 9
+    poisoned = table.copy()
+    poisoned[0] = np.nan  # a -1 that wrapped or read row 0 would show
+    real = lut_idx >= 0
+    lut_idx[real & (lut_idx == 0)] = 1
+    s, i = workunit_pq_scan_streamed(_t(poisoned), _t(lut_idx), _t(codes), _t(valid), k=k)
+    assert (i[~_t(real)] == -1).all() and (s[~_t(real)] == np.float32(ref.NEG_INF)).all()
+    assert torch.isfinite(s).all()
+    rs, ri = ref_ops.workunit_pq_topk_resident(jnp.asarray(table), jnp.asarray(np.maximum(lut_idx, 0)),
+                                               jnp.asarray(codes), jnp.asarray(valid), k, use_pallas=False)
+    rs, ri = np.asarray(rs)[real], np.asarray(ri)[real]
+    np.testing.assert_allclose(s.numpy()[real], rs, rtol=TOL, atol=TOL)
+    _assert_ids_untied(s.numpy()[real], i.numpy()[real], rs, ri)
+    # and bit for bit the expanded plain version on the real slots
+    e = workunit_pq_scan(_t(table[np.maximum(lut_idx, 0)]), _t(codes), _t(valid), k=k)
+    assert torch.equal(s[_t(real)], e[0][_t(real)]) and torch.equal(i[_t(real)], e[1][_t(real)])
+
+
+@pytest.mark.parametrize("bad", [-2, -9, 9, 100])
+def test_out_of_range_rows_raise_without_wrapping(bad):
+    """Only -1 marks a slot with no query: any other index outside [0, U)
+    raises in the plain version (torch indexing would have wrapped -2 … -U
+    to a real row); the kernel clamps instead, as documented."""
+    table, lut_idx, codes, valid = _resident_case(22, 2, 3, 50, 4, 9)
+    lut_idx[1, 1] = bad
+    with pytest.raises(IndexError, match=f"lut_idx {bad} outside"):
+        workunit_pq_scan_streamed(_t(table), _t(lut_idx), _t(codes), _t(valid), k=3)
+    with pytest.raises(IndexError):
+        ref.workunit_pq_topk_resident_ref(_t(table), _t(lut_idx), _t(codes), _t(valid), 3)
+
+
+@pytest.mark.parametrize("case", ["random", "one_row", "all_padding", "ragged"])
+def test_slot_order(case):
+    """The work list: every slot exactly once, grouped by row in ascending
+    order, stable within a row, the -1 slots one run ahead of the rest."""
+    rng = np.random.default_rng(23)
+    w, tq = (7, 9) if case == "ragged" else (8, 16)
+    lut_idx = rng.integers(-1, 5, size=(w, tq)).astype(np.int32)
+    if case == "one_row":
+        lut_idx[:] = 3
+    elif case == "all_padding":
+        lut_idx[:] = -1
+    rows, order = slot_order(_t(lut_idx))
+    assert rows.dtype == torch.int32 and order.dtype == torch.int64
+    flat = lut_idx.reshape(-1)
+    assert sorted(order.tolist()) == list(range(w * tq))  # every slot once
+    assert np.array_equal(rows.numpy(), flat[order.numpy()])
+    assert (np.diff(rows.numpy()) >= 0).all()  # grouped, rows ascending
+    for r in np.unique(flat):  # stable within each row
+        slots = order.numpy()[rows.numpy() == r]
+        assert (np.diff(slots) > 0).all()
+    npad = int((flat == -1).sum())
+    assert (rows.numpy()[:npad] == -1).all() and (rows.numpy()[npad:] >= 0).all()
+
+
+def _ranks_before(a, b):
+    return a[0] > b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+class _WarpSelect:
+    """A warp's list as the kernel keeps it: candidates that rank above the
+    k-th entry are buffered and merged 32 at a time."""
+
+    def __init__(self, k):
+        self.k, self.top, self.buf = k, [], []
+
+    def offer(self, cands):  # up to 32 (score, row) pairs; None where a lane has none
+        live = [c for c in cands if c is not None]
+        kth = self.top[self.k - 1] if len(self.top) >= self.k else None
+        passed = [c for c in live if kth is None or _ranks_before(c, kth)]
+        self.buf += passed
+        if len(self.buf) >= 32:
+            self._merge(self.buf[:32])
+            self.buf = self.buf[32:]
+        return len(passed) == len(live)
+
+    def flush(self):
+        if self.buf:
+            self._merge(self.buf)
+            self.buf = []
+
+    def _merge(self, cands):
+        self.top = sorted(self.top + cands, key=lambda c: (-c[0], c[1]))[:self.k]
+
+
+def _units_kernel_emulation(table, lut_idx, codes, valid, *, k, p, g):
+    """The units kernel's decomposition in plain Python over torch's fp32
+    sums: the slot order, ranges of ``p`` slots, one LUT row staged per run,
+    each slot's 32-row chunks split into ``g`` pieces (1 or 8); a piece of at most two
+    chunks is sorted at once, a longer one offered chunk by chunk (filtered
+    against the k-th entry, buffered, merged 32 at a time); the pieces'
+    lists fold into the first (sorted lists offered up to their first
+    rejected chunk). Returns what the kernel writes."""
+    W, TQ = lut_idx.shape
+    TV, M = codes.shape[1], codes.shape[2]
+    nch = -(-TV // 32)
+    rows, order = slot_order(lut_idx)
+    out_s = torch.full((W * TQ, k), ref.NEG_INF, dtype=torch.float32)
+    out_i = torch.full((W * TQ, k), -1, dtype=torch.int32)
+    for p0 in range(0, W * TQ, p):
+        staged = None  # (row, its LUT) in "shared memory"
+        for pos in range(p0, min(p0 + p, W * TQ)):
+            key, slot = int(rows[pos]), int(order[pos])
+            if key == -1:
+                continue
+            key = min(max(key, 0), table.shape[0] - 1)
+            if staged is None or staged[0] != key:
+                staged = (key, table[key])
+            w = slot // TQ
+            acc = torch.zeros(TV, dtype=torch.float32)
+            for j in range(M):
+                acc = acc + staged[1][j, codes[w, :, j].long()]
+            cand = [(s, r) if ok else None for r, (s, ok) in enumerate(zip(acc.tolist(), valid[w].tolist()))]
+            pieces = []
+            for m in range(g):
+                c0, c1 = nch * m // g, nch * (m + 1) // g
+                sel = _WarpSelect(k)
+                if c1 - c0 <= 2:
+                    sel.top = sorted([c for c in cand[32 * c0:32 * c1] if c], key=lambda c: (-c[0], c[1]))[:k]
+                else:
+                    for c in range(c0, c1):
+                        sel.offer(cand[32 * c:32 * c + 32])
+                    sel.flush()
+                pieces.append(sel)
+            lead = pieces[0]
+            for other in pieces[1:]:
+                for e0 in range(0, k, 32):
+                    if not lead.offer(other.top[e0:e0 + 32]):
+                        break
+                lead.flush()
+            n = len(lead.top)
+            if n:
+                s = torch.tensor([c[0] for c in lead.top], dtype=torch.float32)
+                out_s[slot, :n] = s
+                out_i[slot, :n] = torch.where(s <= ref.NEG_INF / 2, -1,
+                                              torch.tensor([c[1] for c in lead.top])).to(torch.int32)
+    return out_s.reshape(W, TQ, k), out_i.reshape(W, TQ, k)
+
+
+@pytest.mark.parametrize("case", ["random", "one_row", "all_padding", "ragged", "ties", "long_units"])
+def test_kernel_decomposition_is_bit_exact(case):
+    """The units kernel's decomposition (``_units_kernel_emulation``: ranges
+    of P slots, one LUT row staged per run, a slot's rows split over g warps
+    in chunks of 32, each piece sorted or filtered and merged, the pieces
+    folded) equals the plain version bit for bit, ties and padding included,
+    for the (P, g) the kernel picks, the other g, and W·TQ off any multiple
+    of P."""
+    w, tq, nv, m, u, k = {"ragged": (5, 7, 70, 4, 6, 12), "long_units": (2, 5, 300, 4, 4, 40)}.get(
+        case, (4, 8, 64, 8, 6, 10))
+    table, lut_idx, codes, valid = _resident_case(24, w, tq, nv, m, u)
+    if case == "one_row":
+        lut_idx[:] = 2
+    elif case == "all_padding":
+        lut_idx[:] = -1
+    else:
+        lut_idx[:, -2:] = -1
+    if case == "ties":  # every unit's rows repeat in blocks of four: equal scores
+        codes = np.repeat(codes[:, ::4], 4, axis=1)[:, :nv]
+    want = workunit_pq_scan_streamed_plain(_t(table), _t(lut_idx), _t(codes), _t(valid), k=k)
+    if case == "ties":
+        assert (want[0][..., 1:] == want[0][..., :-1]).any()
+    for p, g in sorted({units_split(nv), (1, 1), (3, 1), (1, 8), (5, 8), (128, 8)}):
+        got = _units_kernel_emulation(_t(table), _t(lut_idx), _t(codes), _t(valid), k=k, p=p, g=g)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (p, g)
+
+
+def test_staged_lut_rows():
+    """One staged LUT row per run of a real row inside each block's range:
+    a row spread over two ranges is staged twice, -1 never."""
+    rows = torch.tensor([-1, -1, 0, 0, 0, 0, 0, 0, 2, 5, 5, 7], dtype=torch.int32)
+    assert staged_lut_rows(rows, 8, 4) == 1 + 1 + 3  # [-1 -1 0 0] [0 0 0 0] [2 5 5 7]
+    assert staged_lut_rows(rows, 8, 128) == 4
+    assert staged_lut_rows(torch.full((10,), -1, dtype=torch.int32), 8, 4) == 0
+
+
+def test_units_split():
+    """A warp per slot up to 16 chunks of 32 rows (about 32 chunks a warp a
+    block), the block's eight warps per slot beyond (about 16 a warp)."""
+    assert [units_split(tv) for tv in (32, 64, 128, 256, 512, 1024, 2048, 4096)] == [
+        (128, 1), (128, 1), (64, 1), (32, 1), (16, 1), (4, 8), (2, 8), (1, 8)]
+    for tv in (32, 37, 64, 100, 128, 256, 300, 512, 513, 4096, 8192):
+        p, g = units_split(tv)
+        chunks = -(-tv // 32)
+        assert 1 <= p <= 128 and g == (1 if chunks <= 16 else 8)
+
+
 def test_dispatch_stats_delta_and_lut_expand():
     st = ops.DispatchStats()
     st.record_knn(("pq", 1, 2, 3, 4))
@@ -376,6 +610,24 @@ def test_pq_search_matches_reference(built_pq, layout, nprobe, batch_vec):
     if batch_vec is True:
         assert (rb.lut_expand_bytes == 0) == (layout == "segmented")
         assert b.lut_bytes > 0
+
+
+def test_bucket_operands_mark_padding(built_pq):
+    """The engine gives padding slots the index -1 (``repro`` gives row 0),
+    and each real slot its query's row of the resident table."""
+    db, wl, state = built_pq
+    index = HQIIndex.from_state(state, device="cpu")
+    tasks, _, _ = index._engine_tasks(wl, nprobe=4, batch_vec=True, stats=ScanStats())
+    plan = build_plan(index.arena, tasks, wl.vectors, m=wl.m, k=wl.k, cfg=index.cfg.plan)
+    _, lut_pos = resident_luts(plan, index.arena, wl.vectors)
+    n_pad = 0
+    for lp in plan.buckets:
+        qrow_of, _, _, lut_idx, _, _ = pq_bucket_operands(plan, index.arena, lut_pos, lp)
+        li = lut_idx.numpy()
+        assert (li[qrow_of < 0] == -1).all()
+        assert np.array_equal(li[qrow_of >= 0], lut_pos[qrow_of[qrow_of >= 0]])
+        n_pad += int((qrow_of < 0).sum())
+    assert n_pad > 0
 
 
 def test_attach_pq_override_matches_reference():
