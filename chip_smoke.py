@@ -7,11 +7,14 @@
    built from ``src/repro_torch/kernels/csrc`` with nvcc (timed);
 2. kernels against their plain PyTorch versions on the card: both
    ``fused_knn`` grids at W=256, TQ=64, D=64, k=10, TV in {32..4096}, ip and
-   l2, f32 and bf16, valid density 0.7, plus all-invalid and k above the
-   valid count; scores within rtol/atol 1e-4 (f32) or 2e-2 (bf16), ids equal
-   wherever scores are untied; kernel, plain version and the yardstick
-   (``torch.matmul`` + masked ``torch.topk``) timed with CUDA events
-   (median of 25) beside each shape's bound;
+   l2, f32 and bf16, valid density 0.7; D 768 (f32, ip and l2); ``n_live``
+   of 0, 1, ragged and every slot at TV 128 and 1024 (slots past it
+   (NEG_INF, -1)); the PQ re-rank's units of one query [16384, 1, 40] with a
+   padding tail; plus all-invalid and k above the valid count; scores within
+   rtol/atol 1e-4 (f32) or 2e-2 (bf16), ids equal wherever scores are
+   untied; kernel, plain version and the yardstick (``torch.matmul`` +
+   masked ``torch.topk``) timed with CUDA events (median of 25) beside each
+   shape's bound;
 3. the main path at real size: ``kg_style(n=1_000_000, d=64,
    queries_per_split=10_000)``, ``HQIIndex.build`` on the card, then
    ``search(nprobe=8)`` (once cold, three times warm); the kernels' launch
@@ -20,8 +23,13 @@
    (the ``launches`` of the kernels line are per search). Every returned id must pass its
    query's filter with its exact score; recall@10 against the port's
    ``exhaustive_search``; one more search with the tracer on and one under
-   ``torch.profiler`` split the time. Then each kernel is checked on every
-   bucket the main path gave it and timed on the heaviest;
+   ``torch.profiler`` split the time (and must show no
+   ``merge_partials_kernel``: a split dispatch is one launch). Then each
+   kernel is checked on every bucket the main path gave it, with the live
+   slots the engine passes, and timed there (one wrapper call by CUDA
+   events, and the launch alone from the profiler) beside its bound and
+   real slots, with the sums over the buckets; plain and yardstick on the
+   heaviest;
 4. card against CPU: a 100k-row index built on the card, reloaded from its
    ``to_state()`` on the CPU; both searches must agree (scores within
    1e-4, equal id sets per query);
@@ -50,7 +58,9 @@
    recall@10 against the exhaustive answer and against the f32 engine; a
    traced and a profiled search; then the ADC kernel checked bit for bit on
    every bucket the path gave it (real slots, staged LUT bytes, time and
-   bound per bucket, and their sums) and timed on the heaviest;
+   bound per bucket, and their sums) and timed on the heaviest; and the
+   exact re-rank's one dispatch at its real shape (stage A run as the
+   search runs it) checked and timed;
 7. PQ card against CPU at 100k rows: segmented and dense layouts (the dense
    one drives ``workunit_pq_scan``) and a ``PQIndex`` with 64 queries and
    ``rerank=4`` (``pq_scan``), each against its CPU reload;
@@ -135,8 +145,8 @@ REPLACES = {
 # each kernel's design: the kernels line marks the redesigned ones
 DESIGN = {
     "flash_attention": "redesigned: bf16 wgmma products fed by a TMA ring",
-    "fused_knn": "query-stationary",
-    "fused_knn_db_stationary": "db-stationary, rows split over blocks, merge kernel",
+    "fused_knn": "redesigned: live slots and valid rows only, 4x4 register tiles, count-ranked keys",
+    "fused_knn_db_stationary": "redesigned: rows split over blocks, the last block merges in the same launch",
     "workunit_pq_scan_streamed": "redesigned: LUT-stationary, slots sorted by LUT row, warp select",
     "workunit_pq_scan": "qb query slots a block, rows split over blocks, merge kernel",
     "pq_scan": "redesigned: LUT-stationary, one launch, last block merges",
@@ -179,22 +189,30 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int = 10) -> float:
-    """The device time (ms) of the launches whose name holds ``kernel``, per
-    call of ``fn``, from ``torch.profiler`` (a call's own host time, which
-    CUDA events around one small call also see, left out)."""
+    """The device time (ms) of the one launch whose name holds ``kernel`` in
+    each call of ``fn``, from ``torch.profiler`` (a call's own host time,
+    which CUDA events around one small call also see, left out): the mean
+    over the launches the trace holds. The profiler now and then drops
+    launches from a trace (one of ten, or all), so a trace holding fewer
+    than half of ``reps`` is taken again, three times at most."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no launch of {kernel}")
-    return total / reps / 1e3
+    seen = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        launches = sum(e.count for e in hits)
+        if 2 * launches >= reps:
+            return sum(e.device_time_total for e in hits) / launches / 1e3
+        seen.append(launches)
+        time.sleep(0.1)
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in three traces of {reps} calls")
 
 
 def bound(q, v, valid, k: int, metric: str, q_live=None) -> tuple[float, str]:
@@ -293,22 +311,30 @@ def phase_kernels(rec: dict, max_err: dict) -> None:
     W, TQ, D, K = 256, 64, 64, 10
     rows = []
 
-    def run_case(label, q, v, valid, k, metric, tol, timed):
-        want = fused_knn_plain(q, v, valid, k=k, metric=metric)
+    def run_case(label, q, v, valid, k, metric, tol, timed, n_live=None):
+        kw = dict(k=k, metric=metric, n_live=n_live)
+        want = fused_knn_plain(q, v, valid, **kw)
         row = {"case": label, "W": q.shape[0], "TQ": q.shape[1], "TV": v.shape[1],
                "D": q.shape[2], "k": k, "metric": metric, "dtype": str(q.dtype)}
         for name, fn in kernels.items():
-            got = fn(q, v, valid, k=k, metric=metric)
+            got = fn(q, v, valid, **kw)
             torch.cuda.synchronize()
             err = compare(got, want, tol)
             max_err[name] = max(max_err[name], err)
             row[f"{name}_err"] = err
             if timed:
-                row[f"{name}_ms"] = cuda_ms(lambda: fn(q, v, valid, k=k, metric=metric))
+                row[f"{name}_ms"] = cuda_ms(lambda: fn(q, v, valid, **kw))
+        if n_live is not None:
+            dead = torch.arange(q.shape[1], device="cuda")[None, :] >= n_live[:, None]
+            for name, fn in kernels.items():
+                s, i = fn(q, v, valid, **kw)
+                if not ((i[dead] == -1).all() and (s[dead] == np.float32(NEG_INF)).all()):
+                    raise AssertionError(f"{name} {label}: a slot past n_live is not (NEG_INF, -1)")
         if timed:
-            row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(q, v, valid, k=k, metric=metric))
+            q_live = None if n_live is None else torch.arange(q.shape[1], device="cuda")[None, :] < n_live[:, None]
+            row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(q, v, valid, **kw))
             row["yardstick_ms"] = cuda_ms(lambda: yardstick(q, v, valid, k, metric))
-            row["bound_ms"], row["bound_by"] = bound(q, v, valid, k, metric)
+            row["bound_ms"], row["bound_by"] = bound(q, v, valid, k, metric, q_live)
         rows.append(row)
         log("[kernels] " + json.dumps(row))
 
@@ -319,6 +345,30 @@ def phase_kernels(rec: dict, max_err: dict) -> None:
                 v = torch.randn((W, tv, D), generator=gen, device="cuda").to(dtype)
                 valid = torch.rand((W, tv), generator=gen, device="cuda") < 0.7
                 run_case("sweep", q, v, valid, K, metric, tol, timed=True)
+    # text-encoder widths: D in chunks of 64, f32
+    for metric in ("ip", "l2"):
+        q = torch.randn((W, TQ, 768), generator=gen, device="cuda")
+        v = torch.randn((W, 256, 768), generator=gen, device="cuda")
+        valid = torch.rand((W, 256), generator=gen, device="cuda") < 0.7
+        run_case("d768", q, v, valid, K, metric, 1e-4, timed=True)
+    # n_live: no live slot, one, a ragged count per unit, every slot
+    for tv in (128, 1024):
+        q = torch.randn((W, TQ, D), generator=gen, device="cuda")
+        v = torch.randn((W, tv, D), generator=gen, device="cuda")
+        valid = torch.rand((W, tv), generator=gen, device="cuda") < 0.4
+        for label, n_live in (("n_live_zero", torch.zeros(W, dtype=torch.int32, device="cuda")),
+                              ("n_live_one", torch.ones(W, dtype=torch.int32, device="cuda")),
+                              ("n_live_ragged", torch.randint(0, TQ + 1, (W,), generator=gen, device="cuda",
+                                                              dtype=torch.int32)),
+                              ("n_live_full", torch.full((W,), TQ, dtype=torch.int32, device="cuda"))):
+            run_case(label, q, v, valid, K, "l2", 1e-4, timed=label == "n_live_ragged", n_live=n_live)
+    # the PQ path's re-rank: units of one query, 40 candidates, a padding tail
+    Wr = 16384
+    q = torch.randn((Wr, 1, D), generator=gen, device="cuda")
+    v = torch.randn((Wr, 40, D), generator=gen, device="cuda")
+    valid = torch.rand((Wr, 40), generator=gen, device="cuda") < 0.9
+    n_live = (torch.arange(Wr, device="cuda") < 10_000).to(torch.int32)
+    run_case("one_query_units", q, v, valid, K, "ip", 1e-4, timed=True, n_live=n_live)
     q = torch.randn((W, TQ, D), generator=gen, device="cuda")
     v = torch.randn((W, 256, D), generator=gen, device="cuda")
     run_case("all_invalid", q, v, torch.zeros((W, 256), dtype=torch.bool, device="cuda"),
@@ -390,7 +440,12 @@ def phase_main_path(rec: dict) -> dict:
     recall = recall_at_k(res, truth)
     log(f"[main] recall@10 {recall:.4f} against exhaustive_search ({exh_s:.3f} s)")
     traced_s, spans = traced_search(index, wl, "main")
-    prof_s, busy_s, top = profiled_search(index, wl, "main")
+    prof_s, busy_s, top, device_us = profiled_search(index, wl, "main")
+    scan_us = {key: us for key, us in device_us.items() if "fused_knn" in key or "merge_partials" in key}
+    log(f"[main] profiled search's scan kernels (us): " + json.dumps(scan_us))
+    if any("merge_partials" in key for key in device_us):
+        raise AssertionError("the f32 search launched merge_partials_kernel: a split dispatch "
+                             "must be one launch")
 
     rec["main_path"] = {
         "n": n, "d": 64, "queries": wl.m, "partitions": len(index.partitions),
@@ -402,7 +457,7 @@ def phase_main_path(rec: dict) -> dict:
         "shapes": sorted(st.shapes), "peak_candidate_bytes": st.peak_candidate_bytes,
         "peak_device_bytes": peak, "traced_search_seconds": traced_s, "span_ms": spans,
         "profiled_search_seconds": prof_s, "device_busy_seconds": busy_s,
-        "device_ops_ms": top,
+        "device_ops_ms": top, "scan_kernels_us": scan_us,
     }
     return {"index": index, "wl": wl, "counts": counts, "kg": kg, "truth": truth}
 
@@ -478,20 +533,23 @@ def profiled_search(index, wl, tag: str, **kw):
         t0 = time.perf_counter()
         index.search(wl, nprobe=8, **kw)
         prof_s = time.perf_counter() - t0
-    busy_s, top, _ = device_split(prof, width=60)
+    busy_s, top, device_us = device_split(prof, width=60)
     log(f"[{tag}] profiled search {prof_s:.3f} s, device busy {busy_s * 1e3:.3f} ms "
         f"({busy_s / prof_s:.2%}); top device ops (ms) " + json.dumps(top))
-    return prof_s, busy_s, top
+    return prof_s, busy_s, top, device_us
 
 
 def phase_main_shapes(rec: dict, main: dict, max_err: dict) -> dict:
-    """Each kernel on every bucket the main path gave it: checked against the
-    plain version, and timed (kernel, plain, yardstick) on its heaviest."""
+    """Each kernel on every bucket the main path gave it, with the live
+    slots the engine passes: checked against the plain version, timed (one
+    wrapper call by CUDA events, and the launch alone from the profiler)
+    beside its bound and real slots, summed over the buckets, and timed
+    plain and by the yardstick on its heaviest."""
     import torch
 
     from repro_torch.core.ivf import ScanStats
     from repro_torch.core.plan import build_plan
-    from repro_torch.core.planner import bucket_operands
+    from repro_torch.core.planner import bucket_operands, live_slots
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_knn import fused_knn, fused_knn_db_stationary, fused_knn_plain
 
@@ -504,36 +562,45 @@ def phase_main_shapes(rec: dict, main: dict, max_err: dict) -> dict:
     buckets = []
     for lp in sorted(plan.buckets):
         qrow_of, _, _, Q, V, valid = bucket_operands(plan, index.arena, q_dev, lp)
+        n_live = live_slots(qrow_of, "cuda")
         q_live = torch.from_numpy(qrow_of >= 0).cuda()
         k = min(wl.k, lp)
+        kw = dict(k=k, metric=metric, n_live=n_live)
         name = "fused_knn_db_stationary" if ops.use_db_stationary(Q.shape[1], lp) else "fused_knn"
         fn = fused_knn_db_stationary if name == "fused_knn_db_stationary" else fused_knn
-        got = fn(Q, V, valid, k=k, metric=metric)
-        want = fused_knn_plain(Q, V, valid, k=k, metric=metric)
+        got = fn(Q, V, valid, **kw)
+        want = fused_knn_plain(Q, V, valid, **kw)
         err = compare(got, want, 1e-4)
         max_err[name] = max(max_err[name], err)
-        ms = cuda_ms(lambda: fn(Q, V, valid, k=k, metric=metric), reps=21)
+        ms = cuda_ms(lambda: fn(Q, V, valid, **kw), reps=21)
         b_ms, b_by = bound(Q, V, valid, k, metric, q_live)
         row = {"kernel": name, "shape": [Q.shape[0], Q.shape[1], lp, k], "ms": ms,
+               "device_ms": device_ms(lambda: fn(Q, V, valid, **kw), "fused_knn"),
                "bound_ms": b_ms, "bound_by": b_by, "ms_over_bound": ms / b_ms,
                "max_abs_err": err, "valid_rows": int(valid.sum().item()),
-               "real_query_slots": int(q_live.sum().item())}
+               "real_query_slots": int(q_live.sum().item()), "query_slots": int(q_live.numel())}
         buckets.append(row)
         log("[shapes] " + json.dumps(row))
         work = Q.shape[0] * lp
         if name not in per_kernel or work > per_kernel[name]["work"]:
-            per_kernel[name] = {"work": work, "Q": Q, "V": V, "valid": valid, "k": k, "row": row}
+            per_kernel[name] = {"work": work, "Q": Q, "V": V, "valid": valid, "kw": kw, "row": row}
         else:
             del Q, V, valid, q_live
     out = {}
     for name, sel in per_kernel.items():
-        Q, V, valid, k = sel["Q"], sel["V"], sel["valid"], sel["k"]
+        Q, V, valid, kw = sel["Q"], sel["V"], sel["valid"], sel["kw"]
         row = dict(sel["row"])
-        row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(Q, V, valid, k=k, metric=metric), reps=21)
-        row["yardstick_ms"] = cuda_ms(lambda: yardstick(Q, V, valid, k, metric), reps=21)
+        row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(Q, V, valid, **kw), reps=21)
+        row["yardstick_ms"] = cuda_ms(lambda: yardstick(Q, V, valid, kw["k"], metric), reps=21)
+        mine = [b for b in buckets if b["kernel"] == name]
+        row["summed_over_buckets"] = {key: sum(b[key] for b in mine)
+                                      for key in ("ms", "device_ms", "bound_ms")}
         out[name] = row
         log("[heaviest] " + json.dumps(row))
+    total = {key: sum(b[key] for b in buckets) for key in ("ms", "device_ms", "bound_ms")}
+    log(f"[shapes] summed over the search's {len(buckets)} buckets: " + json.dumps(total))
     rec["main_path_buckets"] = buckets
+    rec["main_path_buckets_summed"] = total
     rec["main_path_heaviest"] = out
     return out
 
@@ -865,7 +932,7 @@ def phase_pq_main(rec: dict, main: dict) -> dict:
     log(f"[pq] recall@10 {recall:.4f} against exhaustive_search, {recall_f32:.4f} against "
         f"the same index searched with scan_mode='f32' ({f32_s:.3f} s)")
     traced_s, spans = traced_search(index, wl, "pq")
-    prof_s, busy_s, top = profiled_search(index, wl, "pq")
+    prof_s, busy_s, top, _ = profiled_search(index, wl, "pq")
     rec["pq_path"] = {
         "n": MAIN_ROWS, "d": 64, "queries": wl.m, "partitions": len(index.partitions),
         "build_seconds": build_s, "build_info": str(index.build_info),
@@ -944,6 +1011,39 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
     total = {"ms": sum(b["ms"] for b in buckets), "bound_ms": sum(b["bound_ms"] for b in buckets)}
     log(f"[{tag}] summed over the search's {len(buckets)} buckets: " + json.dumps(total))
     return {"heaviest": row, "buckets": buckets, "summed": total}
+
+
+def rerank_dispatch(index, wl, max_err: dict) -> dict:
+    """The PQ path's exact re-rank at its real shape: stage A run as the
+    search runs it, then the one ``fused_knn_db_stationary`` dispatch over
+    units of one query (``planner.rerank_operands``), checked against the
+    plain version and timed beside its bound."""
+    import torch
+
+    from repro_torch.core.ivf import ScanStats
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.planner import _pq_stage_a_segmented, rerank_operands, resident_luts
+    from repro_torch.kernels.fused_knn import fused_knn_db_stationary, fused_knn_plain
+
+    arena = index.arena
+    tasks, _, _ = index._engine_tasks(wl, nprobe=8, batch_vec=True, stats=ScanStats())
+    plan = build_plan(arena, tasks, wl.vectors, m=wl.m, k=wl.k, cfg=index.cfg.plan)
+    kprime = index.cfg.plan.refine_factor * wl.k
+    luts, lut_pos = resident_luts(plan, arena, wl.vectors)
+    rows = _pq_stage_a_segmented(plan, arena, luts, lut_pos, kprime, stats=None)
+    Q, V, valid, n_live = rerank_operands(arena, wl.vectors, rows, kprime)
+    kw = dict(k=min(wl.k, kprime), metric=arena.metric, n_live=n_live)
+    err = compare(fused_knn_db_stationary(Q, V, valid, **kw), fused_knn_plain(Q, V, valid, **kw), 1e-4)
+    max_err["fused_knn_db_stationary"] = max(max_err["fused_knn_db_stationary"], err)
+    b_ms, b_by = bound(Q, V, valid, kw["k"], arena.metric, (n_live > 0)[:, None])
+    row = {"shape": [Q.shape[0], 1, kprime, kw["k"]], "real_units": int((n_live > 0).sum()),
+           "valid_rows": int(valid.sum()), "max_abs_err": err,
+           "ms": cuda_ms(lambda: fused_knn_db_stationary(Q, V, valid, **kw), reps=21),
+           "device_ms": device_ms(lambda: fused_knn_db_stationary(Q, V, valid, **kw), "fused_knn"),
+           "plain_ms": cuda_ms(lambda: fused_knn_plain(Q, V, valid, **kw), reps=21),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log("[pq rerank] " + json.dumps(row))
+    return row
 
 
 def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
@@ -1430,6 +1530,7 @@ def main() -> int:
     pq_heavy = adc_buckets(pq_run["index"], pq_run["wl"], resident=True, max_err=max_err, tag="pq")
     rec["pq_path_buckets"] = pq_heavy["buckets"]
     rec["pq_path_buckets_summed"] = pq_heavy["summed"]
+    rec["pq_rerank"] = rerank = rerank_dispatch(pq_run["index"], pq_run["wl"], max_err)
     del pq_run["index"], main_run["kg"]
     torch.cuda.empty_cache()
     per_phase = phase_pq_card_vs_cpu(rec, max_err)
@@ -1467,9 +1568,11 @@ def main() -> int:
             entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                               "tflops", "bound_share")}
         for key in ("bound_bytes", "lut_streamed_bytes", "staged_lut_bytes", "real_query_slots",
-                    "device_ms", "work_list_ms", "ms_64_queries"):
+                    "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets"):
             if key in h:
                 entry[key] = h[key]
+        if name == "fused_knn_db_stationary":
+            entry["pq_rerank"] = {key: rerank[key] for key in ("shape", "ms", "device_ms", "bound_ms")}
         if name == "workunit_pq_scan_streamed":
             entry["summed_over_buckets"] = pq_heavy["summed"]
         if launches <= 0:

@@ -209,6 +209,12 @@ def bucket_operands(plan: ExecutionPlan, arena: PackedArena, q_dev: torch.Tensor
     return qrow_of, slot_of, rows, Q, V, torch.from_numpy(valid).to(dev)
 
 
+def live_slots(qrow_of: np.ndarray, dev) -> torch.Tensor:
+    """Real query slots per unit (i32 [W]) of a bucket whose units hold
+    their queries in slots 0 … n-1 (``_assemble_bucket``), -1 after."""
+    return torch.from_numpy((qrow_of >= 0).sum(axis=1).astype(np.int32)).to(dev)
+
+
 def _iter_f32_buckets(plan, arena, q_vecs, stats):
     """Run the f32 scan stage bucket by bucket (one ``workunit_topk`` dispatch
     each), yielding (kk, qrows, slots, scores [n, kk], gids [n, kk]) for the
@@ -225,8 +231,10 @@ def _iter_f32_buckets(plan, arena, q_vecs, stats):
         if stats is not None:
             # real work units only (pow2 pad excluded)
             stats.bytes_scanned += n_units * lp * arena.d * 4
+        n_live = live_slots(qrow_of, dev)
         with get_tracer().span("dispatch.scan", mode="f32", lp=lp, units=n_units):
-            s, i_loc = kops.workunit_topk(Q, V, valid, min(plan.k, lp), metric=arena.metric)
+            s, i_loc = kops.workunit_topk(Q, V, valid, min(plan.k, lp), metric=arena.metric,
+                                          n_live=n_live)
             s, i_loc = fence(s, i_loc)  # device time is real iff tracing is on
         packed_rows = _unit_rows(rows, i_loc)
         gidx = torch.where(packed_rows < 0, -1, arena.gid[packed_rows.clamp(min=0)])
@@ -504,6 +512,25 @@ def _pq_stage_a_dense(plan, arena, luts_dev, lut_pos, kprime, *, stats) -> torch
     return top_rows
 
 
+def rerank_operands(arena: PackedArena, q_vecs: np.ndarray, rows: torch.Tensor, kprime: int):
+    """The exact re-rank's operands: units are per query (TQ = 1), so each
+    query re-scores only its own candidates; m pads to a power of two, as in
+    the reference, and the padding units hold no query (``n_live`` 0).
+    Returns (Q f32 [mp, 1, d], V f32 [mp, k′, d] gathered by one
+    ``index_select``, valid bool [mp, k′], n_live i32 [mp])."""
+    m, d = q_vecs.shape
+    dev = arena.device
+    mp = _next_pow2(m, 1)
+    Qr = torch.zeros((mp, 1, d), dtype=torch.float32, device=dev)
+    Qr[:m, 0] = torch.from_numpy(np.ascontiguousarray(q_vecs, dtype=np.float32)).to(dev)
+    rows_p = torch.full((mp, kprime), -1, dtype=torch.int64, device=dev)
+    rows_p[:m] = rows
+    valid_r = rows_p >= 0
+    Vr = arena.packed.index_select(0, rows_p.clamp(min=0).reshape(-1)).reshape(mp, kprime, d)
+    n_live = (torch.arange(mp, device=dev) < m).to(torch.int32)
+    return Qr, Vr, valid_r, n_live
+
+
 def _pq_rerank_and_fold(
     arena: PackedArena,
     q_vecs: np.ndarray,
@@ -516,23 +543,17 @@ def _pq_rerank_and_fold(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Stage B shared by both layouts: exact re-rank + extras fold.
 
-    One gather of the surviving f32 rows and one dispatch: units are per
-    query (TQ = 1), so each query re-scores only its own candidates; m pads
-    to a power of two, as in the reference."""
-    m, d = q_vecs.shape
+    One gather of the surviving f32 rows and one dispatch
+    (``rerank_operands``)."""
+    m = q_vecs.shape[0]
     dev = arena.device
-    mp = _next_pow2(m, 1)
-    Qr = torch.zeros((mp, 1, d), dtype=torch.float32, device=dev)
-    Qr[:m, 0] = torch.from_numpy(np.ascontiguousarray(q_vecs, dtype=np.float32)).to(dev)
-    rows_p = torch.full((mp, kprime), -1, dtype=torch.int64, device=dev)
-    rows_p[:m] = rows
-    valid_r = rows_p >= 0
-    Vr = arena.packed.index_select(0, rows_p.clamp(min=0).reshape(-1)).reshape(mp, kprime, d)
+    Qr, Vr, valid_r, n_live = rerank_operands(arena, q_vecs, rows, kprime)
     if stats is not None:
         # real surviving candidates only
-        stats.bytes_scanned += int(valid_r.sum()) * d * 4
+        stats.bytes_scanned += int(valid_r.sum()) * arena.d * 4
     with get_tracer().span("rerank.exact", m=m, kprime=kprime):
-        s, i_loc = kops.workunit_topk(Qr, Vr, valid_r, min(k, kprime), metric=arena.metric)
+        s, i_loc = kops.workunit_topk(Qr, Vr, valid_r, min(k, kprime), metric=arena.metric,
+                                      n_live=n_live)
         s, i_loc = fence(s, i_loc)
     s = s[:m, 0]  # [m, kk] exact scores
     i_loc = i_loc[:m, 0].to(torch.int64)  # [m, kk] index into the k′ candidates

@@ -39,9 +39,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "fused_knn": {
-        "fused_knn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "fused_knn_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "fused_knn_split_count": (_I, _I, _I),
         "fused_knn_db_stationary_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
     },
     "pq_scan": {

@@ -1,21 +1,24 @@
 """Fused masked similarity + top-k over a batch of work units (the HQI hot loop).
 
-Two wrappers over the CUDA kernels of ``csrc/fused_knn.cu``:
+Two wrappers over the CUDA scan of ``csrc/fused_knn.cu``:
 
-  * ``fused_knn`` — query-stationary: one block per (work unit, query chunk)
-    sweeps the unit's rows with a running top-k;
-  * ``fused_knn_db_stationary`` — split-V: the unit's rows are cut into
-    ``SPLIT_ROWS``-row chunks, each chunk scored by its own block into a
-    partial top-k, and a second kernel merges the partials. The TPU grid of
-    the same name reads each DB tile from HBM once; on Hopper the point is to
-    spread a long unit over many SMs.
+  * ``fused_knn`` — query-stationary: one block per (work unit, chunk of 64
+    query slots) scans all of the unit's rows;
+  * ``fused_knn_db_stationary`` — split rows: ``split_count(W, TQ, TV)``
+    blocks per (unit, query chunk) each scan a range of rows, and the last
+    of them to finish merges their partial lists in the same launch. The TPU
+    grid of the same name reads each DB tile from HBM once; on Hopper the
+    point is to spread a long unit over many SMs.
 
 Both take the work-unit batch ``q [W, TQ, D]``, ``v [W, TV, D]`` (f32 or
-bf16), ``valid bool [W, TV]`` and return ``(f32 [W, TQ, k], i32 [W, TQ, k])``:
-scores best-first under (score desc, row asc), row indices local to the unit,
-``(NEG_INF, -1)`` where no valid row fills a slot. A CUDA tensor launches the
-kernel (or the wrapper raises); a CPU tensor takes the plain version,
-``fused_knn_plain``. ``launches`` on each wrapper counts kernel launches.
+bf16), ``valid bool [W, TV]`` and optional ``n_live int32 [W]`` (slot s of
+unit w holds a query iff s < n_live[w]; ``None``: every slot), and return
+``(f32 [W, TQ, k], i32 [W, TQ, k])``: scores best-first under (score desc,
+row asc), row indices local to the unit, ``(NEG_INF, -1)`` where no valid
+row fills a slot and on every slot that holds no query. A CUDA tensor
+launches the kernel (or the wrapper raises); a CPU tensor takes the plain
+version, ``fused_knn_plain``. ``launches`` on each wrapper counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -24,51 +27,73 @@ import torch
 from . import _build
 from . import ref as _ref
 
-SPLIT_ROWS = 256  # rows per block of the split-V grid
-MAX_K = 64  # largest k the kernels' register lists hold
+MAX_K = 64  # largest k the kernels' lists hold
 SMEM_OPTIN_BYTES = 227 * 1024  # sm_90: most dynamic shared memory a block may opt into
-_THREADS, _TILE_ROWS = 256, 64  # kThreads, kTileRows of csrc/fused_knn.cu
+# kQB, kTR, kDC, kPass, kMinRangeTiles and kSplitTarget of csrc/fused_knn.cu:
+# query slots a block takes, rows a tile, elements of D a chunk, rows a
+# compaction pass, tiles a split range holds at least, blocks the split grid
+# aims for (4 on each of 132 SMs)
+_QB, _TR, _DC, _PASS, _MIN_RANGE_TILES, _SPLIT_TARGET = 64, 32, 64, 256, 8, 4 * 132
 
 
-def scan_smem_bytes(tq: int, d: int, k: int) -> int:
-    """Dynamic shared memory of one scan block (mirrors ``scan_smem_bytes`` in
-    ``csrc/fused_knn.cu``): the block's query chunk and a row tile at an odd
-    row stride, or the row lanes' top-K lists, whichever is larger."""
-    qb = 1
-    while qb < tq and qb < 64:
-        qb <<= 1
-    kb = next(b for b in (8, 16, 32, 64) if k <= b)
-    tile = (qb + _TILE_ROWS) * (d | 1) * 4 + _TILE_ROWS * 4 + _TILE_ROWS
-    return max(tile, _THREADS * kb * 8)
+def split_count(w: int, tq: int, tv: int) -> int:
+    """Row ranges per (unit, query chunk) of the split grid (mirrors
+    ``split_of`` in ``csrc/fused_knn.cu``): enough that the grid reaches
+    ``_SPLIT_TARGET`` blocks, each range at least ``_MIN_RANGE_TILES``
+    whole tiles; 1 for units of one query slot (a warp per unit)."""
+    if tq == 1:
+        return 1
+    base = w * -(-tq // _QB)
+    tiles = -(-tv // _TR)
+    s = min(-(-_SPLIT_TARGET // base), tiles // _MIN_RANGE_TILES)
+    if s <= 1:
+        return 1
+    chunk_rows = -(-tiles // s) * _TR
+    return -(-tv // chunk_rows)
+
+
+def scan_smem_bytes(d: int, k: int, elem_size: int = 4) -> int:
+    """Dynamic shared memory of one scan block (mirrors ``scan_smem_bytes``
+    in ``csrc/fused_knn.cu``): the live queries (one copy per ring stage
+    when D spans more than one 64-element chunk), a two-stage ring of
+    32-row tiles, a tile's candidate keys, two copies of the 64 slots'
+    k-entry lists, a pass's row indices, the norms and a few counters. Rows
+    are staged a chunk at a time, so it does not grow with d past 64."""
+    row = _DC * elem_size + 16
+    nch = -(-d // _DC)
+    return ((2 if nch > 1 else 1) * _QB * row + 2 * _TR * row + _QB * (_TR + 1) * 8
+            + 2 * _QB * k * 8 + _PASS * 4 + (_QB + _TR) * 4 + (_QB + 16) * 4)
 
 
 def check_kernel_limits(k: int, d: int, tq: int) -> None:
     """Raise ``ValueError`` for a problem the CUDA kernels cannot take: k above
-    ``MAX_K``, or a width whose tiles overflow shared memory (d above 453 with
-    the engine's 64-query units). The plain version, on the CPU, has neither
-    limit."""
+    ``MAX_K`` (the lists). Any d and any TQ run: rows are staged 64
+    elements at a time and a block takes 64 query slots at a time. The
+    plain version, on the CPU, has no limit."""
     if k > MAX_K:
         raise ValueError(f"k={k}: the CUDA kernels take k <= {MAX_K}; use a smaller k "
                          f"or an index on the CPU")
-    need = scan_smem_bytes(tq, d, k)
-    if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"d={d}: the CUDA kernels' tiles need {need} bytes of shared "
-                         f"memory at {tq} queries per unit, above {SMEM_OPTIN_BYTES}; "
-                         f"use an index on the CPU")
 
 
 def fused_knn_plain(
-    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip"
+    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip",
+    n_live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of both grids: ``masked_topk_ref`` over every unit."""
+    """Plain version of both grids: ``masked_topk_ref`` over every unit, and
+    ``(NEG_INF, -1)`` on the slots past ``n_live``."""
     fused_knn_plain.calls += 1
-    return _ref.masked_topk_ref(q, v, valid, int(k), metric)
+    s, i = _ref.masked_topk_ref(q, v, valid, int(k), metric)
+    if n_live is not None:
+        dead = torch.arange(q.shape[1], device=q.device)[None, :] >= n_live.to(q.device)[:, None]
+        s = s.masked_fill(dead[..., None], _ref.NEG_INF)
+        i = i.masked_fill(dead[..., None], -1)
+    return s, i
 
 
 fused_knn_plain.calls = 0
 
 
-def _check(q, v, valid, k: int, metric: str) -> None:
+def _check(q, v, valid, k: int, metric: str, n_live) -> None:
     if q.dim() != 3 or v.dim() != 3 or valid.dim() != 2:
         raise ValueError(f"want q [W,TQ,D], v [W,TV,D], valid [W,TV]; got "
                          f"{tuple(q.shape)}, {tuple(v.shape)}, {tuple(valid.shape)}")
@@ -86,71 +111,76 @@ def _check(q, v, valid, k: int, metric: str) -> None:
         raise ValueError(f"unknown metric {metric!r}")
     if not 1 <= k <= v.shape[1]:
         raise ValueError(f"k={k} outside [1, TV={v.shape[1]}]")
+    if n_live is not None:
+        if n_live.dtype != torch.int32 or tuple(n_live.shape) != (W,) or n_live.device != q.device:
+            raise ValueError(f"n_live must be int32 [W={W}] on {q.device}, got {n_live.dtype} "
+                             f"{tuple(n_live.shape)} on {n_live.device}")
 
 
-def _cuda_args(q, v, valid, k: int):
+def _launch(wrapper, entry: str, q, v, valid, k: int, metric: str, n_live):
+    """Check what the kernels take, allocate the outputs (and the split
+    grid's scratch), launch ``entry`` on the current stream and count the
+    launch on ``wrapper``."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_knn runs on cuda or cpu tensors, got {q.device}")
     W, TQ, D = q.shape
+    TV = v.shape[1]
     check_kernel_limits(k, D, TQ)
-    if not (q.is_contiguous() and v.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("q, v and valid must be contiguous")
+    tensors = (q, v, valid) if n_live is None else (q, v, valid, n_live)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q, v, valid and n_live must be contiguous")
     out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=q.device)
-    return W, TQ, v.shape[1], D, out_s, out_i
+    if out_s.numel() == 0:
+        return out_s, out_i
+    shape = (W, TQ, TV, D, k, int(metric == "l2"), int(q.dtype == torch.bfloat16))
+    head = (q.data_ptr(), v.data_ptr(), valid.data_ptr(), 0 if n_live is None else n_live.data_ptr())
+    lib = _build.library("fused_knn")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if entry == "fused_knn_launch":
+            rc = lib.fused_knn_launch(*head, out_s.data_ptr(), out_i.data_ptr(), *shape, stream)
+        else:
+            S = split_count(W, TQ, TV)
+            scratch = (0, 0)
+            if S > 1:  # partial lists as 64-bit rank keys, and a counter per (unit, query chunk)
+                part = torch.empty((W, S, TQ, k), dtype=torch.int64, device=q.device)
+                counters = torch.empty((W * -(-TQ // _QB),), dtype=torch.int32, device=q.device)
+                scratch = (part.data_ptr(), counters.data_ptr())
+            rc = lib.fused_knn_db_stationary_launch(*head, *scratch, out_s.data_ptr(),
+                                                    out_i.data_ptr(), *shape, S, stream)
+    _build.check(lib, rc, wrapper.__name__)
+    wrapper.launches += 1
+    return out_s, out_i
 
 
 def fused_knn(
-    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip"
+    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip",
+    n_live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Query-stationary grid. See the module docstring for the contract."""
     k = int(k)
-    _check(q, v, valid, k, metric)
+    _check(q, v, valid, k, metric, n_live)
     if q.device.type == "cpu":
-        return fused_knn_plain(q, v, valid, k=k, metric=metric)
-    W, TQ, TV, D, out_s, out_i = _cuda_args(q, v, valid, k)
-    if out_s.numel() == 0:
-        return out_s, out_i
-    lib = _build.library("fused_knn")
-    with torch.cuda.device(q.device):
-        rc = lib.fused_knn_launch(
-            q.data_ptr(), v.data_ptr(), valid.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            W, TQ, TV, D, k, int(metric == "l2"), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, rc, "fused_knn")
-    fused_knn.launches += 1
-    return out_s, out_i
+        return fused_knn_plain(q, v, valid, k=k, metric=metric, n_live=n_live)
+    return _launch(fused_knn, "fused_knn_launch", q, v, valid, k, metric, n_live)
 
 
 fused_knn.launches = 0
 
 
 def fused_knn_db_stationary(
-    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip"
+    q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip",
+    n_live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Split-V grid (partial top-k per ``SPLIT_ROWS`` rows, then a merge)."""
+    """Split-row grid: ``split_count`` blocks per (unit, query chunk), their
+    partial lists merged by the last of them, one launch."""
     k = int(k)
-    _check(q, v, valid, k, metric)
+    _check(q, v, valid, k, metric, n_live)
     if q.device.type == "cpu":
-        return fused_knn_plain(q, v, valid, k=k, metric=metric)
-    W, TQ, TV, D, out_s, out_i = _cuda_args(q, v, valid, k)
-    if out_s.numel() == 0:
-        return out_s, out_i
-    S = -(-TV // SPLIT_ROWS)
-    part_s = torch.empty((W, S, TQ, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((W, S, TQ, k), dtype=torch.int32, device=q.device)
-    lib = _build.library("fused_knn")
-    with torch.cuda.device(q.device):
-        rc = lib.fused_knn_db_stationary_launch(
-            q.data_ptr(), v.data_ptr(), valid.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            W, TQ, TV, D, k, int(metric == "l2"), int(q.dtype == torch.bfloat16), SPLIT_ROWS,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, rc, "fused_knn_db_stationary")
-    fused_knn_db_stationary.launches += 1
-    return out_s, out_i
+        return fused_knn_plain(q, v, valid, k=k, metric=metric, n_live=n_live)
+    return _launch(fused_knn_db_stationary, "fused_knn_db_stationary_launch", q, v, valid, k,
+                   metric, n_live)
 
 
 fused_knn_db_stationary.launches = 0

@@ -142,15 +142,18 @@ def workunit_topk(
     k: int,
     *,
     metric: str = "ip",
+    n_live: torch.Tensor | None = None,  # i32 [W]: real query slots per unit (None: all)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Work-unit entry point of the execution engine: one bucket, one dispatch.
 
     Picks the split-V grid when the vector tile dominates the query tile
-    (``use_db_stationary``), the query-stationary grid otherwise.
+    (``use_db_stationary``), the query-stationary grid otherwise. Slot s of
+    unit w holds a query iff s < ``n_live[w]``; the others are
+    ``(NEG_INF, -1)`` and are never scored.
     """
     _DISPATCH.record_knn((q.shape[0], q.shape[1], v.shape[1], int(k)))
     fn = fused_knn_db_stationary if use_db_stationary(q.shape[1], v.shape[1]) else fused_knn
-    return fn(q, v, valid, k=int(k), metric=metric)
+    return fn(q, v, valid, k=int(k), metric=metric, n_live=n_live)
 
 
 def workunit_pq_topk(

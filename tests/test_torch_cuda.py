@@ -127,18 +127,122 @@ def test_rejects_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", sorted(GRIDS))
-def test_widest_rows_the_tiles_hold(dev, grid):
-    """d=453 is the widest row a 64-query unit's tiles hold; d=454 raises
-    before launch, so ``check_kernel_limits`` agrees with the kernels'
-    real shared-memory need."""
+@pytest.mark.parametrize("d", [453, 454, 768, 1024])
+def test_widest_rows_the_tiles_hold(dev, grid, d):
+    """Rows are staged 64 elements at a time, so any width runs: d 453 (the
+    widest the whole-row tiles of the first version held), 454, and the
+    768 and 1024 of text-encoder embeddings match the plain version."""
     fn = GRIDS[grid]
-    q, v, valid = _case(dev, 4, 2, 64, 300, 453)
-    _check(fn(q, v, valid, k=10), fused_knn_plain(q, v, valid, k=10), 1e-4)
-    q, v, valid = _case(dev, 4, 2, 64, 300, 454)
-    n0 = fn.launches
-    with pytest.raises(ValueError, match="d=454"):
-        fn(q, v, valid, k=10)
-    assert fn.launches == n0
+    q, v, valid = _case(dev, d, 2, 64, 300, d)
+    for metric in ("ip", "l2"):
+        _check(fn(q, v, valid, k=10, metric=metric), fused_knn_plain(q, v, valid, k=10, metric=metric),
+               1e-4)
+
+
+def _n_live(dev, W, TQ, pattern):
+    g = torch.Generator(device="cpu").manual_seed(W + TQ)
+    n = {"zero": torch.zeros(W, dtype=torch.int32), "one": torch.ones(W, dtype=torch.int32),
+         "full": torch.full((W,), TQ, dtype=torch.int32),
+         "ragged": torch.randint(0, TQ + 1, (W,), generator=g, dtype=torch.int32)}[pattern]
+    return n.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("pattern", ["zero", "one", "ragged", "full"])
+@pytest.mark.parametrize("W,TQ,TV", [(64, 64, 64), (16, 100, 300), (4, 64, 4096)])
+def test_live_slots(dev, grid, pattern, W, TQ, TV):
+    """``n_live``: the live slots match the plain version, every other slot
+    is (NEG_INF, -1); the plain version honours it the same way."""
+    q, v, valid = _case(dev, W + TV, W, TQ, TV, 64, density=0.3)
+    n_live = _n_live(dev, W, TQ, pattern)
+    for metric in ("ip", "l2"):
+        got = GRIDS[grid](q, v, valid, k=10, metric=metric, n_live=n_live)
+        want = fused_knn_plain(q, v, valid, k=10, metric=metric, n_live=n_live)
+        _check(got, want, 1e-4)
+        dead = torch.arange(TQ, device=dev)[None, :] >= n_live[:, None]
+        assert (got[1][dead] == -1).all() and (got[0][dead] == -3.4e38).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [2, 64])
+@pytest.mark.parametrize("k", [10, MAX_K])
+def test_split_rows_merge_in_one_launch(dev, W, k):
+    """TV 4096 splits a unit's rows over many blocks (``split_count``, the
+    same in Python and C); the last block merges their lists in the same
+    launch: the profiler sees one kernel launch and no merge kernel."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_knn import split_count
+
+    q, v, valid = _case(dev, W, W, 64, 4096, 64)
+    lib = _build.library("fused_knn")
+    for shape in ((W, 64, 4096), (W, 1, 4096), (3, 130, 1100), (16384, 64, 64), (8, 64, 4096)):
+        assert lib.fused_knn_split_count(*shape) == split_count(*shape), shape
+    assert split_count(W, 64, 4096) > 1
+    fn = fused_knn_db_stationary
+    _check(fn(q, v, valid, k=k, metric="l2"), fused_knn_plain(q, v, valid, k=k, metric="l2"), 1e-4)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a trace's launches: trace again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(q, v, valid, k=k)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        if any("fused_knn" in e.key for e in device):
+            break
+    names = [e.key for e in device]
+    assert sum(e.count for e in device if "fused_knn" in e.key) == 1, names
+    assert not any("merge_partials" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("W,TV,density", [(16384, 40, 0.7), (37, 40, 0.2), (5, 3000, 0.5)])
+def test_units_of_one_query(dev, grid, W, TV, density):
+    """TQ = 1 (the PQ path's re-rank: a warp per unit), with padding units
+    (n_live 0) as the engine passes them."""
+    q, v, valid = _case(dev, W + TV, W, 1, TV, 64, density=density)
+    n_live = (torch.arange(W, device=dev) < W - W // 4).to(torch.int32)
+    k = min(10, TV)
+    for metric in ("ip", "l2"):
+        got = GRIDS[grid](q, v, valid, k=k, metric=metric, n_live=n_live)
+        _check(got, fused_knn_plain(q, v, valid, k=k, metric=metric, n_live=n_live), 1e-4)
+
+
+@pytest.mark.cuda
+def test_ties_across_split_boundaries(dev):
+    """One row duplicated into every 64-row tile of a 4096-row unit, so the
+    copies fall in different blocks of the split grid: both grids return
+    them in index order, equal to the plain version."""
+    q, v, valid = _case(dev, 9, 2, 64, 4096, 32, density=1.0)
+    copies = list(range(5, 4096, 64))
+    v[:, copies] = v[:, 5:6]
+    q[:, :, :] = v[:, 5:6] + 0.01 * q  # the copies rank first
+    want = fused_knn_plain(q, v, valid, k=MAX_K, metric="ip")
+    for fn in GRIDS.values():
+        s, i = fn(q, v, valid, k=MAX_K, metric="ip")
+        assert torch.equal(i, want[1])
+        torch.testing.assert_close(s, want[0], rtol=1e-4, atol=1e-4)
+        dup = torch.isin(i, torch.tensor(copies, device=dev))
+        for row_i, row_d in zip(i.reshape(-1, MAX_K), dup.reshape(-1, MAX_K)):
+            ids = row_i[row_d].tolist()
+            assert ids == sorted(ids) and len(ids) == len(copies)
+
+
+@pytest.mark.cuda
+def test_wide_index_searches_on_the_card(dev):
+    """An index of 768-wide vectors searches on the card and answers as its
+    CPU reload does."""
+    kg = kg_style(n=20_000, d=768, queries_per_split=40, seed=0)
+    wl = kg.splits[1]
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(), device=dev)
+    n0 = fused_knn.launches + fused_knn_db_stationary.launches
+    a = index.search(wl, nprobe=8)
+    assert fused_knn.launches + fused_knn_db_stationary.launches > n0
+    b = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
+    torch.testing.assert_close(torch.from_numpy(a.scores), torch.from_numpy(b.scores),
+                               rtol=1e-4, atol=1e-4)
+    for r in range(wl.m):
+        assert set(a.ids[r][a.ids[r] >= 0].tolist()) == set(b.ids[r][b.ids[r] >= 0].tolist())
 
 
 @pytest.mark.cuda
