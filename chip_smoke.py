@@ -36,12 +36,16 @@
 5. ADC kernels against their plain versions on the card:
    ``workunit_pq_scan_streamed`` (a [4096, M, 256] resident table read
    through random ``lut_idx``, an eighth of each unit's slots padding at row
-   0) and ``workunit_pq_scan`` (the same LUTs expanded) at W=256, TQ=64,
-   M in {8, 16}, TV in {32..4096}, k in {10, 40}, valid density 0.7;
+   0) and ``workunit_pq_scan`` (the same LUTs expanded, ragged ``n_live``:
+   bit-equal to its plain version) at W=256, TQ=64, M in {8, 16}, TV in
+   {32..4096}, k in {10, 40}, valid density 0.7;
    plus all-invalid, k above the valid count and 2 valid rows of 1024 at
    k=4 (unfilled slots (NEG_INF, -1)); scores within 1e-4, ids equal where
    untied; kernel, plain version and the yardstick (``torch.gather`` + sum
-   + masked ``torch.topk``) timed beside each shape's bound. Then the
+   + masked ``torch.topk``) timed beside each shape's bound. Then
+   ``workunit_pq_scan`` bit-equal at a delta-store shape [16, 128, 32768,
+   M 8, k′ 40] (16 MiB of LUTs, rows split over blocks, one launch) and at
+   M 181, each beside its bound, plain version and yardstick. Then the
    LUT-stationary kernels, bit-equal to their plain versions: the units
    kernel at the engine's heaviest bucket shape [16384, 64, 64, 8, 40] with
    a quarter of the slots real (the rest -1), the same with every real slot
@@ -62,8 +66,14 @@
    exact re-rank's one dispatch at its real shape (stage A run as the
    search runs it) checked and timed;
 7. PQ card against CPU at 100k rows: segmented and dense layouts (the dense
-   one drives ``workunit_pq_scan``) and a ``PQIndex`` with 64 queries and
-   ``rerank=4`` (``pq_scan``), each against its CPU reload;
+   one drives ``workunit_pq_scan`` with the engine's ``n_live``; a profiled
+   dense search must show ``adc_slot_warps_kernel`` and no
+   ``merge_partials_kernel``) and a ``PQIndex`` with 64 queries and
+   ``rerank=4`` (``pq_scan``), each against its CPU reload; every dense
+   bucket checked bit for bit and timed beside its bound; on the heaviest,
+   the LUT-stationary units kernel serving the same bucket (the expanded
+   LUTs as a table of W·TQ rows, -1 on the dead slots: the design the dense
+   layout did not take) must give the same lists, and is timed;
 8. ``flash_attention`` against its plain version on the card: gemma3 heads
    (32/16, dh 128, bf16, batch 1) at S in {1024, 4096, 32768} x window in
    {0, 1024}, minicpm (36/36, dh 64) and qwen3 (64/8, dh 128) heads at
@@ -148,7 +158,7 @@ DESIGN = {
     "fused_knn": "redesigned: live slots and valid rows only, 4x4 register tiles, count-ranked keys",
     "fused_knn_db_stationary": "redesigned: rows split over blocks, the last block merges in the same launch",
     "workunit_pq_scan_streamed": "redesigned: LUT-stationary, slots sorted by LUT row, warp select",
-    "workunit_pq_scan": "qb query slots a block, rows split over blocks, merge kernel",
+    "workunit_pq_scan": "redesigned: a warp per live slot, codes shared through a cp.async ring, one launch",
     "pq_scan": "redesigned: LUT-stationary, one launch, last block merges",
 }
 NEG_INF = -3.4e38
@@ -747,6 +757,47 @@ def lut_stationary_cases(gen, check) -> list:
     return rows
 
 
+def dense_cases(gen, check) -> list:
+    """``workunit_pq_scan`` at a delta-store shape [16, 128, 32768, M 8, k′
+    40] (16 MiB of LUTs; each unit's rows split over blocks, the last block
+    merging their lists in the same launch) and at M 181 [64, 64, 256, k′
+    40] (one slot and one warp a block), with a ragged ``n_live`` and zero
+    LUTs on the dead slots: bit-equal to the plain version, timed beside the
+    bound, the launch alone, the plain version and the yardstick."""
+    import torch
+
+    from repro_torch.kernels import pq_scan as adc
+
+    rows = []
+    for label, W, TQ, TV, M in (("delta_store", 16, 128, 32768, 8), ("m181", 64, 64, 256, 181)):
+        k = 40
+        luts = torch.randn((W, TQ, M, 256), generator=gen, device="cuda")
+        n_live = torch.randint(1, TQ + 1, (W,), generator=gen, device="cuda", dtype=torch.int32)
+        live = torch.arange(TQ, device="cuda")[None, :] < n_live[:, None]
+        luts[~live] = 0.0
+        codes = torch.randint(0, 256, (W, TV, M), generator=gen, device="cuda", dtype=torch.uint8)
+        valid = torch.rand((W, TV), generator=gen, device="cuda") < 0.7
+        args = (luts, codes, valid)
+        got = adc.workunit_pq_scan(*args, k=k, n_live=n_live)
+        want = adc.workunit_pq_scan_plain(*args, k=k, n_live=n_live)
+        row = {"case": f"dense_{label}", "W": W, "TQ": TQ, "TV": TV, "M": M, "k": k,
+               "launch_shape": adc.launch_shape(W, TQ, TV, M, k),
+               "err": check("workunit_pq_scan", got, want)}
+        exact(got, want, f"workunit_pq_scan, {label}")
+        del got, want
+        row["ms"] = cuda_ms(lambda: adc.workunit_pq_scan(*args, k=k, n_live=n_live), reps=11)
+        row["device_ms"] = device_ms(lambda: adc.workunit_pq_scan(*args, k=k, n_live=n_live),
+                                     "adc_slot_warps_kernel")
+        row["plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_plain(*args, k=k, n_live=n_live), reps=3)
+        row["yardstick_ms"] = cuda_ms(lambda: adc_yardstick(*args, k), reps=3)
+        row["bound"] = adc_bound(codes, valid, k, live, int(live.sum()))
+        rows.append(row)
+        log("[adc] " + json.dumps(row))
+        del luts, codes, valid, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_adc_kernels(rec: dict, max_err: dict) -> None:
     import torch
 
@@ -774,21 +825,27 @@ def phase_adc_kernels(rec: dict, max_err: dict) -> None:
             lut_idx[:, TQ - pad:] = 0
             luts = table[lut_idx.long()]
             distinct = int(torch.unique(lut_idx[q_live]).numel())
+            # the expanded LUTs' live slots: a ragged count per unit
+            n_live = torch.randint(0, TQ + 1, (W,), generator=gen, device="cuda", dtype=torch.int32)
+            live = torch.arange(TQ, device="cuda")[None, :] < n_live[:, None]
             for k in sorted({10, min(40, tv)}):  # k <= TV
                 want = adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
                 row = {"case": "sweep", "W": W, "TQ": TQ, "TV": tv, "M": M, "k": k}
                 row["streamed_err"] = check("workunit_pq_scan_streamed",
                                             adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k), want)
-                row["expanded_err"] = check("workunit_pq_scan",
-                                            adc.workunit_pq_scan(luts, codes, valid, k=k), want)
+                got = adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live)
+                want = adc.workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
+                row["expanded_err"] = check("workunit_pq_scan", got, want)
+                exact(got, want, f"workunit_pq_scan at TV {tv}, M {M}, k {k}, ragged n_live")
+                del got, want
                 row["streamed_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=k), reps=15)
-                row["expanded_ms"] = cuda_ms(lambda: adc.workunit_pq_scan(luts, codes, valid, k=k), reps=15)
+                row["expanded_ms"] = cuda_ms(lambda: adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live), reps=15)
                 row["streamed_plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k), reps=15)
-                row["expanded_plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_plain(luts, codes, valid, k=k), reps=15)
+                row["expanded_plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live), reps=15)
                 row["streamed_yardstick_ms"] = cuda_ms(lambda: adc_yardstick(table[lut_idx.long()], codes, valid, k), reps=15)
                 row["expanded_yardstick_ms"] = cuda_ms(lambda: adc_yardstick(luts, codes, valid, k), reps=15)
                 row["streamed_bound"] = adc_bound(codes, valid, k, q_live, distinct)
-                row["expanded_bound"] = adc_bound(codes, valid, k, q_live, int(q_live.sum()))
+                row["expanded_bound"] = adc_bound(codes, valid, k, live, int(live.sum()))
                 rows.append(row)
                 log("[adc] " + json.dumps(row))
             del luts
@@ -825,6 +882,7 @@ def phase_adc_kernels(rec: dict, max_err: dict) -> None:
     del luts
 
     rows += lut_stationary_cases(gen, check)
+    rows += dense_cases(gen, check)
 
     for nv in (10_000, 100_000, 1_000_000):
         lut = torch.randn((8, 256), generator=gen, device="cuda")
@@ -950,13 +1008,18 @@ def phase_pq_main(rec: dict, main: dict) -> dict:
 
 def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
     """The ADC kernel on every bucket a search gives it (resident table, or
-    the dense layout's expanded LUTs): checked against its plain version and
-    timed; the heaviest bucket is also timed plain and by the yardstick."""
+    the dense layout's expanded LUTs with the engine's ``n_live``): checked
+    against its plain version bit for bit and timed; the heaviest bucket is
+    also timed plain, by the yardstick and by the profiler. On the heaviest
+    dense bucket the LUT-stationary units kernel serves the same work (the
+    expanded LUTs as a table of W·TQ rows, -1 on the dead slots): a second
+    kernel that must give the same lists, and the time of the design the
+    dense layout did not take."""
     import torch
 
     from repro_torch.core.ivf import ScanStats
     from repro_torch.core.plan import build_plan
-    from repro_torch.core.planner import pq_bucket_operands, resident_luts
+    from repro_torch.core.planner import live_slots, pq_bucket_operands, resident_luts
     from repro_torch.kernels import pq_scan as adc
 
     name = "workunit_pq_scan_streamed" if resident else "workunit_pq_scan"
@@ -973,20 +1036,24 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
         qrow_of, _, _, lut_idx, codes, valid = pq_bucket_operands(plan, arena, lut_pos, lp)
         q_live = torch.from_numpy(qrow_of >= 0).to(arena.device)
         k = min(kprime, lp)
+        kw = {"k": k}
         if resident:
             args = (table, lut_idx, codes, valid)
             lut_rows = int(torch.unique(lut_idx[q_live]).numel())
         else:  # padding slots expand row 0, as the engine's dense layout does
             luts = table.index_select(0, lut_idx.clamp(min=0).reshape(-1)).reshape(*lut_idx.shape, M, 256)
             args = (luts, codes, valid)
+            kw["n_live"] = live_slots(qrow_of, arena.device)
             lut_rows = int(q_live.sum())
-        got, want = kernel(*args, k=k), plain(*args, k=k)
+        got, want = kernel(*args, **kw), plain(*args, **kw)
         err = compare(got, want, 1e-4)
         exact(got, want, f"{name} on the bucket of lists padded to {lp}")
-        del got, want
         max_err[name] = max(max_err[name], err)
         row = {"kernel": name, "shape": [lut_idx.shape[0], lut_idx.shape[1], lp, M, k],
-               "ms": cuda_ms(lambda: kernel(*args, k=k), reps=21), "max_abs_err": err}
+               "ms": cuda_ms(lambda: kernel(*args, **kw), reps=21), "max_abs_err": err}
+        if not resident:
+            row["launch_shape"] = adc.launch_shape(*lut_idx.shape, lp, M, k)
+        del got, want
         row.update(adc_bound(codes, valid, k, q_live, lut_rows))
         if resident:
             row.update(lut_staging(lut_idx, table.shape[0], lp, M))
@@ -995,18 +1062,25 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
         log(f"[{tag}] " + json.dumps(row))
         work = lut_idx.shape[0] * lp
         if heavy is None or work > heavy[0]:
-            heavy = (work, row, args, k)
+            heavy = (work, row, args, kw, q_live)
         del args
-    _, row, args, k = heavy
+    _, row, args, kw, q_live = heavy
     row = dict(row)
-    row["device_ms"] = device_ms(lambda: kernel(*args, k=k),
-                                 "lut_stationary_units_kernel" if resident else "adc_scan_kernel")
+    row["device_ms"] = device_ms(lambda: kernel(*args, **kw),
+                                 "lut_stationary_units_kernel" if resident else "adc_slot_warps_kernel")
     if resident:
         row["work_list_ms"] = cuda_ms(lambda: adc.slot_order(args[1]), reps=21)
-    row["plain_ms"] = cuda_ms(lambda: plain(*args, k=k), reps=11)
+    else:
+        W, TQ = q_live.shape
+        slots = torch.arange(W * TQ, device=arena.device, dtype=torch.int32).reshape(W, TQ)
+        vargs = (args[0].reshape(W * TQ, M, 256), torch.where(q_live, slots, -1), *args[1:])
+        exact(adc.workunit_pq_scan_streamed(*vargs, k=kw["k"]), kernel(*args, **kw),
+              "the units kernel serving the heaviest dense bucket")
+        row["variant_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed(*vargs, k=kw["k"]), reps=21)
+    row["plain_ms"] = cuda_ms(lambda: plain(*args, **kw), reps=11)
     row["yardstick_ms"] = cuda_ms(
         lambda: adc_yardstick(args[0] if not resident else args[0][args[1].clamp(min=0).long()],
-                              args[-2], args[-1], k), reps=11)
+                              args[-2], args[-1], kw["k"]), reps=11)
     log(f"[{tag} heaviest] " + json.dumps(row))
     total = {"ms": sum(b["ms"] for b in buckets), "bound_ms": sum(b["bound_ms"] for b in buckets)}
     log(f"[{tag}] summed over the search's {len(buckets)} buckets: " + json.dumps(total))
@@ -1048,7 +1122,9 @@ def rerank_dispatch(index, wl, max_err: dict) -> dict:
 
 def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     """PQ at 100k rows on the card against its CPU reload: both layouts, and
-    a PQIndex (one pq_scan launch per query)."""
+    a PQIndex (one pq_scan launch per query). The dense layout's search is
+    also profiled: it must launch ``adc_slot_warps_kernel`` and no merge
+    kernel."""
     import torch
 
     from repro_torch.core import HQIConfig, HQIIndex, PQIndex, kg_style
@@ -1077,7 +1153,16 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     agree(a_d, a, "PQ dense and segmented on the card")
     log(f"[pq-card-vs-cpu] dense: agree; workunit_pq_scan launched {launches4} times, "
         f"{expand} LUT bytes expanded")
+    for _ in range(3):  # the profiler now and then drops a trace's launches: trace again
+        _, dense_busy_s, _, dense_device_us = profiled_search(gpu_d, wl, "dense")
+        names = list(dense_device_us)
+        if any("adc_slot_warps_kernel" in n for n in names):
+            break
+    if any("merge_partials" in n for n in names) or not any("adc_slot_warps_kernel" in n for n in names):
+        raise AssertionError(f"the dense search's kernels: {names}")
+    dense_scan_ms = sum(us for n, us in dense_device_us.items() if "adc_slot_warps_kernel" in n) / 1e3
     dense_run = adc_buckets(gpu_d, wl, resident=False, max_err=max_err, tag="dense")
+    dense_run["heaviest"]["summed_over_buckets"] = dense_run["summed"]
     del gpu_d
     torch.cuda.empty_cache()
 
@@ -1117,8 +1202,11 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     log("[pq_scan heaviest] " + json.dumps(one))
     rec["pq_card_vs_cpu"] = {"n": 100_000, "queries": wl.m, "agree": True,
                              "dense_launches": launches4, "dense_lut_expand_bytes": expand,
+                             "dense_device_busy_ms": dense_busy_s * 1e3,
+                             "dense_scan_device_ms": dense_scan_ms,
                              "pq_index_queries": len(q), "pq_scan_launches": launches5,
-                             "dense_buckets": dense_run["buckets"]}
+                             "dense_buckets": dense_run["buckets"],
+                             "dense_buckets_summed": dense_run["summed"]}
     return {"workunit_pq_scan": (launches4, dense_run["heaviest"]), "pq_scan": (launches5, one)}
 
 # ------------------------------------------------------- flash attention

@@ -48,7 +48,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.fused_knn import check_kernel_limits
-from ..kernels.pq_scan import NBOOK, check_lut_stationary_limits, check_pq_kernel_limits, pick_qb
+from ..kernels.pq_scan import NBOOK, check_lut_stationary_limits, check_pq_kernel_limits
 from ..obs.trace import fence, get_tracer
 from .arena import PackedArena
 from .ivf import IVFIndex, ScanStats
@@ -389,7 +389,7 @@ def _execute_plan_pq(
         if cfg.merge_layout == "segmented":
             check_lut_stationary_limits(kk, M)
         else:
-            check_pq_kernel_limits(kk, M, pick_qb(M, plan.tq))
+            check_pq_kernel_limits(kk, M)
         check_kernel_limits(min(k, kprime), arena.d, 1)
 
     luts_dev, lut_pos = resident_luts(plan, arena, q_vecs)
@@ -450,11 +450,13 @@ def _iter_pq_buckets(plan, arena, luts_dev, lut_pos, kprime, *, resident: bool, 
                 s, i_loc = kops.workunit_pq_topk_resident(luts_dev, lut_idx, codes, valid_t, kk)
                 s, i_loc = fence(s, i_loc)
         else:
-            # padding slots expand row 0, as in ``repro``; their outputs are dropped
+            # padding slots expand row 0, as in ``repro``; the kernel reads only the
+            # live ones (``n_live``) and both engines drop the others' outputs
             luts = luts_dev.index_select(0, lut_idx.clamp(min=0).reshape(-1)).reshape(W, plan.tq, M, NBOOK)
             _account_lut(stats, _nbytes(luts), expanded=True)
             with get_tracer().span("dispatch.scan", mode="pq", lp=lp, units=n_units):
-                s, i_loc = kops.workunit_pq_topk(luts, codes, valid_t, kk)
+                s, i_loc = kops.workunit_pq_topk(luts, codes, valid_t, kk,
+                                                 n_live=live_slots(qrow_of, dev))
                 s, i_loc = fence(s, i_loc)
             del luts
         wmask = qrow_of >= 0

@@ -46,7 +46,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         ),
     },
     "pq_scan": {
-        "adc_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "adc_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "adc_launch_shape": (_I, _I, _I, _I, _I, _P),
         "lut_stationary_units_launch": (
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),

@@ -69,8 +69,7 @@
 //   * one launch: at S > 1 the blocks write their lists as keys, and the
 //     last block of a (unit, chunk) — a counter zeroed by cudaMemsetAsync in
 //     the entry, a __threadfence, reads through L2 — ranks them into the
-//     final list. merge_partials_kernel (topk.cuh) serves only
-//     adc_scan_kernel.
+//     final list.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, each
 // entry returns cudaGetLastError() (0 = launched).

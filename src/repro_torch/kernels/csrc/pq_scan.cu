@@ -8,8 +8,9 @@
 //   pq_scan                   — LUT-stationary: lut_stationary_rows_kernel,
 //                               one query's LUT [M, 256] against NV rows in
 //                               one launch.
-//   workunit_pq_scan          — adc_scan_kernel over expanded LUTs
-//                               [W, TQ, M, 256] (qb query slots a block).
+//   workunit_pq_scan          — adc_slot_warps_kernel over expanded LUTs
+//                               [W, TQ, M, 256]: a warp per live slot, one
+//                               launch.
 //
 // Replaces (TPU, Pallas): src/repro/kernels/pq_scan.py —
 // workunit_pq_scan_streamed (_workunit_pq_streamed_kernel, scalar prefetch +
@@ -24,7 +25,9 @@
 //   Row indices are local to the unit (to the code array for pq_scan). A
 //   resident slot whose row index is -1 holds no query: it is written
 //   (NEG_INF, -1) and never scored; any other index outside the table is
-//   clamped into it.
+//   clamped into it. With n_live [W] (expanded LUTs), slot s of unit w holds
+//   a query iff s < n_live[w]: the others are written (NEG_INF, -1) and their
+//   LUTs are never read.
 //
 // What bounds it on the H100: per (real query, valid row) the function does
 // M lookups and M fp32 adds, and must read the valid rows' codes (M bytes
@@ -59,14 +62,32 @@
 // shuffles; a piece of at most 64 rows is sorted at once instead. A unit of
 // any length is one launch: its chunks loop inside a warp, or eight.
 //
-// adc_scan_kernel (expanded LUTs): a block takes qb queries of one unit
-// (qb·M·1 KiB of LUT in shared memory: qb = 64 / M, so 64 KiB), stages
-// their LUT rows with 16-byte loads, eight in flight a thread, streams the
-// unit's code rows through a 256-row shared tile, and each thread keeps a
-// sorted top-K list in registers for its (query, row lane); lanes fold by a
-// tree of list merges in shared memory. Long units split their rows over
-// blocks (grid z) whose partial lists topk.cuh's merge_partials_kernel
-// merges.
+// adc_slot_warps_kernel (expanded LUTs, the dense layout). Every slot has its
+// own LUT row, so nothing is shared between slots but the unit's code rows,
+// and the bound is the live slots' LUT rows (M KiB each) and the output.
+// The engine's units hold their real query slots first (n_live), about one
+// slot in six at the heaviest bucket. A block takes the live slots of one
+// unit G at a time (a group), a warp (or g warps, G·g <= 8) a slot:
+//   * only live slots are read: each warp stages its slot's LUT row by
+//     16-byte cp.async; dead slots are written (NEG_INF, -1) by the unit's
+//     first block and a unit with no live slot reads nothing;
+//   * the block streams its rows once per group through a ring of kStages
+//     tiles (T >= kTileChunks 32-row chunks of codes and their mask),
+//     kStages - 1 tiles ahead by cp.async, so later tiles and the LUT rows
+//     land while a tile is scored; each lane scores one row of a chunk, a
+//     slot's g warps taking every g-th chunk;
+//   * each warp keeps its slot's top-k in topk.cuh's WarpSelect (as the
+//     LUT-stationary kernels); a warp with at most 64 rows sorts them at
+//     once; the g warps of a slot fold their lists into the first's;
+//   * G = 64 / M (at most 8, at most TQ): 64 KiB of LUT rows and three
+//     blocks an SM at M 8; past M 64 one slot a block, its warps and then
+//     its tiles halved until the block fits (M <= 190 at one warp);
+//   * parallel and one launch at any length: where the grid of one block a
+//     unit would not reach kGridTarget, a unit's slot groups go to Y blocks
+//     and then, past kMinRangeChunks·32 rows, its rows to S blocks; each
+//     stores its raw lists and the last block of a (unit, slot group) — a
+//     counter zeroed by cudaMemsetAsync in the entry, __threadfence, reads
+//     through L2 — merges the S lists in the same launch.
 //
 // Plain C interface for ctypes: pointers and the stream are void*, each entry
 // returns cudaGetLastError() (0 = launched).
@@ -79,182 +100,265 @@
 
 namespace {
 
-using hqi::TopK;
 using hqi::WarpSelect;
 using hqi::kFullMask;
 using hqi::kNegInf;
 using hqi::kNoIdx;
 using hqi::kSelectBuf;
 using hqi::prepare;
-using hqi::write_final;
 
-// ============================================================ adc_scan_kernel
+// Σ_m lut[m][code[m]] for one staged code row, in the order m = 0 … M-1.
+__device__ __forceinline__ float adc_row(const float* __restrict__ lut, const uint8_t* cr, int M) {
+  float acc = 0.f;
+  if ((M & 7) == 0) {
+    for (int j = 0; j < M; j += 8) {
+      const uint2 w = *reinterpret_cast<const uint2*>(cr + j);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc += lut[(j + b) * 256 + ((w.x >> (8 * b)) & 255u)];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc += lut[(j + 4 + b) * 256 + ((w.y >> (8 * b)) & 255u)];
+    }
+  } else {
+    for (int j = 0; j < M; ++j) acc += lut[j * 256 + cr[j]];
+  }
+  return acc;
+}
 
-constexpr int kThreads = 256;  // threads per scan block
-constexpr int kCodeRows = 256;  // code rows staged in shared memory per step
-constexpr int kLutPad = 4;      // floats between two queries' LUT rows (bank spread)
-constexpr int kStageBatch = 8;  // LUT loads a thread keeps in flight while staging
+// ====================================================== adc_slot_warps_kernel
 
-struct AdcShape {
-  int TQ, TV, M, k;
-  int qb;          // queries per block (power of two, <= kThreads)
-  int chunk_rows;  // rows per block along TV
-};
+namespace adc {
 
-__host__ __device__ inline int lut_stride(int M) { return M * 256 + kLutPad; }
+constexpr int kWarps = 8;             // most warps a block
+constexpr int kStages = 6;            // ring tiles: kStages - 1 in flight ahead
+constexpr int kChunk = 32;            // rows a warp scores at once, one a lane
+constexpr int kTileChunks = 4;        // chunks a tile holds at least
+constexpr int kLutKiB = 64;           // LUT rows a block stages at most when it takes > 1 slot
+constexpr int kGridTarget = 2 * 3 * 132;  // blocks a split grid aims for (2 waves at M 8)
+constexpr int kMinRangeChunks = 8;         // chunks a split range holds at least
+constexpr size_t kSmemOptin = 232448;  // sm_90: most dynamic shared memory a block may take
+
+// A tile of T chunks: their 32-row code blocks, then their mask bytes.
+__host__ __device__ inline int stage_bytes(int M, int T) { return kChunk * T * (M + 1); }
 
 // Mirrored by kernels/pq_scan.py::adc_smem_bytes.
-__host__ inline size_t adc_smem_bytes(int M, int qb, int K) {
-  const size_t tile = (size_t)qb * lut_stride(M) * sizeof(float)  // the chunk's LUT rows
-                      + (size_t)kCodeRows * M + kCodeRows;        // code + valid tile
-  const size_t fold = (size_t)kThreads * (K * (sizeof(float) + sizeof(int)) + sizeof(int));
-  return tile > fold ? tile : fold;
+__host__ inline size_t smem_bytes(int M, int G, int g, int T) {
+  return (size_t)G * M * 256 * sizeof(float)        // the group's LUT rows
+         + (size_t)kStages * stage_bytes(M, T)      // the ring
+         + (size_t)G * g * kSelectBuf * 8           // the warps' candidate buffers
+         + 16;                                      // last-block flag
 }
 
-// One block: queries [q0, q0 + qb) of unit w against rows [row0, row1).
-// Thread t serves query t % qb on row lane t / qb; on return, threads of row
-// lane 0 hold their query's top-K over the whole row range. The LUT of
-// slot (w, t) is row w·TQ + t of lut.
-template <int K>
-__device__ __forceinline__ void adc_block(const float* __restrict__ lut,
-                                          const uint8_t* __restrict__ codes,
-                                          const uint8_t* __restrict__ valid, const AdcShape& sh,
-                                          int w, int q0, int row0, int row1, TopK<K>& top) {
+// G slots a block, g warps a slot (halved until the block fits with tiles
+// of g chunks), T chunks a tile (a multiple of g, each of a slot's warps
+// taking every g-th chunk: kTileChunks where that fits, else g). The CPU
+// tests mirror this and split_of in tests/torch_adc_shape.py.
+__host__ inline void slot_warps(int M, int TQ, int& G, int& g, int& T) {
+  G = 1;
+  while (2 * G <= kWarps && 2 * G * M <= kLutKiB && G < TQ) G *= 2;
+  g = kWarps / G;
+  while (g > 1 && smem_bytes(M, G, g, g) > kSmemOptin) g /= 2;
+  T = g > kTileChunks ? g : kTileChunks;
+  if (smem_bytes(M, G, g, T) > kSmemOptin) T = g;
+}
+
+// Blocks per unit, Y over its slot groups (G slots each; block y takes
+// groups y, y + Y, ...) and then S over its rows (ranges of whole 32-row
+// chunks, at least kMinRangeChunks), until the grid reaches kGridTarget.
+// Groups come first: a group's LUT rows are staged once whichever block
+// takes it, a range's once per range.
+__host__ inline void split_of(int W, int TQ, int TV, int G, int& Y, int& S) {
+  const int groups = (TQ + G - 1) / G, nch = (TV + kChunk - 1) / kChunk;
+  Y = kGridTarget / W;
+  if (Y > groups) Y = groups;
+  if (Y < 1) Y = 1;
+  int s = kGridTarget / (W * Y);
+  if (s > nch / kMinRangeChunks) s = nch / kMinRangeChunks;
+  S = 1;
+  if (s > 1) {
+    const int per = (nch + s - 1) / s;
+    S = (nch + per - 1) / per;
+  }
+}
+
+struct Shape {
+  int TQ, TV, M, k;
+  int G, g, T;  // slots a block takes at a time; warps a slot; chunks a tile
+  int Y, S;     // blocks per unit over its slot groups, and over its rows
+  int per;   // 32-row chunks a range
+};
+
+// nbytes from src into shared dst (16-byte aligned), block-wide: whole
+// 16-byte blocks of an aligned source by cp.async (the caller commits), the
+// rest by plain loads.
+__device__ __forceinline__ void block_copy(uint8_t* dst, const uint8_t* src, int nbytes) {
+  const int b16 = (reinterpret_cast<uintptr_t>(src) & 15) ? 0 : (nbytes & ~15);
+  for (int b = b16 + threadIdx.x; b < nbytes; b += blockDim.x) dst[b] = src[b];
+  for (int q = threadIdx.x; q < (b16 >> 4); q += blockDim.x) sm90::cp_async16(dst + 16 * q, src + 16 * q);
+}
+
+// Grid (W, Y, S): block (w, y, z) scans rows [z·per·32, (z+1)·per·32) of
+// unit w for the unit's slot groups y, y + Y, ... (G live slots each). Warp
+// j serves slot group·G + j / g and takes the range's chunks c with
+// c % g == j % g, tile by tile. Block (w, 0, 0) writes the slots past
+// n_live. With S == 1 the slot's first warp writes its final list;
+// otherwise each block stores its raw lists in part [W, TQ, S, k] and the
+// last block of a (unit, group) — counters [W, ceil(TQ / G)], zeroed by the
+// entry — merges the S lists.
+template <int KL>
+__global__ void __launch_bounds__(kWarps * 32, 3)
+    adc_slot_warps_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+                          const uint8_t* __restrict__ valid, const int* __restrict__ n_live,
+                          float* __restrict__ part_s, int* __restrict__ part_i,
+                          unsigned* __restrict__ counters, float* __restrict__ out_s,
+                          int* __restrict__ out_i, Shape sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int M = sh.M;
-  const int qb = sh.qb;
-  const int stride = lut_stride(M);
-  const int lanes = kThreads / qb;
-  const int tq = threadIdx.x % qb;
-  const int lane = threadIdx.x / qb;
-  const bool live = q0 + tq < sh.TQ;
+  const int w = blockIdx.x, y = blockIdx.y, z = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int TQ = sh.TQ, M = sh.M, k = sh.k, G = sh.G, g = sh.g, tch = sh.T;
+  const int mine = warp / g, sub = warp - mine * g;  // slot of the group, first chunk of a tile
+  const int n = n_live ? min(max(n_live[w], 0), TQ) : TQ;
 
-  float* luts = reinterpret_cast<float*>(smem_raw);                       // [qb][stride]
-  uint8_t* ctile = smem_raw + (size_t)qb * stride * sizeof(float);        // [kCodeRows][M]
-  uint8_t* vtile = ctile + kCodeRows * M;                                 // [kCodeRows]
-
-  // the chunk's LUT rows, 16 bytes a thread, kStageBatch loads in flight
-  // before their stores (one block per SM holds too few warps to hide the
-  // latency of one load at a time); a row is M·256 floats
-  const int n4 = M * 64;
-  const int total = qb * n4;
-  for (int e0 = 0; e0 < total; e0 += kThreads * kStageBatch) {
-    float4 val[kStageBatch];
-#pragma unroll
-    for (int b = 0; b < kStageBatch; ++b) {
-      const int e = e0 + b * kThreads + threadIdx.x;
-      const int r = e / n4, c = e - r * n4;
-      val[b] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < total && q0 + r < sh.TQ) {
-        const size_t row = (size_t)w * sh.TQ + q0 + r;
-        val[b] = reinterpret_cast<const float4*>(lut + row * (size_t)M * 256)[c];
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kStageBatch; ++b) {
-      const int e = e0 + b * kThreads + threadIdx.x;
-      const int r = e / n4, c = e - r * n4;
-      if (e < total) reinterpret_cast<float4*>(luts + (size_t)r * stride)[c] = val[b];
+  if (y == 0 && z == 0) {  // slots that hold no query: written, never read
+    for (size_t o = ((size_t)w * TQ + n) * k + threadIdx.x; o < (size_t)(w + 1) * TQ * k;
+         o += blockDim.x) {
+      out_s[o] = kNegInf;
+      out_i[o] = -1;
     }
   }
+  const int groups = (n + G - 1) / G;
+  if (y >= groups) return;
 
+  float* luts = reinterpret_cast<float*>(smem_raw);  // [G][M·256]
+  uint8_t* ring = smem_raw + (size_t)G * M * 256 * sizeof(float);
+  const int sbytes = stage_bytes(M, tch), cbytes = kChunk * tch * M;
+  float* bs = reinterpret_cast<float*>(ring + (size_t)kStages * sbytes);
+  int* bi = reinterpret_cast<int*>(bs + G * g * kSelectBuf);
+  int* flag = bi + G * g * kSelectBuf;
+  const float* ql = luts + (size_t)mine * M * 256;
+
+  const int row0 = z * sh.per * kChunk, row1 = min(sh.TV, (z + 1) * sh.per * kChunk);
+  const int trows = kChunk * tch;
+  const int ntiles = (row1 - row0 + trows - 1) / trows;
+  const int nch = (row1 - row0 + kChunk - 1) / kChunk;
+  const bool direct = nch <= 2 * g;  // a warp's chunks, at most two, are sorted at once
   const uint8_t* cw = codes + (size_t)w * sh.TV * M;
-  const uint8_t* okw = valid + (size_t)w * sh.TV;
-  const float* ql = luts + (size_t)tq * stride;
-  top.init();
-  for (int t0 = row0; t0 < row1; t0 += kCodeRows) {
-    const int nrows = min(kCodeRows, row1 - t0);
-    __syncthreads();  // the previous tile is consumed (first pass: the LUT rows are staged)
-    const uint8_t* src = cw + (size_t)t0 * M;
-    const int nbytes = nrows * M;
-    int e0 = 0;
-    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      const int n16 = nbytes >> 4;
-      for (int e = threadIdx.x; e < n16; e += kThreads)
-        reinterpret_cast<uint4*>(ctile)[e] = reinterpret_cast<const uint4*>(src)[e];
-      e0 = n16 << 4;
+  const uint8_t* vw = valid + (size_t)w * sh.TV;
+  auto issue = [&](int t) {  // tile t into stage t % kStages; one cp.async group
+    if (t < ntiles) {
+      const int r0 = row0 + t * trows, nr = min(trows, row1 - r0);
+      uint8_t* st = ring + (size_t)(t % kStages) * sbytes;
+      block_copy(st, cw + (size_t)r0 * M, nr * M);
+      block_copy(st + cbytes, vw + r0, nr);
     }
-    for (int e = e0 + threadIdx.x; e < nbytes; e += kThreads) ctile[e] = src[e];
-    for (int r = threadIdx.x; r < nrows; r += kThreads) vtile[r] = okw[t0 + r];
-    __syncthreads();
-    if (live) {
-      for (int r = lane; r < nrows; r += lanes) {
-        if (!vtile[r]) continue;
-        const uint8_t* cr = ctile + r * M;
-        float acc = 0.f;
-        for (int j = 0; j < M; ++j) acc += ql[j * 256 + cr[j]];  // m = 0 … M-1, in order
-        top.push(acc, t0 + r);
+    sm90::cp_async_commit();
+  };
+
+  WarpSelect<KL> sel;
+  sel.bs = bs + warp * kSelectBuf;
+  sel.bi = bi + warp * kSelectBuf;
+  sel.k = k;
+  for (int grp = y; grp < groups; grp += sh.Y) {
+    const int slot = grp * G + mine;
+    const bool active = slot < n;  // warp-uniform
+    __syncthreads();  // the previous group is done with the LUT rows, the ring and the buffers
+    if (active) {  // the slot's LUT row, its g warps sharing the copy; joins tile 0's group
+      const float* src = lut + ((size_t)w * TQ + slot) * M * 256;
+      float* dst = luts + (size_t)mine * M * 256;
+      for (int p = sub * 32 + lane; p < M * 64; p += 32 * g) sm90::cp_async16(dst + 4 * p, src + 4 * p);
+    }
+    for (int t = 0; t < kStages - 1; ++t) issue(t);
+    sel.reset();
+    float d0 = -INFINITY, d1 = -INFINITY;  // a direct warp's candidates, two a lane
+    int i0 = kNoIdx, i1 = kNoIdx;
+    for (int t = 0; t < ntiles; ++t) {
+      sm90::cp_async_wait<kStages - 2>();  // tile t (and the LUT rows) landed
+      __syncthreads();  // for every thread; and tile t - 1 is consumed
+      issue(t + kStages - 1);  // into tile t - 1's stage
+      if (!active) continue;
+      const uint8_t* st = ring + (size_t)(t % kStages) * sbytes;
+      for (int c = sub; c < tch && t * tch + c < nch; c += g) {  // this warp's chunks of the tile
+        const int lr = c * kChunk + lane, r = row0 + t * trows + lr;
+        const bool ok = r < row1 && st[cbytes + lr] != 0;
+        const float acc = ok ? adc_row(ql, st + (size_t)lr * M, M) : -INFINITY;
+        if (!direct) {
+          sel.offer(acc, r, ok, lane);
+        } else if (t * tch + c < g) {  // the warp's first chunk
+          d0 = acc;
+          i0 = ok ? r : kNoIdx;
+        } else {
+          d1 = acc;
+          i1 = ok ? r : kNoIdx;
+        }
       }
     }
-  }
-
-  // Fold the row lanes' lists into lane 0's by a tree: each round every
-  // remaining lane stores the filled part of its list and the lower half
-  // merges in the upper half's (one step per entry taken; pushing entry by
-  // entry would cost K steps each on the few lanes still working).
-  float* ls = reinterpret_cast<float*>(smem_raw);                 // [kThreads][K]
-  int* li = reinterpret_cast<int*>(ls + (size_t)kThreads * K);    // [kThreads][K]
-  int* cnt = li + (size_t)kThreads * K;                            // [kThreads]
-  for (int half = lanes / 2; half >= 1; half >>= 1) {
-    __syncthreads();
-    if (lane < 2 * half) {
-      const int slot = lane * qb + tq;
-      top.store_filled(ls + (size_t)slot * K, li + (size_t)slot * K);
-      cnt[slot] = top.n;
+    if (active) {
+      if (direct)
+        sel.top.sort_from(d0, i0, d1, i1, nch > g, k, lane);
+      else
+        sel.flush(lane);
+    }
+    if (g > 1) {  // the slot's pieces fold into its first warp's list
+      if (active && sub != 0) sel.top.store(sel.bs, sel.bi, k, lane);
+      __syncthreads();
+      if (active && sub == 0) {
+        for (int m = 1; m < g; ++m)
+          sel.offer_list(bs + (warp + m) * kSelectBuf, bi + (warp + m) * kSelectBuf, k, false, lane);
+        sel.flush(lane);
+      }
+    }
+    const bool lead = active && sub == 0;
+    const size_t o = ((size_t)w * TQ + slot) * k;
+    if (sh.S == 1) {
+      if (lead) sel.top.write_final(k, out_s + o, out_i + o, lane);
+      continue;
+    }
+    const size_t pb = ((size_t)w * TQ + slot) * sh.S * k;
+    if (lead) {
+      sel.top.store(part_s + pb + (size_t)z * k, part_i + pb + (size_t)z * k, k, lane);
+      __threadfence();
     }
     __syncthreads();
-    if (lane < half && live) {
-      const int mine = lane * qb + tq, other = (lane + half) * qb + tq;
-      top.merge_from(ls + (size_t)mine * K, li + (size_t)mine * K, cnt[mine],
-                     ls + (size_t)other * K, li + (size_t)other * K, cnt[other]);
+    if (threadIdx.x == 0)
+      *flag = atomicAdd(counters + (size_t)w * ((TQ + G - 1) / G) + grp, 1u) == (unsigned)(sh.S - 1);
+    __syncthreads();
+    if (*flag && lead) {  // the last range's block: every range's list is visible
+      __threadfence();
+      sel.reset();
+      for (int r = 0; r < sh.S; ++r)
+        sel.offer_list(part_s + pb + (size_t)r * k, part_i + pb + (size_t)r * k, k, true, lane);
+      sel.flush(lane);
+      sel.top.write_final(k, out_s + o, out_i + o, lane);
     }
   }
 }
 
-// Grid (W, query chunks, S row chunks). With S == 1 each block writes its
-// final lists to dst [W, TQ, k]; otherwise raw partial lists to dst
-// [W, S, TQ, k] for merge_partials_kernel.
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-    adc_scan_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-                    const uint8_t* __restrict__ valid, float* __restrict__ dst_s,
-                    int* __restrict__ dst_i, AdcShape sh) {
-  const int w = blockIdx.x;
-  const int q0 = blockIdx.y * sh.qb;
-  const int split = blockIdx.z;
-  const int row0 = split * sh.chunk_rows;
-  const int row1 = min(sh.TV, row0 + sh.chunk_rows);
-  TopK<K> top;
-  adc_block<K>(lut, codes, valid, sh, w, q0, row0, row1, top);
-  const int qi = q0 + threadIdx.x % sh.qb;
-  if (threadIdx.x / sh.qb == 0 && qi < sh.TQ) {
-    if (gridDim.z == 1) {
-      const size_t base = ((size_t)w * sh.TQ + qi) * sh.k;
-      write_final<K>(top, sh.k, dst_s + base, dst_i + base);
-    } else {
-      const size_t base = (((size_t)w * gridDim.z + split) * sh.TQ + qi) * sh.k;
-      top.store(dst_s + base, dst_i + base, sh.k);
-    }
-  }
-}
-
-template <int K>
-cudaError_t launch_adc(const void* lut, const void* codes, const void* valid, void* part_s,
-                       void* part_i, void* out_s, void* out_i, const AdcShape& sh, int W, int S,
-                       cudaStream_t stream) {
-  const size_t smem = adc_smem_bytes(sh.M, sh.qb, K);
-  cudaError_t err = prepare(adc_scan_kernel<K>, smem);
+template <int KL>
+cudaError_t launch(const void* lut, const void* codes, const void* valid, const void* n_live,
+                   void* part_s, void* part_i, void* counters, void* out_s, void* out_i, int W,
+                   const Shape& sh, cudaStream_t stream) {
+  // the shared-memory opt-in once per device (an attribute set on every call
+  // is host time on every call)
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(W, (sh.TQ + sh.qb - 1) / sh.qb, S);
-  adc_scan_kernel<K><<<grid, kThreads, smem, stream>>>(
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(adc_slot_warps_kernel<KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kSmemOptin);
+    if (err != cudaSuccess) return err;
+    opted[dev] = true;
+  }
+  adc_slot_warps_kernel<KL><<<dim3(W, sh.Y, sh.S), sh.G * sh.g * 32, smem_bytes(sh.M, sh.G, sh.g, sh.T),
+                              stream>>>(
       static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(valid),
-      static_cast<float*>(S == 1 ? out_s : part_s), static_cast<int*>(S == 1 ? out_i : part_i), sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || S == 1) return err;
-  return hqi::launch_merge_partials<K>(part_s, part_i, out_s, out_i, W, S, sh.TQ, sh.k, stream);
+      static_cast<const uint8_t*>(valid), static_cast<const int*>(n_live), static_cast<float*>(part_s),
+      static_cast<int*>(part_i), static_cast<unsigned*>(counters), static_cast<float*>(out_s),
+      static_cast<int*>(out_i), sh);
+  return cudaGetLastError();
 }
 
+}  // namespace adc
 
 // ====================================================== LUT-stationary scan
 
@@ -348,23 +452,6 @@ struct Ring {
     __syncwarp();
   }
 };
-
-// Σ_m lut[m][code[m]] for one staged code row, in the order m = 0 … M-1.
-__device__ __forceinline__ float adc_row(const float* __restrict__ lut, const uint8_t* cr, int M) {
-  float acc = 0.f;
-  if ((M & 7) == 0) {
-    for (int j = 0; j < M; j += 8) {
-      const uint2 w = *reinterpret_cast<const uint2*>(cr + j);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc += lut[(j + b) * 256 + ((w.x >> (8 * b)) & 255u)];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc += lut[(j + 4 + b) * 256 + ((w.y >> (8 * b)) & 255u)];
-    }
-  } else {
-    for (int j = 0; j < M; ++j) acc += lut[j * 256 + cr[j]];
-  }
-  return acc;
-}
 
 // Lane l's row of item t (ok: it exists, l < n, and is valid) scored
 // against the staged LUT; -inf where not ok.
@@ -631,22 +718,51 @@ cudaError_t launch_rows(const void* lut, const void* codes, const void* valid, v
 
 extern "C" {
 
+// The launch shape of adc_scan_launch for these operands: writes G, g, T
+// (slots a block takes at a time, warps a slot, chunks a tile), Y, S (blocks
+// per unit over its slot groups, and over its rows) and the int32 words of
+// scratch the launch needs (0 at S == 1) to out[0..5].
+int adc_launch_shape(int W, int TQ, int TV, int M, int k, int* out) {
+  if (W < 1 || TQ < 1 || TV < 1 || M < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  adc::slot_warps(M, TQ, out[0], out[1], out[2]);
+  adc::split_of(W, TQ, TV, out[0], out[3], out[4]);
+  const long long groups = (TQ + out[0] - 1) / out[0];
+  const long long words = out[4] > 1 ? 2LL * W * TQ * out[4] * k + W * groups : 0;
+  if (words > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  out[5] = (int)words;
+  return 0;
+}
+
 // Expanded LUTs [W, TQ, M, 256]; codes uint8 [W, TV, M], valid uint8
-// [W, TV]; out [W, TQ, k]; part [W, S, TQ, k] scratch when
-// S = ceil(TV / chunk_rows) > 1. qb: queries per block, a power of two.
-int adc_scan_launch(const void* lut, const void* codes, const void* valid, void* part_s,
-                    void* part_i, void* out_s, void* out_i, int W, int TQ, int TV, int M, int k,
-                    int qb, int chunk_rows, void* stream) {
-  if (k < 1 || k > 64 || k > TV || W < 1 || TQ < 1 || M < 1 || chunk_rows < 1 || qb < 1 ||
-      qb > kThreads || (qb & (qb - 1)) != 0)
+// [W, TV]; n_live int32 [W] or null (every slot live); out [W, TQ, k]. The
+// entry picks the launch shape (adc_launch_shape); at S > 1, scratch holds
+// the ranges' lists [W, TQ, S, k] (scores, then ids) and a counter uint32
+// per (unit, slot group), zeroed here on the stream before the kernel.
+int adc_scan_launch(const void* lut, const void* codes, const void* valid, const void* n_live,
+                    void* scratch, void* out_s, void* out_i, int W, int TQ, int TV, int M, int k,
+                    void* stream) {
+  if (k > 64 || k > TV) return (int)cudaErrorInvalidValue;
+  int shape[6];
+  const int rc = adc_launch_shape(W, TQ, TV, M, k, shape);
+  if (rc != 0) return rc;
+  const int G = shape[0], g = shape[1], T = shape[2], Y = shape[3], S = shape[4];
+  if (adc::smem_bytes(M, G, g, T) > adc::kSmemOptin || (S > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
-  const int S = (TV + chunk_rows - 1) / chunk_rows;
-  const AdcShape sh{TQ, TV, M, k, qb, chunk_rows};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  HQI_DISPATCH_K(k, err = (launch_adc<KB>(lut, codes, valid, part_s, part_i, out_s, out_i, sh, W,
-                                          S, st)))
-  return (int)err;
+  const size_t n = (size_t)W * TQ * S * k;
+  float* part_s = S > 1 ? static_cast<float*>(scratch) : nullptr;
+  int* part_i = S > 1 ? static_cast<int*>(scratch) + n : nullptr;
+  unsigned* counters = S > 1 ? static_cast<unsigned*>(scratch) + 2 * n : nullptr;
+  if (S > 1) {
+    const size_t bytes = (size_t)W * ((TQ + G - 1) / G) * sizeof(unsigned);
+    const cudaError_t err = cudaMemsetAsync(counters, 0, bytes, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nch = (TV + adc::kChunk - 1) / adc::kChunk;
+  const adc::Shape sh{TQ, TV, M, k, G, g, T, Y, S, (nch + S - 1) / S};
+  if (k <= 32)
+    return (int)adc::launch<32>(lut, codes, valid, n_live, part_s, part_i, counters, out_s, out_i, W, sh, st);
+  return (int)adc::launch<64>(lut, codes, valid, n_live, part_s, part_i, counters, out_s, out_i, W, sh, st);
 }
 
 // Resident table [U, M, 256]; keys int32 [W·TQ] (the slots' table rows,

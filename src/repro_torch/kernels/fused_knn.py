@@ -83,11 +83,7 @@ def fused_knn_plain(
     ``(NEG_INF, -1)`` on the slots past ``n_live``."""
     fused_knn_plain.calls += 1
     s, i = _ref.masked_topk_ref(q, v, valid, int(k), metric)
-    if n_live is not None:
-        dead = torch.arange(q.shape[1], device=q.device)[None, :] >= n_live.to(q.device)[:, None]
-        s = s.masked_fill(dead[..., None], _ref.NEG_INF)
-        i = i.masked_fill(dead[..., None], -1)
-    return s, i
+    return _ref.dead_slots_absent(s, i, n_live)
 
 
 fused_knn_plain.calls = 0

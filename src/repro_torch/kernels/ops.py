@@ -161,12 +161,16 @@ def workunit_pq_topk(
     codes: torch.Tensor,  # uint8 [W, TV, M] — gathered PQ code rows per unit
     valid: torch.Tensor,  # bool [W, TV]
     k: int,
+    *,
+    n_live: torch.Tensor | None = None,  # i32 [W]: real query slots per unit (None: all)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compressed (ADC) work-unit entry point over expanded LUTs: one bucket
     of the dense layout's scan stage, one ``workunit_pq_scan`` dispatch.
-    Codes stay uint8 across the dispatch boundary."""
+    Codes stay uint8 across the dispatch boundary. Slot s of unit w holds a
+    query iff s < ``n_live[w]``; the others are ``(NEG_INF, -1)`` and their
+    LUTs are never read."""
     _DISPATCH.record_knn(("pq", luts.shape[0], luts.shape[1], codes.shape[1], int(k)))
-    return workunit_pq_scan(luts, codes, valid, k=int(k))
+    return workunit_pq_scan(luts, codes, valid, k=int(k), n_live=n_live)
 
 
 def workunit_pq_topk_resident(

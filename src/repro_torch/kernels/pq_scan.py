@@ -10,7 +10,13 @@ shaped as the Pallas kernel it replaces (``repro.kernels.pq_scan``):
     are sorted by table row (``slot_order``), a block takes ``P`` of them in
     that order and stages each run's LUT row once;
   * ``workunit_pq_scan`` — the dense layout: per-unit expanded LUTs
-    ``[W, TQ, M, 256]`` (``adc_scan_kernel``, ``qb`` query slots a block);
+    ``[W, TQ, M, 256]`` with optional ``n_live [W]`` (real slots per unit,
+    the others never read). ``adc_slot_warps_kernel``: a block takes a
+    unit's live slots ``G`` at a time, a warp (or ``g``) a slot, the code
+    rows shared through a ``cp.async`` ring; small grids split a unit over
+    blocks by slot groups, then by rows (``launch_shape``, picked by the C
+    entry), and the last range to finish merges the ranges' lists in the
+    same launch;
   * ``pq_scan`` — one query's LUT ``[M, 256]`` against ``NV`` code rows, the
     rows split over about one block per SM, the blocks' lists merged by the
     last block in the same launch (the LUT-stationary kernel again).
@@ -26,6 +32,7 @@ counter). ``launches`` on each wrapper counts kernel launches.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 
 import torch
@@ -34,34 +41,24 @@ from . import _build
 from . import ref as _ref
 from .fused_knn import MAX_K, SMEM_OPTIN_BYTES
 
-SPLIT_ROWS = 1024  # rows per block of a work unit beyond which its rows split over blocks
 NBOOK = 256  # entries per PQ codebook (8-bit codes)
-_THREADS, _CODE_ROWS, _LUT_PAD = 256, 256, 4  # kThreads, kCodeRows, kLutPad of csrc/pq_scan.cu
 # lutst::kWarps, kStages, kChunk, kMaxRange of csrc/pq_scan.cu, and topk.cuh's kSelectBuf
 _WARPS, _STAGES, _CHUNK, _MAX_RANGE, _SELECT_BUF = 8, 4, 32, 128, 64
+# adc::kStages of csrc/pq_scan.cu: tiles in the dense-layout kernel's ring
+_ADC_STAGES = 6
 
 
-def pick_qb(m: int, tq: int) -> int:
-    """Queries per block of ``adc_scan_kernel``: the largest power of two with
-    qb·M ≤ 64 (64 KiB of LUT rows in shared memory, whatever M), and no more
-    than TQ needs."""
-    qb = 1
-    while 2 * qb * m <= 64 and qb < tq:
-        qb *= 2
-    return qb
+def adc_smem_bytes(m: int, slots: int, warps_per_slot: int, tile: int) -> int:
+    """Dynamic shared memory of one ``adc_slot_warps_kernel`` block (mirrors
+    ``adc::smem_bytes`` in ``csrc/pq_scan.cu``): the LUT rows of its
+    ``slots`` slots, a ring of tiles (``tile`` 32-row chunks of codes and
+    mask each), a candidate buffer a warp and a flag."""
+    return (slots * m * NBOOK * 4 + _ADC_STAGES * _CHUNK * tile * (m + 1)
+            + slots * warps_per_slot * _SELECT_BUF * 8 + 16)
 
 
-def adc_smem_bytes(m: int, qb: int, k: int) -> int:
-    """Dynamic shared memory of one ``adc_scan_kernel`` block (mirrors
-    ``adc_smem_bytes`` in ``csrc/pq_scan.cu``): the chunk's LUT rows plus a
-    code and valid tile, or the lane-fold area, whichever is larger."""
-    kb = next(b for b in (8, 16, 32, 64) if k <= b)
-    tile = qb * (m * NBOOK + _LUT_PAD) * 4 + _CODE_ROWS * m + _CODE_ROWS
-    return max(tile, _THREADS * (kb * 8 + 4))
-
-
-# widest M adc_scan_kernel takes: one query's LUT row and the code tile in shared memory
-MAX_M = max(m for m in range(1, 1024) if adc_smem_bytes(m, 1, MAX_K) <= SMEM_OPTIN_BYTES)
+# widest M adc_slot_warps_kernel takes: one slot's LUT row, a ring of 32-row chunks, one warp
+MAX_M = max(m for m in range(1, 1024) if adc_smem_bytes(m, 1, 1, 1) <= SMEM_OPTIN_BYTES)
 
 
 def lut_stationary_smem_bytes(m: int) -> int:
@@ -87,16 +84,16 @@ def _check_k(k: int) -> None:
                          f"index on the CPU")
 
 
-def check_pq_kernel_limits(k: int, m: int, qb: int) -> None:
-    """Raise ``ValueError`` for a problem ``adc_scan_kernel`` (the dense
-    layout's ``workunit_pq_scan``) cannot take: k above ``MAX_K`` (register
-    lists), or M whose LUT chunk of ``qb`` queries does not fit shared
-    memory (the widest is ``MAX_M`` at one query a block). The plain
-    versions, on the CPU, have neither limit."""
+def check_pq_kernel_limits(k: int, m: int) -> None:
+    """Raise ``ValueError`` for a problem ``adc_slot_warps_kernel`` (the dense
+    layout's ``workunit_pq_scan``) cannot take: k above ``MAX_K`` (warp
+    lists of 64), or M whose one LUT row and ring do not fit shared memory
+    (the widest is ``MAX_M``). The plain versions, on the CPU, have neither
+    limit."""
     _check_k(k)
-    need = adc_smem_bytes(m, qb, k)
+    need = adc_smem_bytes(m, 1, 1, 1)
     if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"M={m}: the ADC kernel's LUT chunk of {qb} queries needs {need} "
+        raise ValueError(f"M={m}: the dense-layout ADC kernel's LUT row and ring need {need} "
                          f"bytes of shared memory, above {SMEM_OPTIN_BYTES} (the widest M "
                          f"is {MAX_M}); use an index on the CPU")
 
@@ -149,6 +146,19 @@ def staged_lut_rows(rows: torch.Tensor, u: int, p: int) -> int:
     return int((first & (r != -1)).sum())
 
 
+def launch_shape(w: int, tq: int, tv: int, m: int, k: int) -> tuple[int, ...]:
+    """(G, g, T, Y, S, scratch words) of ``workunit_pq_scan``'s launch, from
+    the C entry that picks it (``adc_launch_shape``): slots a block takes at
+    a time, warps a slot, 32-row chunks a ring tile, blocks a unit over its
+    slot groups and over its rows, and the int32 words of scratch the
+    in-launch merge needs (0 when rows do not split)."""
+    lib = _build.library("pq_scan")
+    out = (ctypes.c_int * 6)()
+    _build.check(lib, lib.adc_launch_shape(w, tq, tv, m, k, ctypes.cast(out, ctypes.c_void_p)),
+                 "adc_launch_shape")
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -172,10 +182,12 @@ def row_blocks(nv: int, sms: int) -> int:
 # ------------------------------------------------------------ plain versions
 
 
-def workunit_pq_scan_plain(luts, codes, valid, *, k: int):
-    """Plain version of ``workunit_pq_scan``: ``ref.workunit_pq_topk_ref``."""
+def workunit_pq_scan_plain(luts, codes, valid, *, k: int, n_live=None):
+    """Plain version of ``workunit_pq_scan``: ``ref.workunit_pq_topk_ref``,
+    and ``(NEG_INF, -1)`` on the slots past ``n_live``."""
     workunit_pq_scan_plain.calls += 1
-    return _ref.workunit_pq_topk_ref(luts, codes, valid, int(k))
+    s, i = _ref.workunit_pq_topk_ref(luts, codes, valid, int(k))
+    return _ref.dead_slots_absent(s, i, n_live)
 
 
 def workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, *, k: int):
@@ -226,6 +238,14 @@ def _same_device(*tensors) -> None:
     dev = tensors[0].device
     if any(t.device != dev for t in tensors[1:]):
         raise ValueError(f"tensors on different devices: {sorted({str(t.device) for t in tensors})}")
+
+
+def _check_n_live(n_live, w: int, dev: torch.device) -> None:
+    """Optional live-slot counts: int32 [W] on the inputs' device."""
+    if n_live is not None and (n_live.dtype != torch.int32 or tuple(n_live.shape) != (w,)
+                               or n_live.device != dev):
+        raise ValueError(f"n_live must be int32 [W={w}] on {dev}, got {n_live.dtype} "
+                         f"{tuple(n_live.shape)} on {n_live.device}")
 
 
 def _check_launch(what: str, lut, *tensors) -> None:
@@ -294,9 +314,12 @@ def workunit_pq_scan(
     valid: torch.Tensor,  # bool [W, TV]
     *,
     k: int,
+    n_live: torch.Tensor | None = None,  # i32 [W]: real query slots per unit (None: all)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Work-unit ADC scan over expanded LUTs. Returns (scores f32
-    [W, TQ, k] best-first, idx i32 [W, TQ, k])."""
+    [W, TQ, k] best-first, idx i32 [W, TQ, k]). Slot s of unit w holds a
+    query iff s < ``n_live[w]``; the others are ``(NEG_INF, -1)`` and their
+    LUTs are never read."""
     k = int(k)
     if luts.dim() != 4 or codes.dim() != 3:
         raise ValueError(f"want luts [W,TQ,M,256], codes [W,TV,M]; got "
@@ -306,24 +329,27 @@ def workunit_pq_scan(
         raise ValueError(f"codes {tuple(codes.shape)} for luts {tuple(luts.shape)}")
     _check_codes(codes, valid, luts.shape[2], k)
     _same_device(luts, codes, valid)
-    if codes.device.type == "cpu":
-        return workunit_pq_scan_plain(luts, codes, valid, k=k)
     W, TQ = luts.shape[:2]
+    _check_n_live(n_live, W, codes.device)
+    if codes.device.type == "cpu":
+        return workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
     TV, M = codes.shape[1], codes.shape[2]
-    qb = pick_qb(M, TQ)
-    check_pq_kernel_limits(k, M, qb)
-    _check_launch("workunit_pq_scan", luts, codes, valid)
-    out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=codes.device)
-    out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=codes.device)
-    S = -(-TV // SPLIT_ROWS)
-    part_s = torch.empty((W, S, TQ, k) if S > 1 else (0,), dtype=torch.float32, device=codes.device)
-    part_i = torch.empty((W, S, TQ, k) if S > 1 else (0,), dtype=torch.int32, device=codes.device)
+    check_pq_kernel_limits(k, M)
+    _check_launch("workunit_pq_scan", luts, codes, valid, *(() if n_live is None else (n_live,)))
+    dev = codes.device
+    out = torch.empty((2, W, TQ, k), dtype=torch.int32, device=dev)  # scores' bits, then ids
+    out_s, out_i = out[0].view(torch.float32), out[1]
+    if out.numel() == 0:
+        return out_s, out_i
+    words = launch_shape(W, TQ, TV, M, k)[5]
+    # where rows split over blocks: the ranges' lists and a counter per (unit, slot group)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev) if words else None
     lib = _build.library("pq_scan")
-    with _on(codes.device):
+    with _on(dev):
         rc = lib.adc_scan_launch(
-            luts.data_ptr(), codes.data_ptr(), valid.data_ptr(), part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, k, qb,
-            SPLIT_ROWS, torch.cuda.current_stream(codes.device).cuda_stream,
+            luts.data_ptr(), codes.data_ptr(), valid.data_ptr(),
+            0 if n_live is None else n_live.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, k, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "workunit_pq_scan")
     workunit_pq_scan.launches += 1

@@ -144,6 +144,18 @@ def _masked_topk_of_scores(
     return top.reshape(out_shape), idx.to(torch.int32).reshape(out_shape)
 
 
+def dead_slots_absent(
+    s: torch.Tensor, i: torch.Tensor, n_live: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan outputs [W, TQ, k] with ``(NEG_INF, -1)`` on every slot s of unit
+    w with s >= ``n_live[w]`` (the slots that hold no query); ``None``:
+    unchanged."""
+    if n_live is None:
+        return s, i
+    dead = torch.arange(s.shape[1], device=s.device)[None, :] >= n_live.to(s.device)[:, None]
+    return s.masked_fill(dead[..., None], NEG_INF), i.masked_fill(dead[..., None], -1)
+
+
 def adc_scores_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """ADC scores: luts f32 [..., nq, M, 256], codes uint8/int [..., nv, M] ->
     f32 [..., nq, nv], ``score[q, v] = Σ_m lut[q, m, code[v, m]]``.

@@ -1,6 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
 card: both ``fused_knn`` grids, the three ADC wrappers of ``pq_scan`` (the
-LUT-stationary kernels and ``adc_scan_kernel``) and
+LUT-stationary kernels and ``adc_slot_warps_kernel``) and
 ``flash_attention`` (with the reduced LM served on the card against the CPU).
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels are CUDA C++ with no CPU mode).
@@ -344,7 +344,7 @@ def test_adc_sparse_masks(dev, name):
 def test_adc_limits(dev):
     """k above MAX_K and an M whose LUT row overflows shared memory raise
     before launch, naming the limit; the widest M runs and matches (the
-    LUT-stationary kernels: ``LUT_STATIONARY_MAX_M``; ``adc_scan_kernel``:
+    LUT-stationary kernels: ``LUT_STATIONARY_MAX_M``; ``adc_slot_warps_kernel``:
     ``MAX_M``)."""
     table, lut_idx, codes, valid = _adc_case(dev, 6, 2, 8, 300, 8)
     n0 = adc.workunit_pq_scan_streamed.launches
@@ -446,8 +446,73 @@ def test_pq_scan_is_one_launch_at_a_million_rows(dev):
     assert adc.pq_scan.launches == n0 + 1
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("lut_stationary_rows_kernel" in n for n in names) == 1, names
-    assert not any("merge_partials" in n or "adc_scan_kernel" in n for n in names), names
+    assert not any("merge_partials" in n or "adc_slot_warps_kernel" in n for n in names), names
     want = adc.pq_scan_plain(lut, codes, valid, k=40)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _dense_case(dev, seed, W, TQ, TV, M, pattern, dup=False):
+    """Expanded LUTs (NaN on the slots past ``n_live``: a read of one would
+    show), codes (rows repeated in pairs for ties), a mask and ``n_live``."""
+    table, lut_idx, codes, valid = _adc_case(dev, seed, W, TQ, TV, M, U=97)
+    luts = table[lut_idx.long()].contiguous()
+    n_live = _n_live(dev, W, TQ, pattern)
+    luts[torch.arange(TQ, device=dev)[None, :] >= n_live[:, None]] = float("nan")
+    if dup:
+        codes = codes[:, ::2].repeat_interleave(2, dim=1)[:, :TV].contiguous()
+    return luts, codes, valid, n_live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["zero", "one", "ragged", "full"])
+@pytest.mark.parametrize(
+    "W,TQ,TV,M,k",
+    [(64, 64, 64, 8, 40), (16, 64, 300, 16, 10), (5, 3, 37, 5, 10), (4, 100, 1100, 8, 64),
+     (3, 16, 2048, 8, 40), (2, 1, 5000, 12, 33)],
+)
+def test_dense_adc_live_slots(dev, pattern, W, TQ, TV, M, k):
+    """``workunit_pq_scan`` with ``n_live``: bit-equal to the plain version
+    (ties included), every slot past the count (NEG_INF, -1) and its LUT
+    (NaN) never read; shapes off the 16-byte grid, slots over several warps,
+    rows split over blocks."""
+    luts, codes, valid, n_live = _dense_case(dev, W + TV + k, W, TQ, TV, M, pattern, dup=True)
+    got = adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live)
+    want = adc.workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dead = torch.arange(TQ, device=dev)[None, :] >= n_live[:, None]
+    assert (got[1][dead] == -1).all() and (got[0][dead] == -3.4e38).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,TQ,TV,k", [(4, 64, 4096, 40), (16, 128, 32768, 40), (2, 16, 4096, MAX_K)])
+def test_dense_adc_long_unit_is_one_launch(dev, W, TQ, TV, k):
+    """A long unit splits over blocks (the C entry's launch shape, equal to
+    the CPU tests' copy in ``torch_adc_shape``) and the last block merges
+    their lists in the same launch: the profiler sees one
+    ``adc_slot_warps_kernel`` and no merge kernel; the result is bit-equal
+    to the plain version."""
+    from torch_adc_shape import launch_shape
+
+    for w, tq, tv, m in ((W, TQ, TV, 8), (2048, 64, 64, 8), (8, 64, 4096, 16), (1, 1, 100_000, 8),
+                         (3, 16, 2048, 181), (128, 64, 256, 100)):
+        assert adc.launch_shape(w, tq, tv, m, k) == launch_shape(w, tq, tv, m, k), (w, tq, tv, m)
+    assert adc.launch_shape(W, TQ, TV, 8, k)[4] > 1
+    luts, codes, valid, n_live = _dense_case(dev, TV + k, W, TQ, TV, 8, "ragged")
+    adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a trace's launches: trace again
+        n0 = adc.workunit_pq_scan.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live)
+            torch.cuda.synchronize()
+        assert adc.workunit_pq_scan.launches == n0 + 1
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("adc_slot_warps_kernel" in n for n in names):
+            break
+    assert sum("adc_slot_warps_kernel" in n for n in names) == 1, names
+    assert not any("merge_partials" in n for n in names), names
+    want = adc.workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

@@ -62,7 +62,6 @@ from repro_torch.kernels.pq_scan import (
     MAX_M,
     check_lut_stationary_limits,
     check_pq_kernel_limits,
-    pick_qb,
     pq_scan,
     pq_scan_plain,
     slot_order,
@@ -265,24 +264,19 @@ def test_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.parametrize(
-    "k,m,qb,fits",
-    [(40, 8, 8, True), (MAX_K, 16, 4, True), (MAX_K + 1, 8, 8, False), (80, 8, 8, False),
-     (10, MAX_M, 1, True), (10, MAX_M + 1, 1, False), (10, 64, 4, False)],
+    "k,m,fits",
+    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, False), (80, 8, False),
+     (10, MAX_M, True), (10, MAX_M + 1, False), (10, 181, True)],
 )
-def test_pq_kernel_limits(k, m, qb, fits):
-    """The ADC kernel's limits (k through the register lists, M through the
-    shared-memory LUT chunk) are checked before launch, naming the limit."""
+def test_pq_kernel_limits(k, m, fits):
+    """The dense-layout ADC kernel's limits (k through the warp lists, M
+    through one slot's LUT row and the ring in shared memory) are checked
+    before launch, naming the limit."""
     if fits:
-        check_pq_kernel_limits(k, m, qb)
+        check_pq_kernel_limits(k, m)
     else:
         with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}"):
-            check_pq_kernel_limits(k, m, qb)
-
-
-def test_pick_qb():
-    """64 KiB of LUT rows a block whatever M, never more queries than TQ."""
-    assert [pick_qb(m, 64) for m in (4, 8, 16, 32, 64, 100)] == [16, 8, 4, 2, 1, 1]
-    assert pick_qb(8, 1) == 1 and pick_qb(8, 3) == 4
+            check_pq_kernel_limits(k, m)
 
 
 @pytest.mark.parametrize(
@@ -292,8 +286,8 @@ def test_pick_qb():
 )
 def test_lut_stationary_limits(k, m, fits):
     """The LUT-stationary kernels' limits: k through the warp lists, M
-    through one LUT row plus the rings; narrower than ``adc_scan_kernel``'s
-    M limit, which serves the dense layout."""
+    through one LUT row plus the rings; narrower than the dense layout's
+    kernel's M limit."""
     assert LUT_STATIONARY_MAX_M < MAX_M
     if fits:
         check_lut_stationary_limits(k, m)
