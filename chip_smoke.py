@@ -30,9 +30,33 @@
    events, and the launch alone from the profiler) beside its bound and
    real slots, with the sums over the buckets; plain and yardstick on the
    heaviest;
+(S1) the online service at real size on phase 3's index (then dropped):
+   ``attach_pq`` a codebook trained on the card (``pq_m`` 8), then
+   ``HQIService(k=10, nprobe=8, max_batch=256, deadline_s=0.005)``. Stream
+   A (split 1's 10,000 queries, a flush whenever a micro-batch is full);
+   32,768 inserts near seeded-random rows (+0.01 noise, their columns) and
+   16,384 + 3,277 deletes, so the live delta (29,491) passes the PQ
+   threshold of 4096 (buffer TV 32,768); stream B (the delta's ADC scan,
+   kernel 4, on every flush); ``refresh()`` (timed; partitions, arena rows
+   and encoded rows counted); stream C; a burst of 8,192 queries
+   submitted at once with ``overload_queue_depth=4096`` (its first flushes
+   shed to the PQ engine, kernel 3, then it recovers). Launch counters are
+   zeroed and read around each stream: kernels 1-2 in every stream, kernel
+   4 in B only, kernel 3 in the burst, every plain version 0. Every answer
+   live, passing its filter, with its exact score (1e-4); A and C equal
+   the offline ``index.search`` (1e-4, equal id sets but at ties);
+   recall@10 on 1,000 queries against ``exhaustive_search`` over
+   ``snapshot_db()``. Queries/s, p50/p99 submit->answer latency per stream,
+   insert/delete/refresh seconds, a profiled stream-B flush, and kernel 4
+   at each of stream B's shapes (bit-equal to its plain version; a call and
+   the launch alone beside its bound);
 4. card against CPU: a 100k-row index built on the card, reloaded from its
    ``to_state()`` on the CPU; both searches must agree (scores within
    1e-4, equal id sets per query);
+(S2) the service on that index (codebook attached) and on its CPU reload:
+   streams A, B (8,192 inserts, 819 + 819 deletes: the PQ delta path on
+   both sides), C after ``refresh()`` and a burst past depth 512; every
+   stream's answers agree (1e-4, equal id sets);
 5. ADC kernels against their plain versions on the card:
    ``workunit_pq_scan_streamed`` (a [4096, M, 256] resident table read
    through random ``lut_idx``, an eighth of each unit's slots padding at row
@@ -131,6 +155,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, CUDA cores (no tensor cores)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 MAIN_ROWS, MAIN_QUERIES = 1_000_000, 10_000  # the main path's kg_style size
+# the online service's writes on that index (S1): rows inserted, base rows
+# and inserted rows deleted (a tenth), the burst (the default queue bound)
+# and the queue depth it sheds at, the recall subsample
+SERVICE_INSERTS, SERVICE_BASE_DELETES, SERVICE_DELTA_DELETES = 32_768, 16_384, 3_277
+SERVICE_BURST, SERVICE_SHED_DEPTH, SERVICE_RECALL_QUERIES = 8_192, 4_096, 1_000
 KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
            "workunit_pq_scan", "pq_scan", "flash_attention")
 # the LM serving phase: gemma3-27b at full width, depth cut 62 -> 12 (two 5:1 cycles)
@@ -162,6 +191,8 @@ DESIGN = {
     "pq_scan": "redesigned: LUT-stationary, one launch, last block merges",
 }
 NEG_INF = -3.4e38
+PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
+PROFILER_DROPS: list = []  # pad launches each device_ms trace lost
 # flash_attention kernel vs plain, by element size: (rtol, atol, limit on
 # ||got - want|| / ||want||); in bf16, P's rounding (~1e-3 of |o|, with its
 # remainder added where rows have few keys) and one ulp of the output (2^-7)
@@ -202,26 +233,35 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
     """The device time (ms) of the one launch whose name holds ``kernel`` in
     each call of ``fn``, from ``torch.profiler`` (a call's own host time,
     which CUDA events around one small call also see, left out): the mean
-    over the launches the trace holds. The profiler now and then drops
-    launches from a trace (one of ten, or all), so a trace holding fewer
-    than half of ``reps`` is taken again, three times at most."""
+    over the launches the trace holds. Once the process has run the service
+    phase, the profiler drops the first few device records of every trace,
+    whatever the kernels and the idle time before them, so each trace opens
+    with ``PROFILER_PAD`` launches of a small ``bitwise_not`` kernel that
+    take those places; the pad launches a trace lost are kept in
+    ``PROFILER_DROPS``. A trace holding fewer than half of ``reps`` is taken
+    again, three times at most."""
     import torch
 
     for _ in range(3):
         fn()
+    pad = torch.zeros(1024, dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     seen = []
     for _ in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_PAD):
+                pad.bitwise_not_()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages() if kernel in e.key]
+        events = prof.key_averages()
+        PROFILER_DROPS.append(PROFILER_PAD - sum(
+            e.count for e in events if "bitwise_not" in e.key and not e.key.startswith("aten::")))
+        hits = [e for e in events if kernel in e.key]
         launches = sum(e.count for e in hits)
         if 2 * launches >= reps:
             return sum(e.device_time_total for e in hits) / launches / 1e3
         seen.append(launches)
-        time.sleep(0.1)
     raise AssertionError(f"the profiler saw {seen} launches of {kernel} in three traces of {reps} calls")
 
 
@@ -475,24 +515,31 @@ def phase_main_path(rec: dict) -> dict:
 def check_results(kg, wl, res) -> None:
     """Every returned id passes its query's filter and carries its exact f32
     score; no duplicates; scores finite exactly where ids are present."""
+    check_answers(kg.db, wl, res.ids, res.scores)
+
+
+def check_answers(db, wl, ids, scores, live_rows=None) -> None:
+    """``check_results`` for ids into ``db``, and, with ``live_rows`` (bool
+    [db.n]), every returned id live."""
     from repro_torch.core.predicates import evaluate_filter
 
-    ids, scores = res.ids, res.scores
     if ids.shape != (wl.m, wl.k) or scores.shape != (wl.m, wl.k):
         raise AssertionError(f"result shape {ids.shape}")
     live = ids >= 0
     if not np.isfinite(scores[live]).all() or np.isfinite(scores[~live]).any():
         raise AssertionError("scores not finite exactly where ids are present")
+    if live_rows is not None and not live_rows[ids[live]].all():
+        raise AssertionError("a returned id is not live")
     ok = np.zeros_like(live)
     for ti, filt in enumerate(wl.templates):
         qi = wl.queries_for_template(ti)
-        bm = evaluate_filter(filt, kg.db)
+        bm = evaluate_filter(filt, db)
         ok[qi] = bm[np.maximum(ids[qi], 0)]
     if not ok[live].all():
         raise AssertionError("a returned id fails its query's filter")
-    rows = kg.db.vectors[np.maximum(ids, 0)]  # [m, k, d]
+    rows = db.vectors[np.maximum(ids, 0)]  # [m, k, d]
     exact = np.einsum("qd,qkd->qk", wl.vectors, rows)
-    if kg.db.metric == "l2":
+    if db.metric == "l2":
         exact = 2.0 * exact - (wl.vectors ** 2).sum(1)[:, None] - (rows ** 2).sum(2)
     np.testing.assert_allclose(scores[live], exact[live], rtol=1e-4, atol=1e-4)
     for r in range(wl.m):
@@ -626,7 +673,7 @@ def agree(a, b, what: str) -> None:
             raise AssertionError(f"{what}: disagree on query {r}")
 
 
-def phase_card_vs_cpu(rec: dict) -> None:
+def phase_card_vs_cpu(rec: dict):
     from repro_torch.core import HQIConfig, HQIIndex, kg_style
 
     kg = kg_style(n=100_000, d=64, seed=0)
@@ -641,6 +688,358 @@ def phase_card_vs_cpu(rec: dict) -> None:
     rec["card_vs_cpu"] = {"n": 100_000, "queries": wl.m, "cpu_search_seconds": cpu_s,
                           "agree": True}
     log(f"[card-vs-cpu] {wl.m} queries on a 100k-row index agree (CPU search {cpu_s:.3f} s)")
+    return kg, gpu
+
+
+# ------------------------------------------------------------ online service
+
+
+def service_stream(svc, wl, *, burst: bool = False) -> dict:
+    """Drive one stream of ``wl`` through ``svc``: queries are submitted one
+    by one and a flush runs whenever a full micro-batch waits (the size
+    trigger); a ``burst`` submits them all first. Then drain. Returns the
+    stacked answers, the degraded flags, the stream's wall seconds and its
+    submit->answer latencies."""
+    import torch
+
+    t0 = time.perf_counter()
+    handles = []
+    for i in range(wl.m):
+        handles.append(svc.submit(wl.vectors[i], wl.templates[wl.template_of[i]]))
+        if not burst and len(svc.scheduler) >= svc.cfg.max_batch:
+            svc.tick()
+    svc.drain()
+    if svc.index.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not all(h.ok for h in handles):
+        raise AssertionError(f"{sum(not h.ok for h in handles)} queries failed: "
+                             f"{next(h.error for h in handles if not h.ok)!r}")
+    lat = np.array([h.latency_s for h in handles])
+    return {"ids": np.stack([h.ids for h in handles]), "scores": np.stack([h.scores for h in handles]),
+            "degraded": np.array([h.degraded for h in handles]), "seconds": seconds,
+            "qps": wl.m / seconds, "p50_s": float(np.percentile(lat, 50)),
+            "p99_s": float(np.percentile(lat, 99))}
+
+
+def service_db(svc):
+    """The service's full DB (indexed rows and the delta's, dead included,
+    in global-id order) and its live rows."""
+    from repro_torch.core.types import VectorDatabase
+
+    delta_db, _ = svc.delta.snapshot()
+    full = svc.index.db if delta_db is None else VectorDatabase.concat(svc.index.db, delta_db)
+    live = np.zeros(full.n, dtype=bool)
+    live[svc.live_ids()] = True
+    return full, live
+
+
+def agree_untied(a_s, a_i, b_s, b_i, what: str, tol: float = 1e-4) -> int:
+    """Scores within ``tol``; per query, an id on one side only must score
+    within ``tol`` of that side's last kept score (a tie at the cut).
+    Returns the count of queries whose id sets differ at such a tie."""
+    fin = lambda s: np.where(np.isfinite(s), s, -1e30)  # noqa: E731
+    np.testing.assert_allclose(fin(a_s), fin(b_s), rtol=tol, atol=tol)
+    tied = 0
+    for r in range(a_i.shape[0]):
+        sa, sb = set(a_i[r][a_i[r] >= 0].tolist()), set(b_i[r][b_i[r] >= 0].tolist())
+        if sa == sb:
+            continue
+        for ids, s, other in ((a_i[r], a_s[r], sb), (b_i[r], b_s[r], sa)):
+            last = s[ids >= 0].min()
+            for j in np.nonzero(ids >= 0)[0]:
+                if ids[j] not in other and s[j] - last > tol * (1 + abs(last)):
+                    raise AssertionError(f"{what}: query {r} id {ids[j]} untied and missing")
+        tied += 1
+    return tied
+
+
+def stream_recall(svc, wl, got: dict, sub: np.ndarray) -> float:
+    """recall@k of a stream's answers on the queries ``sub`` against the
+    exhaustive answer over ``snapshot_db()`` (positions mapped through
+    ``live_ids()``), on the service's device."""
+    from repro_torch.core import SearchResult, exhaustive_search, recall_at_k
+
+    swl = wl.subset(sub)
+    truth = exhaustive_search(svc.snapshot_db(), swl, device=svc.index.device)
+    live = svc.live_ids()
+    truth.ids = np.where(truth.ids >= 0, live[np.maximum(truth.ids, 0)], -1)
+    return recall_at_k(SearchResult(ids=got["ids"][sub], scores=got["scores"][sub]), truth)
+
+
+def phase_service(rec: dict, main: dict) -> dict:
+    """(S1) The online service at real size on phase 3's index: streams A
+    (empty delta), B (32,768 inserts and 19,661 deletes live: the PQ delta
+    scan, kernel 4, on every flush), C (after ``refresh()``) and an overload
+    burst (its first flushes shed to the PQ engine, kernel 3), counters
+    zeroed and read around each; every answer live, passing its filter, with
+    its exact score; A and C equal the offline search; kernel 4 bit-equal to
+    its plain version and timed at every shape stream B gave it."""
+    import torch
+
+    from repro_torch.core import arena as arena_mod
+    from repro_torch.core.pq import train_pq
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.service import HQIService, ServiceConfig
+
+    index, kg, wl = main["index"], main["kg"], main["wl"]
+    n0, n_parts = index.db.n, len(index.partitions)
+    t_phase = t0 = time.perf_counter()
+    index.attach_pq(train_pq(kg.db.vectors, 8, metric=kg.db.metric, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    svc = HQIService(index, ServiceConfig(k=10, nprobe=8, max_batch=256, deadline_s=0.005))
+    if svc.cfg.batch_vec is not True:
+        raise AssertionError(f"the service on the card kept batch_vec={svc.cfg.batch_vec!r}")
+    sub = np.random.default_rng(2).choice(wl.m, SERVICE_RECALL_QUERIES, replace=False)
+    out: dict = {"n": n0, "queries": wl.m, "partitions": n_parts, "attach_pq_seconds": pq_s,
+                 "config": {"k": 10, "nprobe": 8, "max_batch": 256, "deadline_s": 0.005,
+                            "delta_pq_threshold": svc.cfg.delta_pq_threshold,
+                            "batch_vec": svc.cfg.batch_vec}}
+    streams: dict = {}
+
+    def run(tag, wl, burst=False, capture=None):
+        zero_counters()
+        before = ops.dispatch_stats().snapshot()
+        real = ops.workunit_pq_topk
+        if capture is not None:
+            def spy(luts, codes, valid, k, *, n_live=None):
+                capture.setdefault((luts.shape[0], luts.shape[1], codes.shape[1]),
+                                   (luts, codes, valid, k, n_live))
+                return real(luts, codes, valid, k, n_live=n_live)
+            ops.workunit_pq_topk = spy
+        try:
+            got = service_stream(svc, wl, burst=burst)
+        finally:
+            ops.workunit_pq_topk = real
+        counts = read_counters()
+        delta = ops.dispatch_stats().delta_since(before)
+        plain = {n: c for n, c in counts.items() if n.endswith("_plain") and c}
+        if plain:
+            raise AssertionError(f"stream {tag}: a plain version ran: {plain}")
+        if counts["fused_knn"] <= 0 or counts["fused_knn_db_stationary"] <= 0:
+            raise AssertionError(f"stream {tag}: kernels 1-2 did not both launch: {counts}")
+        full, live = service_db(svc)
+        check_answers(full, wl, got["ids"], got["scores"], live_rows=live)
+        got["recall_at_10"] = stream_recall(svc, wl, got, sub[sub < wl.m])
+        row = {key: got[key] for key in ("seconds", "qps", "p50_s", "p99_s", "recall_at_10")}
+        row.update(launches=counts, knn_calls=delta.knn_calls, merge_calls=delta.merge_calls,
+                   degraded_queries=int(got["degraded"].sum()), delta_rows=svc.delta.n,
+                   delta_live=svc.delta.n_live)
+        streams[tag] = row
+        log(f"[service {tag}] " + json.dumps(row))
+        return got
+
+    def offline(tag, got):
+        res = index.search(wl, nprobe=8, batch_vec=svc.cfg.batch_vec, live_mask=svc._live.copy())
+        tied = agree_untied(got["scores"], got["ids"], res.scores, res.ids, f"stream {tag} vs offline")
+        streams[tag]["offline_tied_queries"] = tied
+        log(f"[service {tag}] equals the offline search ({tied} queries differ only at a tie)")
+
+    a = run("A", wl)
+    offline("A", a)
+    if streams["A"]["launches"]["workunit_pq_scan"] != 0:
+        raise AssertionError("stream A ran the delta's ADC scan with an empty delta")
+
+    rng = np.random.default_rng(1)
+    n_new = SERVICE_INSERTS
+    src = rng.integers(0, n0, n_new)
+    vecs = kg.db.vectors[src] + 0.01 * rng.normal(size=(n_new, kg.db.d)).astype(np.float32)
+    cols = {name: c.values[src] for name, c in kg.db.columns.items()}
+    nulls = {name: c.null_mask[src] for name, c in kg.db.columns.items() if c.kind != "setcat"}
+    t0 = time.perf_counter()
+    ids = svc.insert(vecs, cols, nulls)
+    torch.cuda.synchronize()
+    out["insert_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_del = svc.delete(rng.choice(n0, SERVICE_BASE_DELETES, replace=False))
+    n_del += svc.delete(rng.choice(ids, SERVICE_DELTA_DELETES, replace=False))
+    out["delete_seconds"] = time.perf_counter() - t0
+    out.update(inserted=n_new, deleted=n_del, delta_live=svc.delta.n_live)
+    log(f"[service] inserted {n_new} rows in {out['insert_seconds']:.3f} s, deleted {n_del} in "
+        f"{out['delete_seconds']:.3f} s; live delta {svc.delta.n_live} rows")
+
+    shapes: dict = {}
+    run("B", wl, capture=shapes)
+    nb = streams["B"]["launches"]["workunit_pq_scan"]
+    if nb <= 0 or not shapes or any(tv != SERVICE_INSERTS for _, _, tv in shapes):
+        raise AssertionError(f"stream B: kernel 4 launches {nb}, shapes {sorted(shapes)}")
+    out["kernel4_shapes"] = kernel4_shapes(shapes)
+
+    # one more stream-B flush, profiled
+    for i in range(svc.cfg.max_batch):
+        svc.submit(wl.vectors[i], wl.templates[wl.template_of[i]])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # a CPU trace would add nothing read here
+        t0 = time.perf_counter()
+        svc.flush()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+    busy_s, top, _ = device_split(prof, width=60)
+    out["profiled_flush"] = {"seconds": flush_s, "device_busy_seconds": busy_s,
+                             "busy_share": busy_s / flush_s, "device_ops_ms": top}
+    log(f"[service B] profiled flush {flush_s:.4f} s, device busy {busy_s * 1e3:.3f} ms "
+        f"({busy_s / flush_s:.2%}); top device ops (ms) " + json.dumps(top))
+    # and one traced (fenced spans): where the flush's host time goes
+    for i in range(svc.cfg.max_batch):
+        svc.submit(wl.vectors[i], wl.templates[wl.template_of[i]])
+    tracer = trace.enable()
+    t0 = time.perf_counter()
+    svc.flush()
+    traced_s = time.perf_counter() - t0
+    trace.disable()
+    spans: dict = {}
+    for ev in tracer.events():
+        if ev.get("ph") == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    out["traced_flush"] = {"seconds": traced_s, "span_ms": spans}
+    log(f"[service B] traced flush {traced_s:.4f} s; span ms {json.dumps(spans)}")
+
+    encoded = []
+    real_encode = arena_mod.encode_pq_tensor
+
+    def count_encode(cb, rows, device="cuda"):
+        encoded.append(rows.shape[0])
+        return real_encode(cb, rows, device=device)
+
+    sizes = [p.ivf.n for p in index.partitions]
+    arena_mod.encode_pq_tensor = count_encode
+    try:
+        t0 = time.perf_counter()
+        folded = svc.refresh()
+        torch.cuda.synchronize()
+        out["refresh_seconds"] = time.perf_counter() - t0
+    finally:
+        arena_mod.encode_pq_tensor = real_encode
+    changed = [i for i, p in enumerate(index.partitions) if p.ivf.n != sizes[i]]
+    if (folded != n_new or len(index.partitions) != n_parts or index.arena.n != n0 + n_new
+            or sum(encoded) != n_new):
+        raise AssertionError(f"refresh: folded {folded}, {len(index.partitions)} partitions, "
+                             f"arena {index.arena.n} rows, encoded {sum(encoded)}")
+    out.update(refresh_folded=folded, arena_rows=index.arena.n, changed_partitions=len(changed),
+               encoded_rows=sum(encoded))
+    log(f"[service] refresh {out['refresh_seconds']:.3f} s: {folded} rows folded, "
+        f"{len(changed)} of {n_parts} partitions changed, {sum(encoded)} appended rows encoded; "
+        f"arena {index.arena.n} rows")
+
+    c = run("C", wl)
+    offline("C", c)
+    if streams["C"]["launches"]["workunit_pq_scan"] != 0:
+        raise AssertionError("stream C ran the delta's ADC scan after the fold")
+
+    svc.cfg.overload_queue_depth = SERVICE_SHED_DEPTH
+    d = run("burst", wl.subset(np.arange(SERVICE_BURST)), burst=True)
+    row = streams["burst"]
+    row["degraded_flushes"] = int(svc.telemetry.summary()["degraded_flushes"])
+    if (row["launches"]["workunit_pq_scan_streamed"] <= 0 or not d["degraded"].any()
+            or d["degraded"][-1] or svc.health().status != "ok"):
+        raise AssertionError(f"burst: no shed to PQ, or no recovery: {row}")
+    out["streams"] = streams
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[service] S1 done in {out['seconds']:.1f} s; {row['degraded_flushes']} degraded flushes")
+    rec["service"] = out
+    get_registry().detach_source("service")  # the registry's sources hold the service
+    get_registry().detach_source("health")
+    return {"kernel4": out["kernel4_shapes"], "launches": {t: s["launches"] for t, s in streams.items()}}
+
+
+def kernel4_shapes(shapes: dict) -> list:
+    """Kernel 4 (``workunit_pq_scan``) on each shape stream B gave it, with
+    the flush's operands and ``n_live``: bit-equal to its plain version;
+    one wrapper call timed by CUDA events and the launch alone by the
+    profiler, beside the bound counted as row 4 of PERF.md's table (the
+    live slots' LUT rows, the valid rows' codes, the masks, the output);
+    plain version and yardstick on the heaviest."""
+    import torch
+
+    from repro_torch.kernels import pq_scan as adc
+
+    rows, heavy = [], None
+    for (W, TQ, TV), (luts, codes, valid, k, n_live) in sorted(shapes.items()):
+        kw = {"k": k, "n_live": n_live}
+        exact(adc.workunit_pq_scan(luts, codes, valid, **kw),
+              adc.workunit_pq_scan_plain(luts, codes, valid, **kw),
+              f"kernel 4 on stream B's flush [{W}, {TQ}, {TV}]")
+        q_live = torch.arange(TQ, device=luts.device)[None, :] < n_live[:, None]
+        row = {"shape": [W, TQ, TV, codes.shape[2], k], "n_live": n_live.tolist(),
+               "ms": cuda_ms(lambda: adc.workunit_pq_scan(luts, codes, valid, **kw), reps=21),
+               "device_ms": device_ms(lambda: adc.workunit_pq_scan(luts, codes, valid, **kw),
+                                      "adc_slot_warps_kernel"),
+               "launch_shape": adc.launch_shape(W, TQ, TV, codes.shape[2], k), "bit_equal": True}
+        row.update(adc_bound(codes, valid, k, q_live, int(q_live.sum())))
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+        rows.append(row)
+        log("[service kernel 4] " + json.dumps(row))
+        if heavy is None or int(q_live.sum()) > heavy[0]:
+            heavy = (int(q_live.sum()), row, luts, codes, valid, kw)
+    _, row, luts, codes, valid, kw = heavy
+    row["plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_plain(luts, codes, valid, **kw), reps=5)
+    row["yardstick_ms"] = cuda_ms(lambda: adc_yardstick(luts, codes, valid, kw["k"]), reps=5)
+    log("[service kernel 4 heaviest] " + json.dumps(row))
+    return rows
+
+
+def phase_service_card_vs_cpu(rec: dict, kg, gpu, *, inserts: int = 8192,
+                              burst_depth: int = 512) -> None:
+    """(S2) The service on the card and on a CPU reload of the same index
+    (its ``to_state()``, codebook included), driven by the same streams and
+    writes: A, then ``inserts`` rows near existing ones and deletes (a tenth
+    of the inserts and of as many base rows) with the live delta past the
+    default threshold (the PQ delta scan on both sides), B, ``refresh()``,
+    C and a burst past ``burst_depth``. Every stream's answers agree: scores
+    within 1e-4, equal id sets."""
+    from repro_torch.core import HQIIndex, SearchResult
+    from repro_torch.core.pq import train_pq
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.service import HQIService, ServiceConfig
+
+    t_phase = time.perf_counter()
+    wl = kg.splits[1]
+    gpu.attach_pq(train_pq(kg.db.vectors, 8, metric=kg.db.metric, seed=0, device="cuda"))
+    # both sides take the engine for every group, as the card's "auto" does
+    cfg = dict(k=10, nprobe=8, max_batch=256, deadline_s=0.005, batch_vec=True)
+    cpu = HQIIndex.from_state(gpu.to_state(), device="cpu")
+    svcs = [HQIService(gpu, ServiceConfig(**cfg)), HQIService(cpu, ServiceConfig(**cfg))]
+    if inserts - inserts // 10 <= svcs[0].cfg.delta_pq_threshold:
+        raise AssertionError("the live delta must exceed the PQ threshold")
+    rng = np.random.default_rng(1)
+    src = rng.integers(0, kg.db.n, inserts)
+    vecs = kg.db.vectors[src] + 0.01 * rng.normal(size=(inserts, kg.db.d)).astype(np.float32)
+    cols = {name: c.values[src] for name, c in kg.db.columns.items()}
+    nulls = {name: c.null_mask[src] for name, c in kg.db.columns.items() if c.kind != "setcat"}
+    dead_base = rng.choice(kg.db.n, inserts // 10, replace=False)
+    row: dict = {"n": kg.db.n, "queries": wl.m, "inserts": inserts}
+
+    def both(tag, burst=False):
+        got = [service_stream(s, wl, burst=burst) for s in svcs]
+        agree(SearchResult(ids=got[0]["ids"], scores=got[0]["scores"]),
+              SearchResult(ids=got[1]["ids"], scores=got[1]["scores"]), f"service stream {tag}")
+        if not np.array_equal(got[0]["degraded"], got[1]["degraded"]):
+            raise AssertionError(f"service stream {tag}: the two sides shed different flushes")
+        row[tag] = {"card_seconds": got[0]["seconds"], "cpu_seconds": got[1]["seconds"],
+                    "degraded_queries": int(got[0]["degraded"].sum())}
+
+    both("A")
+    for s in svcs:
+        ids = s.insert(vecs, cols, nulls)
+        s.delete(dead_base)
+        s.delete(np.random.default_rng(2).choice(ids, inserts // 10, replace=False))
+    both("B")
+    if svcs[0].refresh() != svcs[1].refresh():
+        raise AssertionError("refresh folded different row counts")
+    both("C")
+    for s in svcs:
+        s.cfg.overload_queue_depth = burst_depth
+    both("burst", burst=True)
+    if not row["burst"]["degraded_queries"]:
+        raise AssertionError("the burst did not shed to PQ")
+    get_registry().detach_source("service")  # the registry's sources hold the services
+    get_registry().detach_source("health")
+    row["seconds"] = time.perf_counter() - t_phase
+    rec["service_card_vs_cpu"] = row
+    log("[service card-vs-cpu] every stream agrees: " + json.dumps(row))
 
 
 # ------------------------------------------------------------ ADC kernels
@@ -1609,9 +2008,13 @@ def main() -> int:
     phase_kernels(rec, max_err)
     main_run = phase_main_path(rec)
     heaviest = phase_main_shapes(rec, main_run, max_err)
+    service = phase_service(rec, main_run)
     del main_run["index"]
     torch.cuda.empty_cache()
-    phase_card_vs_cpu(rec)
+    kg_100k, index_100k = phase_card_vs_cpu(rec)
+    phase_service_card_vs_cpu(rec, kg_100k, index_100k)
+    del kg_100k, index_100k
+    torch.cuda.empty_cache()
     phase_adc_kernels(rec, max_err)
     torch.cuda.empty_cache()
     pq_run = phase_pq_main(rec, main_run)
@@ -1663,10 +2066,19 @@ def main() -> int:
             entry["pq_rerank"] = {key: rerank[key] for key in ("shape", "ms", "device_ms", "bound_ms")}
         if name == "workunit_pq_scan_streamed":
             entry["summed_over_buckets"] = pq_heavy["summed"]
+        # launches in each stream of the online service (S1)
+        entry["service_launches"] = {tag: c[name] for tag, c in service["launches"].items()}
+        if name == "workunit_pq_scan":
+            entry["delta_store_shapes"] = [
+                {key: s[key] for key in ("shape", "ms", "device_ms", "bound_ms", "bound_by")}
+                for s in service["kernel4"]]
         if launches <= 0:
             raise AssertionError(f"{name}: no launch on its path")
         kernels.append(entry)
     rec["kernels"] = kernels
+    rec["profiler_pad_drops"] = PROFILER_DROPS
+    log(f"[profiler] device_ms traces {len(PROFILER_DROPS)}; leading pad launches lost per trace: "
+        f"max {max(PROFILER_DROPS, default=0)}, in {sum(d > 0 for d in PROFILER_DROPS)} traces")
     rec["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1, default=str)

@@ -4,7 +4,8 @@ get_config(arch_id) -> full ModelConfig; get_reduced(arch_id) -> the small
 config of the same wiring the CPU tests use. Copies of the reference's
 ``repro.configs`` modules for these archs; the other six (internvl2-2b,
 mamba2-130m, whisper-large-v3, kimi-k2-1t-a32b, deepseek-moe-16b,
-zamba2-2.7b) wait for their families (ROADMAP §1 item 11).
+zamba2-2.7b) wait for their families (ROADMAP.md §1, the rest of the LM
+scaffolding).
 """
 from importlib import import_module
 

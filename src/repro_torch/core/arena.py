@@ -19,7 +19,7 @@ carries ``codes``, uint8 [N, M] PQ codes on the device, row-aligned with
 ``packed``, so the engine's ADC scan stage gathers M-byte code rows instead
 of d·4-byte vectors and the exact re-rank gathers the surviving f32 rows
 from the same arena. Sharding the arena waits for the sharded engine
-(ROADMAP.md §1 item 9).
+(ROADMAP.md §1, sharded engine).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ import torch
 
 from . import kmeans as km
 from .ivf import IVFIndex
-from .pq import PQCodebook, encode_pq
+from .pq import PQCodebook, encode_pq_tensor
 
 
 @dataclasses.dataclass
@@ -115,7 +115,7 @@ class PackedArena:
                 f"d={self.d}"
             )
         self.pq = pq
-        self.codes = _encode(pq, self.packed.cpu().numpy(), self.device)
+        self.codes = encode_pq_tensor(pq, self.packed, self.device)
 
     # ------------------------------------------------------------ persistence
 
@@ -192,7 +192,75 @@ class PackedArena:
             centroids=cents,
             metric=metric,
             pq=pq,
-            codes=None if pq is None else _encode(pq, packed_all, device),
+            codes=None if pq is None else encode_pq_tensor(pq, packed_all, device),
+        )
+
+    @staticmethod
+    def updated(
+        old: "PackedArena",
+        parts: Sequence[Tuple[np.ndarray, IVFIndex]],
+        changed: Sequence[int],
+    ) -> "PackedArena":
+        """Incremental rebuild after the serving layer extends some partitions.
+
+        ``parts`` is the full current partition list; only partitions in
+        ``changed`` are re-derived from their (rows, ivf) pair. A changed
+        partition's ivf must be ``IVFIndex.extend`` of the old one: with a
+        codebook, its old rows' codes are carried over from ``old`` and only
+        the appended rows are encoded on the device. Every other partition's
+        packed rows, id map and PQ codes are reused as slices of ``old``'s
+        device tensors and its posting-list table as numpy, and one
+        ``torch.cat`` per tensor is paid at the end. Partition count and
+        order must match.
+        """
+        assert len(parts) == old.n_parts, "partition count changed; rebuild instead"
+        dev = old.device
+        changed_set = set(int(c) for c in changed)
+        packed, gid, local_of, starts, lens, cents = [], [], [], [], [], []
+        codes: List[torch.Tensor] = []
+        cent_dev: List[torch.Tensor] = []
+        list_base = np.zeros(len(parts) + 1, dtype=np.int64)
+        part_row = np.zeros(len(parts) + 1, dtype=np.int64)
+        for p, (rows, ivf) in enumerate(parts):
+            assert ivf.metric == old.metric, "mixed-metric partitions"
+            if p in changed_set:
+                packed.append(km.as_tensor(ivf.packed, dev))
+                gid.append(torch.from_numpy(np.asarray(rows, dtype=np.int64)[ivf.order]).to(dev))
+                local_of.append(ivf.order)
+                starts.append(ivf.offsets[:-1].astype(np.int64) + part_row[p])
+                lens.append(np.diff(ivf.offsets).astype(np.int64))
+                if old.pq is not None:
+                    codes.append(_extended_codes(old, p, ivf))
+                cent_dev.append(km.as_tensor(ivf.centroids, dev))
+                n_p, nl_p = ivf.n, ivf.n_lists
+            else:
+                r0, r1 = int(old.part_row[p]), int(old.part_row[p + 1])
+                l0, l1 = int(old.list_base[p]), int(old.list_base[p + 1])
+                packed.append(old.packed[r0:r1])
+                gid.append(old.gid[r0:r1])
+                local_of.append(old.local_of[r0:r1])
+                starts.append(old.list_start[l0:l1] - r0 + part_row[p])
+                lens.append(old.list_len[l0:l1])
+                if old.pq is not None:
+                    codes.append(old.codes[r0:r1])
+                cent_dev.append(old._cent_dev[p])
+                n_p, nl_p = r1 - r0, l1 - l0
+            cents.append(ivf.centroids)
+            list_base[p + 1] = list_base[p] + nl_p
+            part_row[p + 1] = part_row[p] + n_p
+        return PackedArena(
+            packed=torch.cat(packed, dim=0),
+            gid=torch.cat(gid),
+            local_of=np.concatenate(local_of),
+            list_start=np.concatenate(starts),
+            list_len=np.concatenate(lens),
+            list_base=list_base,
+            part_row=part_row,
+            centroids=cents,
+            metric=old.metric,
+            pq=old.pq,
+            codes=torch.cat(codes, dim=0) if old.pq is not None else None,
+            _cent_dev=cent_dev,
         )
 
     @staticmethod
@@ -209,6 +277,23 @@ class PackedArena:
         return arena
 
 
-def _encode(pq: PQCodebook, rows: np.ndarray, device) -> torch.Tensor:
-    """uint8 PQ codes of ``rows`` as a tensor on ``device``."""
-    return torch.from_numpy(encode_pq(pq, rows, device=device)).to(device)
+def _extended_codes(old: PackedArena, p: int, ivf: IVFIndex) -> torch.Tensor:
+    """Partition ``p``'s PQ codes after ``IVFIndex.extend`` of its old ivf:
+    the old rows (local index < their count) keep their codes from ``old``,
+    moved to their new packed positions; the appended rows are encoded."""
+    r0, r1 = int(old.part_row[p]), int(old.part_row[p + 1])
+    n_old = r1 - r0
+    assert ivf.n >= n_old, "a changed partition lost rows; rebuild instead"
+    dev = old.device
+    new = ivf.order >= n_old
+    pos = np.empty(n_old, dtype=np.int64)  # old packed position of each old local index
+    pos[old.local_of[r0:r1]] = np.arange(n_old)
+    out = torch.empty((ivf.n, old.codes.shape[1]), dtype=torch.uint8, device=dev)
+    out[torch.from_numpy(np.nonzero(~new)[0]).to(dev)] = old.codes[
+        torch.from_numpy(r0 + pos[ivf.order[~new]]).to(dev)
+    ]
+    if new.any():
+        out[torch.from_numpy(np.nonzero(new)[0]).to(dev)] = encode_pq_tensor(
+            old.pq, ivf.packed[new], dev
+        )
+    return out

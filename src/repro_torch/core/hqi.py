@@ -28,8 +28,9 @@ an ADC scan over them followed by an exact f32 re-rank (core/planner.py).
 Device: k-means, probing, the arena and the engine run on the index's
 ``device`` ("cuda" unless the caller passes another, as the CPU tests pass
 "cpu"); the qd-tree, routing and plan are host numpy. Not ported yet: the
-sharded engine (``mesh``, ROADMAP.md §1 item 9) and live updates
-(``extend``, item 5).
+sharded engine (``mesh``, ROADMAP.md §1, sharded engine). ``extend``
+folds new rows into the existing partitions (the online service's
+``refresh()``).
 
 Online search: same routing, per-query IVF scans (used standalone — the
 "workload-aware index only" configuration of Section 6.5). The "auto" mode
@@ -60,7 +61,9 @@ from .qdtree import QDTree, build_qdtree
 from .types import SearchResult, VectorDatabase, Workload
 
 
-MESH_NOT_PORTED = "sharded execution (HQIConfig.mesh) is not ported yet: ROADMAP.md §1 item 9"
+MESH_NOT_PORTED = (
+    "sharded execution (HQIConfig.mesh) is not ported yet: ROADMAP.md §1, sharded engine"
+)
 
 
 @dataclasses.dataclass
@@ -80,8 +83,8 @@ class HQIConfig:
     scan_mode: Optional[str] = None  # None = keep plan.scan_mode
     refine_factor: Optional[int] = None  # None = keep plan.refine_factor
     pq_m: int = 8  # PQ subspaces (d must be divisible; d·4/M× compression)
-    # sharded execution: not ported yet (ROADMAP.md §1 item 9); anything but
-    # None raises at build and load
+    # sharded execution: not ported yet (ROADMAP.md §1, sharded engine);
+    # anything but None raises at build and load
     mesh: Optional[object] = None
     shard_spec: Optional[object] = None
 
@@ -460,6 +463,66 @@ class HQIIndex:
     ) -> SearchResult:
         """One query at a time (workload-aware index w/o batching, Section 6.5)."""
         return self.search(workload, nprobe=nprobe, batch_vec=False, live_mask=live_mask)
+
+    # ------------------------------------------------------------ live updates
+
+    def invalidate_caches(self) -> None:
+        """Drop every derived structure that depends on DB contents.
+
+        The serving layer calls this after any mutation that changes row
+        count or vector contents: the Router's template bitmaps are length-
+        [db.n] and the arena holds a copy of every partition's packed
+        vectors, so both must be rebuilt. (Pure deletes don't need this —
+        they flow through ``live_mask`` at search time.)
+        """
+        self.router.clear_cache()
+        self._arena = None
+
+    def extend(self, new_db: VectorDatabase) -> np.ndarray:
+        """Fold freshly inserted tuples into the existing partitioning.
+
+        The serving layer's ``refresh()`` path: routes each new tuple to its
+        unique qd-tree leaf (semantic-description membership, no Algorithm-1
+        re-run), assigns it to that partition's nearest existing posting list
+        (``IVFIndex.extend`` on the index's device — no k-means), and
+        incrementally rebuilds the arena reusing unchanged partitions. The
+        qd-tree structure itself is a build-time artifact mined from the
+        historical workload and is kept.
+
+        Returns the new tuples' global row ids (``old_n .. old_n + new - 1``).
+        The Router bitmap cache is always invalidated (bitmaps are [db.n]).
+        """
+        n0 = self.db.n
+        new_rows = n0 + np.arange(new_db.n, dtype=np.int64)
+        if new_db.n == 0:
+            return new_rows
+        cent_new = None
+        if self.cfg.m > 0 and self.coarse_centroids is not None:
+            cent_new = km.assign_kmeans(
+                new_db.vectors, self.coarse_centroids, metric=self.db.metric,
+                device=self.device,
+            )
+        leaf_of = self.tree.route_tuples(new_db, cent_new)
+        self.db = VectorDatabase.concat(self.db, new_db)
+        self.router.db = self.db
+        self.router.clear_cache()
+        changed = []
+        for li in np.unique(leaf_of):
+            li = int(li)
+            idx = np.nonzero(leaf_of == li)[0]
+            part = self.partitions[li]
+            self.partitions[li] = Partition(
+                rows=np.concatenate([part.rows, new_rows[idx]]),
+                ivf=part.ivf.extend(new_db.vectors[idx]),
+            )
+            # keep the build-time alias (Partition.rows IS the leaf's row set)
+            self.tree.leaves[li].rows = self.partitions[li].rows
+            changed.append(li)
+        if self._arena is not None:
+            self._arena = PackedArena.updated(
+                self._arena, [(p.rows, p.ivf) for p in self.partitions], changed
+            )
+        return new_rows
 
     # ------------------------------------------------------------ persistence
 

@@ -124,6 +124,43 @@ class IVFIndex:
             device=device,
         )
 
+    def extend(self, vectors: np.ndarray) -> "IVFIndex":
+        """New index with ``vectors`` appended to the existing posting lists.
+
+        The incremental-insert path of the serving layer's ``refresh()``: the
+        quantizer (centroids) is kept, each new vector is assigned to its
+        nearest existing list on the index's device, and the packed layout is
+        re-sorted (stably) so lists stay contiguous. New vectors get local
+        indices ``n .. n+len-1`` (the caller appends their ids to its row
+        table in the same order). O(n + new) repacking, no k-means.
+        """
+        vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+        if vectors.shape[0] == 0:
+            return self
+        assign_new = km.assign_kmeans(
+            vectors, self.centroids, metric=self.metric, device=self.device
+        )
+        list_of_packed = np.repeat(
+            np.arange(self.n_lists, dtype=np.int64), np.diff(self.offsets)
+        )
+        all_list = np.concatenate([list_of_packed, assign_new.astype(np.int64)])
+        all_local = np.concatenate(
+            [self.order, self.n + np.arange(vectors.shape[0], dtype=np.int64)]
+        )
+        all_vecs = np.concatenate([self.packed, vectors], axis=0)
+        sort = np.argsort(all_list, kind="stable")
+        counts = np.bincount(all_list, minlength=self.n_lists)
+        offsets = np.zeros(self.n_lists + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum(counts)
+        return IVFIndex(
+            centroids=self.centroids,
+            packed=np.ascontiguousarray(all_vecs[sort]),
+            order=all_local[sort],
+            offsets=offsets,
+            metric=self.metric,
+            device=self.device,
+        )
+
     # -- coarse quantizer ----------------------------------------------------
 
     def probe(self, q_vecs: np.ndarray, nprobe: int) -> np.ndarray:

@@ -30,7 +30,7 @@ def as_tensor(x, device: Device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _assign(vectors: torch.Tensor, centroids: torch.Tensor, metric: str) -> torch.Tensor:
+def assign_tensor(vectors: torch.Tensor, centroids: torch.Tensor, metric: str) -> torch.Tensor:
     """Nearest-centroid id per row (first maximum on ties): int64 [n]."""
     return torch.argmax(kops.pairwise_scores(vectors, centroids, metric=metric), dim=1)
 
@@ -79,7 +79,7 @@ def train_kmeans(
     init_idx = rng.choice(x.shape[0], size=k, replace=False)
     centroids = x[torch.from_numpy(init_idx).to(device)]
     for _ in range(iters):
-        assign = _assign(x, centroids, metric)
+        assign = assign_tensor(x, centroids, metric)
         centroids, counts = _update(x, assign, k)
         empty = (counts == 0).cpu().numpy()
         if empty.any():  # re-seed empty clusters from random points (rare)
@@ -103,7 +103,7 @@ def assign_kmeans(
     cents = as_tensor(centroids, device)
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
-        out[s:e] = _assign(as_tensor(vectors[s:e], device), cents, metric).cpu().numpy()
+        out[s:e] = assign_tensor(as_tensor(vectors[s:e], device), cents, metric).cpu().numpy()
     return out
 
 

@@ -35,8 +35,9 @@ path.
 
 ``batch_search_ivf`` is the single-index entry point (the baselines use it):
 a one-partition arena, a one-task plan, executed here. The sharded executor
-is not ported yet (ROADMAP.md §1 item 9). The reference's per-dispatch
-profiler records return with the port of ``obs/profile.py`` (item 7); the
+is not ported yet (ROADMAP.md §1, sharded engine). The reference's
+per-dispatch profiler records return with the port of ``obs/profile.py``
+(ROADMAP.md §1, ``obs/profile.py``); the
 tracer spans are kept.
 """
 from __future__ import annotations

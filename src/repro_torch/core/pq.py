@@ -82,9 +82,12 @@ def train_pq(
     return PQCodebook(centroids=cents, metric=metric)
 
 
-def encode_pq(cb: PQCodebook, vectors: np.ndarray, device: km.Device = "cuda") -> np.ndarray:
-    """uint8 codes [n, M]: nearest sub-centroid (l2, first on ties) per
-    subspace, assigned on ``device``."""
+def encode_pq_tensor(
+    cb: PQCodebook, vectors, device: km.Device = "cuda", chunk: int = 65_536
+) -> torch.Tensor:
+    """uint8 codes [n, M] left on ``device``: nearest sub-centroid (l2, first
+    on ties) per subspace, assigned there ``chunk`` rows at a time.
+    ``vectors``: f32 [n, d], a host array or a tensor."""
     n, d = vectors.shape
     if d != cb.d:
         raise ValueError(
@@ -92,11 +95,19 @@ def encode_pq(cb: PQCodebook, vectors: np.ndarray, device: km.Device = "cuda") -
             f"(m={cb.m} subspaces × dsub={cb.dsub}), vectors have d={d}"
         )
     dsub = cb.dsub
-    codes = np.empty((n, cb.m), np.uint8)
-    for j in range(cb.m):
-        sub = np.ascontiguousarray(vectors[:, j * dsub : (j + 1) * dsub], dtype=np.float32)
-        codes[:, j] = km.assign_kmeans(sub, cb.centroids[j], metric="l2", device=device)
+    cents = [km.as_tensor(c, device) for c in cb.centroids]
+    codes = torch.empty((n, cb.m), dtype=torch.uint8, device=device)
+    for s in range(0, n, chunk):
+        x = km.as_tensor(vectors[s : s + chunk], device)
+        for j in range(cb.m):
+            sub = x[:, j * dsub : (j + 1) * dsub].contiguous()
+            codes[s : s + chunk, j] = km.assign_tensor(sub, cents[j], "l2").to(torch.uint8)
     return codes
+
+
+def encode_pq(cb: PQCodebook, vectors: np.ndarray, device: km.Device = "cuda") -> np.ndarray:
+    """``encode_pq_tensor``'s codes as a host array."""
+    return encode_pq_tensor(cb, vectors, device).cpu().numpy()
 
 
 def decode_pq(cb: PQCodebook, codes: np.ndarray) -> np.ndarray:
@@ -164,7 +175,7 @@ class PQIndex:
         device: km.Device = "cuda",
     ) -> "PQIndex":
         cb = train_pq(vectors, m, metric=metric, seed=seed, device=device)
-        codes = torch.from_numpy(encode_pq(cb, vectors, device=device)).to(device)
+        codes = encode_pq_tensor(cb, vectors, device=device)
         return PQIndex(cb=cb, codes=codes, vectors=vectors if keep_vectors else None)
 
     def search(

@@ -2,7 +2,7 @@
 
 The counterpart of the serving half of ``repro.models.api`` for the dense
 family. Training (``loss_fn``) and the dry-run shape specs are not ported
-yet (ROADMAP §1 item 11).
+yet (ROADMAP.md §1, the rest of the LM scaffolding).
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ The counterpart of ``repro.models.transformer``. Parameters are a plain
 dict: ``embedding`` (f32 [V, D]), ``final_norm``, optional ``lm_head``, and
 ``layers``, a list of per-layer dicts (the reference stacks them on a
 leading axis and scans; here a Python loop walks the list). The moe, ssm,
-hybrid, vlm and encdec families are not ported yet (ROADMAP §1 item 11):
+hybrid, vlm and encdec families are not ported yet (ROADMAP.md §1, the rest
+of the LM scaffolding):
 their entry points raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -80,7 +81,7 @@ def require_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch yet; the port "
-            f"runs the dense family (ROADMAP §1 item 11 lists the rest)")
+            f"runs the dense family (ROADMAP.md §1, the rest of the LM scaffolding)")
 
 
 # ---------------------------------------------------------------------------

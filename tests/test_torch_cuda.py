@@ -646,3 +646,67 @@ def test_reduced_lm_serves_alike_on_card_and_cpu(dev):
     rec = {}
     smoke.phase_lm_card_vs_cpu(rec)
     assert rec["lm_card_vs_cpu"]["max_abs_logit_err"] <= 2e-3
+
+
+@pytest.mark.cuda
+def test_delta_store_pq_scan_card_equals_cpu(dev, monkeypatch):
+    """The delta store's compressed scan on the card against the same store
+    on the CPU: the ADC dispatch (kernel 4, ``n_live`` = the flush
+    templates' ragged query counts) is bit-equal to the plain version's, and
+    the re-ranked answers agree (scores within 1e-4, equal id sets)."""
+    import numpy as np
+
+    from repro_torch.core.pq import train_pq
+    from repro_torch.kernels import ops
+    from repro_torch.service import DeltaStore
+
+    kg = kg_style(n=6000, d=32, queries_per_split=200, seed=0)
+    db, wl = kg.db, kg.splits[1]
+    cb = train_pq(db.vectors, 4, metric=db.metric, device="cpu")
+    rng = np.random.default_rng(4)
+    src = rng.integers(0, db.n, 3000)
+    vecs = db.vectors[src] + 0.01 * rng.normal(size=(3000, db.d)).astype(np.float32)
+    cols = {name: c.values[src] for name, c in db.columns.items()}
+    nulls = {name: c.null_mask[src] for name, c in db.columns.items() if c.kind != "setcat"}
+    dead = rng.choice(np.arange(db.n, db.n + 3000), 300, replace=False)
+    stores = [DeltaStore(db, first_id=db.n, pq=cb, device=d) for d in (dev, "cpu")]
+    for s in stores:
+        s.insert(vecs, cols, nulls)
+        for gid in dead:
+            s.delete(int(gid))
+    seen = []
+    real = ops.workunit_pq_topk
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((kw["n_live"].cpu(), out[0].cpu(), out[1].cpu()))
+        return out
+
+    monkeypatch.setattr(ops, "workunit_pq_topk", spy)
+    n0 = adc.workunit_pq_scan.launches
+    a = [t.cpu().numpy() for t in stores[0].scan(wl, pq_threshold=100, refine_factor=4)]
+    assert adc.workunit_pq_scan.launches == n0 + 1
+    b = [t.numpy() for t in stores[1].scan(wl, pq_threshold=100, refine_factor=4)]
+    (nl_a, sa, ia), (nl_b, sb, ib) = seen
+    assert torch.equal(nl_a, nl_b) and len(set(nl_a.tolist())) > 1
+    assert torch.equal(sa, sb) and torch.equal(ia, ib)
+    np.testing.assert_allclose(np.where(np.isfinite(a[0]), a[0], -1e30),
+                               np.where(np.isfinite(b[0]), b[0], -1e30), rtol=1e-4, atol=1e-4)
+    for r in range(wl.m):
+        assert set(a[1][r][a[1][r] >= 0].tolist()) == set(b[1][r][b[1][r] >= 0].tolist()), r
+
+
+@pytest.mark.cuda
+def test_service_streams_alike_on_card_and_cpu(dev):
+    """A small service stream on the card and on a CPU reload of the same
+    index, through writes that put the delta past the PQ threshold, a
+    refresh() and an overload burst: ``chip_smoke.py``'s S2 phase, run here
+    at 20k rows."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    kg = kg_style(n=20_000, d=64, seed=0)
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(), device=dev)
+    rec = {}
+    smoke.phase_service_card_vs_cpu(rec, kg, index, inserts=5120, burst_depth=512)
+    assert rec["service_card_vs_cpu"]["burst"]["degraded_queries"] > 0

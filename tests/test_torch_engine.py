@@ -152,13 +152,13 @@ def test_state_round_trip_both_ways(built):
 
 
 def test_unported_paths_raise(built):
-    """The sharded engine (ROADMAP.md §1 item 9) is the one path left
+    """The sharded engine (ROADMAP.md §1, sharded engine) is the one path left
     unported; a compressed search without a codebook is refused by name."""
     db, wl, _, state = built
     port = HQIIndex.from_state(state, device="cpu")
     with pytest.raises(ValueError, match="attach_pq"):
         port.search(wl, nprobe=4, scan_mode="pq")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="sharded engine"):
         HQIIndex.build(db, wl, HQIConfig(**CFG, mesh=object()), device="cpu")
     with pytest.raises(ValueError, match="pq_m"):
         HQIIndex.build(db, wl, HQIConfig(**CFG, scan_mode="pq", pq_m=5), device="cpu")

@@ -45,6 +45,22 @@ def test_import_leaves_out_jax_and_reference():
     assert bad.strip() == "[]", out.stdout
 
 
+@pytest.mark.parametrize("package", ["repro_torch.service", "repro_torch.fault", "repro_torch.obs"])
+def test_serving_packages_leave_out_jax_and_reference(package):
+    """The online service and its host-only carry-overs (metrics, drift,
+    failpoints, retry) import alone without jax or the reference package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({package!r})\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC)),
+    )
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_no_library_attention_or_compile_in_the_package():
     """The port's attention is its own kernel: no file of the package calls
     ``scaled_dot_product_attention`` or ``torch.compile``."""
