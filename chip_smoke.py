@@ -50,13 +50,39 @@
    insert/delete/refresh seconds, a profiled stream-B flush, and kernel 4
    at each of stream B's shapes (bit-equal to its plain version; a call and
    the launch alone beside its bound);
+(S3) durability and index evolution on the same index as S1 leaves it
+   (codebook attached, delta folded), the store in a temporary directory
+   under ``--out`` (deleted at the end): ``init_store`` (snapshot seconds
+   and bytes); 256 insert batches of 128 rows near seeded-random base rows
+   (+0.01 noise, their columns) and 64 delete batches of 64 ids (2,048 base,
+   2,048 new) through the WAL with ``sync=True`` (acknowledged rows/s,
+   delete seconds, records, fsyncs), the live delta past the PQ threshold;
+   1,000 queries of split 1 (answers P: every id live, passing its filter,
+   with its exact score; kernels 1, 2 and 4 launch, no plain version); a
+   crash (WAL closed, service dropped, CUDA cache emptied) and
+   ``open_service`` on the card (snapshot load with its host->device copy
+   and WAL replay timed apart): ``live_ids()`` as before, P again (ids
+   equal, scores within 1e-4); ``Compactor.compact_once(force=True)``
+   (seconds, flush-lock hold and the capture inside it, generation bytes,
+   segments pruned) and a reopen that replays 0 records and answers as the
+   compacted service; 2,000 queries of split 3, then ``Tuner.tune_once``
+   (forced if the shift is below its threshold) while another thread
+   submits 1,000 queries (every one answered), build and swap seconds,
+   the checks and recall@10 after the swap, ``CURRENT`` on the new
+   generation, ``rollback()`` answering as before the swap; and
+   ``python -m repro_torch.fault.chaos --smoke --device cuda`` (its child
+   writer on the card too): ``ok``, acknowledged ids from the killed writer,
+   at least one recovery check, nothing hung, no parity or recovery fault;
 4. card against CPU: a 100k-row index built on the card, reloaded from its
    ``to_state()`` on the CPU; both searches must agree (scores within
    1e-4, equal id sets per query);
 (S2) the service on that index (codebook attached) and on its CPU reload:
    streams A, B (8,192 inserts, 819 + 819 deletes: the PQ delta path on
    both sides), C after ``refresh()`` and a burst past depth 512; every
-   stream's answers agree (1e-4, equal id sets);
+   stream's answers agree (1e-4, equal id sets); the card's service writes
+   through a store (``init_store``), compacted after the burst and given a
+   WAL tail, which ``open_service(device="cpu")`` opens: its answers to
+   stream C's queries agree with the card's;
 5. ADC kernels against their plain versions on the card:
    ``workunit_pq_scan_streamed`` (a [4096, M, 256] resident table read
    through random ``lut_idx``, an eighth of each unit's slots padding at row
@@ -76,7 +102,11 @@
    on one row, every slot -1, and k′ 64 at TV 4096, each beside its bound,
    plain version, yardstick, work-list time and staged LUT bytes;
    ``pq_scan`` at NV in {10^4, 10^5, 10^6}, M=8, k=40, with its kernel's
-   own time from the profiler;
+   own time from the profiler; then both LUT-stationary kernels at M in
+   {8, 110, 128, 190} (past 109 the LUT row passes in slices): the units
+   kernel at [4096, 64, 64, M, 40] with a quarter of the slots real and
+   ``pq_scan`` at NV 10^5, bit-equal, each beside its bound (a call and the
+   launch alone) and its plain version;
 6. the compressed (PQ) path at real size: the same data and workload,
    ``HQIConfig(scan_mode="pq")`` built on the card, ``search(nprobe=8)``
    once cold and three times warm; counters zeroed before the last search:
@@ -97,7 +127,12 @@
    bucket checked bit for bit and timed beside its bound; on the heaviest,
    the LUT-stationary units kernel serving the same bucket (the expanded
    LUTs as a table of W·TQ rows, -1 on the dead slots: the design the dense
-   layout did not take) must give the same lists, and is timed;
+   layout did not take) must give the same lists, and is timed; and a
+   20k-row index of d 256 at ``pq_m`` 128 (the LUT-stationary kernels'
+   sliced rows): a segmented PQ search (kernel 3) and a ``PQIndex.search``
+   (kernel 5) on the card, each equal to its CPU reload (the search's id
+   sets but at ties at the k-th score: its exact re-rank sums 256-wide
+   products in another order on each side);
 8. ``flash_attention`` against its plain version on the card: gemma3 heads
    (32/16, dh 128, bf16, batch 1) at S in {1024, 4096, 32768} x window in
    {0, 1024}, minicpm (36/36, dh 64) and qwen3 (64/8, dh 128) heads at
@@ -160,6 +195,12 @@ MAIN_ROWS, MAIN_QUERIES = 1_000_000, 10_000  # the main path's kg_style size
 # and the queue depth it sheds at, the recall subsample
 SERVICE_INSERTS, SERVICE_BASE_DELETES, SERVICE_DELTA_DELETES = 32_768, 16_384, 3_277
 SERVICE_BURST, SERVICE_SHED_DEPTH, SERVICE_RECALL_QUERIES = 8_192, 4_096, 1_000
+# durability and evolution on that index (S3): insert batches x rows, delete
+# batches x ids (half base, half new), the queries answered before and after
+# the crash, the later-split queries streamed before the tune
+STORE_INSERTS, STORE_DELETES, STORE_QUERIES, STORE_SHIFT_QUERIES = (256, 128), (64, 64), 1_000, 2_000
+# the LUT-stationary kernels past M 109 (the row in slices), M 8 beside them
+WIDE_M = (8, 110, 128, 190)
 KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
            "workunit_pq_scan", "pq_scan", "flash_attention")
 # the LM serving phase: gemma3-27b at full width, depth cut 62 -> 12 (two 5:1 cycles)
@@ -981,19 +1022,248 @@ def kernel4_shapes(shapes: dict) -> list:
     return rows
 
 
+def dir_bytes(path: str) -> int:
+    """Bytes of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def same_answers(a: dict, b: dict, what: str) -> float:
+    """Two streams' answers: ids equal, scores within 1e-4. Returns the
+    largest score difference."""
+    if not np.array_equal(a["ids"], b["ids"]):
+        raise AssertionError(f"{what}: the ids differ in {int((a['ids'] != b['ids']).any(1).sum())} queries")
+    fin = lambda x: np.where(np.isfinite(x), x, 0.0)  # noqa: E731
+    np.testing.assert_allclose(fin(a["scores"]), fin(b["scores"]), rtol=1e-4, atol=1e-4)
+    return float(np.abs(fin(a["scores"]) - fin(b["scores"])).max())
+
+
+def phase_store(rec: dict, index, kg, wl, out_dir: str, *, inserts=STORE_INSERTS,
+                deletes=STORE_DELETES, queries: int = STORE_QUERIES,
+                shift_queries: int = STORE_SHIFT_QUERIES) -> dict:
+    """(S3) Durability and index evolution on ``index`` (a codebook
+    attached): a store under ``out_dir``, writes acknowledged through the
+    WAL, answers P, a crash and ``open_service`` on the card (P again, the
+    same live ids), a compaction and a reopen that replays nothing, a forced
+    or triggered tune beside a thread of queries, its rollback, and the
+    chaos harness on the card in a subprocess. Returns the kernels' launches
+    in the first stream."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.obs import trace
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.service import ServiceConfig
+    from repro_torch.store import Compactor, init_store, list_generations, open_service
+    from repro_torch.store.snapshot import current_generation
+    from repro_torch.tuner import Tuner, TunerConfig
+
+    t_phase = time.perf_counter()
+    cfg = dict(k=10, nprobe=8, max_batch=256, deadline_s=0.005)
+    wl1 = wl.subset(np.arange(queries))
+    registry = get_registry()
+    root = tempfile.mkdtemp(prefix="store-", dir=out_dir)
+    out: dict = {"n": index.db.n, "config": cfg}
+
+    def stream(svc, tag, expect=("fused_knn", "fused_knn_db_stationary")):
+        zero_counters()
+        got = service_stream(svc, wl1)
+        counts = read_counters()
+        plain = {n: c for n, c in counts.items() if n.endswith("_plain") and c}
+        if plain or any(counts[n] <= 0 for n in expect):
+            raise AssertionError(f"S3 {tag}: launches {counts}")
+        full, live = service_db(svc)
+        check_answers(full, wl1, got["ids"], got["scores"], live_rows=live)
+        got["launches"] = counts
+        return got
+
+    try:
+        # 1. the store around the index: a generation and an empty WAL
+        t0 = time.perf_counter()
+        svc = init_store(root, index, cfg=ServiceConfig(**cfg))
+        out["init_store_seconds"] = time.perf_counter() - t0
+        out["snapshot_bytes"] = dir_bytes(os.path.join(root, list_generations(root)[-1]))
+        log(f"[store] init_store {out['init_store_seconds']:.3f} s (the snapshot's write); "
+            f"generation {out['snapshot_bytes']} bytes")
+
+        # 2. writes acknowledged through the WAL (sync), the way callers write
+        rng = np.random.default_rng(3)
+        (n_batches, rows), (n_del, del_ids) = inserts, deletes
+        fsyncs = registry.histogram("wal.fsync_s")
+        fsync0, seq0 = fsyncs.count, svc.wal.last_seq
+        new_ids = []
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            src = rng.integers(0, kg.db.n, rows)
+            vecs = kg.db.vectors[src] + 0.01 * rng.normal(size=(rows, kg.db.d)).astype(np.float32)
+            cols = {name: c.values[src] for name, c in kg.db.columns.items()}
+            nulls = {name: c.null_mask[src] for name, c in kg.db.columns.items() if c.kind != "setcat"}
+            new_ids.append(svc.insert(vecs, cols, nulls))
+        torch.cuda.synchronize()
+        insert_s = time.perf_counter() - t0
+        new_ids = np.concatenate(new_ids)
+        half = n_del * del_ids // 2
+        doomed = np.concatenate([rng.choice(index.db.n, half, replace=False),
+                                 rng.choice(new_ids, half, replace=False)])
+        t0 = time.perf_counter()
+        deleted = sum(svc.delete(b) for b in np.split(doomed, n_del))
+        delete_s = time.perf_counter() - t0
+        if deleted != len(doomed) or svc.delta.n_live <= svc.cfg.delta_pq_threshold:
+            raise AssertionError(f"S3 writes: {deleted} deleted, live delta {svc.delta.n_live}")
+        out["writes"] = {"inserted": int(len(new_ids)), "insert_seconds": insert_s,
+                         "acked_rows_per_s": len(new_ids) / insert_s, "deleted": deleted,
+                         "delete_seconds": delete_s, "wal_records": svc.wal.last_seq - seq0,
+                         "fsyncs": fsyncs.count - fsync0, "live_delta": svc.delta.n_live}
+        log("[store] writes through the WAL: " + json.dumps(out["writes"]))
+
+        # 3. answers P (the delta's PQ scan: kernel 4)
+        p = stream(svc, "P", expect=("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan"))
+        out["P"] = {"seconds": p["seconds"], "qps": p["qps"], "launches": p["launches"]}
+        live_before = svc.live_ids()
+
+        # 4. crash, then recover on the card: the load and the replay apart
+        svc.wal.close()
+        registry.detach_source("service")  # the registry's sources hold the service
+        registry.detach_source("health")
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+        tracer = trace.enable()
+        t0 = time.perf_counter()
+        svc = open_service(root, cfg=ServiceConfig(**cfg))
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        trace.disable()
+        load_s = sum(ev["dur"] for ev in tracer.events() if ev.get("name") == "snapshot.load") / 1e6
+        if svc.index.device.type != "cuda" or not np.array_equal(svc.live_ids(), live_before):
+            raise AssertionError("S3 recovery: not on the card, or live_ids() changed")
+        again = stream(svc, "P after recovery",
+                       expect=("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan"))
+        out["recovery"] = {"seconds": recover_s, "snapshot_load_seconds": load_s,
+                           "replay_seconds": recover_s - load_s,
+                           "replayed_records": svc._applied_seq - svc._wal_folded_seq,
+                           "replayed_rows": svc.delta.n,
+                           "max_score_diff": same_answers(p, again, "P after recovery")}
+        log("[store] recovered: " + json.dumps(out["recovery"]))
+
+        # 5. compaction, then a reopen with nothing to replay
+        segs = set(svc.wal.segments())
+        comp = Compactor(svc, root, keep_generations=1)
+        t0 = time.perf_counter()
+        name = comp.compact_once(force=True)
+        compact_s = time.perf_counter() - t0
+        q = stream(svc, "after compaction")
+        reopened = open_service(root, cfg=ServiceConfig(**cfg))
+        replayed = reopened._applied_seq - reopened._wal_folded_seq
+        if replayed or reopened.delta.n:
+            raise AssertionError(f"S3 reopen after compaction replayed {replayed} records")
+        diff = same_answers(q, stream(reopened, "reopened after compaction"), "reopen after compaction")
+        del reopened
+        out["compaction"] = {"seconds": compact_s, "flush_lock_seconds": comp.last_lock_s,
+                             "capture_seconds": comp.last_capture_s, "generation": name,
+                             "generation_bytes": dir_bytes(os.path.join(root, name)),
+                             "segments_pruned": len(segs - set(svc.wal.segments())),
+                             "reopen_replayed_records": replayed, "reopen_max_score_diff": diff}
+        log("[store] compacted: " + json.dumps(out["compaction"]))
+
+        # 6. evolution: shifted traffic, a tune beside a thread of queries, rollback
+        service_stream(svc, kg.splits[3].subset(np.arange(shift_queries)))
+        drift = svc.drift_report()
+        tuner = Tuner(svc, root, cfg=TunerConfig(share_shift=0.2, min_window=32, retune_nprobe=False))
+        force = tuner.should_rebuild(drift) is None
+        handles: list = []
+
+        def submit_during_tune():
+            for i in range(wl1.m):
+                handles.append(svc.submit(wl1.vectors[i], wl1.templates[wl1.template_of[i]]))
+                time.sleep(0.002)
+
+        svc.start(poll_s=0.001)
+        side = threading.Thread(target=submit_during_tune, name="S3-queries")
+        side.start()
+        try:
+            swap = tuner.tune_once(force=force)
+        finally:
+            side.join(timeout=300)
+            hung = sum(not h.wait(timeout=120) for h in handles)
+            svc.stop()
+        failed = sum(h.done and not h.ok for h in handles)
+        if side.is_alive() or hung or failed or len(handles) != wl1.m:
+            raise AssertionError(f"S3 tune: {len(handles)} submitted, {hung} hung, {failed} failed")
+        after = stream(svc, "after the swap")
+        recall = stream_recall(svc, wl1, after, np.arange(wl1.m))
+        if current_generation(root) != swap.generation:
+            raise AssertionError(f"S3 tune: CURRENT is {current_generation(root)}, not {swap.generation}")
+        tuner.rollback()
+        back = same_answers(q, stream(svc, "after the rollback"), "rollback")
+        out["evolution"] = {"share_shift": drift.share_shift, "forced": force,
+                            "reason": swap.reason, "generation": swap.generation,
+                            "covered_seq": swap.covered_seq, "n_rows": swap.n_rows,
+                            "replayed": swap.replayed, "build_seconds": swap.build_s,
+                            "swap_seconds": swap.swap_s, "queries_during_tune": len(handles),
+                            "recall_at_10_after_swap": recall, "rollback_max_score_diff": back}
+        log("[store] evolved: " + json.dumps(out["evolution"]))
+        svc.wal.close()
+        registry.detach_source("service")
+        registry.detach_source("health")
+        registry.detach_source("compactor")
+        registry.detach_source("tuner")
+        del svc, tuner, comp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 7. the chaos harness on the card, its child writer too
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src")] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.fault.chaos", "--smoke", "--device", "cuda",
+             "--root", os.path.join(root, "chaos")],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"S3 chaos exited {proc.returncode}: {proc.stdout[-2000:]} "
+                                 f"{proc.stderr[-2000:]}")
+        chaos = json.loads(proc.stdout)
+        if not (chaos["ok"] and chaos["killed_writer_acks"] > 0 and chaos["recovery_checks"] >= 1
+                and chaos["hung"] == 0 and chaos["parity_mismatches"] == 0
+                and chaos["recovery_violations"] == 0):
+            raise AssertionError(f"S3 chaos: {chaos}")
+        chaos["seconds"] = time.perf_counter() - t0
+        out["chaos"] = chaos
+        log("[store] chaos on the card: " + json.dumps(chaos))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    rec["store"] = out
+    log(f"[store] S3 done in {out['seconds']:.1f} s")
+    return {"launches": out["P"]["launches"]}
+
+
 def phase_service_card_vs_cpu(rec: dict, kg, gpu, *, inserts: int = 8192,
-                              burst_depth: int = 512) -> None:
+                              burst_depth: int = 512, out_dir=None) -> None:
     """(S2) The service on the card and on a CPU reload of the same index
     (its ``to_state()``, codebook included), driven by the same streams and
     writes: A, then ``inserts`` rows near existing ones and deletes (a tenth
     of the inserts and of as many base rows) with the live delta past the
     default threshold (the PQ delta scan on both sides), B, ``refresh()``,
     C and a burst past ``burst_depth``. Every stream's answers agree: scores
-    within 1e-4, equal id sets."""
+    within 1e-4, equal id sets. The card's service writes through a store
+    (a temporary directory under ``out_dir``): after the burst a compaction
+    writes a generation, a few writes leave a WAL tail, and the store opened
+    on the CPU (``open_service(device="cpu")``) answers stream C's queries
+    as the card does."""
+    import shutil
+    import tempfile
+
     from repro_torch.core import HQIIndex, SearchResult
     from repro_torch.core.pq import train_pq
     from repro_torch.obs.metrics import get_registry
     from repro_torch.service import HQIService, ServiceConfig
+    from repro_torch.store import Compactor, init_store, open_service
 
     t_phase = time.perf_counter()
     wl = kg.splits[1]
@@ -1001,7 +1271,8 @@ def phase_service_card_vs_cpu(rec: dict, kg, gpu, *, inserts: int = 8192,
     # both sides take the engine for every group, as the card's "auto" does
     cfg = dict(k=10, nprobe=8, max_batch=256, deadline_s=0.005, batch_vec=True)
     cpu = HQIIndex.from_state(gpu.to_state(), device="cpu")
-    svcs = [HQIService(gpu, ServiceConfig(**cfg)), HQIService(cpu, ServiceConfig(**cfg))]
+    root = tempfile.mkdtemp(prefix="store-", dir=out_dir)
+    svcs = [init_store(root, gpu, cfg=ServiceConfig(**cfg)), HQIService(cpu, ServiceConfig(**cfg))]
     if inserts - inserts // 10 <= svcs[0].cfg.delta_pq_threshold:
         raise AssertionError("the live delta must exceed the PQ threshold")
     rng = np.random.default_rng(1)
@@ -1035,8 +1306,27 @@ def phase_service_card_vs_cpu(rec: dict, kg, gpu, *, inserts: int = 8192,
     both("burst", burst=True)
     if not row["burst"]["degraded_queries"]:
         raise AssertionError("the burst did not shed to PQ")
+
+    card = svcs[0]
+    card.cfg.overload_queue_depth = None  # exact from here on
+    try:
+        Compactor(card, root, keep_generations=1).compact_once(force=True)
+        tail = rng.integers(0, kg.db.n, 256)
+        card.insert(kg.db.vectors[tail] + 0.01, {name: c.values[tail] for name, c in kg.db.columns.items()})
+        card.delete(rng.choice(kg.db.n, 64, replace=False))
+        records = card.wal.last_seq - card._wal_folded_seq
+        opened = open_service(root, cfg=ServiceConfig(**cfg), device="cpu")
+        got = [service_stream(s, wl) for s in (card, opened)]
+        agree(SearchResult(ids=got[0]["ids"], scores=got[0]["scores"]),
+              SearchResult(ids=got[1]["ids"], scores=got[1]["scores"]), "the store opened on the CPU")
+        card.wal.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["store_opened_on_cpu"] = {"wal_tail_records": records, "delta_rows": opened.delta.n,
+                                  "cpu_seconds": got[1]["seconds"]}
     get_registry().detach_source("service")  # the registry's sources hold the services
     get_registry().detach_source("health")
+    get_registry().detach_source("compactor")
     row["seconds"] = time.perf_counter() - t_phase
     rec["service_card_vs_cpu"] = row
     log("[service card-vs-cpu] every stream agrees: " + json.dumps(row))
@@ -1197,6 +1487,65 @@ def dense_cases(gen, check) -> list:
     return rows
 
 
+def wide_m_cases(gen, check) -> list:
+    """Both LUT-stationary kernels at M in ``WIDE_M``: past 109 the LUT row
+    passes through shared memory in slices (``lut_stationary_slice``). The
+    units kernel at [4096, 64, 64, M, 40] (a quarter of the slots real, rows
+    from a 1,000-row table) and ``pq_scan`` at NV 10^5, k 40: bit-equal to
+    their plain versions, a call (CUDA events) and the launch alone
+    (profiler) beside the bound and the plain version; M 8 is the same
+    shapes' yardstick for the slicing's cost."""
+    import torch
+
+    from repro_torch.kernels import pq_scan as adc
+
+    rows = []
+    W, TQ, TV, U, NV, k = 4096, 64, 64, 1000, 100_000, 40
+    for M in WIDE_M:
+        table = torch.randn((U, M, 256), generator=gen, device="cuda")
+        lut_idx = torch.randint(0, U, (W, TQ), generator=gen, device="cuda", dtype=torch.int32)
+        lut_idx[torch.rand((W, TQ), generator=gen, device="cuda") >= 0.25] = -1
+        codes = torch.randint(0, 256, (W, TV, M), generator=gen, device="cuda", dtype=torch.uint8)
+        valid = torch.rand((W, TV), generator=gen, device="cuda") < 0.7
+        args = (table, lut_idx, codes, valid)
+        got = adc.workunit_pq_scan_streamed(*args, k=k)
+        want = adc.workunit_pq_scan_streamed_plain(*args, k=k)
+        row = {"case": f"wide_m_units_m{M}", "W": W, "TQ": TQ, "TV": TV, "M": M, "k": k,
+               "lut_slice": adc.lut_stationary_slice(M),
+               "err": check("workunit_pq_scan_streamed", got, want)}
+        exact(got, want, f"workunit_pq_scan_streamed at M {M}")
+        del got, want
+        row["ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed(*args, k=k), reps=11)
+        row["device_ms"] = device_ms(lambda: adc.workunit_pq_scan_streamed(*args, k=k),
+                                     "lut_stationary_units_kernel")
+        row["plain_ms"] = cuda_ms(lambda: adc.workunit_pq_scan_streamed_plain(*args, k=k), reps=3)
+        q_live = lut_idx >= 0
+        row["bound"] = adc_bound(codes, valid, k, q_live, int(torch.unique(lut_idx[q_live]).numel()))
+        row["ms_over_bound"] = row["ms"] / row["bound"]["bound_ms"]
+        rows.append(row)
+        log("[adc wide M] " + json.dumps(row))
+        del table, lut_idx, codes, valid, args
+
+        lut = torch.randn((M, 256), generator=gen, device="cuda")
+        codes = torch.randint(0, 256, (NV, M), generator=gen, device="cuda", dtype=torch.uint8)
+        valid = torch.rand((NV,), generator=gen, device="cuda") < 0.7
+        got, want = adc.pq_scan(lut, codes, valid, k=k), adc.pq_scan_plain(lut, codes, valid, k=k)
+        row = {"case": f"wide_m_rows_m{M}", "NV": NV, "M": M, "k": k,
+               "lut_slice": adc.lut_stationary_slice(M), "err": check("pq_scan", got, want)}
+        exact(got, want, f"pq_scan at M {M}")
+        row["ms"] = cuda_ms(lambda: adc.pq_scan(lut, codes, valid, k=k))
+        row["device_ms"] = device_ms(lambda: adc.pq_scan(lut, codes, valid, k=k), "lut_stationary_rows_kernel")
+        row["plain_ms"] = cuda_ms(lambda: adc.pq_scan_plain(lut, codes, valid, k=k), reps=5)
+        row["bound"] = adc_bound(codes[None], valid[None], k, torch.ones((1, 1), dtype=torch.bool,
+                                 device="cuda"), 1)
+        row["ms_over_bound"] = row["ms"] / row["bound"]["bound_ms"]
+        rows.append(row)
+        log("[adc wide M] " + json.dumps(row))
+        del lut, codes, valid
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_adc_kernels(rec: dict, max_err: dict) -> None:
     import torch
 
@@ -1282,6 +1631,7 @@ def phase_adc_kernels(rec: dict, max_err: dict) -> None:
 
     rows += lut_stationary_cases(gen, check)
     rows += dense_cases(gen, check)
+    rows += wide_m_cases(gen, check)
 
     for nv in (10_000, 100_000, 1_000_000):
         lut = torch.randn((8, 256), generator=gen, device="cuda")
@@ -1519,6 +1869,48 @@ def rerank_dispatch(index, wl, max_err: dict) -> dict:
     return row
 
 
+def wide_pq_index() -> dict:
+    """A 20k-row index of d 256 at ``pq_m`` 128 (the LUT-stationary kernels'
+    row in slices): a segmented PQ search must launch kernel 3 and a
+    ``PQIndex.search`` kernel 5, no plain version, each equal to the same
+    index reloaded on the CPU: scores within 1e-4 and equal id sets, in the
+    search but at ties at the k-th score (its exact re-rank sums 256-wide
+    products in the kernel's order on the card and in torch's on the CPU,
+    so two candidates a few ulps apart may trade places at the cut); the
+    ADC-only ``PQIndex`` answers are bit-equal on both sides, so equal id
+    sets without exception."""
+    import dataclasses
+
+    from repro_torch.core import HQIConfig, HQIIndex, PQIndex, SearchResult, kg_style
+    from repro_torch.kernels import pq_scan as adc
+
+    kg = kg_style(n=20_000, d=256, queries_per_split=1_000, seed=4)
+    wl = kg.splits[1]
+    gpu = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq", pq_m=128), device="cuda")
+    zero_counters()
+    a = gpu.search(wl, nprobe=8)
+    counts = read_counters()
+    b = HQIIndex.from_state(gpu.to_state(), device="cpu").search(wl, nprobe=8)
+    tied = agree_untied(a.scores, a.ids, b.scores, b.ids, "d 256, pq_m 128, segmented PQ, card and CPU")
+    pq_gpu = PQIndex.build(kg.db.vectors, m=128, metric=kg.db.metric, device="cuda")
+    q = wl.vectors[:64]
+    zero_counters()
+    sa, ia = pq_gpu.search(q, 10)
+    counts5 = read_counters()
+    sb, ib = dataclasses.replace(pq_gpu, codes=pq_gpu.codes.cpu()).search(q, 10)
+    agree(SearchResult(ids=ia, scores=sa), SearchResult(ids=ib, scores=sb), "d 256, PQIndex m 128, card and CPU")
+    plain = {n: c for n, c in {**counts, **counts5}.items() if n.endswith("_plain") and c}
+    if counts["workunit_pq_scan_streamed"] <= 0 or counts5["pq_scan"] != len(q) or plain:
+        raise AssertionError(f"the d-256 index at M 128: kernel 3 {counts['workunit_pq_scan_streamed']}, "
+                             f"kernel 5 {counts5['pq_scan']}, plain {plain}")
+    out = {"n": kg.db.n, "d": 256, "pq_m": 128, "lut_slice": adc.lut_stationary_slice(128),
+           "queries": wl.m, "tied_queries": tied,
+           "kernel3_launches": counts["workunit_pq_scan_streamed"],
+           "pq_index_queries": len(q), "kernel5_launches": counts5["pq_scan"]}
+    log("[pq-card-vs-cpu] d 256 at pq_m 128 agrees: " + json.dumps(out))
+    return out
+
+
 def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     """PQ at 100k rows on the card against its CPU reload: both layouts, and
     a PQIndex (one pq_scan launch per query). The dense layout's search is
@@ -1581,6 +1973,7 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     if launches5 != len(q):
         raise AssertionError(f"PQIndex.search launched pq_scan {launches5} times for {len(q)} queries")
     log(f"[pq-card-vs-cpu] PQIndex: {len(q)} queries (rerank=4) agree; pq_scan launched {launches5} times")
+    wide = wide_pq_index()
 
     lut = torch.from_numpy(adc_tables(pq_gpu.cb, q[:1])[0]).cuda()
     valid = torch.ones(vecs.shape[0], dtype=torch.bool, device="cuda")
@@ -1605,7 +1998,7 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
                              "dense_scan_device_ms": dense_scan_ms,
                              "pq_index_queries": len(q), "pq_scan_launches": launches5,
                              "dense_buckets": dense_run["buckets"],
-                             "dense_buckets_summed": dense_run["summed"]}
+                             "dense_buckets_summed": dense_run["summed"], "wide_pq_index": wide}
     return {"workunit_pq_scan": (launches4, dense_run["heaviest"]), "pq_scan": (launches5, one)}
 
 # ------------------------------------------------------- flash attention
@@ -2009,10 +2402,11 @@ def main() -> int:
     main_run = phase_main_path(rec)
     heaviest = phase_main_shapes(rec, main_run, max_err)
     service = phase_service(rec, main_run)
+    store = phase_store(rec, main_run["index"], main_run["kg"], main_run["wl"], args.out)
     del main_run["index"]
     torch.cuda.empty_cache()
     kg_100k, index_100k = phase_card_vs_cpu(rec)
-    phase_service_card_vs_cpu(rec, kg_100k, index_100k)
+    phase_service_card_vs_cpu(rec, kg_100k, index_100k, out_dir=args.out)
     del kg_100k, index_100k
     torch.cuda.empty_cache()
     phase_adc_kernels(rec, max_err)
@@ -2068,6 +2462,8 @@ def main() -> int:
             entry["summed_over_buckets"] = pq_heavy["summed"]
         # launches in each stream of the online service (S1)
         entry["service_launches"] = {tag: c[name] for tag, c in service["launches"].items()}
+        # launches in S3's first stream (answers P, the delta past the PQ threshold)
+        entry["store_launches"] = store["launches"][name]
         if name == "workunit_pq_scan":
             entry["delta_store_shapes"] = [
                 {key: s[key] for key in ("shape", "ms", "device_ms", "bound_ms", "bound_by")}

@@ -119,12 +119,17 @@ class PackedArena:
 
     # ------------------------------------------------------------ persistence
 
-    def to_state(self) -> dict:
-        """The reference's arena state: every array a numpy leaf."""
+    def to_state(self, host: bool = True) -> dict:
+        """The reference's arena state: every array a numpy leaf. With
+        ``host=False`` the device tensors (``packed``, ``gid``, ``codes``)
+        stay tensor leaves, read nothing back: the store captures them under
+        the service's lock and copies them to the host outside it (they are
+        replaced, never written in place, so the references stay valid)."""
+        read = (lambda t: t.cpu().numpy()) if host else (lambda t: t)
         return {
             "metric": self.metric,
-            "packed": self.packed.cpu().numpy(),
-            "gid": self.gid.cpu().numpy(),
+            "packed": read(self.packed),
+            "gid": read(self.gid),
             "local_of": self.local_of,
             "list_start": self.list_start,
             "list_len": self.list_len,
@@ -132,7 +137,7 @@ class PackedArena:
             "part_row": self.part_row,
             "centroids": {str(p): c for p, c in enumerate(self.centroids)},
             "pq": None if self.pq is None else self.pq.to_state(),
-            "codes": None if self.codes is None else self.codes.cpu().numpy(),
+            "codes": None if self.codes is None else read(self.codes),
         }
 
     @staticmethod
@@ -140,7 +145,8 @@ class PackedArena:
         cents = state["centroids"]
         return PackedArena(
             packed=km.as_tensor(np.asarray(state["packed"]), device),
-            gid=torch.from_numpy(np.asarray(state["gid"], dtype=np.int64)).to(device),
+            # a copy: a loaded state's array may be a read-only map of a blob
+            gid=torch.from_numpy(np.array(state["gid"], dtype=np.int64)).to(device),
             local_of=np.asarray(state["local_of"]),
             list_start=np.asarray(state["list_start"]),
             list_len=np.asarray(state["list_len"]),

@@ -526,12 +526,14 @@ class HQIIndex:
 
     # ------------------------------------------------------------ persistence
 
-    def to_state(self) -> dict:
+    def to_state(self, host: bool = True) -> dict:
         """Snapshot state (store/snapshot.py): everything a warm restart
         needs — DB columns, qd-tree, per-partition IVFs, coarse centroids,
         PQ codebook, the materialized arena (rows + posting-list table +
         uint8 codes), and the Router's template bitmap cache — so a loaded
         index answers bit-identically to this one with no recompute.
+        ``host=False`` leaves the arena's device tensors as tensor leaves
+        (``PackedArena.to_state``).
         """
         cached = list(self.router._bitmap_cache.items())
         return {
@@ -546,7 +548,7 @@ class HQIIndex:
             "build_info": dataclasses.asdict(self.build_info),
             # materialize so the snapshot serves engine searches immediately
             # after load (no O(N·d) concatenation / O(N·M) re-encode)
-            "arena": self.arena.to_state(),
+            "arena": self.arena.to_state(host),
             "router_cache": {
                 "filters": [filter_to_state(f) for f, _ in cached],
                 "bitmaps": (

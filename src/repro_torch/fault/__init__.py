@@ -7,8 +7,9 @@ Public API:
         code or from ``REPRO_FAILPOINTS`` at import time
     with_retries — bounded exponential-backoff retry for transient I/O
 
-The chaos harness (``fault/chaos.py``) waits for its own item (ROADMAP.md
-§1, ``fault/chaos.py`` and ``tuner/``).
+The chaos harness (``fault/chaos.py``: ``run_chaos``, ``python -m
+repro_torch.fault.chaos``) drives a WAL-backed service while these fire; it
+imports the store, so it is not imported here.
 """
 from .failpoints import (  # noqa: F401
     SITES,

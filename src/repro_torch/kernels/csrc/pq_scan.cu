@@ -52,6 +52,13 @@
 //     contiguous range of 32-row chunks; the block's lists fold into one,
 //     and the last block to finish (a counter the wrapper zeroes) merges
 //     every block's list in the same launch.
+//   * M past 109: the row does not fit beside the rings, so it passes
+//     through shared memory in slices of Ms subspaces (the widest multiple
+//     of 8 that fits, lut_slice: 104 at M 110, 88 at 128, 24 at 190), block-
+//     wide for every chunk; each lane carries its row's sum in a register
+//     from one slice to the next, m = 0 … M-1, so the scores stay those of
+//     the whole row. The warps step together (a slot or none a round, the
+//     same count of chunk steps) because each slice is a barrier.
 // Each warp streams its items (a unit's 32-row chunk: M·32 code bytes and
 // 32 mask bytes) through a ring of kStages shared-memory stages, kStages - 1
 // items ahead, by cp.async 16-byte copies (bytes off the 16-byte grid by
@@ -107,11 +114,13 @@ using hqi::kNoIdx;
 using hqi::kSelectBuf;
 using hqi::prepare;
 
-// Σ_m lut[m][code[m]] for one staged code row, in the order m = 0 … M-1.
-__device__ __forceinline__ float adc_row(const float* __restrict__ lut, const uint8_t* cr, int M) {
-  float acc = 0.f;
-  if ((M & 7) == 0) {
-    for (int j = 0; j < M; j += 8) {
+// acc + Σ_j lut[j][code[j]] over j = 0 … n-1 of one staged code row, added
+// in that order. vec: cr is 8-byte aligned and n a multiple of 8 (codes read
+// 8 at a time).
+__device__ __forceinline__ float adc_add(float acc, const float* __restrict__ lut, const uint8_t* cr,
+                                         int n, bool vec) {
+  if (vec) {
+    for (int j = 0; j < n; j += 8) {
       const uint2 w = *reinterpret_cast<const uint2*>(cr + j);
 #pragma unroll
       for (int b = 0; b < 4; ++b) acc += lut[(j + b) * 256 + ((w.x >> (8 * b)) & 255u)];
@@ -119,9 +128,14 @@ __device__ __forceinline__ float adc_row(const float* __restrict__ lut, const ui
       for (int b = 0; b < 4; ++b) acc += lut[(j + 4 + b) * 256 + ((w.y >> (8 * b)) & 255u)];
     }
   } else {
-    for (int j = 0; j < M; ++j) acc += lut[j * 256 + cr[j]];
+    for (int j = 0; j < n; ++j) acc += lut[j * 256 + cr[j]];
   }
   return acc;
+}
+
+// Σ_m lut[m][code[m]] for one staged code row, in the order m = 0 … M-1.
+__device__ __forceinline__ float adc_row(const float* __restrict__ lut, const uint8_t* cr, int M) {
+  return adc_add(0.f, lut, cr, M, (M & 7) == 0);
 }
 
 // ====================================================== adc_slot_warps_kernel
@@ -369,18 +383,32 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;       // ring stages a warp: kStages - 1 items in flight
 constexpr int kChunk = 32;       // rows an item holds, one a lane
 constexpr int kMaxRange = 128;   // slots a block of the units kernel takes, most
+constexpr size_t kSmemOptin = 232448;  // sm_90: most dynamic shared memory a block may take
 
 __host__ __device__ inline int stage_code_bytes(int M) { return (kChunk * M + 15) & ~15; }
 __host__ __device__ inline int stage_bytes(int M) { return stage_code_bytes(M) + kChunk; }
 
-// Mirrored by kernels/pq_scan.py::lut_stationary_smem_bytes.
-__host__ inline size_t smem_bytes(int M) {
-  return (size_t)M * 256 * sizeof(float)                      // one query's LUT row
+// Mirrored by kernels/pq_scan.py::lut_stationary_smem_bytes. Ms: the LUT
+// subspaces staged at once (M where the whole row fits).
+__host__ inline size_t smem_bytes(int M, int Ms) {
+  return (size_t)Ms * 256 * sizeof(float)                     // one query's LUT row, or a slice
          + (size_t)kWarps * kStages * stage_bytes(M)           // the warps' rings
          + (size_t)kWarps * kSelectBuf * 8                     // the warps' candidate buffers
          + (size_t)kMaxRange * 3 * sizeof(int)                 // the range's rows, slots, units
          + (size_t)(kMaxRange + 1) * sizeof(int)               // its runs' bounds
          + 16;                                                 // run count, last-block flag
+}
+
+// The LUT subspaces a block stages at once: all M where the row fits beside
+// the rings (M <= 109), else the widest multiple of 8 that does (a row
+// passes in slices, each chunk's sums carried in registers from one slice to
+// the next); 0 where not even 8 fit. Mirrored by
+// kernels/pq_scan.py::lut_stationary_slice.
+__host__ inline int lut_slice(int M) {
+  if (smem_bytes(M, M) <= kSmemOptin) return M;
+  int ms = (M - 1) & ~7;
+  while (ms > 0 && smem_bytes(M, ms) > kSmemOptin) ms -= 8;
+  return ms;
 }
 
 struct Smem {
@@ -395,9 +423,9 @@ struct Smem {
   int* misc;
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* raw, int M) {
+__device__ __forceinline__ Smem carve(unsigned char* raw, int M, int Ms) {
   Smem m;
-  size_t off = (size_t)M * 256 * sizeof(float);
+  size_t off = (size_t)Ms * 256 * sizeof(float);
   m.lut = reinterpret_cast<float*>(raw);
   m.ring = raw + off;
   off += (size_t)kWarps * kStages * stage_bytes(M);
@@ -492,21 +520,51 @@ __device__ __forceinline__ void stage_lut(float* dst, const float* src, int M) {
   sm90::cp_async_wait<0>();
 }
 
+// n subspaces of a LUT row (n·256 floats, 16-byte aligned) into shared
+// memory by plain 16-byte loads, so the ring's cp.async groups stay in flight.
+__device__ __forceinline__ void stage_slice(float* dst, const float* src, int n) {
+  const float4* s = reinterpret_cast<const float4*>(src);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int g = threadIdx.x; g < n * 64; g += kThreads) d[g] = __ldg(s + g);
+}
+
+// The sliced score of lane's row of the current item (sliced kernels only):
+// acc over the row's LUT passed through shared memory Ms subspaces at a time,
+// block-wide. Every warp of the block calls it, with an item or without (ok
+// false), so each passes the same barriers; the sum runs m = 0 … M-1 in
+// registers, as adc_row's.
+__device__ __forceinline__ float sliced_row(float* slut, const float* row_lut, const uint8_t* cr, int M,
+                                            int Ms, bool ok) {
+  float acc = 0.f;
+  for (int m0 = 0; m0 < M; m0 += Ms) {
+    const int n = min(Ms, M - m0);
+    __syncthreads();  // every warp is done with the previous slice
+    stage_slice(slut, row_lut + (size_t)m0 * 256, n);
+    __syncthreads();
+    if (ok) acc = adc_add(acc, slut, cr + m0, n, (M & 7) == 0);
+  }
+  return ok ? acc : -INFINITY;
+}
+
 // workunit_pq_scan_streamed. keys/order: the W·TQ slots sorted by table row
 // (stable); block b takes positions [b·P, b·P + P). With g = 1 the warps
 // take a run's slots in turn, a warp a slot; with g = 8 the block takes
 // them one at a time, each warp scanning its piece of the slot's row chunks
 // (a contiguous eighth) and the pieces' lists folding into warp 0's. The
-// slot's first warp writes out [W, TQ, k].
+// slot's first warp writes out [W, TQ, k]. Where the row does not fit
+// beside the rings (Ms < M), each chunk is scored against the row passed
+// through shared memory in slices (sliced_row), the warps in step: a round
+// gives each warp its next slot of the run (or none) and every warp the
+// same count of chunk steps.
 template <int KL>
 __global__ void __launch_bounds__(kThreads, 4)
     lut_stationary_units_kernel(const float* __restrict__ table, const int* __restrict__ keys,
                                 const int64_t* __restrict__ order, const uint8_t* __restrict__ codes,
                                 const uint8_t* __restrict__ valid, float* __restrict__ out_s,
                                 int* __restrict__ out_i, int N, int TQ, int TV, int M, int U, int k,
-                                int P, int g) {
+                                int P, int g, int Ms) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw, M);
+  const Smem sm = carve(smem_raw, M, Ms);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p0 = blockIdx.x * P;
   const int n = min(P, N - p0);
@@ -582,6 +640,54 @@ __global__ void __launch_bounds__(kThreads, 4)
       }
       continue;
     }
+    if (Ms < M) {  // block-uniform
+      const float* row_lut = table + (size_t)row * M * 256;
+      const int rounds = (b - a + groups - 1) / groups, steps = (nch + g - 1) / g;
+      for (int r = 0; r < rounds; ++r) {
+        const int pos = a + grp + r * groups;
+        const bool active = pos < b;  // warp-uniform
+        sel.reset();
+        float d0 = -INFINITY, d1 = -INFINITY;
+        int i0 = kNoIdx, i1 = kNoIdx;
+        for (int i = 0; i < steps; ++i) {
+          const int ch = c0 + i, r0 = ch * kChunk;
+          const bool item = active && ch < c1;
+          if (item) {
+            issue_next();
+            ring.wait();
+          }
+          const int nrows = item ? min(kChunk, TV - r0) : 0;
+          const bool ok = lane < nrows && ring.valid(t)[lane] != 0;
+          const float acc = sliced_row(sm.lut, row_lut, ring.codes(t) + lane * M, M, Ms, ok);
+          if (!item) continue;
+          if (direct) {
+            if (ok && ch == c0) {
+              d0 = acc;
+              i0 = r0 + lane;
+            } else if (ok) {
+              d1 = acc;
+              i1 = r0 + lane;
+            }
+          } else {
+            sel.offer(acc, r0 + lane, ok, lane);
+          }
+          __syncwarp();  // the stage is read before the ring refills it
+          ++t;
+        }
+        if (active) {
+          if (direct)
+            sel.top.sort_from(d0, i0, d1, i1, c1 - c0 == 2, k, lane);
+          else
+            sel.flush(lane);
+        }
+        if (g > 1) fold_block<KL>(sel, sm, warp, lane);  // g = 8: every warp is active
+        if (active && mem == 0) {
+          const size_t o = (size_t)sm.slots[pos] * k;
+          sel.top.write_final(k, out_s + o, out_i + o, lane);
+        }
+      }
+      continue;
+    }
     __syncthreads();  // every warp is done with the previous row
     stage_lut(sm.lut, table + (size_t)row * M * 256, M);
     __syncthreads();
@@ -624,19 +730,22 @@ __global__ void __launch_bounds__(kThreads, 4)
 // pq_scan. Each warp scans a contiguous range of 32-row chunks; the block's
 // lists fold into one raw partial list part[blockIdx.x]; the last block to
 // count itself in `counter` (zeroed by the wrapper) merges all gridDim.x of
-// them into out [k].
+// them into out [k]. Sliced (Ms < M): every warp takes as many chunk steps
+// as the block's longest range, each scored by sliced_row.
 template <int KL>
 __global__ void __launch_bounds__(kThreads)
     lut_stationary_rows_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
                                const uint8_t* __restrict__ valid, float* __restrict__ part_s,
                                int* __restrict__ part_i, unsigned* __restrict__ counter,
                                float* __restrict__ out_s, int* __restrict__ out_i, int NV, int M,
-                               int k) {
+                               int k, int Ms) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw, M);
+  const Smem sm = carve(smem_raw, M, Ms);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stage_lut(sm.lut, lut, M);
-  __syncthreads();
+  if (Ms == M) {
+    stage_lut(sm.lut, lut, M);
+    __syncthreads();
+  }
 
   const long nch = (NV + kChunk - 1) / kChunk;
   const long nw = (long)gridDim.x * kWarps, gw = (long)blockIdx.x * kWarps + warp;
@@ -655,13 +764,36 @@ __global__ void __launch_bounds__(kThreads)
   };
   for (int j = 0; j < kStages - 1; ++j) issue_next();
   WarpSelect<KL> sel = make_select<KL>(sm, warp, k);
-  for (int c = c0, t = 0; c < c1; ++c, ++t) {
-    issue_next();
-    ring.wait();
-    bool ok;
-    const float acc = score_row(ring, t, sm.lut, min(kChunk, NV - c * kChunk), lane, ok);
-    sel.offer(acc, c * kChunk + lane, ok, lane);
-    __syncwarp();
+  if (Ms == M) {
+    for (int c = c0, t = 0; c < c1; ++c, ++t) {
+      issue_next();
+      ring.wait();
+      bool ok;
+      const float acc = score_row(ring, t, sm.lut, min(kChunk, NV - c * kChunk), lane, ok);
+      sel.offer(acc, c * kChunk + lane, ok, lane);
+      __syncwarp();
+    }
+  } else {
+    int steps = 0;  // the block's longest range
+    for (int v = 0; v < kWarps; ++v) {
+      const long gv = (long)blockIdx.x * kWarps + v;
+      steps = max(steps, (int)(nch * (gv + 1) / nw - nch * gv / nw));
+    }
+    for (int i = 0, t = 0; i < steps; ++i) {
+      const int c = c0 + i;
+      const bool item = c < c1;
+      if (item) {
+        issue_next();
+        ring.wait();
+      }
+      const int nrows = item ? min(kChunk, NV - c * kChunk) : 0;
+      const bool ok = lane < nrows && ring.valid(t)[lane] != 0;
+      const float acc = sliced_row(sm.lut, lut, ring.codes(t) + lane * M, M, Ms, ok);
+      if (!item) continue;
+      sel.offer(acc, c * kChunk + lane, ok, lane);
+      __syncwarp();
+      ++t;
+    }
   }
   sel.flush(lane);
   fold_block<KL>(sel, sm, warp, lane);
@@ -685,30 +817,30 @@ __global__ void __launch_bounds__(kThreads)
 template <int KL>
 cudaError_t launch_units(const void* table, const void* keys, const void* order, const void* codes,
                          const void* valid, void* out_s, void* out_i, int N, int TQ, int TV, int M,
-                         int U, int k, int P, int g, cudaStream_t stream) {
-  const size_t smem = smem_bytes(M);
+                         int U, int k, int P, int g, int Ms, cudaStream_t stream) {
+  const size_t smem = smem_bytes(M, Ms);
   cudaError_t err = prepare(lut_stationary_units_kernel<KL>, smem);
   if (err != cudaSuccess) return err;
   lut_stationary_units_kernel<KL><<<(N + P - 1) / P, kThreads, smem, stream>>>(
       static_cast<const float*>(table), static_cast<const int*>(keys),
       static_cast<const int64_t*>(order), static_cast<const uint8_t*>(codes),
       static_cast<const uint8_t*>(valid), static_cast<float*>(out_s), static_cast<int*>(out_i), N,
-      TQ, TV, M, U, k, P, g);
+      TQ, TV, M, U, k, P, g, Ms);
   return cudaGetLastError();
 }
 
 template <int KL>
 cudaError_t launch_rows(const void* lut, const void* codes, const void* valid, void* part_s,
                         void* part_i, void* counter, void* out_s, void* out_i, int NV, int M, int k,
-                        int G, cudaStream_t stream) {
-  const size_t smem = smem_bytes(M);
+                        int G, int Ms, cudaStream_t stream) {
+  const size_t smem = smem_bytes(M, Ms);
   cudaError_t err = prepare(lut_stationary_rows_kernel<KL>, smem);
   if (err != cudaSuccess) return err;
   lut_stationary_rows_kernel<KL><<<G, kThreads, smem, stream>>>(
       static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
       static_cast<const uint8_t*>(valid), static_cast<float*>(part_s), static_cast<int*>(part_i),
       static_cast<unsigned*>(counter), static_cast<float*>(out_s), static_cast<int*>(out_i), NV, M,
-      k);
+      k, Ms);
   return cudaGetLastError();
 }
 
@@ -768,7 +900,8 @@ int adc_scan_launch(const void* lut, const void* codes, const void* valid, const
 // Resident table [U, M, 256]; keys int32 [W·TQ] (the slots' table rows,
 // sorted, stable) with order int64 [W·TQ] (their slot indices w·TQ + t);
 // codes uint8 [W, TV, M], valid uint8 [W, TV]; out [W, TQ, k]. P slots a
-// block (<= 128), g warps a slot (1 or 8).
+// block (<= 128), g warps a slot (1 or 8). M up to where 8 LUT subspaces fit
+// beside the rings (lutst::lut_slice).
 int lut_stationary_units_launch(const void* table, const void* keys, const void* order,
                                 const void* codes, const void* valid, void* out_s, void* out_i,
                                 int W, int TQ, int TV, int M, int U, int k, int P, int g,
@@ -777,13 +910,15 @@ int lut_stationary_units_launch(const void* table, const void* keys, const void*
       P > lutst::kMaxRange || (g != 1 && g != lutst::kWarps) ||
       (long)W * TQ > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
+  const int Ms = lutst::lut_slice(M);
+  if (Ms < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int N = W * TQ;
   if (k <= 32)
     return (int)lutst::launch_units<32>(table, keys, order, codes, valid, out_s, out_i, N, TQ, TV,
-                                        M, U, k, P, g, st);
+                                        M, U, k, P, g, Ms, st);
   return (int)lutst::launch_units<64>(table, keys, order, codes, valid, out_s, out_i, N, TQ, TV, M,
-                                      U, k, P, g, st);
+                                      U, k, P, g, Ms, st);
 }
 
 // One query's LUT [M, 256] against codes uint8 [NV, M], valid uint8 [NV];
@@ -793,14 +928,16 @@ int lut_stationary_rows_launch(const void* lut, const void* codes, const void* v
                                void* part_i, void* counter, void* out_s, void* out_i, int NV, int M,
                                int k, int G, void* stream) {
   if (k < 1 || k > 64 || k > NV || M < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  const int Ms = lutst::lut_slice(M);
+  if (Ms < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
   if (k <= 32)
     return (int)lutst::launch_rows<32>(lut, codes, valid, part_s, part_i, counter, out_s, out_i, NV,
-                                       M, k, G, st);
+                                       M, k, G, Ms, st);
   return (int)lutst::launch_rows<64>(lut, codes, valid, part_s, part_i, counter, out_s, out_i, NV, M,
-                                     k, G, st);
+                                     k, G, Ms, st);
 }
 
 }  // extern "C"

@@ -61,20 +61,35 @@ def adc_smem_bytes(m: int, slots: int, warps_per_slot: int, tile: int) -> int:
 MAX_M = max(m for m in range(1, 1024) if adc_smem_bytes(m, 1, 1, 1) <= SMEM_OPTIN_BYTES)
 
 
-def lut_stationary_smem_bytes(m: int) -> int:
+def lut_stationary_smem_bytes(m: int, ms: int | None = None) -> int:
     """Dynamic shared memory of one LUT-stationary block (mirrors
-    ``lutst::smem_bytes`` in ``csrc/pq_scan.cu``): one query's LUT row, each
-    warp's ring of item stages (32 rows of codes, 16-byte padded, and their
-    mask) and candidate buffer, and the block's range of slots with its
-    runs."""
+    ``lutst::smem_bytes`` in ``csrc/pq_scan.cu``): ``ms`` subspaces of one
+    query's LUT row (all ``m`` by default), each warp's ring of item stages
+    (32 rows of codes, 16-byte padded, and their mask) and candidate buffer,
+    and the block's range of slots with its runs."""
+    ms = m if ms is None else ms
     stage = (_CHUNK * m + 15) // 16 * 16 + _CHUNK
-    return (m * NBOOK * 4 + _WARPS * _STAGES * stage + _WARPS * _SELECT_BUF * 8
+    return (ms * NBOOK * 4 + _WARPS * _STAGES * stage + _WARPS * _SELECT_BUF * 8
             + _MAX_RANGE * 3 * 4 + (_MAX_RANGE + 1) * 4 + 16)
 
 
-# widest M the LUT-stationary kernels take: one query's LUT row plus the rings
-LUT_STATIONARY_MAX_M = max(m for m in range(1, 1024)
-                           if lut_stationary_smem_bytes(m) <= SMEM_OPTIN_BYTES)
+def lut_stationary_slice(m: int) -> int:
+    """LUT subspaces a LUT-stationary block stages at once (mirrors
+    ``lutst::lut_slice``): all ``m`` where the row fits beside the rings,
+    else the widest multiple of 8 that does (the row then passes in slices,
+    each row's sum carried in a register from one to the next); 0 where not
+    even 8 fit."""
+    if lut_stationary_smem_bytes(m) <= SMEM_OPTIN_BYTES:
+        return m
+    ms = (m - 1) // 8 * 8
+    while ms > 0 and lut_stationary_smem_bytes(m, ms) > SMEM_OPTIN_BYTES:
+        ms -= 8
+    return ms
+
+
+# widest M whose whole LUT row fits beside the rings (one slice); past it the
+# row passes in slices, up to MAX_M like the dense layout's kernel
+WHOLE_ROW_MAX_M = max(m for m in range(1, 1024) if lut_stationary_slice(m) == m)
 
 
 def _check_k(k: int) -> None:
@@ -101,14 +116,12 @@ def check_pq_kernel_limits(k: int, m: int) -> None:
 def check_lut_stationary_limits(k: int, m: int) -> None:
     """Raise ``ValueError`` for a problem the LUT-stationary kernels
     (``workunit_pq_scan_streamed``, ``pq_scan``) cannot take: k above
-    ``MAX_K`` (warp lists of 64), or M whose LUT row and rings do not fit
-    shared memory (the widest is ``LUT_STATIONARY_MAX_M``)."""
+    ``MAX_K`` (warp lists of 64), or M above ``MAX_M`` (the dense layout's
+    limit too; past ``WHOLE_ROW_MAX_M`` the LUT row is staged in slices)."""
     _check_k(k)
-    need = lut_stationary_smem_bytes(m)
-    if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"M={m}: the LUT-stationary ADC kernel's LUT row and rings need "
-                         f"{need} bytes of shared memory, above {SMEM_OPTIN_BYTES} (the "
-                         f"widest M is {LUT_STATIONARY_MAX_M}); use an index on the CPU")
+    if m > MAX_M:
+        raise ValueError(f"M={m}: the LUT-stationary ADC kernels take M <= {MAX_M}, as the "
+                         f"dense layout's; use an index on the CPU")
 
 
 # --------------------------------------------------- the units kernel's work

@@ -18,7 +18,6 @@ from .errors import (  # noqa: F401
 )
 from .scheduler import MicroBatchScheduler, PendingQuery  # noqa: F401
 from .service import (  # noqa: F401
-    STORE_NOT_PORTED,
     HQIService,
     QueryHandle,
     ServiceConfig,

@@ -32,12 +32,13 @@ operand (the engine's, the delta store's, the final merge's) lives on the
 index's device: "cuda" for an index built or loaded there, the CPU (plain
 versions of the kernels) for one loaded with ``device="cpu"``.
 
-Durability waits for the store's port (ROADMAP.md §1, ``store/``):
-``HQIService(wal=...)`` raises ``NotImplementedError`` (``STORE_NOT_PORTED``)
-rather than serve without the durability the caller asked for. The WAL paths
-below (group commit, ordered apply, replay on swap) are kept as the
-reference has them, so the store's port only lifts that guard. Without a WAL
-the service is purely in-memory.
+Durability (``repro_torch.store``): with a ``WriteAheadLog`` attached
+(``wal=``, wired by ``store.recovery.open_service``/``init_store``), every
+``insert``/``delete`` commits a WAL record *before* acknowledging,
+``refresh()`` seals the current WAL segment at the fold boundary, and
+``store.compact.Compactor`` periodically folds + snapshots so restart cost
+stays a snapshot load plus the WAL tail. Without a WAL the service is purely
+in-memory.
 
 Self-healing (``repro_torch.fault``): a flush-pipeline crash is contained
 per flush — that batch's handles fail with a structured ``QueryError`` and
@@ -82,10 +83,6 @@ from .errors import (  # noqa: F401 — QueueFull re-exported for compatibility
 )
 from .scheduler import MicroBatchScheduler, PendingQuery
 from .telemetry import ServiceTelemetry
-
-STORE_NOT_PORTED = (
-    "durability (HQIService(wal=...)) is not ported yet: ROADMAP.md §1, store/"
-)
 
 
 @dataclasses.dataclass
@@ -250,10 +247,8 @@ class HQIService:
         self,
         index: HQIIndex,
         cfg: Optional[ServiceConfig] = None,
-        wal=None,  # a write-ahead log: not ported yet (raises); None = in-memory only
+        wal=None,  # store.wal.WriteAheadLog; None = in-memory only
     ) -> None:
-        if wal is not None:
-            raise NotImplementedError(STORE_NOT_PORTED)
         self.index = index
         self.cfg = ServiceConfig() if cfg is None else cfg
         if self.cfg.batch_vec == "auto" and index.device.type == "cuda":
@@ -723,8 +718,7 @@ class HQIService:
         id-continuity check: the first replayed insert must land exactly at
         the new index's row count, or the build captured a different id
         space than the log describes."""
-        # lazy, and reached only with a WAL: the store's port (ROADMAP.md
-        # §1, store/) provides these modules
+        # lazy: the store imports this module
         from ..store.recovery import RecoveryError
         from ..store.wal import KIND_DELETE, KIND_INSERT, split_insert_arrays
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core import HQIConfig, HQIIndex, kg_style
+from repro_torch.core.pq import PQIndex, train_pq
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import pq_scan as adc
 from repro_torch.kernels.fused_knn import MAX_K, fused_knn, fused_knn_db_stationary, fused_knn_plain
@@ -344,7 +345,7 @@ def test_adc_sparse_masks(dev, name):
 def test_adc_limits(dev):
     """k above MAX_K and an M whose LUT row overflows shared memory raise
     before launch, naming the limit; the widest M runs and matches (the
-    LUT-stationary kernels: ``LUT_STATIONARY_MAX_M``; ``adc_slot_warps_kernel``:
+    LUT-stationary kernels and ``adc_slot_warps_kernel`` alike:
     ``MAX_M``)."""
     table, lut_idx, codes, valid = _adc_case(dev, 6, 2, 8, 300, 8)
     n0 = adc.workunit_pq_scan_streamed.launches
@@ -353,7 +354,7 @@ def test_adc_limits(dev):
     with pytest.raises(ValueError, match="contiguous"):
         adc.workunit_pq_scan_streamed(table, lut_idx.t().contiguous().t(), codes, valid, k=4)
     assert adc.workunit_pq_scan_streamed.launches == n0
-    for name, widest in (("pq_scan", adc.LUT_STATIONARY_MAX_M), ("workunit_pq_scan", adc.MAX_M)):
+    for name, widest in (("pq_scan", adc.MAX_M), ("workunit_pq_scan", adc.MAX_M)):
         for M, fits in ((widest, True), (widest + 1, False)):
             table, lut_idx, codes, valid = _adc_case(dev, 7, 1, 1, 500, M)
             if fits:
@@ -371,7 +372,7 @@ def test_lut_stationary_m_limit(dev, name, delta):
     """M at the LUT-stationary limit ± 1: below and at it the kernel runs and
     equals its plain version bit for bit; above it the wrapper raises before
     any launch."""
-    M = adc.LUT_STATIONARY_MAX_M + delta
+    M = adc.MAX_M + delta
     table, lut_idx, codes, valid = _adc_case(dev, 8 + delta, 3, 16, 200, M)
     fn = getattr(adc, name)
     n0 = fn.launches
@@ -426,6 +427,55 @@ def test_lut_stationary_heavy_row_and_padding(dev, case, tv):
     torch.cuda.synchronize()
     assert adc.workunit_pq_scan_streamed.launches == n0 + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["workunit_pq_scan_streamed", "pq_scan"])
+@pytest.mark.parametrize("W,TQ,TV", [(64, 64, 64), (3, 20, 1100), (1, 1, 200_003)])
+@pytest.mark.parametrize("M", [110, 128, 190])
+def test_lut_stationary_sliced_rows(dev, name, W, TQ, TV, M):
+    """M past ``WHOLE_ROW_MAX_M``: the LUT row passes through shared memory
+    in slices; a warp a slot (TV 64), eight warps a slot (TV 1100), the rows
+    kernel over 200,003 rows; some slots padding. One launch, bit-equal to
+    the plain version."""
+    table, lut_idx, codes, valid = _adc_case(dev, M + TV, W, TQ, TV, M, U=97)
+    lut_idx[:, TQ - TQ // 4:] = -1
+    if name == "pq_scan":
+        lut_idx[0, 0] = 5
+    fn = getattr(adc, name)
+    n0 = fn.launches
+    (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, 40)
+    torch.cuda.synchronize()
+    assert adc.lut_stationary_slice(M) < M and fn.launches == n0 + 1
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+def test_wide_pq_index_searches_on_the_card(dev):
+    """d 256 at pq_m 128 (the LUT row in slices): the segmented PQ engine
+    launches kernel 3 and ``PQIndex.search`` kernel 5, no ValueError; each
+    agrees with the same index on the CPU."""
+    kg = kg_style(n=5_000, d=256, queries_per_split=40, seed=3)
+    wl = kg.splits[1]
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq", pq_m=128), device=dev)
+    n3 = adc.workunit_pq_scan_streamed.launches
+    a = index.search(wl, nprobe=8)
+    assert adc.workunit_pq_scan_streamed.launches > n3
+    b = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
+    _same_answers((a.scores, a.ids), (b.scores, b.ids))
+    pq_idx = PQIndex.build(kg.db.vectors, m=128, device=dev)
+    n5 = adc.pq_scan.launches
+    a = pq_idx.search(wl.vectors, k=10)
+    assert adc.pq_scan.launches > n5
+    b = dataclasses.replace(pq_idx, codes=pq_idx.codes.cpu()).search(wl.vectors, k=10)
+    _same_answers(a, b)
+
+
+def _same_answers(a, b):
+    """(scores, ids) pairs: scores within 1e-4, equal id sets per row."""
+    torch.testing.assert_close(torch.from_numpy(a[0]), torch.from_numpy(b[0]), rtol=1e-4, atol=1e-4)
+    for ra, rb in zip(a[1], b[1]):
+        assert set(ra[ra >= 0].tolist()) == set(rb[rb >= 0].tolist())
 
 
 @pytest.mark.cuda
@@ -696,17 +746,46 @@ def test_delta_store_pq_scan_card_equals_cpu(dev, monkeypatch):
         assert set(a[1][r][a[1][r] >= 0].tolist()) == set(b[1][r][b[1][r] >= 0].tolist()), r
 
 
-@pytest.mark.cuda
-def test_service_streams_alike_on_card_and_cpu(dev):
-    """A small service stream on the card and on a CPU reload of the same
-    index, through writes that put the delta past the PQ threshold, a
-    refresh() and an overload burst: ``chip_smoke.py``'s S2 phase, run here
-    at 20k rows."""
+def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.cuda
+def test_service_streams_alike_on_card_and_cpu(dev, tmp_path):
+    """A small service stream on the card and on a CPU reload of the same
+    index, through writes that put the delta past the PQ threshold, a
+    refresh() and an overload burst, then the card's store opened on the
+    CPU: ``chip_smoke.py``'s S2 phase, run here at 20k rows."""
     kg = kg_style(n=20_000, d=64, seed=0)
     index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(), device=dev)
     rec = {}
-    smoke.phase_service_card_vs_cpu(rec, kg, index, inserts=5120, burst_depth=512)
-    assert rec["service_card_vs_cpu"]["burst"]["degraded_queries"] > 0
+    _smoke().phase_service_card_vs_cpu(rec, kg, index, inserts=5120, burst_depth=512, out_dir=str(tmp_path))
+    row = rec["service_card_vs_cpu"]
+    assert row["burst"]["degraded_queries"] > 0
+    assert row["store_opened_on_cpu"]["wal_tail_records"] == 2
+
+
+@pytest.mark.cuda
+def test_store_durability_and_evolution_on_the_card(dev, tmp_path):
+    """``chip_smoke.py``'s S3 at 20k rows: a store round trip on the card
+    (writes through the WAL, a crash, ``open_service`` onto the card with
+    the same live ids and answers), a compaction whose reopen replays
+    nothing, a tune beside a thread of queries and its rollback, and the
+    chaos harness on the card."""
+    kg = kg_style(n=20_000, d=64, queries_per_split=2_000, seed=0)
+    index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(), device=dev)
+    index.attach_pq(train_pq(kg.db.vectors, 8, metric=kg.db.metric, seed=0, device=dev))
+    rec = {}
+    _smoke().phase_store(rec, index, kg, kg.splits[1], str(tmp_path), inserts=(40, 128),
+                         deletes=(8, 64), queries=500, shift_queries=1_000)
+    row = rec["store"]
+    assert row["writes"]["wal_records"] == 48 and row["writes"]["fsyncs"] >= 48
+    assert row["recovery"]["replayed_records"] == 48 and row["recovery"]["replayed_rows"] == 5120
+    assert row["recovery"]["max_score_diff"] <= 1e-4
+    assert row["compaction"]["reopen_replayed_records"] == 0
+    assert row["evolution"]["queries_during_tune"] == 500
+    assert row["chaos"]["ok"] and row["chaos"]["killed_writer_acks"] > 0
+    assert not list(tmp_path.iterdir())  # the store is gone

@@ -45,10 +45,13 @@ def test_import_leaves_out_jax_and_reference():
     assert bad.strip() == "[]", out.stdout
 
 
-@pytest.mark.parametrize("package", ["repro_torch.service", "repro_torch.fault", "repro_torch.obs"])
+@pytest.mark.parametrize("package", ["repro_torch.service", "repro_torch.fault", "repro_torch.obs",
+                                     "repro_torch.store", "repro_torch.tuner",
+                                     "repro_torch.fault.chaos"])
 def test_serving_packages_leave_out_jax_and_reference(package):
-    """The online service and its host-only carry-overs (metrics, drift,
-    failpoints, retry) import alone without jax or the reference package."""
+    """The online service, its host-only carry-overs (metrics, drift,
+    failpoints, retry), the store, the tuner and the chaos harness import
+    alone without jax or the reference package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({package!r})\n"

@@ -53,15 +53,18 @@ from repro_torch.core.pq import (
     train_pq,
 )
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.fused_knn import MAX_K
+from repro_torch.kernels.fused_knn import MAX_K, SMEM_OPTIN_BYTES
 from repro_torch.core.ivf import ScanStats
 from repro_torch.core.plan import build_plan
 from repro_torch.core.planner import pq_bucket_operands, resident_luts
 from repro_torch.kernels.pq_scan import (
-    LUT_STATIONARY_MAX_M,
+    NBOOK,
     MAX_M,
+    WHOLE_ROW_MAX_M,
     check_lut_stationary_limits,
     check_pq_kernel_limits,
+    lut_stationary_slice,
+    lut_stationary_smem_bytes,
     pq_scan,
     pq_scan_plain,
     slot_order,
@@ -281,19 +284,42 @@ def test_pq_kernel_limits(k, m, fits):
 
 @pytest.mark.parametrize(
     "k,m,fits",
-    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, False), (10, LUT_STATIONARY_MAX_M, True),
-     (10, LUT_STATIONARY_MAX_M + 1, False)],
+    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, False), (10, MAX_M, True),
+     (10, MAX_M + 1, False)],
 )
 def test_lut_stationary_limits(k, m, fits):
-    """The LUT-stationary kernels' limits: k through the warp lists, M
-    through one LUT row plus the rings; narrower than the dense layout's
-    kernel's M limit."""
-    assert LUT_STATIONARY_MAX_M < MAX_M
+    """The LUT-stationary kernels' limits: k through the warp lists, M up to
+    the dense layout's kernel's ``MAX_M`` (past ``WHOLE_ROW_MAX_M`` the LUT
+    row passes in slices); above it the check names the limit."""
     if fits:
         check_lut_stationary_limits(k, m)
     else:
         with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}: the LUT-stationary"):
             check_lut_stationary_limits(k, m)
+
+
+@pytest.mark.parametrize("m", [8, 96, WHOLE_ROW_MAX_M, WHOLE_ROW_MAX_M + 1, 128, 181, MAX_M])
+def test_lut_row_slices_keep_the_sum(m):
+    """Past ``WHOLE_ROW_MAX_M`` (109) the LUT-stationary kernels stage the
+    row in slices of ``lut_stationary_slice(m)`` subspaces, a multiple of 8
+    that fits shared memory beside the rings; a row's sum carried from one
+    slice to the next in the order m = 0 … M-1 (the kernels' ``sliced_row``)
+    equals ``adc_scores_ref`` bit for bit."""
+    ms = lut_stationary_slice(m)
+    assert lut_stationary_smem_bytes(m, ms) <= SMEM_OPTIN_BYTES
+    if m <= WHOLE_ROW_MAX_M:
+        assert ms == m
+    else:
+        assert 8 <= ms < m and ms % 8 == 0
+        assert lut_stationary_smem_bytes(m, ms + 8) > SMEM_OPTIN_BYTES
+    rng = np.random.default_rng(m)
+    lut = torch.from_numpy(rng.normal(size=(1, m, NBOOK)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, NBOOK, size=(300, m)).astype(np.uint8))
+    acc = torch.zeros(300, dtype=torch.float32)
+    for m0 in range(0, m, ms):  # one slice staged, every row's sum carried on
+        for j in range(m0, min(m, m0 + ms)):
+            acc = acc + lut[0, j][codes[:, j].long()]
+    assert torch.equal(acc, ref.adc_scores_ref(lut, codes)[0])
 
 
 # ------------------------------------------------- the -1 slot and the work list

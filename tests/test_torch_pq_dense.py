@@ -31,7 +31,6 @@ from repro_torch.core.workload import kg_style
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_knn import MAX_K, SMEM_OPTIN_BYTES
 from repro_torch.kernels.pq_scan import (
-    LUT_STATIONARY_MAX_M,
     MAX_M,
     adc_smem_bytes,
     check_pq_kernel_limits,
@@ -338,9 +337,9 @@ def test_adc_split(w, tq, tv, want):
 )
 def test_max_m_keeps_every_m_that_ran(k, m, fits):
     """``MAX_M`` (one slot's LUT row, a ring and one warp) is at least 181,
-    the widest M the dense layout's kernel took before, and above the
-    LUT-stationary kernels' 109; past it the check names the limit."""
-    assert MAX_M >= 181 and LUT_STATIONARY_MAX_M < MAX_M
+    the widest M the dense layout's kernel took before; past it the check
+    names the limit."""
+    assert MAX_M >= 181
     if fits:
         check_pq_kernel_limits(k, m)
     else:

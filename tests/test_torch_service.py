@@ -29,7 +29,6 @@ from repro_torch.core.types import Workload
 from repro_torch.fault import failpoints
 from repro_torch.kernels import ops
 from repro_torch.service import (
-    STORE_NOT_PORTED,
     DeadlineExceeded,
     DeltaStore,
     HQIService,
@@ -408,9 +407,3 @@ def test_background_thread_answers_and_stops(state, workload):
         svc.stop()
     assert svc._thread is None and all(h.ok for h in handles)
     assert svc.telemetry.summary()["queries"] == 24
-
-
-def test_wal_is_refused_until_the_store_is_ported(state):
-    with pytest.raises(NotImplementedError, match="store/") as err:
-        HQIService(HQIIndex.from_state(state, device="cpu"), ServiceConfig(), wal=object())
-    assert str(err.value) == STORE_NOT_PORTED
