@@ -29,7 +29,12 @@
    slots the engine passes, and timed there (one wrapper call by CUDA
    events, and the launch alone from the profiler) beside its bound and
    real slots, with the sums over the buckets; plain and yardstick on the
-   heaviest;
+   heaviest. Then one search under ``enable_profiler()`` with the h100
+   roofline terms: answers equal to the profiler-off search, coverage 1.0,
+   per (phase, mode) totals, no ``frac_hbm`` or ``frac_peak`` above 1.05;
+   and the search at k = 100 (the f32 kernels in passes of 64): counters
+   zeroed and read around one warm search, ids passing their filters with
+   exact scores, recall@100 against ``exhaustive_search``, queries/s;
 (S1) the online service at real size on phase 3's index (then dropped):
    ``attach_pq`` a codebook trained on the card (``pq_m`` 8), then
    ``HQIService(k=10, nprobe=8, max_batch=256, deadline_s=0.005)``. Stream
@@ -49,7 +54,9 @@
    ``snapshot_db()``. Queries/s, p50/p99 submit->answer latency per stream,
    insert/delete/refresh seconds, a profiled stream-B flush, and kernel 4
    at each of stream B's shapes (bit-equal to its plain version; a call and
-   the launch alone beside its bound);
+   the launch alone beside its bound); then the flight recorder on that
+   service: ``service.flush`` armed once gives exactly one incident bundle
+   that ``validate_incident_bundle`` accepts;
 (S3) durability and index evolution on the same index as S1 leaves it
    (codebook attached, delta folded), the store in a temporary directory
    under ``--out`` (deleted at the end): ``init_store`` (snapshot seconds
@@ -75,7 +82,9 @@
    at least one recovery check, nothing hung, no parity or recovery fault;
 4. card against CPU: a 100k-row index built on the card, reloaded from its
    ``to_state()`` on the CPU; both searches must agree (scores within
-   1e-4, equal id sets per query);
+   1e-4, equal id sets per query), and at k = 100 (id sets equal but at
+   ties at the cut), and 256 queries through a service at
+   ``ServiceConfig(k=100)`` on each side;
 (S2) the service on that index (codebook attached) and on its CPU reload:
    streams A, B (8,192 inserts, 819 + 819 deletes: the PQ delta path on
    both sides), C after ``refresh()`` and a burst past depth 512; every
@@ -106,7 +115,11 @@
    {8, 110, 128, 190} (past 109 the LUT row passes in slices): the units
    kernel at [4096, 64, 64, M, 40] with a quarter of the slots real and
    ``pq_scan`` at NV 10^5, bit-equal, each beside its bound (a call and the
-   launch alone) and its plain version;
+   launch alone) and its plain version. Then the five scan kernels at k′ in
+   {65, 80, 128, 400} (and 64): ceil(k′ / 64) launches a call, ADC bit-equal,
+   f32 within 1e-4, each call timed with its passes; and ``adc_wide_m_kernel``
+   through all three wrappers at M in {191, 256, 384, 768}, bit-equal, beside
+   its bound and plain version;
 6. the compressed (PQ) path at real size: the same data and workload,
    ``HQIConfig(scan_mode="pq")`` built on the card, ``search(nprobe=8)``
    once cold and three times warm; counters zeroed before the last search:
@@ -118,7 +131,9 @@
    every bucket the path gave it (real slots, staged LUT bytes, time and
    bound per bucket, and their sums) and timed on the heaviest; and the
    exact re-rank's one dispatch at its real shape (stage A run as the
-   search runs it) checked and timed;
+   search runs it) checked and timed; a profiled search as in phase 3; and
+   the search at ``refine_factor=8`` (k′ 80): counters, checks, recall@10,
+   queries/s;
 7. PQ card against CPU at 100k rows: segmented and dense layouts (the dense
    one drives ``workunit_pq_scan`` with the engine's ``n_live``; a profiled
    dense search must show ``adc_slot_warps_kernel`` and no
@@ -132,7 +147,12 @@
    sliced rows): a segmented PQ search (kernel 3) and a ``PQIndex.search``
    (kernel 5) on the card, each equal to its CPU reload (the search's id
    sets but at ties at the k-th score: its exact re-rank sums 256-wide
-   products in another order on each side);
+   products in another order on each side); the 100k segmented search also
+   at ``refine_factor=8``. Then the wide-M kernel's path: a 20k-row index of
+   d 768 at ``pq_m`` 192 (its counters zeroed and read around the segmented
+   search: the kernels line's launches), the dense layout and a
+   ``PQIndex`` of 64 queries, each equal to its CPU reload; the kernel on
+   every bucket of that search, the heaviest timed;
 8. ``flash_attention`` against its plain version on the card: gemma3 heads
    (32/16, dh 128, bf16, batch 1) at S in {1024, 4096, 32768} x window in
    {0, 1024}, minicpm (36/36, dh 64) and qwen3 (64/8, dh 128) heads at
@@ -146,7 +166,11 @@
    adds P's bf16 remainder on tiles whose rows have few effective keys,
    where one rounding could move a near-zero output past atol; the outputs'
    own bf16 rounding (one ulp, at most 2^-7 of |o|) is the rest, which rtol
-   covers. Kernel, plain version and ``scaled_dot_product_attention``
+   covers. Then the wide-dh kernel at dh in {288, 512}, S = T = 2048, 8/4
+   heads, causal, window 0 and 1024, bf16 and f32, and its path: the reduced
+   gemma3 at head width 512 served on the card (one wide launch per prefill
+   layer) and the CPU (the same tokens, logits within 2e-3). Kernel, plain
+   version and ``scaled_dot_product_attention``
    (``enable_gqa``, the library yardstick) timed with CUDA events (median
    of 10; 3 at 32k) beside the bound: q, k, v, o bytes once over HBM, or
    4·dh operations per kept (query, key) pair and query head over the bf16
@@ -166,7 +190,7 @@
 10. the reduced gemma3 in f32 with the same weights on the card and the CPU:
    prefill and decode logits within 2e-3, the served tokens equal, one
    kernel launch per prefill layer on the card;
-11. the ``kernels`` JSON line (all six kernels), the ``nvidia-smi`` line,
+11. the ``kernels`` JSON line (all eight kernels), the ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -202,7 +226,14 @@ STORE_INSERTS, STORE_DELETES, STORE_QUERIES, STORE_SHIFT_QUERIES = (256, 128), (
 # the LUT-stationary kernels past M 109 (the row in slices), M 8 beside them
 WIDE_M = (8, 110, 128, 190)
 KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
-           "workunit_pq_scan", "pq_scan", "flash_attention")
+           "workunit_pq_scan", "pq_scan", "flash_attention", "adc_wide_m", "flash_attention_wide")
+# the shapes the card once refused: k′ past the 64-entry lists (floor passes),
+# M past the staged ADC kernels' 190 (adc_wide_m_kernel), dh past 256
+# (flash_wide_kernel); the engine's k and refine_factor for them
+LIMIT_KPRIMES = (65, 80, 128, 400)
+WIDE_MS = (191, 256, 384, 768)
+WIDE_DHS = (288, 512)
+ENGINE_K, ENGINE_REFINE = 100, 8
 # the LM serving phase: gemma3-27b at full width, depth cut 62 -> 12 (two 5:1 cycles)
 LM_LAYERS, LM_SLOTS, LM_NEW = 12, 4, 16
 LM_PROMPTS = (1100, 1536, 2048, 2500, 3000, 3500, 4000, 4096)
@@ -213,6 +244,8 @@ SOURCE = {
     "workunit_pq_scan_streamed": "src/repro_torch/kernels/csrc/pq_scan.cu",
     "workunit_pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
     "pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
+    "adc_wide_m": "src/repro_torch/kernels/csrc/pq_scan.cu",
+    "flash_attention_wide": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
@@ -221,6 +254,9 @@ REPLACES = {
     "workunit_pq_scan_streamed": "src/repro/kernels/pq_scan.py:299",
     "workunit_pq_scan": "src/repro/kernels/pq_scan.py:180",
     "pq_scan": "src/repro/kernels/pq_scan.py:86",
+    # past M 190 all three ADC wrappers take it; its path is the segmented PQ search (kernel 3)
+    "adc_wide_m": "src/repro/kernels/pq_scan.py:299",
+    "flash_attention_wide": "src/repro/kernels/flash_attention.py:84",
 }
 # each kernel's design: the kernels line marks the redesigned ones
 DESIGN = {
@@ -230,6 +266,8 @@ DESIGN = {
     "workunit_pq_scan_streamed": "redesigned: LUT-stationary, slots sorted by LUT row, warp select",
     "workunit_pq_scan": "redesigned: a warp per live slot, codes shared through a cp.async ring, one launch",
     "pq_scan": "redesigned: LUT-stationary, one launch, last block merges",
+    "adc_wide_m": "simple: a warp per live slot, the LUT row through L2, M past 190 in all three wrappers",
+    "flash_attention_wide": "simple: a warp per query row, K/V tiles in shared memory, dh past 256",
 }
 NEG_INF = -3.4e38
 PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
@@ -715,6 +753,8 @@ def agree(a, b, what: str) -> None:
 
 
 def phase_card_vs_cpu(rec: dict):
+    import dataclasses
+
     from repro_torch.core import HQIConfig, HQIIndex, kg_style
 
     kg = kg_style(n=100_000, d=64, seed=0)
@@ -726,9 +766,13 @@ def phase_card_vs_cpu(rec: dict):
     b = cpu.search(wl, nprobe=8)
     cpu_s = time.perf_counter() - t0
     agree(a, b, "card and CPU")
+    wl100 = dataclasses.replace(wl, k=ENGINE_K)
+    tied = agree_untied(*_search_pair(gpu, wl100), *_search_pair(cpu, wl100), f"k={ENGINE_K}, card and CPU")
+    svc = service_k100(gpu, cpu, wl)
     rec["card_vs_cpu"] = {"n": 100_000, "queries": wl.m, "cpu_search_seconds": cpu_s,
-                          "agree": True}
-    log(f"[card-vs-cpu] {wl.m} queries on a 100k-row index agree (CPU search {cpu_s:.3f} s)")
+                          "agree": True, "k100_tied_queries": tied, "service_k100": svc}
+    log(f"[card-vs-cpu] {wl.m} queries on a 100k-row index agree (CPU search {cpu_s:.3f} s); "
+        f"at k={ENGINE_K} too ({tied} tied at the cut); the service at k={ENGINE_K}: " + json.dumps(svc))
     return kg, gpu
 
 
@@ -983,7 +1027,8 @@ def phase_service(rec: dict, main: dict) -> dict:
     rec["service"] = out
     get_registry().detach_source("service")  # the registry's sources hold the service
     get_registry().detach_source("health")
-    return {"kernel4": out["kernel4_shapes"], "launches": {t: s["launches"] for t, s in streams.items()}}
+    return {"kernel4": out["kernel4_shapes"], "launches": {t: s["launches"] for t, s in streams.items()},
+            "svc": svc}
 
 
 def kernel4_shapes(shapes: dict) -> list:
@@ -1667,7 +1712,8 @@ def counters():
         "fused_knn": fk.fused_knn, "fused_knn_db_stationary": fk.fused_knn_db_stationary,
         "workunit_pq_scan_streamed": adc.workunit_pq_scan_streamed,
         "workunit_pq_scan": adc.workunit_pq_scan, "pq_scan": adc.pq_scan,
-        "flash_attention": fa.flash_attention,
+        "flash_attention": fa.flash_attention, "adc_wide_m": adc.adc_wide_m,
+        "flash_attention_wide": fa.flash_attention_wide,
     }, {
         "fused_knn_plain": fk.fused_knn_plain,
         "workunit_pq_scan_streamed_plain": adc.workunit_pq_scan_streamed_plain,
@@ -1755,7 +1801,7 @@ def phase_pq_main(rec: dict, main: dict) -> dict:
     return {"index": index, "wl": wl, "counts": counts}
 
 
-def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
+def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str, refine_factor=None) -> dict:
     """The ADC kernel on every bucket a search gives it (resident table, or
     the dense layout's expanded LUTs with the engine's ``n_live``): checked
     against its plain version bit for bit and timed; the heaviest bucket is
@@ -1774,11 +1820,13 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
     name = "workunit_pq_scan_streamed" if resident else "workunit_pq_scan"
     kernel = getattr(adc, name)
     plain = getattr(adc, name + "_plain")
+    wide = adc.wide_m(index.arena.pq.m)  # the wrappers hand M past 190 to adc_wide_m_kernel
+    err_key = "adc_wide_m" if wide else name
     arena = index.arena
     tasks, _, _ = index._engine_tasks(wl, nprobe=8, batch_vec=True, stats=ScanStats())
     plan = build_plan(arena, tasks, wl.vectors, m=wl.m, k=wl.k, cfg=index.cfg.plan)
     table, lut_pos = resident_luts(plan, arena, wl.vectors)
-    kprime = index.cfg.plan.refine_factor * wl.k
+    kprime = (refine_factor or index.cfg.plan.refine_factor) * wl.k
     M = arena.pq.m
     buckets, heavy = [], None
     for lp in sorted(plan.buckets):
@@ -1797,14 +1845,14 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
         got, want = kernel(*args, **kw), plain(*args, **kw)
         err = compare(got, want, 1e-4)
         exact(got, want, f"{name} on the bucket of lists padded to {lp}")
-        max_err[name] = max(max_err[name], err)
-        row = {"kernel": name, "shape": [lut_idx.shape[0], lut_idx.shape[1], lp, M, k],
+        max_err[err_key] = max(max_err[err_key], err)
+        row = {"kernel": "adc_wide_m" if wide else name, "shape": [lut_idx.shape[0], lut_idx.shape[1], lp, M, k],
                "ms": cuda_ms(lambda: kernel(*args, **kw), reps=21), "max_abs_err": err}
         if not resident:
             row["launch_shape"] = adc.launch_shape(*lut_idx.shape, lp, M, k)
         del got, want
         row.update(adc_bound(codes, valid, k, q_live, lut_rows))
-        if resident:
+        if resident and not wide:
             row.update(lut_staging(lut_idx, table.shape[0], lp, M))
         row["ms_over_bound"] = row["ms"] / row["bound_ms"]
         buckets.append(row)
@@ -1815,11 +1863,11 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str) -> dict:
         del args
     _, row, args, kw, q_live = heavy
     row = dict(row)
-    row["device_ms"] = device_ms(lambda: kernel(*args, **kw),
+    row["device_ms"] = device_ms(lambda: kernel(*args, **kw), "adc_wide_m_kernel" if wide else
                                  "lut_stationary_units_kernel" if resident else "adc_slot_warps_kernel")
-    if resident:
+    if resident and not wide:  # the wide kernel takes no work list
         row["work_list_ms"] = cuda_ms(lambda: adc.slot_order(args[1]), reps=21)
-    else:
+    elif not resident:
         W, TQ = q_live.shape
         slots = torch.arange(W * TQ, device=arena.device, dtype=torch.int32).reshape(W, TQ)
         vargs = (args[0].reshape(W * TQ, M, 256), torch.where(q_live, slots, -1), *args[1:])
@@ -1928,8 +1976,14 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
     gpu = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq"), device="cuda")
     state = gpu.to_state()
     a = gpu.search(wl, nprobe=8)
-    agree(a, HQIIndex.from_state(state, device="cpu").search(wl, nprobe=8), "PQ segmented, card and CPU")
-    log(f"[pq-card-vs-cpu] segmented: {wl.m} queries on a 100k-row PQ index agree")
+    cpu = HQIIndex.from_state(state, device="cpu")
+    agree(a, cpu.search(wl, nprobe=8), "PQ segmented, card and CPU")
+    tied8 = agree_untied(*_search_pair(gpu, wl, refine_factor=ENGINE_REFINE),
+                         *_search_pair(cpu, wl, refine_factor=ENGINE_REFINE),
+                         f"PQ segmented at refine_factor {ENGINE_REFINE}, card and CPU")
+    del cpu
+    log(f"[pq-card-vs-cpu] segmented: {wl.m} queries on a 100k-row PQ index agree; at refine_factor "
+        f"{ENGINE_REFINE} too ({tied8} tied at the cut)")
 
     dense = dict(state, cfg=dict(state["cfg"], plan=dict(state["cfg"]["plan"], merge_layout="dense")))
     gpu_d = HQIIndex.from_state(dense, device="cuda")
@@ -1997,6 +2051,7 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
                              "dense_device_busy_ms": dense_busy_s * 1e3,
                              "dense_scan_device_ms": dense_scan_ms,
                              "pq_index_queries": len(q), "pq_scan_launches": launches5,
+                             "refine8_tied_queries": tied8,
                              "dense_buckets": dense_run["buckets"],
                              "dense_buckets_summed": dense_run["summed"], "wide_pq_index": wide}
     return {"workunit_pq_scan": (launches4, dense_run["heaviest"]), "pq_scan": (launches5, one)}
@@ -2046,7 +2101,7 @@ def sdpa(q, k, v, causal: bool, window: int):
     return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
-def attn_agree(got, want, label: str, max_err: dict) -> tuple[float, float]:
+def attn_agree(got, want, label: str, max_err: dict, name: str = "flash_attention") -> tuple[float, float]:
     """The kernel's output against its plain version's: finite, elementwise
     within ATTN_TOL of the input type, and within its relative error
     ||got - want|| / ||want||. In f32 both compute in f32 and differ only in
@@ -2068,21 +2123,28 @@ def attn_agree(got, want, label: str, max_err: dict) -> tuple[float, float]:
     rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))
     if rel > rel_tol:
         raise AssertionError(f"flash_attention {label}: relative error {rel:.3e} above {rel_tol}")
-    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    max_err[name] = max(max_err[name], err)
     return err, rel
 
 
 def attn_case(rec_rows, max_err, label, q, k, v, causal, window, reps):
     """Kernel against its plain version on the same card inputs, then kernel,
-    plain and the library call timed (median of ``reps``) beside the bound."""
+    plain and the library call timed (median of ``reps``) beside the bound.
+    Past dh 256 the wrapper takes the wide-dh kernel: one launch of it, none
+    of the tiled kernels."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
+    name = "flash_attention_wide" if fa.wide_head(q.shape[-1]) else "flash_attention"
+    fn = getattr(fa, name)
+    n0, t0 = fn.launches, fa.flash_attention.launches + fa.flash_attention_wide.launches
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    if fn.launches != n0 + 1 or fa.flash_attention.launches + fa.flash_attention_wide.launches != t0 + 1:
+        raise AssertionError(f"flash_attention {label}: {name} was not the one launch")
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    err, rel = attn_agree(got, want, label, max_err)
+    err, rel = attn_agree(got, want, label, max_err, name)
     want_abs = want.float().abs()
     median_abs = float(want_abs.flatten()[:: max(1, want_abs.numel() // (1 << 24))].median())
     del got, want, want_abs
@@ -2119,6 +2181,8 @@ def phase_attention_kernels(rec: dict, max_err: dict) -> dict:
     not causal, a window below the 64-key tile. Returns the rows by label."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
+
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def qkv(b, s, hq, hkv, dh, dtype, t=None):
@@ -2133,6 +2197,9 @@ def phase_attention_kernels(rec: dict, max_err: dict) -> dict:
         for w in (0, 1024):
             out[f"gemma3-s{s}-w{w}"] = attn_case(rows, max_err, f"gemma3-s{s}-w{w}", q, k, v, True, w,
                                                  3 if s > 4096 else 10)
+            if s == 4096:  # the launch alone, from the profiler (the kernels line's row)
+                out[f"gemma3-s{s}-w{w}"]["device_ms"] = device_ms(
+                    lambda: fa.flash_attention(q, k, v, causal=True, window=w), "flash_fwd_wgmma_kernel")
         del q, k, v
         torch.cuda.empty_cache()
     for label, hq, hkv, dh in (("minicpm", 36, 36, 64), ("qwen3", 64, 8, 128)):
@@ -2373,6 +2440,441 @@ def phase_lm_card_vs_cpu(rec: dict) -> None:
     log(f"[lm-card-vs-cpu] reduced gemma3 f32: logits within {err:.2e}, 5 requests' tokens equal")
 
 
+# ------------------------------------------ the shapes the card once refused
+
+
+def phase_limit_kernels(rec: dict, max_err: dict) -> None:
+    """The five scan kernels past their 64-entry lists: at k′ in
+    ``LIMIT_KPRIMES`` (and 64, one pass, beside them) each wrapper launches
+    ceil(k′ / 64) times, each pass admitting only what ranks after the one
+    before, and holds its plain version (ADC bit for bit; f32 scores within
+    1e-4, ids equal where untied). Shapes: both f32 entries at [1024, 64,
+    512, D 64] (valid 0.4, ragged ``n_live``), the re-rank's units of one
+    query [16384, 1, 400, 64] (``fused_knn_unit_warps_kernel``), the units
+    kernel at [2048, 64, 512, M 8] with a quarter of the slots real, the
+    dense kernel at [1024, 64, 512, 8] (ragged ``n_live``), ``pq_scan`` at NV
+    10^5. A call is timed by CUDA events with all its passes; its ratio to
+    the same shape's k′ 64 call is the cost of the passes."""
+    import torch
+
+    from repro_torch.kernels import fused_knn as fk
+    from repro_torch.kernels import pq_scan as adc
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def mask(*shape, p):
+        return torch.rand(shape, generator=gen, device="cuda") < p
+
+    def counts(hi, n):
+        return torch.randint(0, hi + 1, (n,), generator=gen, device="cuda", dtype=torch.int32)
+
+    W, TQ, TV, D, M = 1024, 64, 512, 64, 8
+    q, v, valid = randn(W, TQ, D), randn(W, TV, D), mask(W, TV, p=0.4)
+    n_live = counts(TQ, W)
+    Wr, TVr = 16384, 400
+    qr, vr, valid_r = randn(Wr, 1, D), randn(Wr, TVr, D), mask(Wr, TVr, p=0.9)
+    n_live_r = (torch.arange(Wr, device="cuda") < 10_000).to(torch.int32)
+    Wu, U = 2048, 8192
+    table = randn(U, M, 256)
+    lut_idx = torch.randint(0, U, (Wu, TQ), generator=gen, device="cuda", dtype=torch.int32)
+    lut_idx[:, TQ // 4:] = -1
+    codes = torch.randint(0, 256, (Wu, TV, M), generator=gen, device="cuda", dtype=torch.uint8)
+    valid_u = mask(Wu, TV, p=0.4)
+    luts = table[lut_idx[:W].clamp(min=0).long()].contiguous()
+    NV = 100_000
+    lut1 = randn(M, 256)
+    codes1 = torch.randint(0, 256, (NV, M), generator=gen, device="cuda", dtype=torch.uint8)
+    valid1 = mask(NV, p=0.7)
+    cases = (  # label, wrapper, plain, args, kwargs, bit-equal, shape
+        ("fused_knn", fk.fused_knn, fk.fused_knn_plain, (q, v, valid), dict(n_live=n_live), False,
+         [W, TQ, TV, D]),
+        ("fused_knn_db_stationary", fk.fused_knn_db_stationary, fk.fused_knn_plain, (q, v, valid),
+         dict(n_live=n_live), False, [W, TQ, TV, D]),
+        ("fused_knn_db_stationary-tq1", fk.fused_knn_db_stationary, fk.fused_knn_plain, (qr, vr, valid_r),
+         dict(n_live=n_live_r), False, [Wr, 1, TVr, D]),
+        ("workunit_pq_scan_streamed", adc.workunit_pq_scan_streamed, adc.workunit_pq_scan_streamed_plain,
+         (table, lut_idx, codes, valid_u), {}, True, [Wu, TQ, TV, M]),
+        ("workunit_pq_scan", adc.workunit_pq_scan, adc.workunit_pq_scan_plain,
+         (luts, codes[:W], valid_u[:W]), dict(n_live=n_live), True, [W, TQ, TV, M]),
+        ("pq_scan", adc.pq_scan, adc.pq_scan_plain, (lut1, codes1, valid1), {}, True, [NV, M]),
+    )
+    rows = []
+    for label, fn, plain, args, kw, bit_equal, shape in cases:
+        one_pass_ms = None
+        for kp in (64,) + LIMIT_KPRIMES:
+            n0 = fn.launches
+            got = fn(*args, k=kp, **kw)
+            torch.cuda.synchronize()
+            passes = fn.launches - n0
+            if passes != fk.kernel_passes(kp):
+                raise AssertionError(f"{label} at k′ {kp}: {passes} launches, want {fk.kernel_passes(kp)}")
+            want = plain(*args, k=kp, **kw)
+            if bit_equal:
+                exact(got, want, f"{label} at k′ {kp}")
+            err = compare(got, want, 1e-4)
+            name = label.split("-")[0]
+            max_err[name] = max(max_err[name], err)
+            del got, want
+            ms = cuda_ms(lambda: fn(*args, k=kp, **kw), reps=5, warmup=1)
+            one_pass_ms = ms if kp == 64 else one_pass_ms
+            row = {"kernel": label, "shape": shape + [kp], "k": kp, "passes": passes, "ms": ms, "over_k64": ms / one_pass_ms, "max_abs_err": err}
+            rows.append(row)
+            log("[limits] " + json.dumps(row))
+    rec["limit_kernels"] = rows
+
+
+def phase_wide_m(rec: dict, max_err: dict) -> None:
+    """``adc_wide_m_kernel`` through all three wrappers at M in ``WIDE_MS``
+    (k′ 40): the resident table [64, M, 256] read through ``lut_idx`` [256,
+    64] (a quarter of the slots real, the rest -1) over codes [256, 256, M];
+    expanded LUTs [32, 16, M, 256] with ragged ``n_live``; ``pq_scan`` over
+    NV 20,000. Each is one launch of the wide kernel and none of the staged
+    kernels, bit-equal to its plain version, timed (a call by CUDA events,
+    the launch alone by the profiler) beside its bound and its plain
+    version."""
+    import torch
+
+    from repro_torch.kernels import pq_scan as adc
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    k, rows = 40, []
+    for M in WIDE_MS:
+        table = torch.randn((64, M, 256), generator=gen, device="cuda")
+        lut_idx = torch.randint(0, 64, (256, 64), generator=gen, device="cuda", dtype=torch.int32)
+        lut_idx[:, 16:] = -1
+        codes = torch.randint(0, 256, (256, 256, M), generator=gen, device="cuda", dtype=torch.uint8)
+        valid = torch.rand((256, 256), generator=gen, device="cuda") < 0.7
+        luts = table[torch.randint(0, 64, (32, 16), generator=gen, device="cuda")].contiguous()
+        n_live = torch.randint(0, 17, (32,), generator=gen, device="cuda", dtype=torch.int32)
+        codes1 = torch.randint(0, 256, (20_000, M), generator=gen, device="cuda", dtype=torch.uint8)
+        valid1 = torch.rand(20_000, generator=gen, device="cuda") < 0.7
+        live_u, live_d = lut_idx >= 0, torch.arange(16, device="cuda")[None, :] < n_live[:, None]
+        one = torch.ones((1, 1), dtype=torch.bool, device="cuda")
+        cases = (
+            ("workunit_pq_scan_streamed", (table, lut_idx, codes, valid), {}, [256, 64, 256, M],
+             adc_bound(codes, valid, k, live_u, int(torch.unique(lut_idx[live_u]).numel()))),
+            ("workunit_pq_scan", (luts, codes[:32], valid[:32]), dict(n_live=n_live), [32, 16, 256, M],
+             adc_bound(codes[:32], valid[:32], k, live_d, int(live_d.sum()))),
+            ("pq_scan", (table[0], codes1, valid1), {}, [20_000, M],
+             adc_bound(codes1[None], valid1[None], k, one, 1)),
+        )
+        for name, args, kw, shape, bnd in cases:
+            fn, plain = getattr(adc, name), getattr(adc, name + "_plain")
+            w0, f0 = adc.adc_wide_m.launches, fn.launches
+            got = fn(*args, k=k, **kw)
+            torch.cuda.synchronize()
+            if adc.adc_wide_m.launches != w0 + 1 or fn.launches != f0:
+                raise AssertionError(f"{name} at M {M}: not one launch of adc_wide_m_kernel")
+            want = plain(*args, k=k, **kw)
+            exact(got, want, f"{name} at M {M} (adc_wide_m_kernel)")
+            err = compare(got, want, 1e-4)
+            max_err["adc_wide_m"] = max(max_err["adc_wide_m"], err)
+            del got, want
+            row = {"wrapper": name, "M": M, "shape": shape + [k], "max_abs_err": err,
+                   "ms": cuda_ms(lambda: fn(*args, k=k, **kw), reps=5, warmup=1),
+                   "device_ms": device_ms(lambda: fn(*args, k=k, **kw), "adc_wide_m_kernel", reps=5),
+                   "plain_ms": cuda_ms(lambda: plain(*args, k=k, **kw), reps=3, warmup=1), **bnd}
+            row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+            rows.append(row)
+            log("[wide-m] " + json.dumps(row))
+        del table, codes, luts, codes1
+        torch.cuda.empty_cache()
+    rec["wide_m_kernel"] = rows
+
+
+def phase_wide_m_engine(rec: dict, max_err: dict) -> dict:
+    """The wide-M kernel's path: a d-768 index at ``pq_m`` 192 (20,000
+    ``kg_style`` rows, 1,000 queries) built on the card. Its counters are
+    zeroed just before the segmented PQ search and read just after: the
+    kernels line's launches (kernel 3's wrapper hands every bucket to
+    ``adc_wide_m_kernel``; no plain version runs). That search, the dense
+    layout's and a ``PQIndex.search`` of 64 queries each equal the same
+    index reloaded on the CPU (the searches' id sets but at ties at the k-th
+    score of the exact re-rank, whose products are summed in another order
+    on each side; ``PQIndex``'s ADC answers exactly); then the kernel on
+    every bucket of the segmented search, the heaviest timed."""
+    import dataclasses
+
+    from repro_torch.core import HQIConfig, HQIIndex, PQIndex, SearchResult, kg_style
+
+    t0 = time.perf_counter()
+    kg = kg_style(n=20_000, d=768, queries_per_split=1_000, seed=5)
+    wl = kg.splits[1]
+    gpu = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq", pq_m=192), device="cuda")
+    state = gpu.to_state()
+    zero_counters()
+    a = gpu.search(wl, nprobe=8)
+    counts = read_counters()
+    plain = {n: c for n, c in counts.items() if n.endswith("_plain") and c}
+    if counts["adc_wide_m"] <= 0 or counts["workunit_pq_scan_streamed"] != 0 or plain:
+        raise AssertionError(f"the d-768 index at pq_m 192: {counts}")
+    tied = agree_untied(a.scores, a.ids, *_search_pair(HQIIndex.from_state(state, device="cpu"), wl),
+                        "d 768, pq_m 192, segmented PQ, card and CPU")
+    dense = dict(state, cfg=dict(state["cfg"], plan=dict(state["cfg"]["plan"], merge_layout="dense")))
+    zero_counters()
+    a_d = HQIIndex.from_state(dense, device="cuda").search(wl, nprobe=8)
+    counts_d = read_counters()
+    if counts_d["adc_wide_m"] <= 0 or counts_d["workunit_pq_scan"] != 0:
+        raise AssertionError(f"the d-768 index's dense layout: {counts_d}")
+    tied_d = agree_untied(a_d.scores, a_d.ids, *_search_pair(HQIIndex.from_state(dense, device="cpu"), wl),
+                          "d 768, pq_m 192, dense PQ, card and CPU")
+    pq_gpu = PQIndex.build(kg.db.vectors, m=192, metric=kg.db.metric, device="cuda")
+    q = wl.vectors[:64]
+    zero_counters()
+    sa, ia = pq_gpu.search(q, 10)
+    counts5 = read_counters()
+    if counts5["adc_wide_m"] != len(q) or counts5["pq_scan"] != 0:
+        raise AssertionError(f"PQIndex at m 192: {counts5}")
+    sb, ib = dataclasses.replace(pq_gpu, codes=pq_gpu.codes.cpu()).search(q, 10)
+    agree(SearchResult(ids=ia, scores=sa), SearchResult(ids=ib, scores=sb), "d 768, PQIndex m 192, card and CPU")
+    heavy = adc_buckets(gpu, wl, resident=True, max_err=max_err, tag="wide-m path")
+    out = {"n": kg.db.n, "d": 768, "pq_m": 192, "queries": wl.m, "launches": counts["adc_wide_m"],
+           "dense_launches": counts_d["adc_wide_m"], "pq_index_queries": len(q),
+           "tied_queries": tied, "tied_queries_dense": tied_d, "buckets_summed": heavy["summed"],
+           "seconds": time.perf_counter() - t0}
+    log("[wide-m path] " + json.dumps(out))
+    rec["wide_m_path"] = out
+    return {"launches": counts["adc_wide_m"], "heaviest": dict(heavy["heaviest"], summed_over_buckets=heavy["summed"])}
+
+
+def _search_pair(index, wl, **kw) -> tuple:
+    r = index.search(wl, nprobe=8, **kw)
+    return r.scores, r.ids
+
+
+def phase_wide_dh(rec: dict, max_err: dict) -> dict:
+    """``flash_wide_kernel`` at dh in ``WIDE_DHS``: S = T = 2048, 8/4 heads,
+    causal, window 0 and 1024, bf16 and f32, against the plain version
+    (``ATTN_TOL``), timed beside its bound and ``scaled_dot_product_attention``;
+    the heaviest also by the profiler. Then its path: the reduced gemma3 at
+    head width 512 (f32, random weights from a seeded generator) served by
+    ``SlotServer`` on the card and on the CPU, its counter zeroed before the
+    card's run and read after: one wide launch per prefill layer and none
+    of the tiled kernels, the same tokens, prefill and decode logits within
+    2e-3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.serve.server import Request, SlotServer
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows, out = [], {}
+    for dh in WIDE_DHS:
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            q = torch.randn((1, 2048, 8, dh), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((1, 2048, 4, dh), generator=gen, device="cuda").to(dtype) for _ in range(2))
+            for w in (0, 1024):
+                label = f"dh{dh}-{tag}-w{w}"
+                out[label] = attn_case(rows, max_err, label, q, k, v, True, w, 5)
+                if label == "dh512-bf16-w0":
+                    out[label]["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                                                        "flash_wide_kernel", reps=5)
+    rec["wide_dh_cases"] = rows
+
+    cfg = dataclasses.replace(get_reduced("gemma3-27b"), head_dim=512, dtype=torch.float32)
+    gpu = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(5))
+    cpu = api.params_to(gpu, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(2, cfg.vocab, (2, 57)))
+    lg, cg = api.serve_prefill(gpu, cfg, {"tokens": toks.cuda()}, max_len=64)
+    lc, cc = api.serve_prefill(cpu, cfg, {"tokens": toks}, max_len=64)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+    err = float((lg.cpu() - lc).abs().max())
+    for i in range(3):
+        lg, cg = api.serve_decode(gpu, cfg, toks[:, i].cuda(), cg)
+        lc, cc = api.serve_decode(cpu, cfg, toks[:, i], cc)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (20, 60, 33, 47, 25)]
+    served = []
+    for params in (gpu, cpu):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        zero_counters()
+        SlotServer(params, cfg, n_slots=3, max_len=66).run(reqs)
+        counts = read_counters()
+        if params is gpu:
+            launches = counts["flash_attention_wide"]
+            if launches != len(prompts) * cfg.n_layers or counts["flash_attention"] != 0:
+                raise AssertionError(f"reduced gemma3 at dh 512: launches {counts}")
+        served.append([r.out_tokens for r in reqs])
+    if served[0] != served[1]:
+        raise AssertionError(f"reduced gemma3 at dh 512: card tokens {served[0]} != CPU tokens {served[1]}")
+    rec["wide_dh_path"] = {"head_dim": 512, "layers": cfg.n_layers, "requests": len(prompts),
+                           "launches": launches, "max_abs_logit_err": err, "tokens": served[0]}
+    log("[wide-dh path] " + json.dumps(rec["wide_dh_path"]))
+    return {"launches": launches, "heaviest": out["dh512-bf16-w0"]}
+
+
+def profiled_engine(index, wl, tag: str, **kw) -> dict:
+    """One search under ``enable_profiler()`` with the h100 terms
+    (``launch.roofline.current_hardware`` on this card): its answers equal
+    the same search with the profiler off; coverage 1.0 (every dispatch and
+    merge attributed); per (phase, mode) totals with ``frac_hbm`` and
+    ``frac_peak``, neither above 1.05 (a byte count or a timing would be
+    wrong)."""
+    from repro_torch.launch.roofline import current_hardware
+    from repro_torch.obs.profile import disable_profiler, enable_profiler
+
+    hw = current_hardware()
+    if hw.name != "h100":
+        raise AssertionError(f"the profiler's terms on this card are {hw.name!r}, not h100")
+    off = index.search(wl, nprobe=8, **kw)
+    prof = enable_profiler()
+    try:
+        t0 = time.perf_counter()
+        on = index.search(wl, nprobe=8, **kw)
+        seconds = time.perf_counter() - t0
+        rep = prof.report()
+        pairs = sorted({tuple(key.split("/")[:2]) for key in rep["phases"]})
+        totals = {f"{p}/{m}": prof.totals(phase=p, mode=m) for p, m in pairs}
+    finally:
+        disable_profiler()
+    if not (np.array_equal(off.ids, on.ids) and np.array_equal(off.scores, on.scores)):
+        raise AssertionError(f"{tag}: the answers differ with the profiler on")
+    if rep["coverage"] != 1.0:
+        raise AssertionError(f"{tag}: profiler coverage {rep['coverage']} ({rep['issued']} issued)")
+    keep = ("dispatches", "device_s", "bytes", "flops", "gbps", "gflops", "frac_hbm", "frac_peak",
+            "row_occupancy")
+    out = {"hardware": rep["hardware"], "coverage": rep["coverage"], "issued": rep["issued"],
+           "attributed": rep["attributed"], "search_seconds": seconds,
+           "totals": {pm: {key: t[key] for key in keep} for pm, t in totals.items()}}
+    for pm, t in totals.items():
+        if t["frac_hbm"] > 1.05 or t["frac_peak"] > 1.05:
+            raise AssertionError(f"{tag} {pm}: a roofline share above 1.05: {t}")
+    log(f"[profile {tag}] " + json.dumps(out))
+    return out
+
+
+def phase_limits_f32(rec: dict, main: dict) -> None:
+    """The f32 search at k = 100 on phase 3's index: its counters zeroed and
+    read around one warm search (the f32 grids launch, in passes; no plain
+    version), every id passing its filter with its exact score, recall@100
+    against ``exhaustive_search`` at k = 100 on the card, queries/s (median
+    of two warm searches)."""
+    import dataclasses
+
+    from repro_torch.core import exhaustive_search, recall_at_k
+
+    index, kg = main["index"], main["kg"]
+    wl = dataclasses.replace(main["wl"], k=ENGINE_K)
+    index.search(wl, nprobe=8)  # warm
+    times = []
+    for i in range(2):
+        if i == 1:
+            zero_counters()
+        t0 = time.perf_counter()
+        res = index.search(wl, nprobe=8)
+        times.append(time.perf_counter() - t0)
+    counts = read_counters()
+    if counts["fused_knn"] + counts["fused_knn_db_stationary"] <= 0 or counts["fused_knn_plain"]:
+        raise AssertionError(f"k = {ENGINE_K}: {counts}")
+    check_results(kg, wl, res)
+    truth = exhaustive_search(kg.db, wl, device="cuda")
+    out = {"k": ENGINE_K, "queries": wl.m, "search_seconds": times,
+           "qps": wl.m / statistics.median(times), "recall_at_100": recall_at_k(res, truth),
+           "launches": {n: c for n, c in counts.items() if c}}
+    log("[limits f32] " + json.dumps(out))
+    rec["limits_f32"] = out
+
+
+def phase_limits_pq(rec: dict, index, main: dict) -> None:
+    """The PQ search at ``refine_factor=8`` (k′ 80) on phase 6's index: one
+    warm search with its counters zeroed and read (the ADC kernel in passes
+    where a bucket holds more than 64 rows, the re-rank), every id passing
+    its filter with its exact score, recall@10 against the exhaustive answer,
+    queries/s (median of two warm searches)."""
+    from repro_torch.core import recall_at_k
+
+    kg, wl = main["kg"], main["wl"]
+    index.search(wl, nprobe=8, refine_factor=ENGINE_REFINE)  # warm
+    times = []
+    for i in range(2):
+        if i == 1:
+            zero_counters()
+        t0 = time.perf_counter()
+        res = index.search(wl, nprobe=8, refine_factor=ENGINE_REFINE)
+        times.append(time.perf_counter() - t0)
+    counts = read_counters()
+    plain = {n: c for n, c in counts.items() if n.endswith("_plain") and c}
+    if counts["workunit_pq_scan_streamed"] <= 0 or counts["fused_knn_db_stationary"] <= 0 or plain:
+        raise AssertionError(f"refine_factor {ENGINE_REFINE}: {counts}")
+    check_results(kg, wl, res)
+    out = {"refine_factor": ENGINE_REFINE, "kprime": ENGINE_REFINE * wl.k, "queries": wl.m,
+           "search_seconds": times, "qps": wl.m / statistics.median(times),
+           "recall_at_10": recall_at_k(res, main["truth"]),
+           "launches": {n: c for n, c in counts.items() if c}}
+    log("[limits pq] " + json.dumps(out))
+    rec["limits_pq"] = out
+
+
+def service_k100(gpu, cpu, wl) -> dict:
+    """256 queries of ``wl`` at ``ServiceConfig(k=100)`` through a service on
+    the card index and one on its CPU reload: the same answers (scores
+    within 1e-4, id sets equal but at ties at the cut)."""
+    from repro_torch.service import HQIService, ServiceConfig
+
+    sub = wl.subset(np.arange(256))
+    got = []
+    for index in (gpu, cpu):
+        svc = HQIService(index, ServiceConfig(k=ENGINE_K, nprobe=8, max_batch=256, deadline_s=0.005))
+        try:
+            got.append(service_stream(svc, sub))
+        finally:
+            svc.stop(drain=False)
+    a, b = got
+    if a["ids"].shape != (256, ENGINE_K):
+        raise AssertionError(f"service k={ENGINE_K}: answers {a['ids'].shape}")
+    tied = agree_untied(a["scores"], a["ids"], b["scores"], b["ids"], f"service k={ENGINE_K}, card and CPU")
+    return {"queries": 256, "k": ENGINE_K, "qps_card": a["qps"], "tied_queries": tied}
+
+
+def phase_flight(rec: dict, svc, wl, out_dir: str) -> None:
+    """The flight recorder on the S1 service, on the card: a baseline
+    sample, 8 queries, ``service.flush`` armed once and a flush (its crash
+    contained by the service), then exactly one incident bundle, accepted
+    by ``validate_incident_bundle``, and no second one for the same crash.
+    The bundles live in a temporary directory under ``out_dir``, deleted."""
+    import shutil
+    import tempfile
+
+    from repro_torch.fault import failpoints
+    from repro_torch.obs import trace
+    from repro_torch.obs.flight import FlightRecorder, validate_incident_bundle
+
+    root = tempfile.mkdtemp(prefix="incidents-", dir=out_dir)
+    trace.enable(capacity=8192)
+    recorder = FlightRecorder(svc, root, max_incidents=4)
+    try:
+        if recorder.observe() is not None:
+            raise AssertionError("flight: the baseline sample dumped a bundle")
+        for i in range(8):
+            svc.submit(wl.vectors[i], wl.templates[wl.template_of[i]])
+        failpoints.arm("service.flush", count=1)
+        svc.flush()
+        path = recorder.observe()
+        if path is None:
+            raise AssertionError("flight: the armed flush crash produced no incident")
+        manifest = validate_incident_bundle(path)
+        if recorder.observe() is not None or len(recorder.incidents()) != 1:
+            raise AssertionError(f"flight: {len(recorder.incidents())} bundles for one crash")
+        out = {"bundles": len(recorder.incidents()), "rules": manifest["rules"],
+               "flush_failures": manifest["health"]["flush_failures"],
+               "files": sorted(os.listdir(path))}
+    finally:
+        trace.disable()
+        failpoints.disarm_all()
+        shutil.rmtree(root, ignore_errors=True)
+    log("[flight] " + json.dumps(out))
+    rec["flight"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"), help="record directory")
@@ -2401,7 +2903,10 @@ def main() -> int:
     phase_kernels(rec, max_err)
     main_run = phase_main_path(rec)
     heaviest = phase_main_shapes(rec, main_run, max_err)
+    rec["profile_f32"] = profiled_engine(main_run["index"], main_run["wl"], "f32")
+    phase_limits_f32(rec, main_run)
     service = phase_service(rec, main_run)
+    phase_flight(rec, service.pop("svc"), main_run["wl"], args.out)
     store = phase_store(rec, main_run["index"], main_run["kg"], main_run["wl"], args.out)
     del main_run["index"]
     torch.cuda.empty_cache()
@@ -2411,7 +2916,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_adc_kernels(rec, max_err)
     torch.cuda.empty_cache()
+    phase_limit_kernels(rec, max_err)
+    torch.cuda.empty_cache()
+    phase_wide_m(rec, max_err)
+    torch.cuda.empty_cache()
     pq_run = phase_pq_main(rec, main_run)
+    rec["profile_pq"] = profiled_engine(pq_run["index"], pq_run["wl"], "pq")
+    phase_limits_pq(rec, pq_run["index"], main_run)
     pq_heavy = adc_buckets(pq_run["index"], pq_run["wl"], resident=True, max_err=max_err, tag="pq")
     rec["pq_path_buckets"] = pq_heavy["buckets"]
     rec["pq_path_buckets_summed"] = pq_heavy["summed"]
@@ -2420,7 +2931,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     per_phase = phase_pq_card_vs_cpu(rec, max_err)
     torch.cuda.empty_cache()
+    wide_m_run = phase_wide_m_engine(rec, max_err)
+    torch.cuda.empty_cache()
     attn = phase_attention_kernels(rec, max_err)
+    wide_dh = phase_wide_dh(rec, max_err)
     serve = phase_serving(rec, max_err)
     phase_lm_card_vs_cpu(rec)
 
@@ -2433,6 +2947,10 @@ def main() -> int:
         **per_phase,
         # the serving run's local layers (5 of 6) at its longest prompt
         "flash_attention": (serve["launches"], attn["gemma3-s4096-w1024"]),
+        # the d-768 index's segmented search at pq_m 192, its heaviest bucket
+        "adc_wide_m": (wide_m_run["launches"], wide_m_run["heaviest"]),
+        # the reduced gemma3 at dh 512 served on the card; dh 512, bf16, global
+        "flash_attention_wide": (wide_dh["launches"], wide_dh["heaviest"]),
     }
     kernels = []
     for name in KERNELS:

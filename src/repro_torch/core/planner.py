@@ -35,10 +35,11 @@ path.
 
 ``batch_search_ivf`` is the single-index entry point (the baselines use it):
 a one-partition arena, a one-task plan, executed here. The sharded executor
-is not ported yet (ROADMAP.md §1, sharded engine). The reference's
-per-dispatch profiler records return with the port of ``obs/profile.py``
-(ROADMAP.md §1, ``obs/profile.py``); the
-tracer spans are kept.
+is not ported yet (ROADMAP.md §1, sharded engine). Every dispatch and merge
+sits in a tracer span and, while a profiler is enabled (``obs.profile``),
+records the reference's shape facts (bytes, FLOPs, units, rows, each real
+and padded), computed from the padded bucket shapes by the reference's
+formulas, so both packages record equal rows for the same plan.
 """
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
-from ..kernels.fused_knn import check_kernel_limits
-from ..kernels.pq_scan import NBOOK, check_lut_stationary_limits, check_pq_kernel_limits
+from ..kernels.pq_scan import NBOOK
+from ..obs.profile import get_profiler
 from ..obs.trace import fence, get_tracer
 from .arena import PackedArena
 from .ivf import IVFIndex, ScanStats
@@ -176,8 +177,6 @@ def execute_plan(
             np.full((m, k), -1, np.int64),
         )
     dev = arena.device if arena is not None else torch.device(device or "cuda")
-    if plan.buckets and dev.type == "cuda":  # fail before any bucket is assembled
-        check_kernel_limits(min(k, max(plan.buckets)), arena.d, plan.tq)
     if cfg.merge_layout == "segmented":
         return _execute_plan_f32_segmented(
             plan, arena, q_vecs, extra=extra, stats=stats, dev=dev
@@ -225,6 +224,8 @@ def _iter_f32_buckets(plan, arena, q_vecs, stats):
     if not plan.buckets:
         return
     dev = arena.device
+    prof = get_profiler()
+    d, tq = arena.d, plan.tq
     q_dev = torch.from_numpy(np.ascontiguousarray(q_vecs, dtype=np.float32)).to(dev)
     for lp in sorted(plan.buckets):
         n_units = len(plan.buckets[lp])
@@ -233,13 +234,28 @@ def _iter_f32_buckets(plan, arena, q_vecs, stats):
             # real work units only (pow2 pad excluded)
             stats.bytes_scanned += n_units * lp * arena.d * 4
         n_live = live_slots(qrow_of, dev)
+        kk = min(plan.k, lp)
+        t0 = prof.t0() if prof.enabled else 0
         with get_tracer().span("dispatch.scan", mode="f32", lp=lp, units=n_units):
-            s, i_loc = kops.workunit_topk(Q, V, valid, min(plan.k, lp), metric=arena.metric,
-                                          n_live=n_live)
-            s, i_loc = fence(s, i_loc)  # device time is real iff tracing is on
+            s, i_loc = kops.workunit_topk(Q, V, valid, kk, metric=arena.metric, n_live=n_live)
+            s, i_loc = fence(s, i_loc)  # device time is real iff tracing or profiling is on
+        wmask = qrow_of >= 0  # [W, tq]
+        if prof.enabled:
+            # real distance work: 2·d MACs per (query, live row) pair within
+            # each unit; padded work covers the full [W, tq, lp] bucket
+            W = Q.shape[0]
+            nq_u = wmask.sum(axis=1)
+            rows_u = valid.sum(dim=1).cpu().numpy()
+            prof.record_dispatch(
+                "scan", "f32", lp, t0,
+                nbytes=W * tq * d * 4 + W * lp * d * 4 + W * lp + W * tq * kk * 12,
+                flops=2.0 * d * float((nq_u * rows_u).sum()),
+                flops_padded=2.0 * d * W * tq * lp,
+                units=n_units, units_padded=W,
+                rows=int(rows_u.sum()), rows_padded=W * lp,
+            )
         packed_rows = _unit_rows(rows, i_loc)
         gidx = torch.where(packed_rows < 0, -1, arena.gid[packed_rows.clamp(min=0)])
-        wmask = qrow_of >= 0  # [W, tq]
         wmask_t = torch.from_numpy(wmask).to(dev)
         yield s.shape[-1], qrow_of[wmask], slot_of[wmask], s[wmask_t], gidx[wmask_t]
 
@@ -306,11 +322,21 @@ def _execute_plan_f32_segmented(
         flat_s[rows, :kk] = torch.from_numpy(np.ascontiguousarray(es[:, :kk])).to(dev)
         flat_i[rows, :kk] = torch.from_numpy(np.ascontiguousarray(ei[:, :kk])).to(dev)
 
+    prof = get_profiler()
+    t0 = prof.t0() if prof.enabled else 0
     with get_tracer().span("merge.segmented", m=m, candidates=C_total):
         top_s, top_i = kops.segmented_merge_topk(
             flat_s, flat_i, torch.from_numpy(seg_of).to(dev), m, k
         )
         top_s, top_i = fence(top_s, top_i)
+    if prof.enabled:
+        prof.record_dispatch(
+            "merge", "segmented", C_pad, t0,
+            nbytes=_nbytes(flat_s, flat_i) + seg_of.nbytes + m * k * 12,
+            flops=0.0, flops_padded=0.0,
+            units=m, units_padded=m,
+            rows=C_total, rows_padded=C_pad,
+        )
     return top_s.cpu().numpy(), top_i.cpu().numpy()
 
 
@@ -355,9 +381,20 @@ def _padded_merge(
         padc = width - real_width
         flat_s = torch.nn.functional.pad(flat_s, (0, padc), value=-float("inf"))
         flat_i = torch.nn.functional.pad(flat_i, (0, padc), value=-1)
-    with get_tracer().span("merge.final", m=flat_s.shape[0], width=width):
+    mq = flat_s.shape[0]
+    prof = get_profiler()
+    t0 = prof.t0() if prof.enabled else 0
+    with get_tracer().span("merge.final", m=mq, width=width):
         s, i = kops.merge_topk(flat_s, flat_i, k)
         s, i = fence(s, i)
+    if prof.enabled:
+        prof.record_dispatch(
+            "merge", "final", width, t0,
+            nbytes=_nbytes(flat_s, flat_i) + mq * k * 12,
+            flops=0.0, flops_padded=0.0,
+            units=mq, units_padded=mq,
+            rows=mq * real_width, rows_padded=mq * width,
+        )
     return s, i
 
 
@@ -384,14 +421,6 @@ def _execute_plan_pq(
     m, k = plan.m, plan.k
     dev = arena.device
     kprime = max(k, int(cfg.refine_factor) * k)
-    M = arena.pq.m
-    if dev.type == "cuda":  # fail before any bucket is assembled, on the kernel that will run
-        kk = min(kprime, max(plan.buckets))
-        if cfg.merge_layout == "segmented":
-            check_lut_stationary_limits(kk, M)
-        else:
-            check_pq_kernel_limits(kk, M)
-        check_kernel_limits(min(k, kprime), arena.d, 1)
 
     luts_dev, lut_pos = resident_luts(plan, arena, q_vecs)
     _account_lut(stats, _nbytes(luts_dev), expanded=False)
@@ -439,6 +468,7 @@ def _iter_pq_buckets(plan, arena, luts_dev, lut_pos, kprime, *, resident: bool, 
     first (the dense layout)."""
     dev = arena.device
     M = arena.pq.m
+    prof = get_profiler()
     for lp in sorted(plan.buckets):
         n_units = len(plan.buckets[lp])
         qrow_of, slot_of, rows, lut_idx, codes, valid_t = pq_bucket_operands(plan, arena, lut_pos, lp)
@@ -446,6 +476,7 @@ def _iter_pq_buckets(plan, arena, luts_dev, lut_pos, kprime, *, resident: bool, 
         if stats is not None:
             stats.bytes_scanned += n_units * lp * M  # real work units only
         kk = min(kprime, lp)
+        t0 = prof.t0() if prof.enabled else 0
         if resident:
             with get_tracer().span("dispatch.scan", mode="pq-res", lp=lp, units=n_units):
                 s, i_loc = kops.workunit_pq_topk_resident(luts_dev, lut_idx, codes, valid_t, kk)
@@ -461,6 +492,21 @@ def _iter_pq_buckets(plan, arena, luts_dev, lut_pos, kprime, *, resident: bool, 
                 s, i_loc = fence(s, i_loc)
             del luts
         wmask = qrow_of >= 0
+        if prof.enabled:
+            # the reference's counts: 2·M·256 MACs per (query, live row) (its
+            # one-hot contraction); the resident scan reads one [M, 256] LUT
+            # row per live query slot, the dense one the expanded [W, tq, M, 256]
+            nq_u = wmask.sum(axis=1)
+            rows_u = valid_t.sum(dim=1).cpu().numpy()
+            lut_bytes = int(nq_u.sum()) * M * NBOOK * 4 if resident else W * plan.tq * M * NBOOK * 4
+            prof.record_dispatch(
+                "scan", "pq-res" if resident else "pq", lp, t0,
+                nbytes=lut_bytes + W * lp * M + W * lp + W * plan.tq * kk * 12,
+                flops=2.0 * M * NBOOK * float((nq_u * rows_u).sum()),
+                flops_padded=2.0 * M * NBOOK * W * plan.tq * lp,
+                units=n_units, units_padded=W,
+                rows=int(rows_u.sum()), rows_padded=W * lp,
+            )
         wmask_t = torch.from_numpy(wmask).to(dev)
         yield kk, qrow_of[wmask], slot_of[wmask], s[wmask_t], _unit_rows(rows, i_loc)[wmask_t]
 
@@ -489,11 +535,21 @@ def _pq_stage_a_segmented(plan, arena, luts_dev, lut_pos, kprime, *, stats) -> t
         flat_s[rows_f, :kk] = s_w
         flat_rows[rows_f, :kk] = rows_w
 
+    prof = get_profiler()
+    t0 = prof.t0() if prof.enabled else 0
     with get_tracer().span("merge.segmented", m=m, candidates=C_total):
         _, top_rows = kops.segmented_merge_topk(
             flat_s, flat_rows, torch.from_numpy(seg_of).to(dev), m, kprime
         )
         top_rows = fence(top_rows)
+    if prof.enabled:
+        prof.record_dispatch(
+            "merge", "segmented", C_pad, t0,
+            nbytes=_nbytes(flat_s, flat_rows) + seg_of.nbytes + m * kprime * 12,
+            flops=0.0, flops_padded=0.0,
+            units=m, units_padded=m,
+            rows=C_total, rows_padded=C_pad,
+        )
     return top_rows
 
 
@@ -554,10 +610,23 @@ def _pq_rerank_and_fold(
     if stats is not None:
         # real surviving candidates only
         stats.bytes_scanned += int(valid_r.sum()) * arena.d * 4
+    prof = get_profiler()
+    t0 = prof.t0() if prof.enabled else 0
     with get_tracer().span("rerank.exact", m=m, kprime=kprime):
         s, i_loc = kops.workunit_topk(Qr, Vr, valid_r, min(k, kprime), metric=arena.metric,
                                       n_live=n_live)
         s, i_loc = fence(s, i_loc)
+    if prof.enabled:
+        mp, d = Qr.shape[0], arena.d
+        n_real = int(valid_r.sum())
+        prof.record_dispatch(
+            "rerank", "f32", kprime, t0,
+            nbytes=_nbytes(Qr, Vr, valid_r) + mp * min(k, kprime) * 12,
+            flops=2.0 * d * n_real,
+            flops_padded=2.0 * d * mp * kprime,
+            units=m, units_padded=mp,
+            rows=n_real, rows_padded=mp * kprime,
+        )
     s = s[:m, 0]  # [m, kk] exact scores
     i_loc = i_loc[:m, 0].to(torch.int64)  # [m, kk] index into the k′ candidates
     kk = s.shape[-1]

@@ -37,21 +37,25 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "flash_attention_wide_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "flash_attention_wide_shape": (_I, _I, _I, _I, _I, _P),
     },
     "fused_knn": {
-        "fused_knn_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "fused_knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         "fused_knn_split_count": (_I, _I, _I),
         "fused_knn_db_stationary_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
     },
     "pq_scan": {
-        "adc_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "adc_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "adc_launch_shape": (_I, _I, _I, _I, _I, _P),
         "lut_stationary_units_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
-        "lut_stationary_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "lut_stationary_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "adc_wide_m_shape": (_I, _I, _P),
+        "adc_wide_m_launch": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
 }
 

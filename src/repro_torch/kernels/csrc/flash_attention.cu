@@ -668,6 +668,186 @@ cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o,
   return launch_bf16<256>(q, k, v, o, sh, stream);
 }
 
+// ------------------------------------------------- dh > 256: a warp per query row
+//
+// flash_wide_kernel: the widths the tiled kernels above do not take (their
+// tiles at dh 512 exceed a block's shared memory). A simple kernel, right
+// first. A warp per (batch, query head, query row), kWideWarps consecutive
+// rows of one head a block, so they share the K and V tiles of their KV
+// head, staged in shared memory TK keys at a time (TK <= 32, from
+// wide_tile_keys). Lane l holds columns l, l + 32, … of the row's scaled q
+// (NPL a lane) and of its f32 output accumulator. A key's logit is a
+// warp-reduced dot product (the lane's fmaf chain, then a butterfly of
+// shuffles); lane j keeps key j's logit of the tile, so the tile's softmax
+// update is one warp max, one warp sum and one rescale of the accumulator,
+// then O += p_j · V_j for every kept key. Masks and query alignment are the
+// tiled kernels' (a row that keeps no key gives 0). Past dh 2048 (QREG
+// false) the accumulator covers 2048 columns a launch slice (grid.y holds
+// heads × slices) and q is read through L1 for the logits. What bounds it:
+// 4·dh operations a kept (query, key) pair on CUDA cores, and K/V read once
+// a block of kWideWarps rows (through L2 across a head's blocks).
+
+constexpr int kWideWarps = 8;               // query rows a block
+constexpr int kWideKvBytes = 64 * 1024;     // the K and V tiles together
+constexpr int kWideSlice = 2048;            // output columns a slice past dh 2048
+
+__host__ __device__ inline int wide_tile_keys(int dh, int esize) {
+  const int t = kWideKvBytes / (2 * dh * esize);
+  return t < 1 ? 1 : (t > 32 ? 32 : t);
+}
+
+__host__ __device__ inline size_t wide_smem_bytes(int dh, int esize) {
+  return (size_t)2 * wide_tile_keys(dh, esize) * dh * esize;
+}
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <typename T, int NPL, bool QREG>
+__global__ void __launch_bounds__(kWideWarps * 32)
+    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, Shape sh, int slices) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dh = sh.dh;
+  const int TK = wide_tile_keys(dh, (int)sizeof(T));
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [TK][dh]
+  T* vs = ks + (size_t)TK * dh;            // [TK][dh]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kWideWarps;  // late (heavy) rows first
+  const int h = blockIdx.y / slices, c0 = (blockIdx.y - h * slices) * (32 * NPL);
+  const int b = blockIdx.z;
+  const int hk = h / (sh.Hq / sh.Hkv);
+  const int row = r0 + warp;
+  const bool live = row < sh.S;  // warp-uniform
+  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
+  const T* qr = q + ((size_t)b * sh.S + (live ? row : 0)) * q_row + (size_t)h * dh;
+  const T* kb = k + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+  const T* vb = v + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+
+  float qv[QREG ? NPL : 1];
+  if constexpr (QREG) {
+#pragma unroll
+    for (int u = 0; u < NPL; ++u) {
+      const int c = lane + 32 * u;
+      qv[u] = c < dh ? load_f32(qr + c) * sh.scale : 0.f;
+    }
+  }
+  float acc[NPL];
+#pragma unroll
+  for (int u = 0; u < NPL; ++u) acc[u] = 0.f;
+  float m = kNegInf, l = 0.f;
+
+  // The keys any row of this block may keep: [kv_lo, kv_hi).
+  const int r_last = min(r0 + kWideWarps, sh.S) - 1;
+  const int kv_lo = sh.window > 0 ? max(0, r0 - sh.window + 1) : 0;
+  const int kv_hi = sh.causal ? min(sh.T, r_last + 1) : sh.T;
+  for (int t0 = kv_lo; t0 < kv_hi; t0 += TK) {
+    const int nt = min(TK, kv_hi - t0);
+    __syncthreads();  // every warp is done with the previous tile
+    for (int e = threadIdx.x; e < nt * dh; e += blockDim.x) {
+      const int j = e / dh, c = e - j * dh;
+      ks[e] = kb[(size_t)(t0 + j) * kv_row + c];
+      vs[e] = vb[(size_t)(t0 + j) * kv_row + c];
+    }
+    __syncthreads();
+    if (!live) continue;
+    float mine = kNegInf;  // lane j: key t0 + j's logit, kNegInf where masked
+    for (int j = 0; j < nt; ++j) {
+      const T* kr = ks + (size_t)j * dh;
+      float part = 0.f;
+      if constexpr (QREG) {
+#pragma unroll
+        for (int u = 0; u < NPL; ++u) {
+          const int c = lane + 32 * u;
+          if (c < dh) part = fmaf(qv[u], load_f32(kr + c), part);
+        }
+      } else {
+        for (int c = lane; c < dh; c += 32) part = fmaf(load_f32(qr + c) * sh.scale, load_f32(kr + c), part);
+      }
+      const float logit = warp_sum(part);
+      if (lane == j) mine = logit;
+    }
+    const int kpos = t0 + lane;
+    bool keep = lane < nt;
+    if (sh.causal) keep = keep && kpos <= row;
+    if (sh.window > 0) keep = keep && kpos > row - sh.window;
+    mine = keep ? mine : kNegInf;
+    const float m_new = fmaxf(m, warp_max(mine));
+    const float alpha = expf(m - m_new);
+    const float p = keep ? expf(mine - m_new) : 0.f;
+    l = l * alpha + warp_sum(p);
+    m = m_new;
+#pragma unroll
+    for (int u = 0; u < NPL; ++u) acc[u] *= alpha;
+    for (int j = 0; j < nt; ++j) {
+      const float pj = __shfl_sync(0xffffffffu, p, j);
+      if (pj == 0.f) continue;  // warp-uniform: a masked key adds nothing
+      const T* vr = vs + (size_t)j * dh + c0;
+#pragma unroll
+      for (int u = 0; u < NPL; ++u) {
+        const int c = lane + 32 * u;
+        if (c0 + c < dh) acc[u] = fmaf(pj, load_f32(vr + c), acc[u]);
+      }
+    }
+  }
+  if (!live) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  T* orow = o + ((size_t)b * sh.S + row) * q_row + (size_t)h * dh + c0;
+#pragma unroll
+  for (int u = 0; u < NPL; ++u) {
+    const int c = lane + 32 * u;
+    if (c0 + c < dh) store_out(orow + c, acc[u] * inv);
+  }
+}
+
+template <typename T, int NPL, bool QREG>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                        cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(sh.dh, (int)sizeof(T));
+  cudaError_t err = hqi::prepare(flash_wide_kernel<T, NPL, QREG>, smem);
+  if (err != cudaSuccess) return err;
+  const int slices = (sh.dh + 32 * NPL - 1) / (32 * NPL);
+  const dim3 grid((sh.S + kWideWarps - 1) / kWideWarps, sh.Hq * slices, sh.B);
+  flash_wide_kernel<T, NPL, QREG><<<grid, kWideWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+      sh, slices);
+  return cudaGetLastError();
+}
+
+// Columns a lane holds (NPL): the narrowest build that covers dh, and
+// kWideSlice / 32 in slices past kWideSlice.
+__host__ inline int wide_cols_per_lane(int dh) {
+  return dh <= 512 ? 16 : (dh <= 1024 ? 32 : kWideSlice / 32);
+}
+
+template <typename T>
+cudaError_t launch_wide_dh(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                           cudaStream_t stream) {
+  switch (wide_cols_per_lane(sh.dh)) {
+    case 16:
+      return launch_wide<T, 16, true>(q, k, v, o, sh, stream);
+    case 32:
+      return launch_wide<T, 32, true>(q, k, v, o, sh, stream);
+    default:
+      return sh.dh <= kWideSlice ? launch_wide<T, kWideSlice / 32, true>(q, k, v, o, sh, stream)
+                                 : launch_wide<T, kWideSlice / 32, false>(q, k, v, o, sh, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -681,6 +861,36 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16 ? launch_bf16_dh(q, k, v, o, sh, st) : launch_f32_dh(q, k, v, o, sh, st);
+  return (int)err;
+}
+
+// The wide kernel's launch for these operands: grid x, y, z, threads, dynamic
+// shared bytes and keys a K/V tile (kernels/flash_attention.py::wide_launch_shape).
+int flash_attention_wide_shape(int B, int S, int Hq, int dh, int bf16, int* out) {
+  if (B < 1 || S < 1 || Hq < 1 || dh < 1) return (int)cudaErrorInvalidValue;
+  const int esize = bf16 ? 2 : 4, cols = 32 * wide_cols_per_lane(dh);
+  out[0] = (S + kWideWarps - 1) / kWideWarps;
+  out[1] = Hq * ((dh + cols - 1) / cols);
+  out[2] = B;
+  out[3] = kWideWarps * 32;
+  out[4] = (int)wide_smem_bytes(dh, esize);
+  out[5] = wide_tile_keys(dh, esize);
+  return 0;
+}
+
+// The same contract at any dh (the wrapper takes it past 256): a warp per
+// query row (flash_wide_kernel). Shared memory: 2 · TK · dh elements.
+int flash_attention_wide_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+                                int T, int Hq, int Hkv, int dh, int causal, int window, float scale,
+                                int bf16, void* stream) {
+  if (B < 1 || S < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || B > 65535 ||
+      (long long)Hq * ((dh + kWideSlice - 1) / kWideSlice) > 65535 ||
+      wide_smem_bytes(dh, bf16 ? 2 : 4) > 232448)
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = bf16 ? launch_wide_dh<__nv_bfloat16>(q, k, v, o, sh, st)
+                               : launch_wide_dh<float>(q, k, v, o, sh, st);
   return (int)err;
 }
 

@@ -29,7 +29,11 @@
 //   fills is (NEG_INF, -1); an index is -1 wherever its score is
 //   <= NEG_INF / 2. Indices are local to the unit's TV rows. Optional
 //   n_live [W]: slot s of unit w holds a query iff s < n_live[w]; the other
-//   slots read nothing and are (NEG_INF, -1).
+//   slots read nothing and are (NEG_INF, -1). Optional floor_s/floor_i
+//   [W, TQ] (k' > 64, kernels/fused_knn.py::floor_passes): a later pass of
+//   at most 64 entries, admitting only candidates that rank strictly after
+//   the slot's floor, the last entry of the pass before; a floor index of
+//   -1 (a slot that pass left short) admits nothing.
 //
 // What bounds it on the H100: at the engine's shapes (TQ = 64, D = 64, TV
 // 32..4096) the least cost is the bytes of the real query slots and of the
@@ -84,6 +88,7 @@
 
 namespace {
 
+using hqi::after_floor;
 using hqi::better;
 using hqi::kFullMask;
 using hqi::kNegInf;
@@ -132,6 +137,15 @@ __device__ __forceinline__ float score_of(unsigned long long key) {
   return __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi);
 }
 __device__ __forceinline__ int index_of(unsigned long long key) { return ~(int)(unsigned)key; }
+
+// A later pass admits a key iff it ranks strictly after the slot's floor (a
+// smaller key); a floor index of -1 admits nothing.
+__device__ __forceinline__ bool admits(unsigned long long key, const float* floor_s, const int* floor_i,
+                                       size_t slot) {
+  if (!floor_s) return true;
+  const int fi = floor_i[slot];
+  return fi >= 0 && key < key_of(floor_s[slot], fi);
+}
 
 struct Shape {
   int W, TQ, TV, D, k, l2;
@@ -352,6 +366,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
     fused_knn_scan_kernel(const T* __restrict__ q, const T* __restrict__ v,
                           const uint8_t* __restrict__ valid, const int* __restrict__ n_live,
+                          const float* __restrict__ floor_s, const int* __restrict__ floor_i,
                           unsigned long long* __restrict__ part, unsigned* __restrict__ counters,
                           float* __restrict__ out_s, int* __restrict__ out_i, Shape sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -483,7 +498,10 @@ __global__ void __launch_bounds__(kThreads, 3)
             if (qq < n && rr < nr) {
               float s = acc[i][j];
               if (sh.l2) s = (2.f * s - sm.qn[qq]) - sm.vn[rr];
-              sm.sc[qq * (kTR + 1) + rr] = passing(key_of(s, rid[rr]), cl, sm.cnt, qq, k);
+              const unsigned long long key = key_of(s, rid[rr]);
+              sm.sc[qq * (kTR + 1) + rr] =
+                  admits(key, floor_s, floor_i, (size_t)w * sh.TQ + q0 + qq) ? passing(key, cl, sm.cnt, qq, k)
+                                                                              : 0ull;
             }
           }
       }
@@ -547,11 +565,12 @@ __device__ __forceinline__ void offer32(WarpTopK<KL>& top, float cs, int ci, boo
 // compacts up to kWarpRows valid row indices at a time by ballots; lane l
 // scores compacted rows l, l + 32, ... reading the row from global memory
 // and the query through L1, and each 32 scores are offered to the warp's
-// sorted list (offer32).
+// sorted list (offer32), past the unit's floor in a later pass.
 template <typename T, int KL>
 __global__ void __launch_bounds__(kThreads)
     fused_knn_unit_warps_kernel(const T* __restrict__ q, const T* __restrict__ v,
                                 const uint8_t* __restrict__ valid, const int* __restrict__ n_live,
+                                const float* __restrict__ floor_s, const int* __restrict__ floor_i,
                                 float* __restrict__ out_s, int* __restrict__ out_i, Shape sh) {
   __shared__ int ridx[kWarps][kWarpRows];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -559,7 +578,10 @@ __global__ void __launch_bounds__(kThreads)
   if (w >= sh.W) return;
   float* os = out_s + (size_t)w * sh.k;
   int* oi = out_i + (size_t)w * sh.k;
-  if (n_live && n_live[w] <= 0) {
+  const bool has_floor = floor_s != nullptr;
+  const float fs = has_floor ? floor_s[w] : 0.f;
+  const int fi = has_floor ? floor_i[w] : 0;
+  if ((n_live && n_live[w] <= 0) || (has_floor && fi < 0)) {
     for (int p = lane; p < sh.k; p += 32) {
       os[p] = kNegInf;
       oi[p] = -1;
@@ -620,7 +642,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         sc = sh.l2 ? (2.f * ip - qn) - vn : ip;
       }
-      offer32(top, sc, r, j < cnt, sh.k, lane);
+      offer32(top, sc, r, j < cnt && (!has_floor || after_floor(fs, fi, sc, r)), sh.k, lane);
     }
     __syncwarp();  // rl is rewritten by the next pass
   }
@@ -628,12 +650,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int KL>
-cudaError_t launch(const void* q, const void* v, const void* valid, const void* n_live, void* part,
-                   void* counters, void* out_s, void* out_i, const Shape& sh, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* v, const void* valid, const void* n_live,
+                   const void* floor_s, const void* floor_i, void* part, void* counters, void* out_s,
+                   void* out_i, const Shape& sh, cudaStream_t stream) {
+  const float* fs = static_cast<const float*>(floor_s);
+  const int* fi = static_cast<const int*>(floor_i);
   if (sh.TQ == 1) {
     fused_knn_unit_warps_kernel<T, KL><<<(sh.W + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
-        static_cast<const int*>(n_live), static_cast<float*>(out_s), static_cast<int*>(out_i), sh);
+        static_cast<const int*>(n_live), fs, fi, static_cast<float*>(out_s), static_cast<int*>(out_i),
+        sh);
     return cudaGetLastError();
   }
   const size_t smem = scan_smem_bytes<T>(sh.nch, sh.k);
@@ -642,26 +668,27 @@ cudaError_t launch(const void* q, const void* v, const void* valid, const void* 
   const dim3 grid(sh.W, (sh.TQ + kQB - 1) / kQB, sh.S);
   fused_knn_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
-      static_cast<const int*>(n_live), static_cast<unsigned long long*>(part),
+      static_cast<const int*>(n_live), fs, fi, static_cast<unsigned long long*>(part),
       static_cast<unsigned*>(counters), static_cast<float*>(out_s), static_cast<int*>(out_i), sh);
   return cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* v, const void* valid, const void* n_live, void* part,
-             void* counters, void* out_s, void* out_i, int W, int TQ, int TV, int D, int k, int l2,
-             int bf16, int S, int chunk_rows, void* stream) {
+int dispatch(const void* q, const void* v, const void* valid, const void* n_live, const void* floor_s,
+             const void* floor_i, void* part, void* counters, void* out_s, void* out_i, int W, int TQ,
+             int TV, int D, int k, int l2, int bf16, int S, int chunk_rows, void* stream) {
   const int esz = bf16 ? 2 : 4;
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   const Shape sh{W, TQ, TV, D, k, l2, aligned && (D * esz) % 16 == 0, S, chunk_rows,
                  (D + kDC - 1) / kDC};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  const auto go = [&](auto kern) {
+    return kern(q, v, valid, n_live, floor_s, floor_i, part, counters, out_s, out_i, sh, st);
+  };
   if (bf16) {
-    err = k <= 32 ? launch<__nv_bfloat16, 32>(q, v, valid, n_live, part, counters, out_s, out_i, sh, st)
-                  : launch<__nv_bfloat16, 64>(q, v, valid, n_live, part, counters, out_s, out_i, sh, st);
+    err = k <= 32 ? go(launch<__nv_bfloat16, 32>) : go(launch<__nv_bfloat16, 64>);
   } else {
-    err = k <= 32 ? launch<float, 32>(q, v, valid, n_live, part, counters, out_s, out_i, sh, st)
-                  : launch<float, 64>(q, v, valid, n_live, part, counters, out_s, out_i, sh, st);
+    err = k <= 32 ? go(launch<float, 32>) : go(launch<float, 64>);
   }
   return (int)err;
 }
@@ -675,13 +702,14 @@ bool bad_shape(int W, int TQ, int TV, int D, int k) {
 extern "C" {
 
 // q, v [W, TQ|TV, D] (f32 or bf16), valid uint8 [W, TV], n_live int32 [W]
-// or null (every slot live); out [W, TQ, k].
+// or null (every slot live); floor_s f32 / floor_i int32 [W, TQ] or both
+// null (the first pass); out [W, TQ, k], k <= 64.
 int fused_knn_launch(const void* q, const void* v, const void* valid, const void* n_live,
-                     void* out_s, void* out_i, int W, int TQ, int TV, int D, int k, int l2, int bf16,
-                     void* stream) {
-  if (bad_shape(W, TQ, TV, D, k)) return (int)cudaErrorInvalidValue;
-  return dispatch(q, v, valid, n_live, nullptr, nullptr, out_s, out_i, W, TQ, TV, D, k, l2, bf16, 1,
-                  TV, stream);
+                     const void* floor_s, const void* floor_i, void* out_s, void* out_i, int W, int TQ,
+                     int TV, int D, int k, int l2, int bf16, void* stream) {
+  if (bad_shape(W, TQ, TV, D, k) || (!floor_s) != (!floor_i)) return (int)cudaErrorInvalidValue;
+  return dispatch(q, v, valid, n_live, floor_s, floor_i, nullptr, nullptr, out_s, out_i, W, TQ, TV, D,
+                  k, l2, bf16, 1, TV, stream);
 }
 
 // The split grid's S for a shape (fused_knn_db_stationary_launch takes no
@@ -696,10 +724,10 @@ int fused_knn_split_count(int W, int TQ, int TV) {
 // TV) blocks per (unit, query chunk); when S > 1, part uint64 [W, S, TQ, k]
 // scratch and counters uint32 [W · ceil(TQ / 64)], zeroed here on the stream.
 int fused_knn_db_stationary_launch(const void* q, const void* v, const void* valid,
-                                   const void* n_live, void* part, void* counters, void* out_s,
-                                   void* out_i, int W, int TQ, int TV, int D, int k, int l2,
-                                   int bf16, int S, void* stream) {
-  if (bad_shape(W, TQ, TV, D, k)) return (int)cudaErrorInvalidValue;
+                                   const void* n_live, const void* floor_s, const void* floor_i,
+                                   void* part, void* counters, void* out_s, void* out_i, int W, int TQ,
+                                   int TV, int D, int k, int l2, int bf16, int S, void* stream) {
+  if (bad_shape(W, TQ, TV, D, k) || (!floor_s) != (!floor_i)) return (int)cudaErrorInvalidValue;
   int want, chunk_rows;
   split_of(W, TQ, TV, &want, &chunk_rows);
   if (S != want) return (int)cudaErrorInvalidValue;
@@ -708,8 +736,8 @@ int fused_knn_db_stationary_launch(const void* q, const void* v, const void* val
     const cudaError_t err = cudaMemsetAsync(counters, 0, bytes, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }
-  return dispatch(q, v, valid, n_live, part, counters, out_s, out_i, W, TQ, TV, D, k, l2, bf16, S,
-                  chunk_rows, stream);
+  return dispatch(q, v, valid, n_live, floor_s, floor_i, part, counters, out_s, out_i, W, TQ, TV, D, k,
+                  l2, bf16, S, chunk_rows, stream);
 }
 
 }  // extern "C"

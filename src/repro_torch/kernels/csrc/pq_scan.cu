@@ -11,6 +11,12 @@
 //   workunit_pq_scan          — adc_slot_warps_kernel over expanded LUTs
 //                               [W, TQ, M, 256]: a warp per live slot, one
 //                               launch.
+//   all three past M 190      — adc_wide_m_kernel: a warp per live slot,
+//                               the LUT row read through L2 (end of file).
+//
+// Lists of more than 64 (k' > 64) are taken in passes of at most 64, each a
+// launch that admits only what ranks after the slot's floor, the last entry
+// of the pass before (topk.cuh, WarpSelect::set_floor).
 //
 // Replaces (TPU, Pallas): src/repro/kernels/pq_scan.py —
 // workunit_pq_scan_streamed (_workunit_pq_streamed_kernel, scalar prefetch +
@@ -222,6 +228,7 @@ template <int KL>
 __global__ void __launch_bounds__(kWarps * 32, 3)
     adc_slot_warps_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
                           const uint8_t* __restrict__ valid, const int* __restrict__ n_live,
+                          const float* __restrict__ floor_s, const int* __restrict__ floor_i,
                           float* __restrict__ part_s, int* __restrict__ part_i,
                           unsigned* __restrict__ counters, float* __restrict__ out_s,
                           int* __restrict__ out_i, Shape sh) {
@@ -282,6 +289,7 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
     }
     for (int t = 0; t < kStages - 1; ++t) issue(t);
     sel.reset();
+    if (active) sel.set_floor(floor_s, floor_i, (size_t)w * TQ + slot);
     float d0 = -INFINITY, d1 = -INFINITY;  // a direct warp's candidates, two a lane
     int i0 = kNoIdx, i1 = kNoIdx;
     for (int t = 0; t < ntiles; ++t) {
@@ -292,8 +300,12 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
       const uint8_t* st = ring + (size_t)(t % kStages) * sbytes;
       for (int c = sub; c < tch && t * tch + c < nch; c += g) {  // this warp's chunks of the tile
         const int lr = c * kChunk + lane, r = row0 + t * trows + lr;
-        const bool ok = r < row1 && st[cbytes + lr] != 0;
-        const float acc = ok ? adc_row(ql, st + (size_t)lr * M, M) : -INFINITY;
+        bool ok = r < row1 && st[cbytes + lr] != 0;
+        float acc = ok ? adc_row(ql, st + (size_t)lr * M, M) : -INFINITY;
+        if (!sel.admits(acc, r)) {  // a later pass: ranks at or before the floor
+          ok = false;
+          acc = -INFINITY;
+        }
         if (!direct) {
           sel.offer(acc, r, ok, lane);
         } else if (t * tch + c < g) {  // the warp's first chunk
@@ -348,8 +360,9 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
 
 template <int KL>
 cudaError_t launch(const void* lut, const void* codes, const void* valid, const void* n_live,
-                   void* part_s, void* part_i, void* counters, void* out_s, void* out_i, int W,
-                   const Shape& sh, cudaStream_t stream) {
+                   const void* floor_s, const void* floor_i, void* part_s, void* part_i,
+                   void* counters, void* out_s, void* out_i, int W, const Shape& sh,
+                   cudaStream_t stream) {
   // the shared-memory opt-in once per device (an attribute set on every call
   // is host time on every call)
   static bool opted[64] = {};
@@ -366,7 +379,8 @@ cudaError_t launch(const void* lut, const void* codes, const void* valid, const 
   adc_slot_warps_kernel<KL><<<dim3(W, sh.Y, sh.S), sh.G * sh.g * 32, smem_bytes(sh.M, sh.G, sh.g, sh.T),
                               stream>>>(
       static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(valid), static_cast<const int*>(n_live), static_cast<float*>(part_s),
+      static_cast<const uint8_t*>(valid), static_cast<const int*>(n_live),
+      static_cast<const float*>(floor_s), static_cast<const int*>(floor_i), static_cast<float*>(part_s),
       static_cast<int*>(part_i), static_cast<unsigned*>(counters), static_cast<float*>(out_s),
       static_cast<int*>(out_i), sh);
   return cudaGetLastError();
@@ -560,7 +574,8 @@ template <int KL>
 __global__ void __launch_bounds__(kThreads, 4)
     lut_stationary_units_kernel(const float* __restrict__ table, const int* __restrict__ keys,
                                 const int64_t* __restrict__ order, const uint8_t* __restrict__ codes,
-                                const uint8_t* __restrict__ valid, float* __restrict__ out_s,
+                                const uint8_t* __restrict__ valid, const float* __restrict__ floor_s,
+                                const int* __restrict__ floor_i, float* __restrict__ out_s,
                                 int* __restrict__ out_i, int N, int TQ, int TV, int M, int U, int k,
                                 int P, int g, int Ms) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -647,6 +662,7 @@ __global__ void __launch_bounds__(kThreads, 4)
         const int pos = a + grp + r * groups;
         const bool active = pos < b;  // warp-uniform
         sel.reset();
+        if (active) sel.set_floor(floor_s, floor_i, sm.slots[pos]);
         float d0 = -INFINITY, d1 = -INFINITY;
         int i0 = kNoIdx, i1 = kNoIdx;
         for (int i = 0; i < steps; ++i) {
@@ -657,9 +673,13 @@ __global__ void __launch_bounds__(kThreads, 4)
             ring.wait();
           }
           const int nrows = item ? min(kChunk, TV - r0) : 0;
-          const bool ok = lane < nrows && ring.valid(t)[lane] != 0;
-          const float acc = sliced_row(sm.lut, row_lut, ring.codes(t) + lane * M, M, Ms, ok);
+          bool ok = lane < nrows && ring.valid(t)[lane] != 0;
+          float acc = sliced_row(sm.lut, row_lut, ring.codes(t) + lane * M, M, Ms, ok);
           if (!item) continue;
+          if (!sel.admits(acc, r0 + lane)) {  // a later pass: ranks at or before the floor
+            ok = false;
+            acc = -INFINITY;
+          }
           if (direct) {
             if (ok && ch == c0) {
               d0 = acc;
@@ -693,6 +713,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     __syncthreads();
     for (int pos = a + grp; pos < b; pos += groups) {
       sel.reset();
+      sel.set_floor(floor_s, floor_i, sm.slots[pos]);
       float d0 = -INFINITY, d1 = -INFINITY;  // a direct piece's candidates, two a lane
       int i0 = kNoIdx, i1 = kNoIdx;
       for (int ch = c0; ch < c1; ++ch, ++t) {
@@ -700,7 +721,11 @@ __global__ void __launch_bounds__(kThreads, 4)
         ring.wait();
         const int r0 = ch * kChunk;
         bool ok;
-        const float acc = score_row(ring, t, sm.lut, min(kChunk, TV - r0), lane, ok);
+        float acc = score_row(ring, t, sm.lut, min(kChunk, TV - r0), lane, ok);
+        if (!sel.admits(acc, r0 + lane)) {  // a later pass: ranks at or before the floor
+          ok = false;
+          acc = -INFINITY;
+        }
         if (direct) {
           if (ok && ch == c0) {
             d0 = acc;
@@ -735,13 +760,22 @@ __global__ void __launch_bounds__(kThreads, 4)
 template <int KL>
 __global__ void __launch_bounds__(kThreads)
     lut_stationary_rows_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-                               const uint8_t* __restrict__ valid, float* __restrict__ part_s,
+                               const uint8_t* __restrict__ valid, const float* __restrict__ floor_s,
+                               const int* __restrict__ floor_i, float* __restrict__ part_s,
                                int* __restrict__ part_i, unsigned* __restrict__ counter,
                                float* __restrict__ out_s, int* __restrict__ out_i, int NV, int M,
                                int k, int Ms) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem sm = carve(smem_raw, M, Ms);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (floor_i && floor_i[0] < 0) {  // the pass before came up short: nothing is left to read
+    if (blockIdx.x == 0)
+      for (int e = threadIdx.x; e < k; e += kThreads) {
+        out_s[e] = kNegInf;
+        out_i[e] = -1;
+      }
+    return;
+  }
   if (Ms == M) {
     stage_lut(sm.lut, lut, M);
     __syncthreads();
@@ -764,6 +798,7 @@ __global__ void __launch_bounds__(kThreads)
   };
   for (int j = 0; j < kStages - 1; ++j) issue_next();
   WarpSelect<KL> sel = make_select<KL>(sm, warp, k);
+  sel.set_floor(floor_s, floor_i, 0);
   if (Ms == M) {
     for (int c = c0, t = 0; c < c1; ++c, ++t) {
       issue_next();
@@ -816,35 +851,144 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int KL>
 cudaError_t launch_units(const void* table, const void* keys, const void* order, const void* codes,
-                         const void* valid, void* out_s, void* out_i, int N, int TQ, int TV, int M,
-                         int U, int k, int P, int g, int Ms, cudaStream_t stream) {
+                         const void* valid, const void* floor_s, const void* floor_i, void* out_s,
+                         void* out_i, int N, int TQ, int TV, int M, int U, int k, int P, int g, int Ms,
+                         cudaStream_t stream) {
   const size_t smem = smem_bytes(M, Ms);
   cudaError_t err = prepare(lut_stationary_units_kernel<KL>, smem);
   if (err != cudaSuccess) return err;
   lut_stationary_units_kernel<KL><<<(N + P - 1) / P, kThreads, smem, stream>>>(
       static_cast<const float*>(table), static_cast<const int*>(keys),
       static_cast<const int64_t*>(order), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(valid), static_cast<float*>(out_s), static_cast<int*>(out_i), N,
-      TQ, TV, M, U, k, P, g, Ms);
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(floor_s),
+      static_cast<const int*>(floor_i), static_cast<float*>(out_s), static_cast<int*>(out_i), N, TQ, TV,
+      M, U, k, P, g, Ms);
   return cudaGetLastError();
 }
 
 template <int KL>
-cudaError_t launch_rows(const void* lut, const void* codes, const void* valid, void* part_s,
-                        void* part_i, void* counter, void* out_s, void* out_i, int NV, int M, int k,
-                        int G, int Ms, cudaStream_t stream) {
+cudaError_t launch_rows(const void* lut, const void* codes, const void* valid, const void* floor_s,
+                        const void* floor_i, void* part_s, void* part_i, void* counter, void* out_s,
+                        void* out_i, int NV, int M, int k, int G, int Ms, cudaStream_t stream) {
   const size_t smem = smem_bytes(M, Ms);
   cudaError_t err = prepare(lut_stationary_rows_kernel<KL>, smem);
   if (err != cudaSuccess) return err;
   lut_stationary_rows_kernel<KL><<<G, kThreads, smem, stream>>>(
       static_cast<const float*>(lut), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(valid), static_cast<float*>(part_s), static_cast<int*>(part_i),
-      static_cast<unsigned*>(counter), static_cast<float*>(out_s), static_cast<int*>(out_i), NV, M,
-      k, Ms);
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(floor_s),
+      static_cast<const int*>(floor_i), static_cast<float*>(part_s), static_cast<int*>(part_i),
+      static_cast<unsigned*>(counter), static_cast<float*>(out_s), static_cast<int*>(out_i), NV, M, k,
+      Ms);
   return cudaGetLastError();
 }
 
 }  // namespace lutst
+
+// ============================================================ wide M
+//
+// adc_wide_m_kernel: all three addressings past M = MAX_M (190), where one
+// LUT row and a ring no longer fit shared memory together. A simple kernel,
+// right first: a warp per live slot (per query for pq_scan), the slot's LUT
+// row read through L2 by __ldg and not staged (M KiB stays in the 50 MB
+// L2), its codes read 32 rows a step from device memory, one row a lane,
+// each row's sum taken in the order m = 0 … M-1 (as adc_row and the plain
+// versions, so the results are bit-equal), the list kept by topk.cuh's
+// WarpSelect behind the pass's floor. What bounds it: the codes (M bytes a
+// valid row) and the LUT rows are bytes; per row a lane issues M dependent
+// L2 gathers, so at these widths it runs far above that bound (PERF.md §6).
+
+namespace wide {
+
+constexpr int kWarps = 4;   // slots a block, a warp each
+constexpr int kChunk = 32;  // rows a step, one a lane
+
+// Σ_m lut[m][code[m]] over one code row in device memory, m = 0 … M-1.
+__device__ __forceinline__ float adc_row_ldg(const float* __restrict__ lut, const uint8_t* __restrict__ cr,
+                                             int M) {
+  float acc = 0.f;
+  if ((M & 7) == 0 && (reinterpret_cast<uintptr_t>(cr) & 7) == 0) {
+    for (int j = 0; j < M; j += 8) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(cr + j));
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc += __ldg(lut + (j + b) * 256 + ((w.x >> (8 * b)) & 255u));
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc += __ldg(lut + (j + 4 + b) * 256 + ((w.y >> (8 * b)) & 255u));
+    }
+  } else {
+    for (int j = 0; j < M; ++j) acc += __ldg(lut + j * 256 + __ldg(cr + j));
+  }
+  return acc;
+}
+
+// Slot s = w·TQ + t of W·TQ. Its LUT row: table row lut_idx[s] (-1: no
+// query; other indices clamped into [0, U)) when lut_idx is given, else
+// row s of the expanded LUTs, live iff t < n_live[w] (n_live null: every
+// slot). A slot with no query, or whose floor index is -1, is written
+// (NEG_INF, -1) and reads nothing.
+template <int KL>
+__global__ void __launch_bounds__(kWarps * 32)
+    adc_wide_m_kernel(const float* __restrict__ lut, const int* __restrict__ lut_idx, int U,
+                      const int* __restrict__ n_live, const uint8_t* __restrict__ codes,
+                      const uint8_t* __restrict__ valid, const float* __restrict__ floor_s,
+                      const int* __restrict__ floor_i, float* __restrict__ out_s,
+                      int* __restrict__ out_i, int W, int TQ, int TV, int M, int k) {
+  __shared__ float bs[kWarps][kSelectBuf];
+  __shared__ int bi[kWarps][kSelectBuf];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long slot = (long long)blockIdx.x * kWarps + warp;
+  if (slot >= (long long)W * TQ) return;
+  const int w = (int)(slot / TQ), t = (int)(slot - (long long)w * TQ);
+  float* os = out_s + slot * k;
+  int* oi = out_i + slot * k;
+  const float* row_lut = nullptr;
+  if (lut_idx) {
+    const int r = lut_idx[slot];
+    if (r != -1) row_lut = lut + (size_t)min(max(r, 0), U - 1) * M * 256;
+  } else if (!n_live || t < n_live[w]) {
+    row_lut = lut + (size_t)slot * M * 256;
+  }
+  if (floor_i && floor_i[slot] < 0) row_lut = nullptr;  // the pass before came up short
+  if (!row_lut) {
+    for (int e = lane; e < k; e += 32) {
+      os[e] = kNegInf;
+      oi[e] = -1;
+    }
+    return;
+  }
+  WarpSelect<KL> sel;
+  sel.bs = bs[warp];
+  sel.bi = bi[warp];
+  sel.k = k;
+  sel.reset();
+  sel.set_floor(floor_s, floor_i, (size_t)slot);
+  const uint8_t* cw = codes + (size_t)w * TV * M;
+  const uint8_t* vw = valid + (size_t)w * TV;
+  for (int r0 = 0; r0 < TV; r0 += kChunk) {
+    const int r = r0 + lane;
+    const bool ok = r < TV && vw[r] != 0;
+    const float acc = ok ? adc_row_ldg(row_lut, cw + (size_t)r * M, M) : -INFINITY;
+    sel.offer(acc, r, ok, lane);
+  }
+  sel.flush(lane);
+  sel.top.write_final(k, os, oi, lane);
+}
+
+template <int KL>
+cudaError_t launch(const void* lut, const void* lut_idx, int U, const void* n_live, const void* codes,
+                   const void* valid, const void* floor_s, const void* floor_i, void* out_s,
+                   void* out_i, int W, int TQ, int TV, int M, int k, cudaStream_t stream) {
+  const long long blocks = ((long long)W * TQ + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  adc_wide_m_kernel<KL><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
+      static_cast<const float*>(lut), static_cast<const int*>(lut_idx), U,
+      static_cast<const int*>(n_live), static_cast<const uint8_t*>(codes),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(floor_s),
+      static_cast<const int*>(floor_i), static_cast<float*>(out_s), static_cast<int*>(out_i), W, TQ,
+      TV, M, k);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
 
 }  // namespace
 
@@ -871,9 +1015,9 @@ int adc_launch_shape(int W, int TQ, int TV, int M, int k, int* out) {
 // the ranges' lists [W, TQ, S, k] (scores, then ids) and a counter uint32
 // per (unit, slot group), zeroed here on the stream before the kernel.
 int adc_scan_launch(const void* lut, const void* codes, const void* valid, const void* n_live,
-                    void* scratch, void* out_s, void* out_i, int W, int TQ, int TV, int M, int k,
-                    void* stream) {
-  if (k > 64 || k > TV) return (int)cudaErrorInvalidValue;
+                    const void* floor_s, const void* floor_i, void* scratch, void* out_s, void* out_i,
+                    int W, int TQ, int TV, int M, int k, void* stream) {
+  if (k > 64 || k > TV || (!floor_s) != (!floor_i)) return (int)cudaErrorInvalidValue;
   int shape[6];
   const int rc = adc_launch_shape(W, TQ, TV, M, k, shape);
   if (rc != 0) return rc;
@@ -893,20 +1037,23 @@ int adc_scan_launch(const void* lut, const void* codes, const void* valid, const
   const int nch = (TV + adc::kChunk - 1) / adc::kChunk;
   const adc::Shape sh{TQ, TV, M, k, G, g, T, Y, S, (nch + S - 1) / S};
   if (k <= 32)
-    return (int)adc::launch<32>(lut, codes, valid, n_live, part_s, part_i, counters, out_s, out_i, W, sh, st);
-  return (int)adc::launch<64>(lut, codes, valid, n_live, part_s, part_i, counters, out_s, out_i, W, sh, st);
+    return (int)adc::launch<32>(lut, codes, valid, n_live, floor_s, floor_i, part_s, part_i, counters,
+                                out_s, out_i, W, sh, st);
+  return (int)adc::launch<64>(lut, codes, valid, n_live, floor_s, floor_i, part_s, part_i, counters,
+                              out_s, out_i, W, sh, st);
 }
 
 // Resident table [U, M, 256]; keys int32 [W·TQ] (the slots' table rows,
 // sorted, stable) with order int64 [W·TQ] (their slot indices w·TQ + t);
-// codes uint8 [W, TV, M], valid uint8 [W, TV]; out [W, TQ, k]. P slots a
-// block (<= 128), g warps a slot (1 or 8). M up to where 8 LUT subspaces fit
+// codes uint8 [W, TV, M], valid uint8 [W, TV]; floor_s f32 / floor_i int32
+// [W, TQ] or both null (the first pass); out [W, TQ, k]. P slots a block
+// (<= 128), g warps a slot (1 or 8). M up to where 8 LUT subspaces fit
 // beside the rings (lutst::lut_slice).
 int lut_stationary_units_launch(const void* table, const void* keys, const void* order,
-                                const void* codes, const void* valid, void* out_s, void* out_i,
-                                int W, int TQ, int TV, int M, int U, int k, int P, int g,
-                                void* stream) {
-  if (k < 1 || k > 64 || k > TV || W < 1 || TQ < 1 || M < 1 || U < 1 || P < 1 ||
+                                const void* codes, const void* valid, const void* floor_s,
+                                const void* floor_i, void* out_s, void* out_i, int W, int TQ, int TV,
+                                int M, int U, int k, int P, int g, void* stream) {
+  if ((!floor_s) != (!floor_i) || k < 1 || k > 64 || k > TV || W < 1 || TQ < 1 || M < 1 || U < 1 || P < 1 ||
       P > lutst::kMaxRange || (g != 1 && g != lutst::kWarps) ||
       (long)W * TQ > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
@@ -915,29 +1062,62 @@ int lut_stationary_units_launch(const void* table, const void* keys, const void*
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int N = W * TQ;
   if (k <= 32)
-    return (int)lutst::launch_units<32>(table, keys, order, codes, valid, out_s, out_i, N, TQ, TV,
-                                        M, U, k, P, g, Ms, st);
-  return (int)lutst::launch_units<64>(table, keys, order, codes, valid, out_s, out_i, N, TQ, TV, M,
-                                      U, k, P, g, Ms, st);
+    return (int)lutst::launch_units<32>(table, keys, order, codes, valid, floor_s, floor_i, out_s, out_i,
+                                        N, TQ, TV, M, U, k, P, g, Ms, st);
+  return (int)lutst::launch_units<64>(table, keys, order, codes, valid, floor_s, floor_i, out_s, out_i, N,
+                                      TQ, TV, M, U, k, P, g, Ms, st);
 }
 
 // One query's LUT [M, 256] against codes uint8 [NV, M], valid uint8 [NV];
-// out [k]. G blocks; part [G, k] scratch; counter: one uint32, zeroed here
-// on the stream before the kernel.
-int lut_stationary_rows_launch(const void* lut, const void* codes, const void* valid, void* part_s,
-                               void* part_i, void* counter, void* out_s, void* out_i, int NV, int M,
-                               int k, int G, void* stream) {
-  if (k < 1 || k > 64 || k > NV || M < 1 || G < 1) return (int)cudaErrorInvalidValue;
+// floor_s f32 / floor_i int32 [1] or both null (the first pass); out [k]. G
+// blocks; part [G, k] scratch; counter: one uint32, zeroed here on the
+// stream before the kernel.
+int lut_stationary_rows_launch(const void* lut, const void* codes, const void* valid,
+                               const void* floor_s, const void* floor_i, void* part_s, void* part_i,
+                               void* counter, void* out_s, void* out_i, int NV, int M, int k, int G,
+                               void* stream) {
+  if (k < 1 || k > 64 || k > NV || M < 1 || G < 1 || (!floor_s) != (!floor_i))
+    return (int)cudaErrorInvalidValue;
   const int Ms = lutst::lut_slice(M);
   if (Ms < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return (int)err;
   if (k <= 32)
-    return (int)lutst::launch_rows<32>(lut, codes, valid, part_s, part_i, counter, out_s, out_i, NV,
-                                       M, k, G, Ms, st);
-  return (int)lutst::launch_rows<64>(lut, codes, valid, part_s, part_i, counter, out_s, out_i, NV, M,
-                                     k, G, Ms, st);
+    return (int)lutst::launch_rows<32>(lut, codes, valid, floor_s, floor_i, part_s, part_i, counter,
+                                       out_s, out_i, NV, M, k, G, Ms, st);
+  return (int)lutst::launch_rows<64>(lut, codes, valid, floor_s, floor_i, part_s, part_i, counter, out_s,
+                                     out_i, NV, M, k, G, Ms, st);
+}
+
+// The launch of adc_wide_m_launch for W·TQ slots: blocks, threads a block,
+// static shared bytes (kernels/pq_scan.py::wide_m_launch_shape).
+int adc_wide_m_shape(int W, int TQ, int* out) {
+  const long long blocks = ((long long)W * TQ + wide::kWarps - 1) / wide::kWarps;
+  if (W < 1 || TQ < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  out[0] = (int)blocks;
+  out[1] = wide::kWarps * 32;
+  out[2] = wide::kWarps * kSelectBuf * 8;
+  return 0;
+}
+
+// Any M (the three wrappers past MAX_M): LUTs f32, either a table [U, M,
+// 256] read through lut_idx int32 [W, TQ] (-1: no query) or expanded
+// [W, TQ, M, 256] with lut_idx null and n_live int32 [W] or null; codes
+// uint8 [W, TV, M], valid uint8 [W, TV]; floor_s f32 / floor_i int32
+// [W, TQ] or both null (the first pass); out [W, TQ, k], k <= 64.
+int adc_wide_m_launch(const void* lut, const void* lut_idx, int U, const void* n_live, const void* codes,
+                      const void* valid, const void* floor_s, const void* floor_i, void* out_s,
+                      void* out_i, int W, int TQ, int TV, int M, int k, void* stream) {
+  if (k < 1 || k > 64 || k > TV || W < 1 || TQ < 1 || M < 1 || (lut_idx && U < 1) ||
+      (!floor_s) != (!floor_i))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 32)
+    return (int)wide::launch<32>(lut, lut_idx, U, n_live, codes, valid, floor_s, floor_i, out_s, out_i,
+                                 W, TQ, TV, M, k, st);
+  return (int)wide::launch<64>(lut, lut_idx, U, n_live, codes, valid, floor_s, floor_i, out_s, out_i, W,
+                               TQ, TV, M, k, st);
 }
 
 }  // extern "C"

@@ -203,6 +203,16 @@ struct WarpTopK {
   }
 };
 
+// A later pass's floor (kernels/fused_knn.py::floor_passes): a list of more
+// than 64 entries is taken in passes of at most 64, and a pass admits only
+// candidates that rank strictly after the last entry of the pass before,
+// (fs, fi). Ranks are a strict total order, so the passes' lists laid end to
+// end are exactly the top-k, ties included. A floor whose index is -1 marks
+// a slot that the pass before left short: it admits nothing.
+__device__ __forceinline__ bool after_floor(float fs, int fi, float cs, int ci) {
+  return fi >= 0 && better(fs, fi, cs, ci);
+}
+
 // A warp's list plus its candidate buffer (bs/bi: kSelectBuf entries of
 // shared memory owned by the warp). Every member is warp-collective.
 template <int KL>
@@ -212,16 +222,35 @@ struct WarpSelect {
   int* bi;
   int k;
   int cnt;  // buffered entries (warp-uniform)
+  bool has_floor;  // a later pass: admit only what ranks after (fs, fi)
+  float fs;
+  int fi;
 
   __device__ __forceinline__ void reset() {
     top.init();
     cnt = 0;
+    has_floor = false;
+  }
+
+  // The floor of slot `slot` of a later pass (floor_s null: the first pass,
+  // no floor). Call after reset().
+  __device__ __forceinline__ void set_floor(const float* floor_s, const int* floor_i, size_t slot) {
+    has_floor = floor_s != nullptr;
+    if (has_floor) {
+      fs = floor_s[slot];
+      fi = floor_i[slot];
+    }
+  }
+
+  // Whether a candidate may enter this pass's list at all.
+  __device__ __forceinline__ bool admits(float cs, int ci) const {
+    return !has_floor || after_floor(fs, fi, cs, ci);
   }
 
   // Offer one candidate a lane (`ok` false: the lane has none). Returns
   // whether every candidate offered passed the filter.
   __device__ __forceinline__ bool offer(float cs, int ci, bool ok, int lane) {
-    const bool pass = ok && better(cs, ci, top.ks, top.ki);
+    const bool pass = ok && better(cs, ci, top.ks, top.ki) && admits(cs, ci);
     const unsigned mask = __ballot_sync(kFullMask, pass);
     const bool all = mask == __ballot_sync(kFullMask, ok);
     if (mask == 0) return all;

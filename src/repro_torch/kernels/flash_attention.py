@@ -5,10 +5,12 @@ grouped-query heads (the prefill hot path of the LM serving path).
 (f32 or bf16, one type) and returns ``[B, S, Hq, dh]`` in q's type. On a
 CUDA tensor it launches a kernel of ``csrc/flash_attention.cu`` (or raises):
 bf16 inputs the tensor-core kernel (wgmma products, K/V tiles through a TMA
-ring), f32 inputs the CUDA-core kernel. On a CPU tensor it runs the plain
-version, ``flash_attention_plain``.
-``launches`` on the wrapper counts kernel launches, ``calls`` on the plain
-version its calls.
+ring), f32 inputs the CUDA-core kernel; past ``MAX_HEAD_DIM`` both types
+the wide-dh kernel (``flash_attention_wide``: a warp per query row). On a
+CPU tensor it runs the plain version, ``flash_attention_plain``.
+``launches`` on the wrapper counts the tiled kernels' launches,
+``flash_attention_wide.launches`` the wide kernel's, and ``calls`` on the
+plain version its calls.
 
 Replaces (TPU): ``src/repro/kernels/flash_attention.py::flash_attention_pallas``;
 the plain version is the port of the chunked online softmax of
@@ -26,20 +28,37 @@ import torch
 from . import _build
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
-MAX_HEAD_DIM = 256  # widest compiled width of csrc/flash_attention.cu (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
+MAX_HEAD_DIM = 256  # widest compiled width of the tiled kernels (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
+# the wide kernel (csrc/flash_attention.cu): query rows (warps) a block, bytes of
+# its K and V tiles together, output columns a slice past 2048
+_WIDE_WARPS, _WIDE_KV_BYTES, _WIDE_SLICE = 8, 64 * 1024, 2048
 
 
-def check_kernel_limits(dh: int) -> None:
-    """Raise ``ValueError`` for a head width the CUDA kernels cannot take:
-    their tiles at the next width above 256 (512) would exceed the 227 KiB
-    of shared memory a block may hold (the f32 kernel's would need 289 KiB,
+def wide_head(dh: int) -> bool:
+    """Whether a head width takes the wide-dh kernel: the tiled kernels'
+    tiles at the next width above 256 (512) would exceed the 227 KiB of
+    shared memory a block may hold (the f32 kernel's would need 289 KiB,
     ``flash_smem_bytes``; the bf16 kernel's Q tile alone 128 KiB beside a
-    ring of two 128 KiB K/V stages, ``Smem``). The plain version, on the
-    CPU, has no limit."""
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"dh={dh}: the CUDA flash-attention kernel takes dh <= {MAX_HEAD_DIM} "
-                         "(wider tiles exceed the 227 KiB of shared memory a block may hold); "
-                         "run attention on the CPU")
+    ring of two 128 KiB K/V stages, ``Smem``)."""
+    return int(dh) > MAX_HEAD_DIM
+
+
+def wide_tile_keys(dh: int, elem_size: int) -> int:
+    """Keys a K/V tile of the wide kernel holds (mirrors ``wide_tile_keys``
+    in ``csrc/flash_attention.cu``): K and V together in 64 KiB, 1 to 32
+    keys (lane j of a warp keeps key j's logit)."""
+    return max(1, min(32, _WIDE_KV_BYTES // (2 * dh * elem_size)))
+
+
+def wide_launch_shape(b: int, s: int, hq: int, dh: int, elem_size: int) -> tuple[int, ...]:
+    """(grid x, y, z, threads, dynamic shared bytes, keys a tile) of the
+    wide kernel's launch (mirrors ``flash_attention_wide_shape``): a block of
+    ``_WIDE_WARPS`` query rows; y holds heads × output slices (one slice up
+    to dh 2048: 16, 32 or 64 columns a lane); K and V tiles of
+    ``wide_tile_keys`` keys each."""
+    cols = 32 * (16 if dh <= 512 else 32 if dh <= 1024 else _WIDE_SLICE // 32)
+    tk = wide_tile_keys(dh, elem_size)
+    return (-(-s // _WIDE_WARPS), hq * -(-dh // cols), b, _WIDE_WARPS * 32, 2 * tk * dh * elem_size, tk)
 
 
 def flash_attention_plain(
@@ -136,11 +155,12 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     B, S, Hq, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    check_kernel_limits(dh)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if q.numel() == 0 or T == 0:
         return torch.zeros_like(q)
+    if wide_head(dh):
+        return flash_attention_wide(q, k, v, causal=causal, window=window)
     bf16 = q.dtype == torch.bfloat16
     # The bf16 kernel reads q, k and v with TMA, whose row strides must be
     # multiples of 16 bytes: other widths are zero-padded to a multiple of 8
@@ -165,3 +185,29 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+) -> torch.Tensor:
+    """The wide-dh kernel (``flash_wide_kernel``), which ``flash_attention``
+    takes past ``MAX_HEAD_DIM`` after checking the operands (contiguous,
+    CUDA): a warp per (batch, query head, query row), K and V tiles staged
+    in shared memory for the block's rows, the online softmax in f32. Any
+    dh (past 2048 the output is taken in slices of 2048 columns)."""
+    B, S, Hq, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_wide_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, S, T, Hq, Hkv, dh, int(bool(causal)), int(window), dh**-0.5,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, rc, "flash_attention_wide")
+    flash_attention_wide.launches += 1
+    return o
+
+
+flash_attention_wide.launches = 0

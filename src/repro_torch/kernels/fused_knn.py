@@ -18,7 +18,8 @@ row asc), row indices local to the unit, ``(NEG_INF, -1)`` where no valid
 row fills a slot and on every slot that holds no query. A CUDA tensor
 launches the kernel (or the wrapper raises); a CPU tensor takes the plain
 version, ``fused_knn_plain``. ``launches`` on each wrapper counts kernel
-launches.
+launches. The kernels' lists hold ``MAX_K`` entries; a larger k is taken in
+``floor_passes``, one launch a pass.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 from . import _build
 from . import ref as _ref
 
-MAX_K = 64  # largest k the kernels' lists hold
+MAX_K = 64  # largest k one launch's lists hold: a larger k takes passes (floor_passes)
 SMEM_OPTIN_BYTES = 227 * 1024  # sm_90: most dynamic shared memory a block may opt into
 # kQB, kTR, kDC, kPass, kMinRangeTiles and kSplitTarget of csrc/fused_knn.cu:
 # query slots a block takes, rows a tile, elements of D a chunk, rows a
@@ -65,14 +66,40 @@ def scan_smem_bytes(d: int, k: int, elem_size: int = 4) -> int:
             + 2 * _QB * k * 8 + _PASS * 4 + (_QB + _TR) * 4 + (_QB + 16) * 4)
 
 
-def check_kernel_limits(k: int, d: int, tq: int) -> None:
-    """Raise ``ValueError`` for a problem the CUDA kernels cannot take: k above
-    ``MAX_K`` (the lists). Any d and any TQ run: rows are staged 64
-    elements at a time and a block takes 64 query slots at a time. The
-    plain version, on the CPU, has no limit."""
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the CUDA kernels take k <= {MAX_K}; use a smaller k "
-                         f"or an index on the CPU")
+def kernel_passes(k: int) -> int:
+    """Launches a scan kernel makes for a list of k: one per ``MAX_K``."""
+    return -(-int(k) // MAX_K)
+
+
+def floor_passes(k: int, run):
+    """A top-k list longer than the kernels' ``MAX_K`` as passes of at most
+    ``MAX_K`` entries. ``run(kp, floor)`` launches one pass of ``kp``
+    entries and returns its ``(scores f32 [..., kp], ids i32 [..., kp])``;
+    ``floor`` is None for the first pass, else ``(floor_s f32 [...],
+    floor_i i32 [...])``, the last entry of the pass before, past which the
+    kernel admits candidates (strictly after it under (score desc, index
+    asc)). A slot that pass left short has floor index -1: it is done, and
+    the kernel writes ``(NEG_INF, -1)`` there. Ranks are a strict total
+    order, so the passes laid end to end along k are exactly the top-k, ties
+    included. Returns ``(scores [..., k], ids [..., k])``."""
+    if k <= MAX_K:
+        return run(k, None)
+    parts_s, parts_i, floor = [], [], None
+    for k0 in range(0, k, MAX_K):
+        s, i = run(min(MAX_K, k - k0), floor)
+        parts_s.append(s)
+        parts_i.append(i)
+        floor = (s[..., -1].contiguous(), i[..., -1].contiguous())
+    return torch.cat(parts_s, dim=-1), torch.cat(parts_i, dim=-1)
+
+
+def live_after(floor_i: torch.Tensor) -> torch.Tensor:
+    """``n_live`` of a later pass (i32 [W]) from its floor ids [W, TQ]: one
+    past the last slot the pass before did not leave short (slots past
+    ``n_live`` are short too: they hold (NEG_INF, -1)), so the kernel reads
+    nothing for the units that are done."""
+    pos = torch.arange(1, floor_i.shape[1] + 1, dtype=torch.int32, device=floor_i.device)
+    return torch.where(floor_i >= 0, pos, 0).amax(dim=1).to(torch.int32)
 
 
 def fused_knn_plain(
@@ -114,23 +141,38 @@ def _check(q, v, valid, k: int, metric: str, n_live) -> None:
 
 
 def _launch(wrapper, entry: str, q, v, valid, k: int, metric: str, n_live):
-    """Check what the kernels take, allocate the outputs (and the split
-    grid's scratch), launch ``entry`` on the current stream and count the
-    launch on ``wrapper``."""
+    """Check what the kernels take, then launch ``entry`` once for each of
+    ``floor_passes``' passes (``_passes``)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_knn runs on cuda or cpu tensors, got {q.device}")
-    W, TQ, D = q.shape
-    TV = v.shape[1]
-    check_kernel_limits(k, D, TQ)
     tensors = (q, v, valid) if n_live is None else (q, v, valid, n_live)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, v, valid and n_live must be contiguous")
+    return _passes(wrapper, entry, q, v, valid, k, metric, n_live)
+
+
+def _passes(wrapper, entry: str, q, v, valid, k: int, metric: str, n_live):
+    """``floor_passes`` of ``entry``: a later pass reads only the units whose
+    slots the pass before did not leave short (``live_after``)."""
+    def run(kp, floor):
+        live = n_live if floor is None else live_after(floor[1])
+        return _launch_pass(wrapper, entry, q, v, valid, kp, metric, live, floor)
+
+    return floor_passes(k, run)
+
+
+def _launch_pass(wrapper, entry: str, q, v, valid, k: int, metric: str, n_live, floor):
+    """Allocate one pass's outputs (and the split grid's scratch), launch
+    ``entry`` on the current stream and count the launch on ``wrapper``."""
+    W, TQ, D = q.shape
+    TV = v.shape[1]
     out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=q.device)
     if out_s.numel() == 0:
         return out_s, out_i
     shape = (W, TQ, TV, D, k, int(metric == "l2"), int(q.dtype == torch.bfloat16))
-    head = (q.data_ptr(), v.data_ptr(), valid.data_ptr(), 0 if n_live is None else n_live.data_ptr())
+    head = (q.data_ptr(), v.data_ptr(), valid.data_ptr(), 0 if n_live is None else n_live.data_ptr(),
+            0 if floor is None else floor[0].data_ptr(), 0 if floor is None else floor[1].data_ptr())
     lib = _build.library("fused_knn")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

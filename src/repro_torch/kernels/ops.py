@@ -57,10 +57,16 @@ class DispatchStats:
         with self._lock:
             self.knn_calls += 1
             self.shapes.add(shape)
+        hook = _PROFILE_HOOK
+        if hook is not None:
+            hook("knn", shape)
 
     def record_merge(self) -> None:
         with self._lock:
             self.merge_calls += 1
+        hook = _PROFILE_HOOK
+        if hook is not None:
+            hook("merge", None)
 
     def record_candidate_bytes(self, nbytes: int) -> None:
         with self._lock:
@@ -115,6 +121,19 @@ def dispatch_stats() -> DispatchStats:
 
 def reset_dispatch_stats() -> None:
     _DISPATCH.reset()
+
+
+# Issue-level profiler hook (obs.profile): called as hook(kind, shape) on
+# every kernel dispatch and merge — "knn" with the problem shape, "merge"
+# with None — so the profiler can report attribution *coverage* (a dispatch
+# its plan-level sites did not attribute shows up as issued-but-unattributed).
+# One global load when disarmed; obs imports stay lazy from this side.
+_PROFILE_HOOK = None
+
+
+def set_profile_hook(cb) -> None:
+    global _PROFILE_HOOK
+    _PROFILE_HOOK = cb
 
 
 def pairwise_scores(q: torch.Tensor, v: torch.Tensor, metric: str = "ip") -> torch.Tensor:

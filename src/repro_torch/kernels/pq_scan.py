@@ -21,6 +21,11 @@ shaped as the Pallas kernel it replaces (``repro.kernels.pq_scan``):
     rows split over about one block per SM, the blocks' lists merged by the
     last block in the same launch (the LUT-stationary kernel again).
 
+Past ``MAX_M`` subspaces (a LUT row and a ring no longer fit a block's
+shared memory) all three take ``adc_wide_m_kernel`` (``adc_wide_m``): a warp
+per live slot, the LUT row read through L2. A k′ above ``MAX_K`` is taken in
+``fused_knn.floor_passes``, one launch a pass.
+
 ``score[q, v] = Σ_m lut[q, m, code[v, m]]`` (summed in the order m = 0 …
 M-1, see ``ref.adc_scores_ref``), rows with ``valid`` false never
 candidates, ranks (score desc, row asc), ``(NEG_INF, -1)`` where no valid
@@ -39,7 +44,7 @@ import torch
 
 from . import _build
 from . import ref as _ref
-from .fused_knn import MAX_K, SMEM_OPTIN_BYTES
+from .fused_knn import SMEM_OPTIN_BYTES, floor_passes, live_after
 
 NBOOK = 256  # entries per PQ codebook (8-bit codes)
 # lutst::kWarps, kStages, kChunk, kMaxRange of csrc/pq_scan.cu, and topk.cuh's kSelectBuf
@@ -57,7 +62,8 @@ def adc_smem_bytes(m: int, slots: int, warps_per_slot: int, tile: int) -> int:
             + slots * warps_per_slot * _SELECT_BUF * 8 + 16)
 
 
-# widest M adc_slot_warps_kernel takes: one slot's LUT row, a ring of 32-row chunks, one warp
+# widest M adc_slot_warps_kernel takes (one slot's LUT row, a ring of 32-row chunks, one
+# warp) and the LUT-stationary kernels with it; past it all three take adc_wide_m_kernel
 MAX_M = max(m for m in range(1, 1024) if adc_smem_bytes(m, 1, 1, 1) <= SMEM_OPTIN_BYTES)
 
 
@@ -92,36 +98,10 @@ def lut_stationary_slice(m: int) -> int:
 WHOLE_ROW_MAX_M = max(m for m in range(1, 1024) if lut_stationary_slice(m) == m)
 
 
-def _check_k(k: int) -> None:
-    if k > MAX_K:
-        raise ValueError(f"k={k}: the ADC kernels take k <= {MAX_K} (with refine_factor, "
-                         f"k' = refine_factor·k); use a smaller k or refine_factor, or an "
-                         f"index on the CPU")
-
-
-def check_pq_kernel_limits(k: int, m: int) -> None:
-    """Raise ``ValueError`` for a problem ``adc_slot_warps_kernel`` (the dense
-    layout's ``workunit_pq_scan``) cannot take: k above ``MAX_K`` (warp
-    lists of 64), or M whose one LUT row and ring do not fit shared memory
-    (the widest is ``MAX_M``). The plain versions, on the CPU, have neither
-    limit."""
-    _check_k(k)
-    need = adc_smem_bytes(m, 1, 1, 1)
-    if need > SMEM_OPTIN_BYTES:
-        raise ValueError(f"M={m}: the dense-layout ADC kernel's LUT row and ring need {need} "
-                         f"bytes of shared memory, above {SMEM_OPTIN_BYTES} (the widest M "
-                         f"is {MAX_M}); use an index on the CPU")
-
-
-def check_lut_stationary_limits(k: int, m: int) -> None:
-    """Raise ``ValueError`` for a problem the LUT-stationary kernels
-    (``workunit_pq_scan_streamed``, ``pq_scan``) cannot take: k above
-    ``MAX_K`` (warp lists of 64), or M above ``MAX_M`` (the dense layout's
-    limit too; past ``WHOLE_ROW_MAX_M`` the LUT row is staged in slices)."""
-    _check_k(k)
-    if m > MAX_M:
-        raise ValueError(f"M={m}: the LUT-stationary ADC kernels take M <= {MAX_M}, as the "
-                         f"dense layout's; use an index on the CPU")
+def wide_m(m: int) -> bool:
+    """Whether M subspaces take ``adc_wide_m_kernel`` (past ``MAX_M``) in all
+    three wrappers, rather than the kernels that stage a LUT row."""
+    return int(m) > MAX_M
 
 
 # --------------------------------------------------- the units kernel's work
@@ -299,10 +279,28 @@ def workunit_pq_scan_streamed(
         return workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
     W, TQ = lut_idx.shape
     TV, M = codes.shape[1], codes.shape[2]
-    check_lut_stationary_limits(k, M)
     _check_launch("workunit_pq_scan_streamed", table, lut_idx, codes, valid)
     if table.shape[0] < 1:
         raise ValueError("workunit_pq_scan_streamed: the table has no row")
+    if wide_m(M):
+        return adc_wide_m(table, codes, valid, k=k, lut_idx=lut_idx)
+    return _units_passes(table, lut_idx, codes, valid, k)
+
+
+def _units_passes(table, lut_idx, codes, valid, k: int):
+    """The units kernel's ``floor_passes``: a slot the pass before left
+    short holds no query in the next (its index becomes -1)."""
+    def run(kp, floor):
+        idx = lut_idx if floor is None else torch.where(floor[1] >= 0, lut_idx, -1)
+        return _units_pass(table, idx, codes, valid, kp, floor)
+
+    return floor_passes(k, run)
+
+
+def _units_pass(table, lut_idx, codes, valid, k: int, floor):
+    """One launch of ``lut_stationary_units_kernel`` (k <= ``MAX_K``)."""
+    W, TQ = lut_idx.shape
+    TV, M = codes.shape[1], codes.shape[2]
     rows, order = slot_order(lut_idx)
     out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=codes.device)
     out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=codes.device)
@@ -310,8 +308,8 @@ def workunit_pq_scan_streamed(
     with _on(codes.device):
         rc = lib.lut_stationary_units_launch(
             table.data_ptr(), rows.data_ptr(), order.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, table.shape[0], k, *units_split(TV),
-            torch.cuda.current_stream(codes.device).cuda_stream,
+            *_floor_ptrs(floor), out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, table.shape[0],
+            k, *units_split(TV), torch.cuda.current_stream(codes.device).cuda_stream,
         )
     _build.check(lib, rc, "workunit_pq_scan_streamed")
     workunit_pq_scan_streamed.launches += 1
@@ -347,13 +345,31 @@ def workunit_pq_scan(
     if codes.device.type == "cpu":
         return workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
     TV, M = codes.shape[1], codes.shape[2]
-    check_pq_kernel_limits(k, M)
     _check_launch("workunit_pq_scan", luts, codes, valid, *(() if n_live is None else (n_live,)))
+    dev = codes.device
+    if W * TQ == 0:
+        return (torch.empty((W, TQ, k), dtype=torch.float32, device=dev),
+                torch.empty((W, TQ, k), dtype=torch.int32, device=dev))
+    if wide_m(M):
+        return adc_wide_m(luts, codes, valid, k=k, n_live=n_live)
+    return _dense_passes(luts, codes, valid, n_live, k)
+
+
+def _dense_passes(luts, codes, valid, n_live, k: int):
+    """``adc_slot_warps_kernel``'s ``floor_passes``: a later pass reads only
+    the units whose slots the pass before did not leave short
+    (``live_after``)."""
+    return floor_passes(k, lambda kp, floor: _dense_pass(
+        luts, codes, valid, n_live if floor is None else live_after(floor[1]), kp, floor))
+
+
+def _dense_pass(luts, codes, valid, n_live, k: int, floor):
+    """One launch of ``adc_slot_warps_kernel`` (k <= ``MAX_K``)."""
+    W, TQ = luts.shape[:2]
+    TV, M = codes.shape[1], codes.shape[2]
     dev = codes.device
     out = torch.empty((2, W, TQ, k), dtype=torch.int32, device=dev)  # scores' bits, then ids
     out_s, out_i = out[0].view(torch.float32), out[1]
-    if out.numel() == 0:
-        return out_s, out_i
     words = launch_shape(W, TQ, TV, M, k)[5]
     # where rows split over blocks: the ranges' lists and a counter per (unit, slot group)
     scratch = torch.empty((words,), dtype=torch.int32, device=dev) if words else None
@@ -361,8 +377,9 @@ def workunit_pq_scan(
     with _on(dev):
         rc = lib.adc_scan_launch(
             luts.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-            0 if n_live is None else n_live.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, k, torch.cuda.current_stream(dev).cuda_stream,
+            0 if n_live is None else n_live.data_ptr(), *_floor_ptrs(floor),
+            0 if scratch is None else scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            W, TQ, TV, M, k, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "workunit_pq_scan")
     workunit_pq_scan.launches += 1
@@ -390,8 +407,23 @@ def pq_scan(
     if codes.device.type == "cpu":
         return pq_scan_plain(lut, codes, valid, k=k)
     nv, M = codes.shape
-    check_lut_stationary_limits(k, M)
     _check_launch("pq_scan", lut, codes, valid)
+    if wide_m(M):
+        s, i = adc_wide_m(lut[None, None], codes[None], valid[None], k=k)
+        return s[0, 0], i[0, 0]
+    return _rows_passes(lut, codes, valid, k)
+
+
+def _rows_passes(lut, codes, valid, k: int):
+    """``lut_stationary_rows_kernel``'s ``floor_passes`` (one query)."""
+    return floor_passes(k, lambda kp, floor: _rows_pass(lut, codes, valid, kp, floor))
+
+
+def _rows_pass(lut, codes, valid, k: int, floor):
+    """One launch of ``lut_stationary_rows_kernel`` (k <= ``MAX_K``); with a
+    floor whose index is -1 the kernel reads nothing and writes
+    ``(NEG_INF, -1)``."""
+    nv, M = codes.shape
     dev = codes.device
     G = row_blocks(nv, _sm_count(dev.index))
     # one allocation (int32 words): the output's scores and ids, the blocks'
@@ -403,8 +435,9 @@ def pq_scan(
     lib = _build.library("pq_scan")
     with _on(dev):
         rc = lib.lut_stationary_rows_launch(
-            lut.data_ptr(), codes.data_ptr(), valid.data_ptr(), base + 8 * k, base + 8 * k + 4 * G * k,
-            base + 8 * (G + 1) * k, base, base + 4 * k, nv, M, k, G, torch.cuda.current_stream(dev).cuda_stream,
+            lut.data_ptr(), codes.data_ptr(), valid.data_ptr(), *_floor_ptrs(floor),
+            base + 8 * k, base + 8 * k + 4 * G * k, base + 8 * (G + 1) * k, base, base + 4 * k,
+            nv, M, k, G, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "pq_scan")
     pq_scan.launches += 1
@@ -412,3 +445,59 @@ def pq_scan(
 
 
 pq_scan.launches = 0
+
+
+_WIDE_WARPS = 4  # wide::kWarps of csrc/pq_scan.cu: slots a block, a warp each
+
+
+def wide_m_launch_shape(w: int, tq: int) -> tuple[int, int, int]:
+    """(blocks, threads, static shared bytes) of ``adc_wide_m_kernel`` for W·TQ
+    slots (mirrors ``adc_wide_m_shape``): a warp a slot, four a block, each
+    warp's candidate buffer of ``kSelectBuf`` entries in shared memory."""
+    return -(-w * tq // _WIDE_WARPS), _WIDE_WARPS * 32, _WIDE_WARPS * _SELECT_BUF * 8
+
+
+def _floor_ptrs(floor) -> tuple:
+    """(floor_s, floor_i) device pointers of a later pass, (0, 0) for the first."""
+    return (0, 0) if floor is None else (floor[0].data_ptr(), floor[1].data_ptr())
+
+
+def adc_wide_m(
+    lut: torch.Tensor,  # f32 [U, M, 256] with lut_idx, else [W, TQ, M, 256]
+    codes: torch.Tensor,  # uint8 [W, TV, M]
+    valid: torch.Tensor,  # bool [W, TV]
+    *,
+    k: int,
+    lut_idx: torch.Tensor | None = None,  # i32 [W, TQ] rows of the table (-1: no query)
+    n_live: torch.Tensor | None = None,  # i32 [W]: real slots per unit (expanded LUTs only)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``adc_wide_m_kernel``, which the three wrappers take past ``MAX_M``
+    (they check the operands): a warp per live slot, its LUT row read
+    through L2, bit-equal to the plain versions. One launch per pass of
+    ``floor_passes``; ``launches`` counts them."""
+    return floor_passes(int(k), lambda kp, floor: _wide_pass(lut, lut_idx, n_live, codes, valid, kp,
+                                                             floor))
+
+
+def _wide_pass(lut, lut_idx, n_live, codes, valid, k: int, floor):
+    """One launch of ``adc_wide_m_kernel`` (k <= ``MAX_K``); a slot whose
+    floor index is -1 reads nothing and is written ``(NEG_INF, -1)``."""
+    W, TV, M = codes.shape
+    TQ = lut_idx.shape[1] if lut_idx is not None else lut.shape[1]
+    dev = codes.device
+    out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=dev)
+    lib = _build.library("pq_scan")
+    with _on(dev):
+        rc = lib.adc_wide_m_launch(
+            lut.data_ptr(), 0 if lut_idx is None else lut_idx.data_ptr(), lut.shape[0],
+            0 if n_live is None else n_live.data_ptr(), codes.data_ptr(), valid.data_ptr(),
+            *_floor_ptrs(floor), out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, rc, "adc_wide_m")
+    adc_wide_m.launches += 1
+    return out_s, out_i
+
+
+adc_wide_m.launches = 0

@@ -1,4 +1,5 @@
-"""Observability: the span tracer, the metrics registry, the drift monitor.
+"""Observability: tracing, metrics, drift, the dispatch profiler, the
+flight recorder.
 
   * ``obs.trace`` — process-wide span tracer exporting Chrome-trace JSON
     (Perfetto-loadable); disabled by default via a free ``NullTracer``.
@@ -7,12 +8,24 @@
     declarative ``Objective`` SLOs evaluated against registry instruments.
   * ``obs.drift`` — sliding-window workload monitor emitting the
     ``DriftReport`` a hot-swap index tuner consumes.
+  * ``obs.profile`` — kernel-grained dispatch profiler attributing device
+    time to plan-derived bytes/FLOPs against ``launch.roofline`` hardware
+    terms; disabled by default via a free ``NullProfiler``.
+  * ``obs.flight`` — always-on bounded flight recorder dumping atomic
+    postmortem incident bundles when declarative trigger rules fire.
 
-The dispatch profiler and the flight recorder wait for their item
-(ROADMAP.md §1, ``obs/profile.py``). This package is imported by hot
-serving paths: numpy at module level only; the engine loads lazily.
+This package is imported by hot serving paths: numpy at module level only;
+torch and the engine load lazily inside functions.
 """
 from .drift import DriftConfig, DriftMonitor, DriftReport
+from .flight import (
+    FlightRecorder,
+    FlightSample,
+    TriggerRule,
+    default_rules,
+    slo_rule,
+    validate_incident_bundle,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -21,6 +34,14 @@ from .metrics import (
     Objective,
     get_registry,
     set_registry,
+)
+from .profile import (
+    KernelProfiler,
+    NullProfiler,
+    disable_profiler,
+    enable_profiler,
+    get_profiler,
+    set_profiler,
 )
 from .trace import (
     NullTracer,
@@ -39,6 +60,12 @@ __all__ = [
     "DriftConfig",
     "DriftMonitor",
     "DriftReport",
+    "FlightRecorder",
+    "FlightSample",
+    "TriggerRule",
+    "default_rules",
+    "slo_rule",
+    "validate_incident_bundle",
     "Counter",
     "Gauge",
     "Histogram",
@@ -46,6 +73,12 @@ __all__ = [
     "Objective",
     "get_registry",
     "set_registry",
+    "KernelProfiler",
+    "NullProfiler",
+    "disable_profiler",
+    "enable_profiler",
+    "get_profiler",
+    "set_profiler",
     "NullTracer",
     "Tracer",
     "disable",

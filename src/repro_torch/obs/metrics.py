@@ -14,7 +14,9 @@ guard, or the drift tuner) could read. The registry unifies them:
     ``snapshot()``/``to_json()`` read path without duplicating their state.
 
 The default registry (``get_registry``) ships with the kernel dispatch
-counter pre-attached under ``"dispatch"``. Standard histogram names recorded
+counter pre-attached under ``"dispatch"``; ``obs.profile.enable_profiler``
+attaches the dispatch profiler's rollup under ``"profile"`` (and
+``disable_profiler`` detaches it). Standard histogram names recorded
 by the instrumented layers:
 
     wal.fsync_s                  fsync latency per group commit (seconds)

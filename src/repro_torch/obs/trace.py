@@ -19,7 +19,8 @@ Cost discipline: the default tracer is a ``NullTracer`` singleton whose
 ring-buffer traffic, nothing retained — so instrumentation left in hot paths
 is free until an operator calls ``enable()``. Device-time honesty: span
 bodies that launch asynchronous CUDA work call ``fence(...)`` before closing,
-which synchronizes the device ONLY when tracing is enabled, so dispatch
+which synchronizes the device ONLY when tracing (or the dispatch profiler,
+``obs.profile``) is enabled, so dispatch
 spans measure real device time without perturbing the untraced fast path.
 """
 from __future__ import annotations
@@ -340,16 +341,26 @@ def disable() -> None:
     set_tracer(_NULL)
 
 
+# The KernelProfiler needs fenced dispatch timings even when no tracer is
+# installed (profiling without the trace ring): obs.profile sets this hold
+# on enable so fence() still synchronizes for real device time.
+_FENCE_HOLD = False
+
+
+def _set_fence_hold(on: bool) -> None:
+    global _FENCE_HOLD
+    _FENCE_HOLD = bool(on)
+
+
 def fence(*tensors):
-    """``torch.cuda.synchronize()`` IFF tracing is enabled and a value lives on
-    a CUDA device.
+    """``torch.cuda.synchronize()`` IFF tracing or profiling is enabled and a
+    value lives on a CUDA device.
 
     Dispatch sites call this inside their span so the recorded duration is
-    real device time, not launch time; with the NullTracer installed it is a
-    no-op and the asynchronous stream is untouched. (The dispatch profiler's
-    fence hold returns with the port of ``obs/profile.py``.)
+    real device time, not launch time; with the NullTracer installed (and no
+    profiler) it is a no-op and the asynchronous stream is untouched.
     """
-    if _TRACER.enabled and any(getattr(t, "is_cuda", False) for t in tensors):
+    if (_TRACER.enabled or _FENCE_HOLD) and any(getattr(t, "is_cuda", False) for t in tensors):
         import torch
 
         torch.cuda.synchronize()

@@ -133,13 +133,11 @@ def test_rows_that_keep_no_key_are_zero():
 
 @pytest.mark.parametrize("dh,ok", [(16, True), (128, True), (256, True), (257, False), (512, False)])
 def test_kernel_head_width_limit(dh, ok):
-    """dh <= 256 fits the kernel's shared-memory tiles; beyond it the wrapper
-    raises before launch. The plain version has no limit."""
-    if ok:
-        fa.check_kernel_limits(dh)
-    else:
-        with pytest.raises(ValueError, match="dh"):
-            fa.check_kernel_limits(dh)
+    """dh <= 256 fits the tiled kernels' shared-memory tiles; beyond it the
+    wrapper takes the wide-dh kernel (``wide_head``), whose K/V tiles hold
+    1 to 32 keys in 64 KiB. The plain version has no limit."""
+    assert fa.wide_head(dh) != ok
+    assert 1 <= fa.wide_tile_keys(dh, 4) <= 32
     q, k, v = _t(*_qkv(1, 3, 1, 1, dh))
     assert fa.flash_attention(q, k, v).shape == q.shape
 

@@ -119,9 +119,13 @@ def test_ties_go_to_the_smallest_index(dev):
 
 @pytest.mark.cuda
 def test_rejects_what_the_kernels_do_not_take(dev):
+    """A k past the lists' MAX_K is taken in passes (it is no longer
+    refused); a non-contiguous input still is."""
     q, v, valid = _case(dev, 3, 2, 8, 128, 16)
-    with pytest.raises(ValueError, match="k <="):
-        fused_knn(q, v, valid, k=MAX_K + 1)
+    n0 = fused_knn.launches
+    got = fused_knn(q, v, valid, k=MAX_K + 1)
+    assert fused_knn.launches == n0 + 2
+    _check(got, fused_knn_plain(q, v, valid, k=MAX_K + 1), 1e-4)
     with pytest.raises(ValueError, match="contiguous"):
         fused_knn(q.transpose(1, 2).contiguous().transpose(1, 2), v, valid, k=4)
 
@@ -248,17 +252,21 @@ def test_wide_index_searches_on_the_card(dev):
 
 @pytest.mark.cuda
 def test_engine_names_the_kernel_limits(dev):
-    """k above MAX_K on a card index fails in the engine, before any launch,
-    with the limit named; the same index on the CPU answers it."""
+    """k above MAX_K on a card index runs the kernels in passes and answers
+    as the same index reloaded on the CPU (scores within 1e-4, equal id
+    sets)."""
     kg = kg_style(n=20_000, d=16, queries_per_split=40, seed=0)
     wl = dataclasses.replace(kg.splits[1], k=MAX_K + 1)
     index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(), device=dev)
     n0 = fused_knn.launches + fused_knn_db_stationary.launches
-    with pytest.raises(ValueError, match=f"k={MAX_K + 1}: the CUDA kernels take k <= {MAX_K}"):
-        index.search(wl, nprobe=8)
-    assert fused_knn.launches + fused_knn_db_stationary.launches == n0
+    got = index.search(wl, nprobe=8)
+    assert fused_knn.launches + fused_knn_db_stationary.launches > n0
     res = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
-    assert res.ids.shape == (wl.m, MAX_K + 1)
+    assert got.ids.shape == res.ids.shape == (wl.m, MAX_K + 1)
+    torch.testing.assert_close(torch.from_numpy(got.scores), torch.from_numpy(res.scores),
+                               rtol=1e-4, atol=1e-4)
+    for r in range(wl.m):
+        assert set(got.ids[r].tolist()) == set(res.ids[r].tolist())
 
 
 # ------------------------------------------------------------- ADC kernels
@@ -343,44 +351,37 @@ def test_adc_sparse_masks(dev, name):
 
 @pytest.mark.cuda
 def test_adc_limits(dev):
-    """k above MAX_K and an M whose LUT row overflows shared memory raise
-    before launch, naming the limit; the widest M runs and matches (the
-    LUT-stationary kernels and ``adc_slot_warps_kernel`` alike:
-    ``MAX_M``)."""
+    """k above MAX_K runs in two passes, bit-equal to the plain version; a
+    non-contiguous input raises before launch; the widest staged M
+    (``MAX_M``) and the next (``adc_wide_m_kernel``) both run and match bit
+    for bit."""
     table, lut_idx, codes, valid = _adc_case(dev, 6, 2, 8, 300, 8)
     n0 = adc.workunit_pq_scan_streamed.launches
-    with pytest.raises(ValueError, match=f"k={MAX_K + 1}"):
-        adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=MAX_K + 1)
+    got = adc.workunit_pq_scan_streamed(table, lut_idx, codes, valid, k=MAX_K + 1)
+    want = adc.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=MAX_K + 1)
+    assert adc.workunit_pq_scan_streamed.launches == n0 + 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError, match="contiguous"):
         adc.workunit_pq_scan_streamed(table, lut_idx.t().contiguous().t(), codes, valid, k=4)
-    assert adc.workunit_pq_scan_streamed.launches == n0
-    for name, widest in (("pq_scan", adc.MAX_M), ("workunit_pq_scan", adc.MAX_M)):
-        for M, fits in ((widest, True), (widest + 1, False)):
+    assert adc.workunit_pq_scan_streamed.launches == n0 + 2
+    for name in ("pq_scan", "workunit_pq_scan"):
+        for M in (adc.MAX_M, adc.MAX_M + 1):
             table, lut_idx, codes, valid = _adc_case(dev, 7, 1, 1, 500, M)
-            if fits:
-                got, want = _adc_run(name, table, lut_idx, codes, valid, 10)
-                _check(got, want, 1e-4)
-            else:
-                with pytest.raises(ValueError, match=f"M={M}"):
-                    _adc_run(name, table, lut_idx, codes, valid, 10)
+            (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, 10)
+            assert torch.equal(gs, ws) and torch.equal(gi, wi), (name, M)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["workunit_pq_scan_streamed", "pq_scan"])
 @pytest.mark.parametrize("delta", [-1, 0, 1])
 def test_lut_stationary_m_limit(dev, name, delta):
-    """M at the LUT-stationary limit ± 1: below and at it the kernel runs and
-    equals its plain version bit for bit; above it the wrapper raises before
-    any launch."""
+    """M at the LUT-stationary limit ± 1: below and at it the kernel runs,
+    above it ``adc_wide_m_kernel``; each launches once and equals the plain
+    version bit for bit."""
     M = adc.MAX_M + delta
     table, lut_idx, codes, valid = _adc_case(dev, 8 + delta, 3, 16, 200, M)
-    fn = getattr(adc, name)
+    fn = adc.adc_wide_m if delta > 0 else getattr(adc, name)
     n0 = fn.launches
-    if delta > 0:
-        with pytest.raises(ValueError, match=f"M={M}: the LUT-stationary"):
-            _adc_run(name, table, lut_idx, codes, valid, 10)
-        assert fn.launches == n0
-        return
     (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, 10)
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
@@ -568,25 +569,24 @@ def test_dense_adc_long_unit_is_one_launch(dev, W, TQ, TV, k):
 
 @pytest.mark.cuda
 def test_pq_engine_names_the_kernel_limits(dev):
-    """refine_factor=8 at k=10 asks the ADC kernel for k′ = 80: the engine
-    refuses before any launch, naming the limit; the default k′ = 40 runs
-    through the resident-LUT kernel and the re-rank grid, and agrees with
-    the same index searched on the CPU."""
+    """refine_factor=8 at k=10 asks the ADC kernel for k′ = 80: the resident
+    scan runs it in two passes a bucket that holds 80 rows, and the search
+    agrees with the same index searched on the CPU; so does the default
+    k′ = 40, through the resident-LUT kernel and the re-rank grid."""
     kg = kg_style(n=20_000, d=16, queries_per_split=60, seed=0)
     wl = kg.splits[1]
     index = HQIIndex.build(kg.db, kg.splits[0], HQIConfig(scan_mode="pq", pq_m=4), device=dev)
-    n0 = adc.workunit_pq_scan_streamed.launches
-    with pytest.raises(ValueError, match="k=80: the ADC kernels take k <= 64"):
-        index.search(wl, nprobe=8, refine_factor=8)
-    assert adc.workunit_pq_scan_streamed.launches == n0
-    r0 = fused_knn_db_stationary.launches
-    a = index.search(wl, nprobe=8)
-    assert adc.workunit_pq_scan_streamed.launches > n0 and fused_knn_db_stationary.launches > r0
-    b = HQIIndex.from_state(index.to_state(), device="cpu").search(wl, nprobe=8)
-    torch.testing.assert_close(torch.from_numpy(a.scores), torch.from_numpy(b.scores),
-                               rtol=1e-4, atol=1e-4)
-    for ra, rb in zip(a.ids, b.ids):
-        assert set(ra[ra >= 0].tolist()) == set(rb[rb >= 0].tolist())
+    cpu = HQIIndex.from_state(index.to_state(), device="cpu")
+    for rf in (8, 4):
+        n0 = adc.workunit_pq_scan_streamed.launches
+        r0 = fused_knn_db_stationary.launches
+        a = index.search(wl, nprobe=8, refine_factor=rf)
+        assert adc.workunit_pq_scan_streamed.launches > n0 and fused_knn_db_stationary.launches > r0
+        b = cpu.search(wl, nprobe=8, refine_factor=rf)
+        torch.testing.assert_close(torch.from_numpy(a.scores), torch.from_numpy(b.scores),
+                                   rtol=1e-4, atol=1e-4)
+        for ra, rb in zip(a.ids, b.ids):
+            assert set(ra[ra >= 0].tolist()) == set(rb[rb >= 0].tolist())
 
 
 # --------------------------------------------------------- flash attention
@@ -649,6 +649,43 @@ def test_flash_attention_matches_plain(dev, dtype, rtol, atol, b, s, t, hq, hkv,
     assert diff <= rtol / 2 * torch.linalg.vector_norm(want.float())
 
 
+def _attn_close(got, want):
+    """ATTN_TOL of chip_smoke.py for the output's type: elementwise rtol/atol
+    and a limit on the relative error of the whole output."""
+    rtol, atol, rel = {torch.bfloat16: (2e-2, 2e-3, 1e-2), torch.float32: (1e-4, 1e-4, 5e-5)}[got.dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    diff = torch.linalg.vector_norm(got.float() - want.float())
+    assert diff <= rel * torch.linalg.vector_norm(want.float())
+
+
+WIDE_ATTN = [
+    # b, s, t, hq, hkv, dh, causal, window
+    (1, 200, 200, 4, 2, 288, True, 0),  # a lane holds 9 columns of 16
+    (1, 300, 300, 2, 1, 512, True, 100),  # the widest single-register build, windowed
+    (2, 70, 70, 2, 2, 640, False, 0),  # 32 columns a lane, not causal
+    (1, 40, 100, 4, 2, 320, True, 0),  # S < T (left-aligned rows)
+    (1, 90, 30, 2, 1, 384, False, 8),  # S > T: late rows keep no key and return 0
+    (1, 50, 50, 2, 1, 2100, True, 0),  # past 2048: two output slices, q read through L1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", WIDE_ATTN)
+def test_flash_attention_wide_head(dev, dtype, b, s, t, hq, hkv, dh, causal, window):
+    """Head widths past 256 take the wide-dh kernel (a warp per query row):
+    one launch of it, none of the tiled kernels, within ATTN_TOL of the
+    plain version."""
+    q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, dtype, t)
+    n0, w0 = fa.flash_attention.launches, fa.flash_attention_wide.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_wide.launches == w0 + 1 and fa.flash_attention.launches == n0
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_close(got, fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+
+
 @pytest.mark.cuda
 def test_flash_attention_misaligned_bf16_base(dev):
     """Contiguous bf16 views whose bases are not 16-byte aligned (TMA needs
@@ -672,12 +709,14 @@ def test_flash_attention_misaligned_bf16_base(dev):
 
 @pytest.mark.cuda
 def test_flash_attention_limits(dev):
-    """dh beyond the tiles raises before launch, naming the limit; so does a
-    non-contiguous input."""
-    n0 = fa.flash_attention.launches
+    """dh beyond the tiles takes the wide-dh kernel (one launch, within
+    ATTN_TOL of the plain version); a non-contiguous input raises before
+    launch."""
+    n0, w0 = fa.flash_attention.launches, fa.flash_attention_wide.launches
     q, k, v = _attn_case(dev, 1, 1, 16, 2, 1, 257, torch.bfloat16)
-    with pytest.raises(ValueError, match="dh=257"):
-        fa.flash_attention(q, k, v)
+    got = fa.flash_attention(q, k, v)
+    assert fa.flash_attention_wide.launches == w0 + 1
+    _attn_close(got, fa.flash_attention_plain(q, k, v))
     q, k, v = _attn_case(dev, 2, 1, 16, 2, 1, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
@@ -789,3 +828,83 @@ def test_store_durability_and_evolution_on_the_card(dev, tmp_path):
     assert row["evolution"]["queries_during_tune"] == 500
     assert row["chaos"]["ok"] and row["chaos"]["killed_writer_acks"] > 0
     assert not list(tmp_path.iterdir())  # the store is gone
+
+
+# ------------------------------------------------- k' past 64 and M past 190
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("k", [65, 80, 128, 400])
+@pytest.mark.parametrize("W,TQ,TV", [(16, 64, 512), (64, 1, 420)])
+def test_fused_knn_floor_passes(dev, grid, k, W, TQ, TV):
+    """k past MAX_K: ceil(k / 64) launches, each admitting what ranks after
+    the pass before; the lists laid end to end equal the plain version's
+    top-k (1e-4, ids equal where untied), ragged n_live and units short of
+    k valid rows included (TQ 1 is the re-rank's unit-warps kernel)."""
+    q, v, valid = _case(dev, k + TQ, W, TQ, TV, 64, density=0.5)
+    valid[:2, 40:] = False  # two units come up short in the first pass
+    n_live = torch.randint(0, TQ + 1, (W,), device=dev, dtype=torch.int32)
+    fn = GRIDS[grid]
+    n0 = fn.launches
+    got = fn(q, v, valid, k=k, n_live=n_live)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + -(-k // MAX_K)
+    _check(got, fused_knn_plain(q, v, valid, k=k, n_live=n_live), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ADC)
+@pytest.mark.parametrize("k", [65, 80, 128, 400])
+def test_adc_floor_passes(dev, name, k):
+    """The three ADC wrappers at k′ past 64: one launch a pass of 64, bit-equal
+    to the plain version, padding slots and short units included."""
+    W, TQ, TV = (1, 1, 5000) if name == "pq_scan" else (32, 64, 600)
+    table, lut_idx, codes, valid = _adc_case(dev, k, W, TQ, TV, 8, density=0.5)
+    valid[:2, 100:] = False
+    fn = getattr(adc, name)
+    n0 = fn.launches
+    (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, k)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + -(-k // MAX_K)
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ADC)
+@pytest.mark.parametrize("M", [191, 256, 384, 768])
+@pytest.mark.parametrize("k", [10, 80])
+def test_adc_wide_m(dev, name, M, k):
+    """M past MAX_M: all three wrappers take adc_wide_m_kernel (a warp per
+    live slot, the LUT row through L2), bit-equal to the plain version; k′
+    80 in two passes."""
+    W, TQ, TV = (1, 1, 3000) if name == "pq_scan" else (8, 16, 300)
+    table, lut_idx, codes, valid = _adc_case(dev, M + k, W, TQ, TV, M, U=40)
+    n0, f0 = adc.adc_wide_m.launches, getattr(adc, name).launches
+    (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, k)
+    torch.cuda.synchronize()
+    assert adc.adc_wide_m.launches == n0 + -(-k // MAX_K)
+    assert getattr(adc, name).launches == f0
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+def test_wide_launch_shapes_match_the_c_entries(dev):
+    """The Python copies of the two new kernels' launch shapes
+    (``flash_attention.wide_launch_shape``, ``pq_scan.wide_m_launch_shape``,
+    which the CPU tests check) equal what the C entries compute."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("flash_attention")
+    out = (ctypes.c_int * 6)()
+    for dh in (257, 288, 512, 640, 1025, 2048, 2100, 16384):
+        for bf16 in (0, 1):
+            assert lib.flash_attention_wide_shape(2, 100, 32, dh, bf16, ctypes.cast(out, ctypes.c_void_p)) == 0
+            assert tuple(out) == fa.wide_launch_shape(2, 100, 32, dh, 2 if bf16 else 4), (dh, bf16)
+    lib = _build.library("pq_scan")
+    out3 = (ctypes.c_int * 3)()
+    for w, tq in ((1, 1), (3, 5), (4096, 64)):
+        assert lib.adc_wide_m_shape(w, tq, ctypes.cast(out3, ctypes.c_void_p)) == 0
+        assert tuple(out3) == adc.wide_m_launch_shape(w, tq)

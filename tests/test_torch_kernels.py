@@ -22,10 +22,10 @@ from repro_torch.core import kmeans
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused_knn import (
     MAX_K,
-    check_kernel_limits,
     fused_knn,
     fused_knn_db_stationary,
     fused_knn_plain,
+    kernel_passes,
 )
 
 SWEEP = [(5, 300, 32, 4), (130, 1000, 64, 10), (1, 7, 8, 3), (257, 129, 16, 5)]
@@ -247,19 +247,16 @@ def test_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.parametrize(
-    "k,d,tq,fits",
-    [(10, 64, 64, True), (MAX_K, 453, 64, True), (MAX_K + 1, 64, 64, False),
-     (10, 454, 64, True), (10, 768, 64, True), (10, 1024, 64, True)],
+    "k,d,tq,passes",
+    [(10, 64, 64, 1), (MAX_K, 453, 64, 1), (MAX_K + 1, 64, 64, 2),
+     (10, 454, 64, 1), (10, 768, 64, 1), (10, 1024, 64, 1), (400, 64, 1, 7)],
 )
-def test_kernel_limits(k, d, tq, fits):
-    """The CUDA kernels' one limit (k, the register lists) is checked before
-    launch; any d fits, since D is staged in 64-element chunks. The plain
-    version on the CPU has no limit."""
-    if fits:
-        check_kernel_limits(k, d, tq)
-    else:
-        with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"d={d}"):
-            check_kernel_limits(k, d, tq)
+def test_kernel_limits(k, d, tq, passes):
+    """The CUDA kernels take every k, d and TQ: D is staged in 64-element
+    chunks, and a k above the lists' ``MAX_K`` takes ``kernel_passes(k)``
+    launches of at most ``MAX_K`` entries (``floor_passes``). The plain
+    version on the CPU answers the same shapes in one call."""
+    assert kernel_passes(k) == passes
     q = torch.zeros((1, tq, d))
     v = torch.zeros((1, k + 1, d))
     s, i = fused_knn(q, v, torch.ones((1, k + 1), dtype=torch.bool), k=k)

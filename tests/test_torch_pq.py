@@ -61,8 +61,6 @@ from repro_torch.kernels.pq_scan import (
     NBOOK,
     MAX_M,
     WHOLE_ROW_MAX_M,
-    check_lut_stationary_limits,
-    check_pq_kernel_limits,
     lut_stationary_slice,
     lut_stationary_smem_bytes,
     pq_scan,
@@ -73,6 +71,7 @@ from repro_torch.kernels.pq_scan import (
     workunit_pq_scan,
     workunit_pq_scan_plain,
     workunit_pq_scan_streamed,
+    wide_m,
     workunit_pq_scan_streamed_plain,
 )
 
@@ -268,34 +267,34 @@ def test_wrappers_reject_bad_inputs():
 
 @pytest.mark.parametrize(
     "k,m,fits",
-    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, False), (80, 8, False),
+    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, True), (80, 8, True),
      (10, MAX_M, True), (10, MAX_M + 1, False), (10, 181, True)],
 )
 def test_pq_kernel_limits(k, m, fits):
-    """The dense-layout ADC kernel's limits (k through the warp lists, M
-    through one slot's LUT row and the ring in shared memory) are checked
-    before launch, naming the limit."""
-    if fits:
-        check_pq_kernel_limits(k, m)
-    else:
-        with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}"):
-            check_pq_kernel_limits(k, m)
+    """The dense-layout ADC kernel takes every k (past ``MAX_K`` in
+    passes) and every M whose LUT row and ring fit shared memory (``fits``:
+    up to ``MAX_M``); past it ``wide_m`` sends the shape to
+    ``adc_wide_m_kernel``, whose plain version is the same."""
+    assert wide_m(m) != fits
+    rng = np.random.default_rng(k + m)
+    lut = torch.from_numpy(rng.normal(size=(1, 2, m, NBOOK)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, NBOOK, size=(1, k + 3, m)).astype(np.uint8))
+    s, i = workunit_pq_scan(lut, codes, torch.ones((1, k + 3), dtype=torch.bool), k=k)
+    assert s.shape == i.shape == (1, 2, k)
 
 
 @pytest.mark.parametrize(
     "k,m,fits",
-    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, False), (10, MAX_M, True),
+    [(40, 8, True), (MAX_K, 16, True), (MAX_K + 1, 8, True), (10, MAX_M, True),
      (10, MAX_M + 1, False)],
 )
 def test_lut_stationary_limits(k, m, fits):
-    """The LUT-stationary kernels' limits: k through the warp lists, M up to
-    the dense layout's kernel's ``MAX_M`` (past ``WHOLE_ROW_MAX_M`` the LUT
-    row passes in slices); above it the check names the limit."""
-    if fits:
-        check_lut_stationary_limits(k, m)
-    else:
-        with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}: the LUT-stationary"):
-            check_lut_stationary_limits(k, m)
+    """The LUT-stationary kernels take every k (past ``MAX_K`` in passes)
+    and M up to the dense layout's kernel's ``MAX_M`` (past
+    ``WHOLE_ROW_MAX_M`` the LUT row passes in slices); past it they hand
+    the shape to ``adc_wide_m_kernel`` (``wide_m``)."""
+    assert wide_m(m) != fits
+    assert not fits or lut_stationary_slice(m) >= 8
 
 
 @pytest.mark.parametrize("m", [8, 96, WHOLE_ROW_MAX_M, WHOLE_ROW_MAX_M + 1, 128, 181, MAX_M])

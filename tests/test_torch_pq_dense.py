@@ -33,7 +33,7 @@ from repro_torch.kernels.fused_knn import MAX_K, SMEM_OPTIN_BYTES
 from repro_torch.kernels.pq_scan import (
     MAX_M,
     adc_smem_bytes,
-    check_pq_kernel_limits,
+    wide_m,
     workunit_pq_scan,
     workunit_pq_scan_plain,
 )
@@ -332,16 +332,14 @@ def test_adc_split(w, tq, tv, want):
 
 @pytest.mark.parametrize(
     "k,m,fits",
-    [(40, 8, True), (MAX_K, 181, True), (MAX_K + 1, 8, False), (10, MAX_M, True),
+    [(40, 8, True), (MAX_K, 181, True), (MAX_K + 1, 8, True), (10, MAX_M, True),
      (10, MAX_M + 1, False)],
 )
 def test_max_m_keeps_every_m_that_ran(k, m, fits):
     """``MAX_M`` (one slot's LUT row, a ring and one warp) is at least 181,
-    the widest M the dense layout's kernel took before; past it the check
-    names the limit."""
+    the widest M the dense layout's kernel took before, and it still takes
+    every M up to it at any k; past it the shape goes to
+    ``adc_wide_m_kernel`` (``wide_m``)."""
     assert MAX_M >= 181
-    if fits:
-        check_pq_kernel_limits(k, m)
-    else:
-        with pytest.raises(ValueError, match=f"k={k}" if k > MAX_K else f"M={m}: the dense-layout"):
-            check_pq_kernel_limits(k, m)
+    assert (adc_smem_bytes(m, 1, 1, 1) <= SMEM_OPTIN_BYTES) == fits
+    assert wide_m(m) != fits
