@@ -10,11 +10,12 @@
    l2, f32 and bf16, valid density 0.7; D 768 (f32, ip and l2); ``n_live``
    of 0, 1, ragged and every slot at TV 128 and 1024 (slots past it
    (NEG_INF, -1)); the PQ re-rank's units of one query [16384, 1, 40] with a
-   padding tail; plus all-invalid and k above the valid count; scores within
-   rtol/atol 1e-4 (f32) or 2e-2 (bf16), ids equal wherever scores are
-   untied; kernel, plain version and the yardstick (``torch.matmul`` +
-   masked ``torch.topk``) timed with CUDA events (median of 25) beside each
-   shape's bound;
+   padding tail; plus all-invalid and k above the valid count; bit-equal to
+   the plain version in f32 and bf16 (its scores are the kernels' fmaf
+   chains, ``ref.kernel_order_scores``); kernel, plain version and the
+   yardstick (``torch.matmul`` + masked ``torch.topk``) timed with CUDA
+   events (median of 25; the plain version, a loop over D in fp64, of 3)
+   beside each shape's bound;
 3. the main path at real size: ``kg_style(n=1_000_000, d=64,
    queries_per_split=10_000)``, ``HQIIndex.build`` on the card, then
    ``search(nprobe=8)`` (once cold, three times warm); the kernels' launch
@@ -116,10 +117,11 @@
    kernel at [4096, 64, 64, M, 40] with a quarter of the slots real and
    ``pq_scan`` at NV 10^5, bit-equal, each beside its bound (a call and the
    launch alone) and its plain version. Then the five scan kernels at k′ in
-   {65, 80, 128, 400} (and 64): ceil(k′ / 64) launches a call, ADC bit-equal,
-   f32 within 1e-4, each call timed with its passes; and ``adc_wide_m_kernel``
-   through all three wrappers at M in {191, 256, 384, 768}, bit-equal, beside
-   its bound and plain version;
+   {65, 80, 128, 400} (and 64): ceil(k′ / 64) launches a call, every one
+   bit-equal, each call timed with its passes; and ``adc_wide_m_kernel`` (a
+   LUT row's slices staged once for a tile of rows) through all three
+   wrappers at M in {191, 256, 384, 768}, bit-equal, a call and the launch
+   alone beside its bytes bound, its lookup bound and its plain version;
 6. the compressed (PQ) path at real size: the same data and workload,
    ``HQIConfig(scan_mode="pq")`` built on the card, ``search(nprobe=8)``
    once cold and three times warm; counters zeroed before the last search:
@@ -166,10 +168,12 @@
    adds P's bf16 remainder on tiles whose rows have few effective keys,
    where one rounding could move a near-zero output past atol; the outputs'
    own bf16 rounding (one ulp, at most 2^-7 of |o|) is the rest, which rtol
-   covers. Then the wide-dh kernel at dh in {288, 512}, S = T = 2048, 8/4
-   heads, causal, window 0 and 1024, bf16 and f32, and its path: the reduced
-   gemma3 at head width 512 served on the card (one wide launch per prefill
-   layer) and the CPU (the same tokens, logits within 2e-3). Kernel, plain
+   covers. Then the wide kernels (bf16 up to 512 on wgmma, else the sliced
+   CUDA-core kernel; O in column slices) at dh in {288, 512, 1024}, S = T =
+   2048, 8/4 heads, causal, window 0 and 1024, bf16 and f32, and their
+   path: the reduced gemma3 at head width 512 served on the card (one wide
+   launch per prefill layer) and the CPU (the same tokens, logits within
+   2e-3). Kernel, plain
    version and ``scaled_dot_product_attention``
    (``enable_gqa``, the library yardstick) timed with CUDA events (median
    of 10; 3 at 32k) beside the bound: q, k, v, o bytes once over HBM, or
@@ -211,6 +215,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+# one 4-byte shared-memory read a bank a clock: 32 banks, 132 SMs, 1.98 GHz boost
+SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, CUDA cores (no tensor cores)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 MAIN_ROWS, MAIN_QUERIES = 1_000_000, 10_000  # the main path's kg_style size
@@ -229,10 +235,10 @@ KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
            "workunit_pq_scan", "pq_scan", "flash_attention", "adc_wide_m", "flash_attention_wide")
 # the shapes the card once refused: k′ past the 64-entry lists (floor passes),
 # M past the staged ADC kernels' 190 (adc_wide_m_kernel), dh past 256
-# (flash_wide_kernel); the engine's k and refine_factor for them
+# (flash_attention_wide); the engine's k and refine_factor for them
 LIMIT_KPRIMES = (65, 80, 128, 400)
 WIDE_MS = (191, 256, 384, 768)
-WIDE_DHS = (288, 512)
+WIDE_DHS = (288, 512, 1024)
 ENGINE_K, ENGINE_REFINE = 100, 8
 # the LM serving phase: gemma3-27b at full width, depth cut 62 -> 12 (two 5:1 cycles)
 LM_LAYERS, LM_SLOTS, LM_NEW = 12, 4, 16
@@ -266,8 +272,10 @@ DESIGN = {
     "workunit_pq_scan_streamed": "redesigned: LUT-stationary, slots sorted by LUT row, warp select",
     "workunit_pq_scan": "redesigned: a warp per live slot, codes shared through a cp.async ring, one launch",
     "pq_scan": "redesigned: LUT-stationary, one launch, last block merges",
-    "adc_wide_m": "simple: a warp per live slot, the LUT row through L2, M past 190 in all three wrappers",
-    "flash_attention_wide": "simple: a warp per query row, K/V tiles in shared memory, dh past 256",
+    "adc_wide_m": "redesigned: a block owns a LUT row and a tile of rows, the row's slices staged once "
+                  "by cp.async, sums carried in registers; M past 190 in all three wrappers",
+    "flash_attention_wide": "redesigned: O in column slices, logits summed over dh in slices; bf16 to 512 "
+                            "on wgmma + TMA, else register-tiled CUDA cores; dh past 256",
 }
 NEG_INF = -3.4e38
 PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
@@ -448,6 +456,8 @@ def phase_kernels(rec: dict, max_err: dict) -> None:
         for name, fn in kernels.items():
             got = fn(q, v, valid, **kw)
             torch.cuda.synchronize()
+            exact(got, want, f"{name} {label} [{q.shape[0]}, {q.shape[1]}, {v.shape[1]}, {q.shape[2]}] "
+                             f"{metric} {q.dtype}")
             err = compare(got, want, tol)
             max_err[name] = max(max_err[name], err)
             row[f"{name}_err"] = err
@@ -461,7 +471,7 @@ def phase_kernels(rec: dict, max_err: dict) -> None:
                     raise AssertionError(f"{name} {label}: a slot past n_live is not (NEG_INF, -1)")
         if timed:
             q_live = None if n_live is None else torch.arange(q.shape[1], device="cuda")[None, :] < n_live[:, None]
-            row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(q, v, valid, **kw))
+            row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(q, v, valid, **kw), reps=3, warmup=1)
             row["yardstick_ms"] = cuda_ms(lambda: yardstick(q, v, valid, k, metric))
             row["bound_ms"], row["bound_by"] = bound(q, v, valid, k, metric, q_live)
         rows.append(row)
@@ -706,6 +716,7 @@ def phase_main_shapes(rec: dict, main: dict, max_err: dict) -> dict:
         fn = fused_knn_db_stationary if name == "fused_knn_db_stationary" else fused_knn
         got = fn(Q, V, valid, **kw)
         want = fused_knn_plain(Q, V, valid, **kw)
+        exact(got, want, f"{name} on the main path's bucket of lists padded to {lp}")
         err = compare(got, want, 1e-4)
         max_err[name] = max(max_err[name], err)
         ms = cuda_ms(lambda: fn(Q, V, valid, **kw), reps=21)
@@ -726,7 +737,7 @@ def phase_main_shapes(rec: dict, main: dict, max_err: dict) -> dict:
     for name, sel in per_kernel.items():
         Q, V, valid, kw = sel["Q"], sel["V"], sel["valid"], sel["kw"]
         row = dict(sel["row"])
-        row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(Q, V, valid, **kw), reps=21)
+        row["plain_ms"] = cuda_ms(lambda: fused_knn_plain(Q, V, valid, **kw), reps=3, warmup=1)
         row["yardstick_ms"] = cuda_ms(lambda: yardstick(Q, V, valid, kw["k"], metric), reps=21)
         mine = [b for b in buckets if b["kernel"] == name]
         row["summed_over_buckets"] = {key: sum(b[key] for b in mine)
@@ -1388,7 +1399,10 @@ def adc_bound(codes, valid, k: int, q_live, lut_rows: int) -> dict:
     output the function writes: every slot's top-k (W·TQ·k·8 bytes, padding
     slots included). Operations over the fp32 peak: M adds per (real query,
     valid row of its unit). Beside it, the LUT bytes streamed per (unit,
-    real slot), the count of the reference's profiler."""
+    real slot), the count of the reference's profiler, and the lookup bound:
+    the M lookups a (real query, valid row) at one 4-byte shared-memory read
+    a bank a clock (``SMEM_LOOKUPS_PER_S``), what a design that gathers from
+    a staged LUT can reach."""
     W, TV, M = codes.shape
     nq_w = q_live.sum(1).double()
     nv_w = valid.sum(1).double()
@@ -1400,6 +1414,7 @@ def adc_bound(codes, valid, k: int, q_live, lut_rows: int) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "lut_streamed_bytes": n_q * lut_row_bytes,
+            "lookup_bound_ms": ops_ / SMEM_LOOKUPS_PER_S * 1e3,
             "valid_rows": int(n_v), "real_query_slots": int(n_q), "lut_rows": int(lut_rows)}
 
 
@@ -1865,7 +1880,7 @@ def adc_buckets(index, wl, *, resident: bool, max_err: dict, tag: str, refine_fa
     row = dict(row)
     row["device_ms"] = device_ms(lambda: kernel(*args, **kw), "adc_wide_m_kernel" if wide else
                                  "lut_stationary_units_kernel" if resident else "adc_slot_warps_kernel")
-    if resident and not wide:  # the wide kernel takes no work list
+    if resident:  # both units kernels sort their slots by table row first
         row["work_list_ms"] = cuda_ms(lambda: adc.slot_order(args[1]), reps=21)
     elif not resident:
         W, TQ = q_live.shape
@@ -1904,14 +1919,16 @@ def rerank_dispatch(index, wl, max_err: dict) -> dict:
     rows = _pq_stage_a_segmented(plan, arena, luts, lut_pos, kprime, stats=None)
     Q, V, valid, n_live = rerank_operands(arena, wl.vectors, rows, kprime)
     kw = dict(k=min(wl.k, kprime), metric=arena.metric, n_live=n_live)
-    err = compare(fused_knn_db_stationary(Q, V, valid, **kw), fused_knn_plain(Q, V, valid, **kw), 1e-4)
+    got, want = fused_knn_db_stationary(Q, V, valid, **kw), fused_knn_plain(Q, V, valid, **kw)
+    exact(got, want, "the PQ re-rank dispatch")
+    err = compare(got, want, 1e-4)
     max_err["fused_knn_db_stationary"] = max(max_err["fused_knn_db_stationary"], err)
     b_ms, b_by = bound(Q, V, valid, kw["k"], arena.metric, (n_live > 0)[:, None])
     row = {"shape": [Q.shape[0], 1, kprime, kw["k"]], "real_units": int((n_live > 0).sum()),
            "valid_rows": int(valid.sum()), "max_abs_err": err,
            "ms": cuda_ms(lambda: fused_knn_db_stationary(Q, V, valid, **kw), reps=21),
            "device_ms": device_ms(lambda: fused_knn_db_stationary(Q, V, valid, **kw), "fused_knn"),
-           "plain_ms": cuda_ms(lambda: fused_knn_plain(Q, V, valid, **kw), reps=21),
+           "plain_ms": cuda_ms(lambda: fused_knn_plain(Q, V, valid, **kw), reps=3, warmup=1),
            "bound_ms": b_ms, "bound_by": b_by}
     log("[pq rerank] " + json.dumps(row))
     return row
@@ -2130,7 +2147,7 @@ def attn_agree(got, want, label: str, max_err: dict, name: str = "flash_attentio
 def attn_case(rec_rows, max_err, label, q, k, v, causal, window, reps):
     """Kernel against its plain version on the same card inputs, then kernel,
     plain and the library call timed (median of ``reps``) beside the bound.
-    Past dh 256 the wrapper takes the wide-dh kernel: one launch of it, none
+    Past dh 256 the wrapper takes the wide kernels: one launch of them, none
     of the tiled kernels."""
     import torch
 
@@ -2447,8 +2464,7 @@ def phase_limit_kernels(rec: dict, max_err: dict) -> None:
     """The five scan kernels past their 64-entry lists: at k′ in
     ``LIMIT_KPRIMES`` (and 64, one pass, beside them) each wrapper launches
     ceil(k′ / 64) times, each pass admitting only what ranks after the one
-    before, and holds its plain version (ADC bit for bit; f32 scores within
-    1e-4, ids equal where untied). Shapes: both f32 entries at [1024, 64,
+    before, and holds its plain version bit for bit. Shapes: both f32 entries at [1024, 64,
     512, D 64] (valid 0.4, ragged ``n_live``), the re-rank's units of one
     query [16384, 1, 400, 64] (``fused_knn_unit_warps_kernel``), the units
     kernel at [2048, 64, 512, M 8] with a quarter of the slots real, the
@@ -2489,12 +2505,12 @@ def phase_limit_kernels(rec: dict, max_err: dict) -> None:
     codes1 = torch.randint(0, 256, (NV, M), generator=gen, device="cuda", dtype=torch.uint8)
     valid1 = mask(NV, p=0.7)
     cases = (  # label, wrapper, plain, args, kwargs, bit-equal, shape
-        ("fused_knn", fk.fused_knn, fk.fused_knn_plain, (q, v, valid), dict(n_live=n_live), False,
+        ("fused_knn", fk.fused_knn, fk.fused_knn_plain, (q, v, valid), dict(n_live=n_live), True,
          [W, TQ, TV, D]),
         ("fused_knn_db_stationary", fk.fused_knn_db_stationary, fk.fused_knn_plain, (q, v, valid),
-         dict(n_live=n_live), False, [W, TQ, TV, D]),
+         dict(n_live=n_live), True, [W, TQ, TV, D]),
         ("fused_knn_db_stationary-tq1", fk.fused_knn_db_stationary, fk.fused_knn_plain, (qr, vr, valid_r),
-         dict(n_live=n_live_r), False, [Wr, 1, TVr, D]),
+         dict(n_live=n_live_r), True, [Wr, 1, TVr, D]),
         ("workunit_pq_scan_streamed", adc.workunit_pq_scan_streamed, adc.workunit_pq_scan_streamed_plain,
          (table, lut_idx, codes, valid_u), {}, True, [Wu, TQ, TV, M]),
         ("workunit_pq_scan", adc.workunit_pq_scan, adc.workunit_pq_scan_plain,
@@ -2533,8 +2549,8 @@ def phase_wide_m(rec: dict, max_err: dict) -> None:
     expanded LUTs [32, 16, M, 256] with ragged ``n_live``; ``pq_scan`` over
     NV 20,000. Each is one launch of the wide kernel and none of the staged
     kernels, bit-equal to its plain version, timed (a call by CUDA events,
-    the launch alone by the profiler) beside its bound and its plain
-    version."""
+    the launch alone by the profiler) beside its bytes bound, its lookup
+    bound and its plain version."""
     import torch
 
     from repro_torch.kernels import pq_scan as adc
@@ -2646,15 +2662,17 @@ def _search_pair(index, wl, **kw) -> tuple:
 
 
 def phase_wide_dh(rec: dict, max_err: dict) -> dict:
-    """``flash_wide_kernel`` at dh in ``WIDE_DHS``: S = T = 2048, 8/4 heads,
-    causal, window 0 and 1024, bf16 and f32, against the plain version
-    (``ATTN_TOL``), timed beside its bound and ``scaled_dot_product_attention``;
-    the heaviest also by the profiler. Then its path: the reduced gemma3 at
-    head width 512 (f32, random weights from a seeded generator) served by
-    ``SlotServer`` on the card and on the CPU, its counter zeroed before the
-    card's run and read after: one wide launch per prefill layer and none
-    of the tiled kernels, the same tokens, prefill and decode logits within
-    2e-3."""
+    """``flash_attention_wide`` at dh in ``WIDE_DHS``: S = T = 2048, 8/4
+    heads, causal, window 0 and 1024, bf16 (up to 512 ``flash_fwd_wgmma_kernel``
+    at DH 384 / 512 in column slices, past it ``flash_sliced_kernel``) and
+    f32 (``flash_sliced_kernel``), against the plain version (``ATTN_TOL``),
+    timed beside its bound and ``scaled_dot_product_attention``; at dh 512
+    without a window each type's launch also by the profiler. Then its
+    path: the reduced gemma3 at head width 512 (f32, random weights from a
+    seeded generator) served by ``SlotServer`` on the card and on the CPU,
+    its counter zeroed before the card's run and read after: one wide launch
+    per prefill layer and none of the tiled kernels, the same tokens,
+    prefill and decode logits within 2e-3."""
     import dataclasses
 
     import torch
@@ -2673,9 +2691,10 @@ def phase_wide_dh(rec: dict, max_err: dict) -> dict:
             for w in (0, 1024):
                 label = f"dh{dh}-{tag}-w{w}"
                 out[label] = attn_case(rows, max_err, label, q, k, v, True, w, 5)
-                if label == "dh512-bf16-w0":
+                if dh == 512 and w == 0:
+                    kernel = "flash_fwd_wgmma_kernel" if tag == "bf16" else "flash_sliced_kernel"
                     out[label]["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                                                        "flash_wide_kernel", reps=5)
+                                                        kernel, reps=5)
     rec["wide_dh_cases"] = rows
 
     cfg = dataclasses.replace(get_reduced("gemma3-27b"), head_dim=512, dtype=torch.float32)
@@ -2709,7 +2728,7 @@ def phase_wide_dh(rec: dict, max_err: dict) -> dict:
     rec["wide_dh_path"] = {"head_dim": 512, "layers": cfg.n_layers, "requests": len(prompts),
                            "launches": launches, "max_abs_logit_err": err, "tokens": served[0]}
     log("[wide-dh path] " + json.dumps(rec["wide_dh_path"]))
-    return {"launches": launches, "heaviest": out["dh512-bf16-w0"]}
+    return {"launches": launches, "heaviest": out["dh512-bf16-w0"], "f32": out["dh512-f32-w0"]}
 
 
 def profiled_engine(index, wl, tag: str, **kw) -> dict:
@@ -2965,13 +2984,16 @@ def main() -> int:
             "bound_share": h.get("bound_share", h["bound_ms"] / h["ms"]),
             "shape": h["shape"],
         }
+        if name == "flash_attention_wide":  # the same shape in f32 (flash_sliced_kernel)
+            entry["f32"] = {key: wide_dh["f32"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                                   "library_ms", "ms_over_bound")}
         if name == "flash_attention":
             g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
             entry["tflops"] = h["tflops"]
             entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                               "tflops", "bound_share")}
         for key in ("bound_bytes", "lut_streamed_bytes", "staged_lut_bytes", "real_query_slots",
-                    "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets"):
+                    "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets", "lookup_bound_ms"):
             if key in h:
                 entry[key] = h[key]
         if name == "fused_knn_db_stationary":

@@ -54,8 +54,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ),
         "lut_stationary_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "adc_wide_m_shape": (_I, _I, _P),
-        "adc_wide_m_launch": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "adc_wide_m_shape": (_I, _I, _I, _I, _I, _P),
+        "adc_wide_m_launch": (
+            _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+            _P,
+        ),
     },
 }
 

@@ -65,8 +65,10 @@
 //
 // Both kernels skip KV tiles wholly outside the block's band (kv_lo,
 // kv_hi], schedule the heavy (late causal) query tiles first, and take the
-// window as a runtime int, so one build serves every layer. dh > 256 does
-// not fit their shared memory and the wrapper raises before launch.
+// window as a runtime int, so one build serves every layer. Past dh 256
+// (flash_attention_wide, its own section below) the bf16 kernel runs at DH
+// 384 and 512 with O in column slices, and past that, and for f32, a
+// sliced form of the CUDA-core kernel takes any width.
 //
 // Plain C interface for ctypes: pointers and the stream are void*; the entry
 // returns cudaGetLastError() (0 = launched).
@@ -101,6 +103,95 @@ struct Shape {
 // buffer holding Kt [DH][kStrideK] or V [kBK][DH], and Pt [kBK][kStrideQ].
 __host__ __device__ constexpr size_t flash_smem_bytes(int DH) {
   return ((size_t)DH * kStrideQ + (size_t)DH * kStrideK + (size_t)kBK * kStrideQ) * sizeof(float);
+}
+
+// s[i][j] += Σ_d qt[d][ty·4 + i] · kt[d][key j] over N staged columns, keys
+// tx·4 + j (j < 4) and 32 + tx·4 + j - 4: float4 reads, 32 FMAs per three.
+template <int N>
+__device__ __forceinline__ void logits(float (&s)[4][8], const float* qt, const float* kt, int ty, int tx) {
+#pragma unroll 4
+  for (int d = 0; d < N; ++d) {
+    const float4 qa = *reinterpret_cast<const float4*>(qt + d * kStrideQ + ty * 4);
+    const float4 k0 = *reinterpret_cast<const float4*>(kt + d * kStrideK + tx * 4);
+    const float4 k1 = *reinterpret_cast<const float4*>(kt + d * kStrideK + 32 + tx * 4);
+    const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+    const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kk[j], s[i][j]);
+  }
+}
+
+// Mask the tile's logits, then the online-softmax update of each of the
+// thread's rows (q0 + ty·4 + i); P goes to pt [kBK][kStrideQ]. The 8 lanes
+// sharing a row group are lanes 8g..8g+7 of one warp.
+template <int kCols>
+__device__ __forceinline__ void softmax_tile(float (&s)[4][8], float (&m)[4], float (&l)[4],
+                                             float (&acc)[4][kCols], float* pt, int q0, int t0, int ty,
+                                             int tx, const Shape& sh) {
+  bool keep[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kpos = t0 + (j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4));
+      bool ok = kpos < sh.T;
+      if (sh.causal) ok = ok && kpos <= qpos;
+      if (sh.window > 0) ok = ok && kpos > qpos - sh.window;
+      keep[i][j] = ok;
+      s[i][j] = ok ? s[i][j] : kNegInf;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = fmaxf(m[i], mx);
+    const float alpha = expf(m[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[i][j] = keep[i][j] ? expf(s[i][j] - m_new) : 0.f;
+      sum += s[i][j];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    l[i] = l[i] * alpha + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4);
+      pt[col * kStrideQ + ty * 4 + i] = s[i][j];
+    }
+  }
+}
+
+// acc += P · V over the tile's kBK keys: V rows of `stride` floats, the
+// thread's output columns u·32 + tx·4 + j.
+template <int kCols>
+__device__ __forceinline__ void pv_tile(float (&acc)[4][kCols], const float* pt, const float* vt, int stride,
+                                        int ty, int tx) {
+#pragma unroll 2
+  for (int j = 0; j < kBK; ++j) {
+    const float4 pa = *reinterpret_cast<const float4*>(pt + j * kStrideQ + ty * 4);
+    const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+#pragma unroll
+    for (int u = 0; u < kCols / 4; ++u) {
+      const float4 va = *reinterpret_cast<const float4*>(vt + j * stride + u * 32 + tx * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][u * 4 + 0] = fmaf(pv[i], va.x, acc[i][u * 4 + 0]);
+        acc[i][u * 4 + 1] = fmaf(pv[i], va.y, acc[i][u * 4 + 1]);
+        acc[i][u * 4 + 2] = fmaf(pv[i], va.z, acc[i][u * 4 + 2]);
+        acc[i][u * 4 + 3] = fmaf(pv[i], va.w, acc[i][u * 4 + 3]);
+      }
+    }
+  }
 }
 
 template <typename T, int DH>
@@ -165,60 +256,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qt + d * kStrideQ + ty * 4);
-      const float4 k0 = *reinterpret_cast<const float4*>(kv + d * kStrideK + tx * 4);
-      const float4 k1 = *reinterpret_cast<const float4*>(kv + d * kStrideK + 32 + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kk[j], s[i][j]);
-    }
-
-    // Mask, then the online-softmax update of each of the thread's rows; the
-    // 8 lanes sharing a row group are lanes 8g..8g+7 of one warp.
-    bool keep[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kpos = t0 + (j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4));
-        bool ok = kpos < sh.T;
-        if (sh.causal) ok = ok && kpos <= qpos;
-        if (sh.window > 0) ok = ok && kpos > qpos - sh.window;
-        keep[i][j] = ok;
-        s[i][j] = ok ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = keep[i][j] ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4);
-        pt[col * kStrideQ + ty * 4 + i] = s[i][j];
-      }
-    }
+    logits<DH>(s, qt, kv, ty, tx);
+    softmax_tile<kCols>(s, m, l, acc, pt, q0, t0, ty, tx, sh);
     __syncthreads();  // Kt is consumed, P is visible
 
     for (int e = tid; e < kBK * DH; e += kThreads) {
@@ -228,22 +267,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-#pragma unroll 2
-    for (int j = 0; j < kBK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(pt + j * kStrideQ + ty * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int u = 0; u < DH / 32; ++u) {
-        const float4 va = *reinterpret_cast<const float4*>(kv + j * DH + u * 32 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][u * 4 + 0] = fmaf(pv[i], va.x, acc[i][u * 4 + 0]);
-          acc[i][u * 4 + 1] = fmaf(pv[i], va.y, acc[i][u * 4 + 1]);
-          acc[i][u * 4 + 2] = fmaf(pv[i], va.z, acc[i][u * 4 + 2]);
-          acc[i][u * 4 + 3] = fmaf(pv[i], va.w, acc[i][u * 4 + 3]);
-        }
-      }
-    }
+    pv_tile<kCols>(acc, pt, kv, DH, ty, tx);
   }
 
   T* ob = o + ((size_t)b * sh.S) * q_row + (size_t)h * dh;
@@ -303,31 +327,47 @@ constexpr int kRowBytes = kBox * 2;
 // output by more than ATTN_TOL allows (tests/test_torch_attention.py).
 constexpr float kExactKeys = 64.f;
 
-// Per padded width: keys per KV tile, ring stages, and the N of each O += P·V
-// wgmma (O is DH / NPV accumulators of 64 x NPV). Registers per consumer
-// thread: S BN/2, O DH/2, P hi and lo BN/4 each (under the 240 setmaxnreg
-// gives).
+// Per padded width: keys per KV tile, ring stages, the N of each O += P·V
+// wgmma, and the output columns a block owns, DV (O is DV / NPV accumulators
+// of 64 x NPV). Registers per consumer thread: S BN/2, O DV/2, P hi and lo
+// BN/4 each (under the 240 setmaxnreg gives). Up to 256 a block owns every
+// column (DV = DH). Past it (flash_attention_wide) O comes in column slices
+// of DV, each its own block, because a warpgroup's O at 64 x 512 would be
+// 256 registers a thread; each block sums the logits over all DH columns
+// (DH / 16 k-steps of one S accumulator), so S is computed once a slice
+// (1.5x the products at dh 512). Shared memory at DH 512: Q 128 KiB, two
+// stages of K (32 keys x 512, 32 KiB) and V (32 keys x 256, 16 KiB): 224
+// KiB; at DH 384: Q 96 KiB and three stages of 24 + 12 KiB.
 template <int DH>
 struct Tile;
 template <>
 struct Tile<64> {
-  static constexpr int BN = 128, STAGES = 4, NPV = 64;
+  static constexpr int BN = 128, STAGES = 4, NPV = 64, DV = 64;
 };
 template <>
 struct Tile<128> {
-  static constexpr int BN = 128, STAGES = 3, NPV = 128;
+  static constexpr int BN = 128, STAGES = 3, NPV = 128, DV = 128;
 };
 template <>
 struct Tile<256> {
-  static constexpr int BN = 64, STAGES = 2, NPV = 128;
+  static constexpr int BN = 64, STAGES = 2, NPV = 128, DV = 256;
+};
+template <>
+struct Tile<384> {
+  static constexpr int BN = 32, STAGES = 3, NPV = 64, DV = 192;
+};
+template <>
+struct Tile<512> {
+  static constexpr int BN = 32, STAGES = 2, NPV = 128, DV = 256;
 };
 
 template <int DH>
 struct Smem {
-  static constexpr uint32_t Q = kBM * DH * 2;         // Q tile, DH / 64 boxes of [kBM][64]
-  static constexpr uint32_t KV = Tile<DH>::BN * DH * 2;  // one K or V tile, boxes of [BN][64]
+  static constexpr uint32_t Q = kBM * DH * 2;                  // Q tile, DH / 64 boxes of [kBM][64]
+  static constexpr uint32_t K = Tile<DH>::BN * DH * 2;         // one K tile, boxes of [BN][64]
+  static constexpr uint32_t V = Tile<DH>::BN * Tile<DH>::DV * 2;  // one V tile of the block's columns
   static constexpr size_t bytes =
-      1024 /* alignment slack */ + Q + 2 * (size_t)Tile<DH>::STAGES * KV + (1 + 3 * Tile<DH>::STAGES) * 8;
+      1024 /* alignment slack */ + Q + (size_t)Tile<DH>::STAGES * (K + V) + (1 + 3 * Tile<DH>::STAGES) * 8;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -339,15 +379,16 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
   return make_float2(__uint_as_float(x << 16), __uint_as_float(x & 0xffff0000u));
 }
 
-// One consumer warpgroup (wg 0 or 1): query rows q0 + 64·wg .. + 63.
+// One consumer warpgroup (wg 0 or 1): query rows q0 + 64·wg .. + 63, output
+// columns c0 .. c0 + DV - 1.
 template <int DH>
 __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk, unsigned char* sv,
                                         uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
                                         uint64_t* empty, __nv_bfloat16* __restrict__ o,
-                                        const Shape& sh, int wg, int q0, int h, int b, int tile_lo,
-                                        int n_tiles) {
+                                        const Shape& sh, int wg, int q0, int h, int b, int c0,
+                                        int tile_lo, int n_tiles) {
   constexpr int BN = Tile<DH>::BN, STAGES = Tile<DH>::STAGES, NPV = Tile<DH>::NPV;
-  constexpr int NCH = DH / NPV;
+  constexpr int NCH = Tile<DH>::DV / NPV;
   sm90::reg_alloc<240>();
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
@@ -384,7 +425,7 @@ __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk, un
   // chain of wgmmas is straight-line code: a branch between two of them
   // makes ptxas fence each one (C7519).
   auto v_desc = [&](int s, int kk, int c) {
-    const uint32_t addr = v_base + s * Smem<DH>::KV + (c * NPV / kBox) * BN * kRowBytes + kk * 16 * kRowBytes;
+    const uint32_t addr = v_base + s * Smem<DH>::V + (c * NPV / kBox) * BN * kRowBytes + kk * 16 * kRowBytes;
     return sm90::desc_sw128(addr, BN * kRowBytes, 1024);
   };
   auto issue_pv = [&](int s, bool split) {
@@ -446,7 +487,7 @@ __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk, un
     for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes along a swizzled row
       const uint32_t qa = q_base + (kk / 4) * kBM * kRowBytes + off;
-      const uint32_t ka = k_base + s * Smem<DH>::KV + (kk / 4) * BN * kRowBytes + off;
+      const uint32_t ka = k_base + s * Smem<DH>::K + (kk / 4) * BN * kRowBytes + off;
       sm90::wgmma_ss(sacc, sm90::desc_sw128(qa, 16, 1024), sm90::desc_sw128(ka, 16, 1024), kk > 0);
     }
     sm90::wgmma_commit();
@@ -556,7 +597,7 @@ __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk, un
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
       for (int n = 0; n < NPV / 8; ++n) {
-        const int d = c * NPV + n * 8 + (lane & 3) * 2;
+        const int d = c0 + c * NPV + n * 8 + (lane & 3) * 2;
         if (d < sh.dh)
           *reinterpret_cast<uint32_t*>(ob + (size_t)srow * q_row + d) =
               pack_bf16(oacc[c][4 * n + 2 * i] * l[i], oacc[c][4 * n + 2 * i + 1] * l[i]);
@@ -568,24 +609,28 @@ template <int DH>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                           Shape sh) {
+                           Shape sh, int slices) {
   constexpr int BN = Tile<DH>::BN, STAGES = Tile<DH>::STAGES, NBOX = DH / kBox;
+  constexpr int VBOX = Tile<DH>::DV / kBox;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   // Swizzled tiles need 1024-byte aligned bases.
   unsigned char* sq = wg_smem + ((1024 - (sm90::smem_u32(wg_smem) & 1023)) & 1023);
   unsigned char* sk = sq + Smem<DH>::Q;
-  unsigned char* sv = sk + STAGES * Smem<DH>::KV;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + STAGES * Smem<DH>::KV);
+  unsigned char* sv = sk + STAGES * Smem<DH>::K;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + STAGES * Smem<DH>::V);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + STAGES;
   uint64_t* empty = v_full + STAGES;
 
-  // Heavy tiles first: every (batch, head)'s last query tile, then the one before.
-  const int hb_n = sh.Hq * sh.B;
+  // Heavy tiles first: every (batch, head, column slice)'s last query tile,
+  // then the one before.
+  const int hb_n = sh.Hq * sh.B * slices;
   const int n_qt = (sh.S + kBM - 1) / kBM;
   const int q0 = (n_qt - 1 - (int)(blockIdx.x / hb_n)) * kBM;
-  const int h = (int)(blockIdx.x % hb_n) % sh.Hq;
-  const int b = (int)(blockIdx.x % hb_n) / sh.Hq;
+  const int hbs = (int)(blockIdx.x % hb_n);
+  const int c0 = (hbs % slices) * Tile<DH>::DV;
+  const int h = (hbs / slices) % sh.Hq;
+  const int b = (hbs / slices) / sh.Hq;
   const int hk = h / (sh.Hq / sh.Hkv);
 
   // The block's band of keys (kv_lo - 1, kv_hi) and its KV tiles.
@@ -625,21 +670,25 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const int s = it % STAGES;
         sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         const int t0 = (tile_lo + it) * BN;
-        unsigned char* ks = sk + s * Smem<DH>::KV;
-        unsigned char* vs = sv + s * Smem<DH>::KV;
-        sm90::mbar_expect_tx(&k_full[s], Smem<DH>::KV);
+        unsigned char* ks = sk + s * Smem<DH>::K;
+        unsigned char* vs = sv + s * Smem<DH>::V;
+        sm90::mbar_expect_tx(&k_full[s], Smem<DH>::K);
 #pragma unroll
         for (int c = 0; c < NBOX; ++c)
           sm90::tma_load_4d(ks + c * BN * kRowBytes, &tk, &k_full[s], c * kBox, hk, t0, b);
-        sm90::mbar_expect_tx(&v_full[s], Smem<DH>::KV);
+        sm90::mbar_expect_tx(&v_full[s], Smem<DH>::V);
 #pragma unroll
-        for (int c = 0; c < NBOX; ++c)
-          sm90::tma_load_4d(vs + c * BN * kRowBytes, &tv, &v_full[s], c * kBox, hk, t0, b);
+        for (int c = 0; c < VBOX; ++c)
+          sm90::tma_load_4d(vs + c * BN * kRowBytes, &tv, &v_full[s], c0 + c * kBox, hk, t0, b);
       }
     }
   } else {
-    consume<DH>(sq, sk, sv, q_full, k_full, v_full, empty, o, sh, wg, q0, h, b, tile_lo, n_tiles);
+    consume<DH>(sq, sk, sv, q_full, k_full, v_full, empty, o, sh, wg, q0, h, b, c0, tile_lo, n_tiles);
   }
+}
+
+__host__ inline long long wgmma_blocks(const Shape& sh, int slices) {
+  return (long long)((sh.S + kBM - 1) / kBM) * sh.Hq * sh.B * slices;
 }
 
 template <int DH>
@@ -653,10 +702,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
   const size_t smem = Smem<DH>::bytes;
   err = hqi::prepare(flash_fwd_wgmma_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((sh.S + kBM - 1) / kBM) * sh.Hq * sh.B;
+  const int slices = (sh.dh + Tile<DH>::DV - 1) / Tile<DH>::DV;
+  const long long blocks = wgmma_blocks(sh, slices);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_fwd_wgmma_kernel<DH><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sh);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sh, slices);
   return cudaGetLastError();
 }
 
@@ -668,36 +718,45 @@ cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o,
   return launch_bf16<256>(q, k, v, o, sh, stream);
 }
 
-// ------------------------------------------------- dh > 256: a warp per query row
+// ------------------------------------------------- dh > 256
 //
-// flash_wide_kernel: the widths the tiled kernels above do not take (their
-// tiles at dh 512 exceed a block's shared memory). A simple kernel, right
-// first. A warp per (batch, query head, query row), kWideWarps consecutive
-// rows of one head a block, so they share the K and V tiles of their KV
-// head, staged in shared memory TK keys at a time (TK <= 32, from
-// wide_tile_keys). Lane l holds columns l, l + 32, … of the row's scaled q
-// (NPL a lane) and of its f32 output accumulator. A key's logit is a
-// warp-reduced dot product (the lane's fmaf chain, then a butterfly of
-// shuffles); lane j keeps key j's logit of the tile, so the tile's softmax
-// update is one warp max, one warp sum and one rescale of the accumulator,
-// then O += p_j · V_j for every kept key. Masks and query alignment are the
-// tiled kernels' (a row that keeps no key gives 0). Past dh 2048 (QREG
-// false) the accumulator covers 2048 columns a launch slice (grid.y holds
-// heads × slices) and q is read through L1 for the logits. What bounds it:
-// 4·dh operations a kept (query, key) pair on CUDA cores, and K/V read once
-// a block of kWideWarps rows (through L2 across a head's blocks).
+// flash_attention_wide takes the widths the tiled kernels above do not (at
+// dh 512 their tiles exceed a block's shared memory and a warpgroup's O its
+// registers). Two kernels, both computing O in column slices of at most 256
+// with the logits summed over dh in slices:
+//   * bf16 up to dh 512: flash_fwd_wgmma_kernel at DH 384 or 512 (Tile),
+//     each block owning DV output columns (two slices) and summing S over
+//     all DH columns as DH / 16 k-steps of one accumulator; dh padded to
+//     DH by TMA's zero fill.
+//   * f32 past 256 and bf16 past 512: flash_sliced_kernel, the register-
+//     tiled CUDA-core design of flash_fwd_kernel (float4 reads of shared
+//     memory) in a block of 256 threads owning 64 query rows and up to 512
+//     output columns in two halves of DV = 160..256 (dh split into the
+//     fewest such blocks). Q and K are staged kSliceDC columns at a time and
+//     the 64 x 64 logits summed chunk by chunk (f32: each chunk read into
+//     registers one chunk ahead), once for both halves (2 x 8 a thread);
+//     its softmax leaves P and each row's rescale in shared
+//     memory, and each half adds P·V for its columns (4 x DV/8 a thread).
+//     Shared memory: Qt and Kt chunks [32][68], P [64][68] and V [64][2·DV]
+//     in f32, 163 KiB at DV 256 (one block an SM); registers: 4·DV/8 + 16
+//     accumulators a thread. TF32 stays out (it cannot meet f32's 1e-4).
+//     bf16 past 512 comes here because a wgmma block's Q tile (128 rows)
+//     would outgrow shared memory.
+// Past 512 columns each block recomputes S for its columns: the products
+// are (blocks + 1) / 2 times the least (1x up to dh 512); the wgmma
+// kernel's two slices compute S twice (1.5x at dh 512). What bounds both:
+// 4·dh operations a kept (query, key) pair, on the tensor cores in bf16 up
+// to 512 and on CUDA cores otherwise.
 
-constexpr int kWideWarps = 8;               // query rows a block
-constexpr int kWideKvBytes = 64 * 1024;     // the K and V tiles together
-constexpr int kWideSlice = 2048;            // output columns a slice past dh 2048
+constexpr int kSliceDC = 32;        // Q and K columns staged at once
+constexpr int kSlicedThreads = 256;  // two halves of 128, each owning DV output columns
 
-__host__ __device__ inline int wide_tile_keys(int dh, int esize) {
-  const int t = kWideKvBytes / (2 * dh * esize);
-  return t < 1 ? 1 : (t > 32 ? 32 : t);
-}
-
-__host__ __device__ inline size_t wide_smem_bytes(int dh, int esize) {
-  return (size_t)2 * wide_tile_keys(dh, esize) * dh * esize;
+// Shared memory of a sliced block: Qt and Kt chunks [kSliceDC][kStrideQ|K],
+// P [kBK][kStrideQ], V [kBK][2·DV] (both halves' columns), and a row's
+// rescale factor and sum [kBQ] each.
+__host__ __device__ constexpr size_t sliced_smem_bytes(int DV) {
+  return ((size_t)kSliceDC * kStrideQ + (size_t)kSliceDC * kStrideK + (size_t)kBK * kStrideQ +
+          (size_t)kBK * 2 * DV + 2 * kBQ) * sizeof(float);
 }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -705,149 +764,266 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfl
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Rows r0 .. r0 + kBQ - 1 (those below `limit`), columns d0 .. d0 + kSliceDC
+// - 1 (those below dh) of x (rows `row` elements apart), times `mul`, into
+// dst [kSliceDC][stride] transposed; zeros elsewhere.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(float* dst, int stride, const T* x, size_t row, int r0, int limit,
+                                            int d0, int dh, float mul) {
+  for (int e = threadIdx.x; e < kBQ * kSliceDC; e += kSlicedThreads) {
+    const int r = e / kSliceDC, d = e % kSliceDC, c = d0 + d;
+    dst[d * stride + r] = (r0 + r < limit && c < dh) ? load_f32(x + (size_t)(r0 + r) * row + c) * mul : 0.f;
+  }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// f32 rows on a 16-byte grid: a chunk goes through registers, kVecPer
+// 16-byte words a thread (word e = threadIdx.x + i·kSlicedThreads: row
+// e / 8, columns d0 + 4·(e % 8) ..), fetched one chunk ahead of its use.
+constexpr int kVecPer = kBQ * kSliceDC / 4 / kSlicedThreads;
+
+__device__ __forceinline__ void fetch_chunk(float4 (&f)[kVecPer], const float* x, size_t row, int r0, int limit,
+                                            int d0, int dh) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int i = 0; i < kVecPer; ++i) {
+    const int e = threadIdx.x + i * kSlicedThreads, r = e / (kSliceDC / 4), c = d0 + 4 * (e % (kSliceDC / 4));
+    f[i] = (r0 + r < limit && c < dh) ? *reinterpret_cast<const float4*>(x + (size_t)(r0 + r) * row + c)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
-template <typename T, int NPL, bool QREG>
-__global__ void __launch_bounds__(kWideWarps * 32)
-    flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, Shape sh, int slices) {
+__device__ __forceinline__ void put_chunk(float* dst, int stride, const float4 (&f)[kVecPer], float mul) {
+#pragma unroll
+  for (int i = 0; i < kVecPer; ++i) {
+    const int e = threadIdx.x + i * kSlicedThreads, r = e / (kSliceDC / 4), d = 4 * (e % (kSliceDC / 4));
+    dst[(d + 0) * stride + r] = f[i].x * mul;
+    dst[(d + 1) * stride + r] = f[i].y * mul;
+    dst[(d + 2) * stride + r] = f[i].z * mul;
+    dst[(d + 3) * stride + r] = f[i].w * mul;
+  }
+}
+
+// flash_sliced_kernel: a block per (64 query rows, head, 2·DV output
+// columns), 256 threads. The logits tile (64 x 64) is computed once for
+// both halves: thread (sy, sx) of half h holds rows 32h + 2sy, + 1 and keys
+// sx·4 + j, 32 + sx·4 + j, summing Q·Kᵀ over dh a kSliceDC chunk at a time;
+// its softmax writes P and each row's rescale to shared memory. Then each
+// half multiplies P by its DV columns of V: thread (ty, tx) holds rows
+// ty·4 + i and columns u·32 + tx·4 + j of the half (flash_fwd_kernel's
+// tiles).
+template <typename T, int DV>
+__global__ void __launch_bounds__(kSlicedThreads)
+    flash_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        T* __restrict__ o, Shape sh, int slices) {
+  static_assert(DV % 32 == 0, "DV is a multiple of 32");
+  constexpr int kCols = DV / 8;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int dh = sh.dh;
-  const int TK = wide_tile_keys(dh, (int)sizeof(T));
-  T* ks = reinterpret_cast<T*>(smem_raw);  // [TK][dh]
-  T* vs = ks + (size_t)TK * dh;            // [TK][dh]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kWideWarps;  // late (heavy) rows first
-  const int h = blockIdx.y / slices, c0 = (blockIdx.y - h * slices) * (32 * NPL);
+  float* qt = reinterpret_cast<float*>(smem_raw);  // [kSliceDC][kStrideQ], q * scale
+  float* kt = qt + kSliceDC * kStrideQ;            // [kSliceDC][kStrideK]
+  float* pt = kt + kSliceDC * kStrideK;            // [kBK][kStrideQ]
+  float* vs = pt + kBK * kStrideQ;                 // [kBK][2 * DV]
+  float* alpha_s = vs + kBK * 2 * DV;              // [kBQ]
+  float* l_s = alpha_s + kBQ;                      // [kBQ]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heavy tiles first
+  const int h = blockIdx.y / slices, c0 = (blockIdx.y - h * slices) * 2 * DV;
   const int b = blockIdx.z;
   const int hk = h / (sh.Hq / sh.Hkv);
-  const int row = r0 + warp;
-  const bool live = row < sh.S;  // warp-uniform
+  const int half = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int sy = t >> 3, sx = t & 7;  // logits: rows 32·half + 2·sy + i, keys as flash_fwd_kernel's
+  const int ty = t >> 3, tx = t & 7;  // P·V: rows ty·4 + i, columns c0 + DV·half + u·32 + tx·4 + j
+  const int dh = sh.dh;
   const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
-  const T* qr = q + ((size_t)b * sh.S + (live ? row : 0)) * q_row + (size_t)h * dh;
-  const T* kb = k + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
-  const T* vb = v + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+  const T* qb = q + ((size_t)b * sh.S) * q_row + (size_t)h * dh;
+  const T* kb = k + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
+  const T* vb = v + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
+  const bool vec = dh % 4 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;  // f32 rows on a 16-byte grid
 
-  float qv[QREG ? NPL : 1];
-  if constexpr (QREG) {
+  const int q_last = min(q0 + kBQ, sh.S) - 1;
+  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
+  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
+  const int srow = 32 * half + 2 * sy;  // this thread's first logit row
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[4][kCols];
 #pragma unroll
-    for (int u = 0; u < NPL; ++u) {
-      const int c = lane + 32 * u;
-      qv[u] = c < dh ? load_f32(qr + c) * sh.scale : 0.f;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  float4 fq[kVecPer], fk[kVecPer];  // the next chunk of Q and K (f32 on a 16-byte grid)
+  if constexpr (sizeof(T) == 4) {
+    if (vec && kv_lo < kv_hi) {
+      fetch_chunk(fq, qb, q_row, q0, sh.S, 0, dh);
+      fetch_chunk(fk, kb, kv_row, (kv_lo / kBK) * kBK, sh.T, 0, dh);
     }
   }
-  float acc[NPL];
-#pragma unroll
-  for (int u = 0; u < NPL; ++u) acc[u] = 0.f;
-  float m = kNegInf, l = 0.f;
 
-  // The keys any row of this block may keep: [kv_lo, kv_hi).
-  const int r_last = min(r0 + kWideWarps, sh.S) - 1;
-  const int kv_lo = sh.window > 0 ? max(0, r0 - sh.window + 1) : 0;
-  const int kv_hi = sh.causal ? min(sh.T, r_last + 1) : sh.T;
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += TK) {
-    const int nt = min(TK, kv_hi - t0);
-    __syncthreads();  // every warp is done with the previous tile
-    for (int e = threadIdx.x; e < nt * dh; e += blockDim.x) {
-      const int j = e / dh, c = e - j * dh;
-      ks[e] = kb[(size_t)(t0 + j) * kv_row + c];
-      vs[e] = vb[(size_t)(t0 + j) * kv_row + c];
-    }
-    __syncthreads();
-    if (!live) continue;
-    float mine = kNegInf;  // lane j: key t0 + j's logit, kNegInf where masked
-    for (int j = 0; j < nt; ++j) {
-      const T* kr = ks + (size_t)j * dh;
-      float part = 0.f;
-      if constexpr (QREG) {
+  for (int t0 = (kv_lo / kBK) * kBK; t0 < kv_hi; t0 += kBK) {
+    float s[2][8];
 #pragma unroll
-        for (int u = 0; u < NPL; ++u) {
-          const int c = lane + 32 * u;
-          if (c < dh) part = fmaf(qv[u], load_f32(kr + c), part);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < dh; d0 += kSliceDC) {
+      __syncthreads();  // the previous chunk, and the previous tile's P, V and rescales, are consumed
+      if constexpr (sizeof(T) == 4) {
+        if (vec) {
+          put_chunk(qt, kStrideQ, fq, sh.scale);
+          put_chunk(kt, kStrideK, fk, 1.f);
+          // the next chunk: this tile's, or the first of the next tile
+          const int nd = d0 + kSliceDC < dh ? d0 + kSliceDC : 0, nt = nd ? t0 : t0 + kBK;
+          if (nt < kv_hi) {
+            fetch_chunk(fq, qb, q_row, q0, sh.S, nd, dh);
+            fetch_chunk(fk, kb, kv_row, nt, sh.T, nd, dh);
+          }
         }
-      } else {
-        for (int c = lane; c < dh; c += 32) part = fmaf(load_f32(qr + c) * sh.scale, load_f32(kr + c), part);
       }
-      const float logit = warp_sum(part);
-      if (lane == j) mine = logit;
-    }
-    const int kpos = t0 + lane;
-    bool keep = lane < nt;
-    if (sh.causal) keep = keep && kpos <= row;
-    if (sh.window > 0) keep = keep && kpos > row - sh.window;
-    mine = keep ? mine : kNegInf;
-    const float m_new = fmaxf(m, warp_max(mine));
-    const float alpha = expf(m - m_new);
-    const float p = keep ? expf(mine - m_new) : 0.f;
-    l = l * alpha + warp_sum(p);
-    m = m_new;
+      if (sizeof(T) != 4 || !vec) {
+        stage_chunk<T>(qt, kStrideQ, qb, q_row, q0, sh.S, d0, dh, sh.scale);
+        stage_chunk<T>(kt, kStrideK, kb, kv_row, t0, sh.T, d0, dh, 1.f);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kSliceDC; ++d) {
+        const float2 qa = *reinterpret_cast<const float2*>(qt + d * kStrideQ + srow);
+        const float4 k0 = *reinterpret_cast<const float4*>(kt + d * kStrideK + sx * 4);
+        const float4 k1 = *reinterpret_cast<const float4*>(kt + d * kStrideK + 32 + sx * 4);
+        const float qv[2] = {qa.x, qa.y};
+        const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
 #pragma unroll
-    for (int u = 0; u < NPL; ++u) acc[u] *= alpha;
-    for (int j = 0; j < nt; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
-      if (pj == 0.f) continue;  // warp-uniform: a masked key adds nothing
-      const T* vr = vs + (size_t)j * dh + c0;
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int u = 0; u < NPL; ++u) {
-        const int c = lane + 32 * u;
-        if (c0 + c < dh) acc[u] = fmaf(pj, load_f32(vr + c), acc[u]);
+          for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kk[j], s[i][j]);
       }
     }
+
+    // Mask and the online-softmax update of this thread's two rows; P and
+    // each row's rescale go to shared memory for both halves' P·V.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = q0 + srow + i;
+      bool keep[8];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kpos = t0 + (j < 4 ? sx * 4 + j : 32 + sx * 4 + (j - 4));
+        bool ok = kpos < sh.T;
+        if (sh.causal) ok = ok && kpos <= qpos;
+        if (sh.window > 0) ok = ok && kpos > qpos - sh.window;
+        keep[j] = ok;
+        s[i][j] = ok ? s[i][j] : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = keep[j] ? expf(s[i][j] - m_new) : 0.f;
+        sum += s[i][j];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+      if (sx == 0) alpha_s[srow + i] = alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j < 4 ? sx * 4 + j : 32 + sx * 4 + (j - 4);
+        pt[col * kStrideQ + srow + i] = s[i][j];
+      }
+    }
+    if constexpr (sizeof(T) == 4) {
+      if (vec) {
+        for (int e = threadIdx.x; e < kBK * 2 * DV / 4; e += kSlicedThreads) {
+          const int j = e / (2 * DV / 4), d = 4 * (e % (2 * DV / 4)), tk = t0 + j;
+          float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (tk < sh.T && c0 + d < dh) f = *reinterpret_cast<const float4*>(vb + (size_t)tk * kv_row + c0 + d);
+          *reinterpret_cast<float4*>(vs + 4 * e) = f;
+        }
+      }
+    }
+    if (sizeof(T) != 4 || !vec) {
+      for (int e = threadIdx.x; e < kBK * 2 * DV; e += kSlicedThreads) {
+        const int j = e / (2 * DV), d = e % (2 * DV), tk = t0 + j;
+        vs[e] = (tk < sh.T && c0 + d < dh) ? load_f32(vb + (size_t)tk * kv_row + c0 + d) : 0.f;
+      }
+    }
+    __syncthreads();  // P, V and the rescales are visible
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float alpha = alpha_s[ty * 4 + i];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+    }
+    pv_tile<kCols>(acc, pt, vs + half * DV, 2 * DV, ty, tx);
   }
-  if (!live) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* orow = o + ((size_t)b * sh.S + row) * q_row + (size_t)h * dh + c0;
+
+  if (sx == 0) {
+    l_s[srow] = l[0];
+    l_s[srow + 1] = l[1];
+  }
+  __syncthreads();
+  T* ob = o + ((size_t)b * sh.S) * q_row + (size_t)h * dh + c0 + half * DV;
 #pragma unroll
-  for (int u = 0; u < NPL; ++u) {
-    const int c = lane + 32 * u;
-    if (c0 + c < dh) store_out(orow + c, acc[u] * inv);
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= sh.S) continue;
+    const float inv = 1.f / fmaxf(l_s[ty * 4 + i], 1e-30f);
+#pragma unroll
+    for (int u = 0; u < DV / 32; ++u)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = u * 32 + tx * 4 + j;
+        if (c0 + half * DV + d < dh) store_out(ob + (size_t)row * q_row + d, acc[i][u * 4 + j] * inv);
+      }
   }
 }
 
-template <typename T, int NPL, bool QREG>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, const Shape& sh,
-                        cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes(sh.dh, (int)sizeof(T));
-  cudaError_t err = hqi::prepare(flash_wide_kernel<T, NPL, QREG>, smem);
+// Output columns a sliced block's half owns: dh in the fewest blocks of at
+// most 512 columns, each split in two halves rounded up to a multiple of 32
+// (160, 192, 224 or 256 past dh 256).
+__host__ inline int sliced_cols(int dh) {
+  const int n = (dh + 511) / 512;
+  return ((dh + 2 * n - 1) / (2 * n) + 31) / 32 * 32;
+}
+
+// The bf16 wgmma kernel's padded width up to 512, else 0 (the sliced kernel).
+__host__ inline int wide_wgmma_width(int dh, int bf16) {
+  return !bf16 || dh > 512 ? 0 : (dh <= 384 ? 384 : 512);
+}
+
+template <typename T, int DV>
+cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                          cudaStream_t stream) {
+  const size_t smem = sliced_smem_bytes(DV);
+  cudaError_t err = hqi::prepare(flash_sliced_kernel<T, DV>, smem);
   if (err != cudaSuccess) return err;
-  const int slices = (sh.dh + 32 * NPL - 1) / (32 * NPL);
-  const dim3 grid((sh.S + kWideWarps - 1) / kWideWarps, sh.Hq * slices, sh.B);
-  flash_wide_kernel<T, NPL, QREG><<<grid, kWideWarps * 32, smem, stream>>>(
+  const int slices = (sh.dh + 2 * DV - 1) / (2 * DV);
+  const dim3 grid((sh.S + kBQ - 1) / kBQ, sh.Hq * slices, sh.B);
+  flash_sliced_kernel<T, DV><<<grid, kSlicedThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
       sh, slices);
   return cudaGetLastError();
 }
 
-// Columns a lane holds (NPL): the narrowest build that covers dh, and
-// kWideSlice / 32 in slices past kWideSlice.
-__host__ inline int wide_cols_per_lane(int dh) {
-  return dh <= 512 ? 16 : (dh <= 1024 ? 32 : kWideSlice / 32);
-}
-
 template <typename T>
-cudaError_t launch_wide_dh(const void* q, const void* k, const void* v, void* o, const Shape& sh,
-                           cudaStream_t stream) {
-  switch (wide_cols_per_lane(sh.dh)) {
-    case 16:
-      return launch_wide<T, 16, true>(q, k, v, o, sh, stream);
-    case 32:
-      return launch_wide<T, 32, true>(q, k, v, o, sh, stream);
+cudaError_t launch_sliced_dh(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                             cudaStream_t stream) {
+  switch (sliced_cols(sh.dh)) {
+    case 160:
+      return launch_sliced<T, 160>(q, k, v, o, sh, stream);
+    case 192:
+      return launch_sliced<T, 192>(q, k, v, o, sh, stream);
+    case 224:
+      return launch_sliced<T, 224>(q, k, v, o, sh, stream);
     default:
-      return sh.dh <= kWideSlice ? launch_wide<T, kWideSlice / 32, true>(q, k, v, o, sh, stream)
-                                 : launch_wide<T, kWideSlice / 32, false>(q, k, v, o, sh, stream);
+      return launch_sliced<T, 256>(q, k, v, o, sh, stream);
   }
 }
-
 }  // namespace
 
 extern "C" {
@@ -864,33 +1040,60 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   return (int)err;
 }
 
-// The wide kernel's launch for these operands: grid x, y, z, threads, dynamic
-// shared bytes and keys a K/V tile (kernels/flash_attention.py::wide_launch_shape).
+// flash_attention_wide's launch for these operands (kernels/flash_attention.py::
+// wide_launch_shape): grid x, y, z, threads, dynamic shared bytes, keys a K/V
+// tile and output columns a block. bf16 up to dh 512: flash_fwd_wgmma_kernel
+// at DH 384 or 512 (dh a multiple of 8); otherwise flash_sliced_kernel.
 int flash_attention_wide_shape(int B, int S, int Hq, int dh, int bf16, int* out) {
   if (B < 1 || S < 1 || Hq < 1 || dh < 1) return (int)cudaErrorInvalidValue;
-  const int esize = bf16 ? 2 : 4, cols = 32 * wide_cols_per_lane(dh);
-  out[0] = (S + kWideWarps - 1) / kWideWarps;
-  out[1] = Hq * ((dh + cols - 1) / cols);
+  const Shape sh{B, S, 1, Hq, 1, dh, 0, 0, 1.f};
+  const int width = wide_wgmma_width(dh, bf16);
+  if (width) {
+    const int DV = width == 384 ? Tile<384>::DV : Tile<512>::DV;
+    const long long blocks = wgmma_blocks(sh, (dh + DV - 1) / DV);
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    out[0] = (int)blocks;
+    out[1] = out[2] = 1;
+    out[3] = kWgThreads;
+    out[4] = (int)(width == 384 ? Smem<384>::bytes : Smem<512>::bytes);
+    out[5] = width == 384 ? Tile<384>::BN : Tile<512>::BN;
+    out[6] = DV;
+    return 0;
+  }
+  const int DV = sliced_cols(dh);
+  out[0] = (S + kBQ - 1) / kBQ;
+  out[1] = Hq * ((dh + 2 * DV - 1) / (2 * DV));
   out[2] = B;
-  out[3] = kWideWarps * 32;
-  out[4] = (int)wide_smem_bytes(dh, esize);
-  out[5] = wide_tile_keys(dh, esize);
+  out[3] = kSlicedThreads;
+  out[4] = (int)sliced_smem_bytes(DV);
+  out[5] = kBK;
+  out[6] = DV;
   return 0;
 }
 
-// The same contract at any dh (the wrapper takes it past 256): a warp per
-// query row (flash_wide_kernel). Shared memory: 2 · TK · dh elements.
+// The same contract past dh 256 (the wrapper takes it there): O in column
+// slices of at most 256, the logits summed over dh in slices (see the head
+// of this section).
 int flash_attention_wide_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
                                 int T, int Hq, int Hkv, int dh, int causal, int window, float scale,
                                 int bf16, void* stream) {
-  if (B < 1 || S < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || B > 65535 ||
-      (long long)Hq * ((dh + kWideSlice - 1) / kWideSlice) > 65535 ||
-      wide_smem_bytes(dh, bf16 ? 2 : 4) > 232448)
+  int shape[7];
+  if (T < 1 || Hkv < 1 || Hq % Hkv != 0 || B > 65535 || flash_attention_wide_shape(B, S, Hq, dh, bf16, shape) != 0 ||
+      shape[1] > 65535)
     return (int)cudaErrorInvalidValue;
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_wide_dh<__nv_bfloat16>(q, k, v, o, sh, st)
-                               : launch_wide_dh<float>(q, k, v, o, sh, st);
+  cudaError_t err;
+  switch (wide_wgmma_width(dh, bf16)) {
+    case 384:
+      err = dh % 8 ? cudaErrorInvalidValue : launch_bf16<384>(q, k, v, o, sh, st);
+      break;
+    case 512:
+      err = dh % 8 ? cudaErrorInvalidValue : launch_bf16<512>(q, k, v, o, sh, st);
+      break;
+    default:
+      err = bf16 ? launch_sliced_dh<__nv_bfloat16>(q, k, v, o, sh, st) : launch_sliced_dh<float>(q, k, v, o, sh, st);
+  }
   return (int)err;
 }
 

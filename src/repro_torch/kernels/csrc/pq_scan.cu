@@ -11,8 +11,10 @@
 //   workunit_pq_scan          — adc_slot_warps_kernel over expanded LUTs
 //                               [W, TQ, M, 256]: a warp per live slot, one
 //                               launch.
-//   all three past M 190      — adc_wide_m_kernel: a warp per live slot,
-//                               the LUT row read through L2 (end of file).
+//   all three past M 190      — adc_wide_m_kernel: a block owns one LUT row
+//                               and a tile of code rows; the row passes
+//                               through shared memory in slices, each staged
+//                               once for the tile (end of file).
 //
 // Lists of more than 64 (k' > 64) are taken in passes of at most 64, each a
 // launch that admits only what ranks after the slot's floor, the last entry
@@ -887,105 +889,326 @@ cudaError_t launch_rows(const void* lut, const void* codes, const void* valid, c
 // ============================================================ wide M
 //
 // adc_wide_m_kernel: all three addressings past M = MAX_M (190), where one
-// LUT row and a ring no longer fit shared memory together. A simple kernel,
-// right first: a warp per live slot (per query for pq_scan), the slot's LUT
-// row read through L2 by __ldg and not staged (M KiB stays in the 50 MB
-// L2), its codes read 32 rows a step from device memory, one row a lane,
-// each row's sum taken in the order m = 0 … M-1 (as adc_row and the plain
-// versions, so the results are bit-equal), the list kept by topk.cuh's
-// WarpSelect behind the pass's floor. What bounds it: the codes (M bytes a
-// valid row) and the LUT rows are bytes; per row a lane issues M dependent
-// L2 gathers, so at these widths it runs far above that bound (PERF.md §6).
+// LUT row and a ring no longer fit shared memory together. LUT-slice
+// stationary: a block owns one LUT row and a tile of code rows (the rows of
+// its slots' units; for pq_scan a range of the code array), and the row
+// passes through shared memory in slices of kMs subspaces (48 KiB), by
+// cp.async into two buffers, so slice j + 1 lands while slice j is read.
+// The slice loop sits outside the row loop: each lane carries the partial
+// sums of kR rows of its warp in registers from one slice to the next, so a
+// slice is staged once for the block's whole tile (kWarps · kR · 32 rows)
+// and each row's sum still runs m = 0 … M-1 (as adc_row and the plain
+// versions: the results stay bit-equal). A lane reads its row's codes for a
+// slice straight from device memory as four aligned 16-byte words (one
+// line a row, where 8-byte or byte reads would touch it five to 48 times)
+// and takes them apart by funnel shifts, so an M that is not a multiple of
+// 8 costs what a multiple does.
+// After a row's last slice its sum goes to topk.cuh's WarpSelect behind the
+// pass's floor.
+//   * units (resident table + lut_idx): the wrapper sorts the slots by
+//     table row (slot_order); an item is P consecutive slots of that
+//     order, and each run of one row among them shares the row's slices: a
+//     slot's TV rows go to g warps (g · 256 rows a tile, P = kWarps / g),
+//     whose lists fold into the first's. Slots of row -1 are written
+//     (NEG_INF, -1) unread.
+//   * dense (expanded LUTs + n_live): an item is one slot, its rows over
+//     all eight warps; dead slots are written (NEG_INF, -1) unread.
+//   * both: two blocks an SM walk the items (blockIdx.x, + gridDim.x, …),
+//     so the padding slots, sorted first, cost no block launches.
+//   * rows (pq_scan): G blocks, each a contiguous range of the NV rows over
+//     its eight warps; each block stores its list and the last block to
+//     count itself (a counter the entry zeroes) merges them in the launch.
+// Shared memory: two LUT slices (96 KiB) and the candidate buffers, two
+// blocks an SM. What bounds it: bytes
+// (the codes of the valid rows, the distinct LUT rows, the output) and,
+// past M ~256, the lookups: M random 4-byte reads of shared memory per
+// (live slot, valid row), at most one a bank a clock (PERF.md §6, the lookup
+// bound). Units longer than one tile restage the row per tile.
 
 namespace wide {
 
-constexpr int kWarps = 4;   // slots a block, a warp each
-constexpr int kChunk = 32;  // rows a step, one a lane
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kR = 8;                    // rows a lane carries across the slices
+constexpr int kWarpRows = 32 * kR;       // rows a warp takes a tile
+constexpr int kMs = 48;                  // LUT subspaces a slice
+constexpr int kSliceFloats = kMs * 256;  // 48 KiB
+constexpr int kWords = 4;                // 16-byte words a lane reads a row and slice: kMs + 15 <= 64
+constexpr int kUnits = 0, kDense = 1, kRows = 2;
+constexpr int kBlocksPerSm = 2;          // what shared memory and registers let an SM hold
 
-// Σ_m lut[m][code[m]] over one code row in device memory, m = 0 … M-1.
-__device__ __forceinline__ float adc_row_ldg(const float* __restrict__ lut, const uint8_t* __restrict__ cr,
-                                             int M) {
-  float acc = 0.f;
-  if ((M & 7) == 0 && (reinterpret_cast<uintptr_t>(cr) & 7) == 0) {
-    for (int j = 0; j < M; j += 8) {
-      const uint2 w = __ldg(reinterpret_cast<const uint2*>(cr + j));
+// Mirrored by kernels/pq_scan.py::wide_m_launch_shape: two slice buffers
+// and the warps' candidate buffers.
+constexpr size_t kSmemBytes = 2 * (size_t)kSliceFloats * sizeof(float) + (size_t)kWarps * kSelectBuf * 8;
+
+// Warps a slot's rows go to in the units mode: the fewest (a power of two)
+// whose tile covers TV rows, at most kWarps.
+__host__ __device__ inline int warps_per_slot(int TV) {
+  int g = 1;
+  while (g < kWarps && g * kWarpRows < TV) g *= 2;
+  return g;
+}
+
+struct Args {
+  const float* lut;  // units: table [U, M, 256]; dense: [W·TQ, M, 256]; rows: [M, 256]
+  const int* keys;   // units: the slots' table rows, sorted (slot_order)
+  const int64_t* order;  // units: their slots w·TQ + t
+  const int* n_live;     // dense: live slots per unit, or null (all)
+  const uint8_t* codes;  // [W, TV, M] ([NV, M] for rows)
+  const uint8_t* codes_end;
+  const uint8_t* valid;  // [W, TV] ([NV])
+  const float* floor_s;  // [W·TQ] or null (the first pass)
+  const int* floor_i;
+  float* part_s;  // rows: [G, k] lists and a counter
+  int* part_i;
+  unsigned* counter;
+  float* out_s;  // [W·TQ, k]
+  int* out_i;
+  int mode, N, TQ, TV, M, U, k, P, g, items;
+};
+
+// One slice's n subspaces (n·256 floats) into shared memory by cp.async (no commit).
+__device__ __forceinline__ void stage_slice_async(float* dst, const float* src, int n) {
+  for (int e = threadIdx.x; e < n * 64; e += kThreads) sm90::cp_async16(dst + 4 * e, src + 4 * e);
+}
+
+// acc + Σ_{j<n} lut[j][cr[j]], j in order, for the n <= kMs codes at cr (any
+// alignment): kWords aligned 16-byte words (none at or past `end`), whose
+// 32-bit words from cr's own offset on each give 4 codes by a funnel shift.
+// FULL: n == kMs (no bound on j).
+template <bool FULL>
+__device__ __forceinline__ float adc_slice(float acc, const float* __restrict__ lut, const uint8_t* cr, int n,
+                                           const uint8_t* end) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(cr);
+  const uint4* base = reinterpret_cast<const uint4*>(a & ~(uintptr_t)15);
+  uint32_t w[4 * kWords];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc += __ldg(lut + (j + b) * 256 + ((w.x >> (8 * b)) & 255u));
+  for (int i = 0; i < kWords; ++i) {
+    const uint4 x = reinterpret_cast<const uint8_t*>(base + i) < end ? __ldg(base + i) : make_uint4(0u, 0u, 0u, 0u);
+    w[4 * i] = x.x;
+    w[4 * i + 1] = x.y;
+    w[4 * i + 2] = x.z;
+    w[4 * i + 3] = x.w;
+  }
+  const int o = (int)((a >> 2) & 3);  // cr's 32-bit word inside its 16-byte word
+  const uint32_t sh = 8u * (uint32_t)(a & 3);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc += __ldg(lut + (j + 4 + b) * 256 + ((w.y >> (8 * b)) & 255u));
-    }
-  } else {
-    for (int j = 0; j < M; ++j) acc += __ldg(lut + j * 256 + __ldg(cr + j));
+  for (int j = 0; j < kMs / 4; ++j) {
+    const uint32_t lo0 = (o & 1) ? w[j + 1] : w[j], lo1 = (o & 1) ? w[j + 3] : w[j + 2];
+    const uint32_t hi0 = (o & 1) ? w[j + 2] : w[j + 1], hi1 = (o & 1) ? w[j + 4] : w[j + 3];
+    const uint32_t c = __funnelshift_r((o & 2) ? lo1 : lo0, (o & 2) ? hi1 : hi0, sh);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (FULL || 4 * j + b < n) acc += lut[(4 * j + b) * 256 + ((c >> (8 * b)) & 255u)];
   }
   return acc;
 }
 
-// Slot s = w·TQ + t of W·TQ. Its LUT row: table row lut_idx[s] (-1: no
-// query; other indices clamped into [0, U)) when lut_idx is given, else
-// row s of the expanded LUTs, live iff t < n_live[w] (n_live null: every
-// slot). A slot with no query, or whose floor index is -1, is written
-// (NEG_INF, -1) and reads nothing.
+// Rows [lo, hi) of one code array (cw/vw) scored against one LUT row, block-
+// wide: the rows go in tiles of g · kWarpRows, lane's rows of a tile
+// r0 + (i·g + mem)·32 + lane, i < kR; for each tile the row's slices (and
+// the warp's windows) pass through shared memory, double-buffered, the sums
+// carried in acc. Every warp of the block calls it (inactive ones too: the
+// slices are barriers); an active warp offers its rows' scores to sel
+// (indices: the rows).
 template <int KL>
-__global__ void __launch_bounds__(kWarps * 32)
-    adc_wide_m_kernel(const float* __restrict__ lut, const int* __restrict__ lut_idx, int U,
-                      const int* __restrict__ n_live, const uint8_t* __restrict__ codes,
-                      const uint8_t* __restrict__ valid, const float* __restrict__ floor_s,
-                      const int* __restrict__ floor_i, float* __restrict__ out_s,
-                      int* __restrict__ out_i, int W, int TQ, int TV, int M, int k) {
-  __shared__ float bs[kWarps][kSelectBuf];
-  __shared__ int bi[kWarps][kSelectBuf];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long slot = (long long)blockIdx.x * kWarps + warp;
-  if (slot >= (long long)W * TQ) return;
-  const int w = (int)(slot / TQ), t = (int)(slot - (long long)w * TQ);
-  float* os = out_s + slot * k;
-  int* oi = out_i + slot * k;
-  const float* row_lut = nullptr;
-  if (lut_idx) {
-    const int r = lut_idx[slot];
-    if (r != -1) row_lut = lut + (size_t)min(max(r, 0), U - 1) * M * 256;
-  } else if (!n_live || t < n_live[w]) {
-    row_lut = lut + (size_t)slot * M * 256;
-  }
-  if (floor_i && floor_i[slot] < 0) row_lut = nullptr;  // the pass before came up short
-  if (!row_lut) {
-    for (int e = lane; e < k; e += 32) {
-      os[e] = kNegInf;
-      oi[e] = -1;
+__device__ __forceinline__ void scan_rows(const Args& a, float* slut, const float* row_lut, const uint8_t* cw,
+                                          const uint8_t* vw, int lo, int hi, bool active, int mem, int g,
+                                          WarpSelect<KL>& sel, int lane) {
+  const int M = a.M;
+  const int nsl = (M + kMs - 1) / kMs;
+  const int tile_rows = g * kWarpRows;
+  const int steps = (hi - lo + tile_rows - 1) / tile_rows * nsl;
+  __syncthreads();  // the buffers are free: every warp is done with the previous item
+  if (steps == 0) return;  // block-uniform: an empty range
+  stage_slice_async(slut, row_lut, min(kMs, M));
+  sm90::cp_async_commit();
+  float acc[kR];
+  unsigned okm = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int tile = s / nsl, sl = s - tile * nsl;
+    if (s + 1 < steps) {
+      const int ns = (s + 1) % nsl;
+      stage_slice_async(slut + ((s + 1) & 1) * kSliceFloats, row_lut + (size_t)ns * kSliceFloats,
+                        min(kMs, M - ns * kMs));
     }
-    return;
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();  // slice s is in place for every thread
+    const int r0 = lo + tile * tile_rows;
+    if (sl == 0) {
+      okm = 0;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        acc[i] = 0.f;
+        const int row = r0 + (i * g + mem) * 32 + lane;
+        if (active && row < hi && vw[row] != 0) okm |= 1u << i;
+      }
+    }
+    const float* cur = slut + (s & 1) * kSliceFloats;
+    const int m0 = sl * kMs, n = min(kMs, M - m0);
+    if (n == kMs) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+        if ((okm >> i) & 1u)
+          acc[i] = adc_slice<true>(acc[i], cur, cw + (size_t)(r0 + (i * g + mem) * 32 + lane) * M + m0, n,
+                                   a.codes_end);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+        if ((okm >> i) & 1u)
+          acc[i] = adc_slice<false>(acc[i], cur, cw + (size_t)(r0 + (i * g + mem) * 32 + lane) * M + m0, n,
+                                    a.codes_end);
+    }
+    if (active && sl == nsl - 1) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const bool ok = (okm >> i) & 1u;
+        sel.offer(ok ? acc[i] : -INFINITY, r0 + (i * g + mem) * 32 + lane, ok, lane);
+      }
+    }
+    __syncthreads();  // slice s is read before step s + 2 refills its buffer
   }
-  WarpSelect<KL> sel;
-  sel.bs = bs[warp];
-  sel.bi = bi[warp];
-  sel.k = k;
-  sel.reset();
-  sel.set_floor(floor_s, floor_i, (size_t)slot);
-  const uint8_t* cw = codes + (size_t)w * TV * M;
-  const uint8_t* vw = valid + (size_t)w * TV;
-  for (int r0 = 0; r0 < TV; r0 += kChunk) {
-    const int r = r0 + lane;
-    const bool ok = r < TV && vw[r] != 0;
-    const float acc = ok ? adc_row_ldg(row_lut, cw + (size_t)r * M, M) : -INFINITY;
-    sel.offer(acc, r, ok, lane);
+  sm90::cp_async_wait<0>();  // only empty groups are left; none outlives the item
+}
+
+// The lists of each group of g warps fold into its first warp's (block-wide).
+template <int KL>
+__device__ __forceinline__ void fold_groups(WarpSelect<KL>& sel, float* bs, int* bi, int warp, int g,
+                                            bool active, int lane) {
+  const int mem = warp % g;
+  if (active && mem != 0) sel.top.store(sel.bs, sel.bi, sel.k, lane);
+  __syncthreads();
+  if (active && mem == 0) {
+    for (int j = 1; j < g; ++j)
+      sel.offer_list(bs + (warp + j) * kSelectBuf, bi + (warp + j) * kSelectBuf, sel.k, false, lane);
+    sel.flush(lane);
   }
-  sel.flush(lane);
-  sel.top.write_final(k, os, oi, lane);
+  __syncthreads();  // the buffers are free again
+}
+
+__device__ __forceinline__ void write_absent(float* os, int* oi, int k, int lane) {
+  for (int e = lane; e < k; e += 32) {
+    os[e] = kNegInf;
+    oi[e] = -1;
+  }
 }
 
 template <int KL>
-cudaError_t launch(const void* lut, const void* lut_idx, int U, const void* n_live, const void* codes,
-                   const void* valid, const void* floor_s, const void* floor_i, void* out_s,
-                   void* out_i, int W, int TQ, int TV, int M, int k, cudaStream_t stream) {
-  const long long blocks = ((long long)W * TQ + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  adc_wide_m_kernel<KL><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
-      static_cast<const float*>(lut), static_cast<const int*>(lut_idx), U,
-      static_cast<const int*>(n_live), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(valid), static_cast<const float*>(floor_s),
-      static_cast<const int*>(floor_i), static_cast<float*>(out_s), static_cast<int*>(out_i), W, TQ,
-      TV, M, k);
+__global__ void __launch_bounds__(kThreads) adc_wide_m_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* slut = reinterpret_cast<float*>(smem_raw);  // [2][kMs][256]
+  float* bs = slut + 2 * kSliceFloats;               // [kWarps][kSelectBuf]
+  int* bi = reinterpret_cast<int*>(bs + kWarps * kSelectBuf);
+  __shared__ int s_row[kWarps], s_slot[kWarps], s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  WarpSelect<KL> sel;
+  sel.bs = bs + warp * kSelectBuf;
+  sel.bi = bi + warp * kSelectBuf;
+  sel.k = a.k;
+  sel.reset();
+
+  if (a.mode == kRows) {
+    if (a.floor_i && a.floor_i[0] < 0) {  // the pass before came up short: nothing is left
+      if (blockIdx.x == 0 && warp == 0) write_absent(a.out_s, a.out_i, a.k, lane);
+      return;
+    }
+    const int lo = (int)((long long)a.TV * blockIdx.x / gridDim.x);
+    const int hi = (int)((long long)a.TV * (blockIdx.x + 1) / gridDim.x);
+    sel.set_floor(a.floor_s, a.floor_i, 0);
+    scan_rows<KL>(a, slut, a.lut, a.codes, a.valid, lo, hi, true, warp, kWarps, sel, lane);
+    sel.flush(lane);
+    fold_groups<KL>(sel, bs, bi, warp, kWarps, true, lane);
+    if (warp == 0) {
+      sel.top.store(a.part_s + (size_t)blockIdx.x * a.k, a.part_i + (size_t)blockIdx.x * a.k, a.k, lane);
+      __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(a.counter, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();  // every block's list is visible to the last one
+    sel.reset();
+    for (int blk = warp; blk < (int)gridDim.x; blk += kWarps)
+      sel.offer_list(a.part_s + (size_t)blk * a.k, a.part_i + (size_t)blk * a.k, a.k, true, lane);
+    sel.flush(lane);
+    fold_groups<KL>(sel, bs, bi, warp, kWarps, true, lane);
+    if (warp == 0) sel.top.write_final(a.k, a.out_s, a.out_i, lane);
+    return;
+  }
+
+  const int g = a.g;
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    // units / dense: this item's slots (their LUT rows; -1: no query)
+    int n;
+    __syncthreads();  // every thread is done with the previous item's slots
+    if (a.mode == kUnits) {
+      const int p0 = item * a.P;
+      n = min(a.P, a.N - p0);
+      if ((int)threadIdx.x < n) {
+        const int key = a.keys[p0 + threadIdx.x];
+        const int slot = (int)a.order[p0 + threadIdx.x];
+        int row = key == -1 ? -1 : min(max(key, 0), a.U - 1);  // other indices are clamped into the table
+        if (a.floor_i && a.floor_i[slot] < 0) row = -1;          // the pass before left it short
+        s_row[threadIdx.x] = row;
+        s_slot[threadIdx.x] = slot;
+      }
+    } else {
+      n = 1;
+      if (threadIdx.x == 0) {
+        const int slot = item, w = slot / a.TQ, t = slot - w * a.TQ;
+        const bool live = (!a.n_live || t < a.n_live[w]) && !(a.floor_i && a.floor_i[slot] < 0);
+        s_row[0] = live ? slot : -1;
+        s_slot[0] = slot;
+      }
+    }
+    __syncthreads();
+    for (int r0 = 0; r0 < n;) {  // runs of one row: block-uniform
+      int r1 = r0 + 1;
+      while (r1 < n && s_row[r1] == s_row[r0]) ++r1;
+      const int row = s_row[r0];
+      if (row < 0) {
+        for (int pos = r0 + warp; pos < r1; pos += kWarps)
+          write_absent(a.out_s + (size_t)s_slot[pos] * a.k, a.out_i + (size_t)s_slot[pos] * a.k, a.k, lane);
+      } else {
+        const int p = warp / g, mem = warp - p * g;
+        const bool active = r0 + p < r1;  // warp-uniform
+        const int slot = active ? s_slot[r0 + p] : 0;
+        const int w = slot / a.TQ;
+        sel.reset();
+        if (active) sel.set_floor(a.floor_s, a.floor_i, (size_t)slot);
+        scan_rows<KL>(a, slut, a.lut + (size_t)row * a.M * 256, a.codes + (size_t)w * a.TV * a.M,
+                      a.valid + (size_t)w * a.TV, 0, a.TV, active, mem, g, sel, lane);
+        if (active) sel.flush(lane);
+        if (g > 1) fold_groups<KL>(sel, bs, bi, warp, g, active, lane);
+        if (active && mem == 0)
+          sel.top.write_final(a.k, a.out_s + (size_t)slot * a.k, a.out_i + (size_t)slot * a.k, lane);
+      }
+      r0 = r1;
+    }
+  }
+}
+
+template <int KL>
+cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
+  cudaError_t err = prepare(adc_wide_m_kernel<KL>, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  adc_wide_m_kernel<KL><<<blocks, kThreads, kSmemBytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// (items, blocks, P, g) of the units and dense modes for W·TQ slots of TV
+// rows on a card of `sms` SMs: an item is P slots (units) or one (dense),
+// and kBlocksPerSm blocks an SM walk them.
+__host__ inline bool shape_of(int mode, int W, int TQ, int TV, int sms, int& items, int& blocks, int& P,
+                              int& g) {
+  const long long N = (long long)W * TQ;
+  g = mode == kUnits ? warps_per_slot(TV) : kWarps;
+  P = mode == kUnits ? kWarps / g : 1;
+  if (W < 1 || TQ < 1 || TV < 1 || sms < 1 || N > 0x7fffffffLL) return false;
+  items = (int)((N + P - 1) / P);
+  blocks = min(items, kBlocksPerSm * sms);
+  return true;
 }
 
 }  // namespace wide
@@ -1090,34 +1313,59 @@ int lut_stationary_rows_launch(const void* lut, const void* codes, const void* v
                                      out_i, NV, M, k, G, Ms, st);
 }
 
-// The launch of adc_wide_m_launch for W·TQ slots: blocks, threads a block,
-// static shared bytes (kernels/pq_scan.py::wide_m_launch_shape).
-int adc_wide_m_shape(int W, int TQ, int* out) {
-  const long long blocks = ((long long)W * TQ + wide::kWarps - 1) / wide::kWarps;
-  if (W < 1 || TQ < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  out[0] = (int)blocks;
-  out[1] = wide::kWarps * 32;
-  out[2] = wide::kWarps * kSelectBuf * 8;
+// The launch of adc_wide_m_launch in the units (dense 0) or dense (dense 1)
+// mode for W·TQ slots of TV rows on a card of `sms` SMs: blocks, threads a
+// block, dynamic shared bytes, slots an item P, warps a slot g, LUT
+// subspaces a slice (kernels/pq_scan.py::wide_m_launch_shape).
+int adc_wide_m_shape(int W, int TQ, int TV, int dense, int sms, int* out) {
+  int items, blocks, P, g;
+  if (!wide::shape_of(dense ? wide::kDense : wide::kUnits, W, TQ, TV, sms, items, blocks, P, g))
+    return (int)cudaErrorInvalidValue;
+  out[0] = blocks;
+  out[1] = wide::kThreads;
+  out[2] = (int)wide::kSmemBytes;
+  out[3] = P;
+  out[4] = g;
+  out[5] = wide::kMs;
   return 0;
 }
 
-// Any M (the three wrappers past MAX_M): LUTs f32, either a table [U, M,
-// 256] read through lut_idx int32 [W, TQ] (-1: no query) or expanded
-// [W, TQ, M, 256] with lut_idx null and n_live int32 [W] or null; codes
-// uint8 [W, TV, M], valid uint8 [W, TV]; floor_s f32 / floor_i int32
-// [W, TQ] or both null (the first pass); out [W, TQ, k], k <= 64.
-int adc_wide_m_launch(const void* lut, const void* lut_idx, int U, const void* n_live, const void* codes,
-                      const void* valid, const void* floor_s, const void* floor_i, void* out_s,
-                      void* out_i, int W, int TQ, int TV, int M, int k, void* stream) {
-  if (k < 1 || k > 64 || k > TV || W < 1 || TQ < 1 || M < 1 || (lut_idx && U < 1) ||
-      (!floor_s) != (!floor_i))
+// Any M (the three wrappers past MAX_M), k <= 64. Units: table [U, M, 256],
+// keys int32 / order int64 [W·TQ] (slot_order of lut_idx: -1 no query);
+// dense: expanded LUTs [W, TQ, M, 256] with n_live int32 [W] or null; both
+// with codes uint8 [W, TV, M], valid uint8 [W, TV], floor_s f32 / floor_i
+// int32 [W, TQ] or both null (the first pass), out [W, TQ, k], two blocks
+// an SM (`sms` of them). Rows (pq_scan): lut [M, 256], codes [NV, M] (NV in TV, W = TQ
+// = 1), valid [NV], floor [1] or null, G blocks, part [G, k] scratch and a
+// counter the entry zeroes on the stream, out [k]. codes_end: the end of
+// the code array (no 16-byte word at or past it is read).
+int adc_wide_m_launch(int mode, const void* lut, const void* keys, const void* order, int U,
+                      const void* n_live, const void* codes, const void* codes_end, const void* valid,
+                      const void* floor_s, const void* floor_i, void* part_s, void* part_i, void* counter,
+                      void* out_s, void* out_i, int W, int TQ, int TV, int M, int k, int G, int sms,
+                      void* stream) {
+  if (k < 1 || k > 64 || k > TV || M < 1 || (!floor_s) != (!floor_i) || mode < wide::kUnits ||
+      mode > wide::kRows || (mode == wide::kUnits && (U < 1 || !keys || !order)) ||
+      (mode == wide::kRows && (G < 1 || !part_s || !part_i || !counter)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k <= 32)
-    return (int)wide::launch<32>(lut, lut_idx, U, n_live, codes, valid, floor_s, floor_i, out_s, out_i,
-                                 W, TQ, TV, M, k, st);
-  return (int)wide::launch<64>(lut, lut_idx, U, n_live, codes, valid, floor_s, floor_i, out_s, out_i, W,
-                               TQ, TV, M, k, st);
+  int items = 0, blocks = G, P = 1, g = wide::kWarps;
+  if (mode != wide::kRows && !wide::shape_of(mode, W, TQ, TV, sms, items, blocks, P, g))
+    return (int)cudaErrorInvalidValue;
+  if (mode == wide::kRows) {
+    const cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const wide::Args a{static_cast<const float*>(lut), static_cast<const int*>(keys),
+                     static_cast<const int64_t*>(order), static_cast<const int*>(n_live),
+                     static_cast<const uint8_t*>(codes), static_cast<const uint8_t*>(codes_end),
+                     static_cast<const uint8_t*>(valid),
+                     static_cast<const float*>(floor_s), static_cast<const int*>(floor_i),
+                     static_cast<float*>(part_s), static_cast<int*>(part_i),
+                     static_cast<unsigned*>(counter), static_cast<float*>(out_s), static_cast<int*>(out_i),
+                     mode, W * TQ, TQ, TV, M, U, k, P, g, items};
+  if (k <= 32) return (int)wide::launch<32>(a, blocks, st);
+  return (int)wide::launch<64>(a, blocks, st);
 }
 
 }  // extern "C"

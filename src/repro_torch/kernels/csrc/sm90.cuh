@@ -130,8 +130,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define SM90_F8(i)                                                                           \
   "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_F16 SM90_F8(0), SM90_F8(8)
 #define SM90_F32 SM90_F8(0), SM90_F8(8), SM90_F8(16), SM90_F8(24)
 #define SM90_F64 SM90_F32, SM90_F8(32), SM90_F8(40), SM90_F8(48), SM90_F8(56)
+#define SM90_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
 #define SM90_R32                                                                  \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"        \
   " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
@@ -143,6 +145,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // D[64 x N] (+)= A[64 x 16] · B[16 x N], bf16 in, f32 accumulate; A and B
 // K-major in shared memory. `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_R16
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F16
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -183,12 +194,17 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
 }
 
 #undef SM90_F8
+#undef SM90_F16
 #undef SM90_F32
 #undef SM90_F64
+#undef SM90_R16
 #undef SM90_R32
 #undef SM90_R64
 
 // Dispatch on the accumulator's width.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n32(d, a, b, acc);
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_n64(d, a, b, acc);
 }

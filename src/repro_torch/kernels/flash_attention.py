@@ -5,12 +5,13 @@ grouped-query heads (the prefill hot path of the LM serving path).
 (f32 or bf16, one type) and returns ``[B, S, Hq, dh]`` in q's type. On a
 CUDA tensor it launches a kernel of ``csrc/flash_attention.cu`` (or raises):
 bf16 inputs the tensor-core kernel (wgmma products, K/V tiles through a TMA
-ring), f32 inputs the CUDA-core kernel; past ``MAX_HEAD_DIM`` both types
-the wide-dh kernel (``flash_attention_wide``: a warp per query row). On a
-CPU tensor it runs the plain version, ``flash_attention_plain``.
-``launches`` on the wrapper counts the tiled kernels' launches,
-``flash_attention_wide.launches`` the wide kernel's, and ``calls`` on the
-plain version its calls.
+ring), f32 inputs the CUDA-core kernel; past ``MAX_HEAD_DIM`` the same two
+designs with O in column slices of at most 256 and the logits summed over
+dh in slices (``flash_attention_wide``: bf16 up to ``WIDE_WGMMA_MAX`` on
+the tensor cores, f32 and wider bf16 on CUDA cores). On a CPU tensor it
+runs the plain version, ``flash_attention_plain``. ``launches`` on the
+wrapper counts the tiled kernels' launches, ``flash_attention_wide.launches``
+the wide ones', and ``calls`` on the plain version its calls.
 
 Replaces (TPU): ``src/repro/kernels/flash_attention.py::flash_attention_pallas``;
 the plain version is the port of the chunked online softmax of
@@ -29,36 +30,54 @@ from . import _build
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
 MAX_HEAD_DIM = 256  # widest compiled width of the tiled kernels (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
-# the wide kernel (csrc/flash_attention.cu): query rows (warps) a block, bytes of
-# its K and V tiles together, output columns a slice past 2048
-_WIDE_WARPS, _WIDE_KV_BYTES, _WIDE_SLICE = 8, 64 * 1024, 2048
+# widest bf16 head the wide path runs on the tensor cores (DH 384 and 512): past it
+# a wgmma block's 128-row Q tile would outgrow shared memory beside its K/V ring
+WIDE_WGMMA_MAX = 512
+# flash_sliced_kernel (csrc/flash_attention.cu): threads, query rows and keys a tile,
+# and Q/K columns staged at once; the row padding of its transposed tiles
+_SLICED_THREADS, _SLICED_BQ, _SLICED_BK, _SLICED_DC, _PAD = 256, 64, 64, 32, 4
+# flash_fwd_wgmma_kernel at DH 384 / 512 (Tile, Smem): keys a K/V tile, ring stages,
+# output columns a block
+_WGMMA_WIDE = {384: (32, 3, 192), 512: (32, 2, 256)}
 
 
 def wide_head(dh: int) -> bool:
-    """Whether a head width takes the wide-dh kernel: the tiled kernels'
-    tiles at the next width above 256 (512) would exceed the 227 KiB of
-    shared memory a block may hold (the f32 kernel's would need 289 KiB,
-    ``flash_smem_bytes``; the bf16 kernel's Q tile alone 128 KiB beside a
-    ring of two 128 KiB K/V stages, ``Smem``)."""
+    """Whether a head width takes ``flash_attention_wide``: the tiled
+    kernels' tiles at the next width above 256 (512) would exceed the 227
+    KiB of shared memory a block may hold (the f32 kernel's would need 289
+    KiB, ``flash_smem_bytes``; the bf16 kernel's Q tile alone 128 KiB beside
+    a ring of two 128 KiB K/V stages), and a warpgroup's 64 x 512 output 256
+    registers a thread."""
     return int(dh) > MAX_HEAD_DIM
 
 
-def wide_tile_keys(dh: int, elem_size: int) -> int:
-    """Keys a K/V tile of the wide kernel holds (mirrors ``wide_tile_keys``
-    in ``csrc/flash_attention.cu``): K and V together in 64 KiB, 1 to 32
-    keys (lane j of a warp keeps key j's logit)."""
-    return max(1, min(32, _WIDE_KV_BYTES // (2 * dh * elem_size)))
+def sliced_cols(dh: int) -> int:
+    """Output columns each half of a ``flash_sliced_kernel`` block owns
+    (mirrors ``sliced_cols``): dh in the fewest blocks of at most 512
+    columns, each in two halves rounded up to a multiple of 32."""
+    n = -(-dh // 512)
+    return -(-(-(-dh // (2 * n))) // 32) * 32
 
 
 def wide_launch_shape(b: int, s: int, hq: int, dh: int, elem_size: int) -> tuple[int, ...]:
-    """(grid x, y, z, threads, dynamic shared bytes, keys a tile) of the
-    wide kernel's launch (mirrors ``flash_attention_wide_shape``): a block of
-    ``_WIDE_WARPS`` query rows; y holds heads × output slices (one slice up
-    to dh 2048: 16, 32 or 64 columns a lane); K and V tiles of
-    ``wide_tile_keys`` keys each."""
-    cols = 32 * (16 if dh <= 512 else 32 if dh <= 1024 else _WIDE_SLICE // 32)
-    tk = wide_tile_keys(dh, elem_size)
-    return (-(-s // _WIDE_WARPS), hq * -(-dh // cols), b, _WIDE_WARPS * 32, 2 * tk * dh * elem_size, tk)
+    """(grid x, y, z, threads, dynamic shared bytes, keys a K/V tile, output
+    columns a block) of ``flash_attention_wide``'s launch (mirrors
+    ``flash_attention_wide_shape``). bf16 up to ``WIDE_WGMMA_MAX``: the
+    wgmma kernel at DH 384 or 512, one block per (128 query rows, head,
+    batch, column slice), 384 threads, Q [128, DH] and a ring of K [32, DH]
+    and V [32, DV] tiles in bf16 (``Smem``). Otherwise the sliced CUDA-core
+    kernel: 256 threads and 64 query rows a block, y holding heads x blocks
+    of two DV-column halves, Q and K chunks of 32 columns, P, a V tile of
+    the block's columns and two per-row arrays in f32."""
+    if elem_size == 2 and dh <= WIDE_WGMMA_MAX:
+        width = 384 if dh <= 384 else 512
+        bn, stages, dv = _WGMMA_WIDE[width]
+        smem = 1024 + 128 * width * 2 + stages * (bn * width * 2 + bn * dv * 2) + (1 + 3 * stages) * 8
+        return (-(-s // 128) * hq * b * -(-dh // dv), 1, 1, 384, smem, bn, dv)
+    dv = sliced_cols(dh)
+    smem = (2 * _SLICED_DC * (_SLICED_BQ + _PAD) + _SLICED_BK * (_SLICED_BQ + _PAD) + _SLICED_BK * 2 * dv
+            + 2 * _SLICED_BQ) * 4
+    return (-(-s // _SLICED_BQ), hq * -(-dh // (2 * dv)), b, _SLICED_THREADS, smem, _SLICED_BK, dv)
 
 
 def flash_attention_plain(
@@ -190,24 +209,32 @@ flash_attention.launches = 0
 def flash_attention_wide(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
 ) -> torch.Tensor:
-    """The wide-dh kernel (``flash_wide_kernel``), which ``flash_attention``
-    takes past ``MAX_HEAD_DIM`` after checking the operands (contiguous,
-    CUDA): a warp per (batch, query head, query row), K and V tiles staged
-    in shared memory for the block's rows, the online softmax in f32. Any
-    dh (past 2048 the output is taken in slices of 2048 columns)."""
+    """The kernels past ``MAX_HEAD_DIM``, which ``flash_attention`` takes
+    after checking the operands (contiguous, CUDA): O in column slices of at
+    most 256 (a block each), the logits summed over dh in slices. bf16 up to
+    ``WIDE_WGMMA_MAX``: ``flash_fwd_wgmma_kernel`` at DH 384 or 512 (dh
+    zero-padded to a multiple of 8 here for TMA's strides, then to DH by
+    TMA's fill); f32, and bf16 past it: ``flash_sliced_kernel`` on CUDA
+    cores. Any dh; one launch."""
     B, S, Hq, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    dp = -(-dh // 8) * 8 if bf16 and dh <= WIDE_WGMMA_MAX else dh
+    if dp != dh:
+        q, k, v = (torch.nn.functional.pad(x, (0, dp - dh)) for x in (q, k, v))
+    elif bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        q, k, v = (x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_wide_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, T, Hq, Hkv, dh, int(bool(causal)), int(window), dh**-0.5,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+            B, S, T, Hq, Hkv, dp, int(bool(causal)), int(window), dh**-0.5,
+            int(bf16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "flash_attention_wide")
     flash_attention_wide.launches += 1
-    return o
+    return o if dp == dh else o[..., :dh].contiguous()
 
 
 flash_attention_wide.launches = 0

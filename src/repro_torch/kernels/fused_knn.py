@@ -106,11 +106,32 @@ def fused_knn_plain(
     q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip",
     n_live: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of both grids: ``masked_topk_ref`` over every unit, and
-    ``(NEG_INF, -1)`` on the slots past ``n_live``."""
+    """Plain version of both grids: ``masked_topk_ref``'s masked top-k over
+    every unit, its scores summed in the kernels' order
+    (``ref.kernel_order_scores``, bit-equal to them), and ``(NEG_INF, -1)``
+    on the slots past ``n_live``. Only the pairs of a live slot and a valid
+    row are scored (the others are masked or dropped either way), in chunks
+    of ``_PLAIN_PAIRS``: the kernels' order costs a loop over D in fp64."""
     fused_knn_plain.calls += 1
-    s, i = _ref.masked_topk_ref(q, v, valid, int(k), metric)
+    W, TQ, _ = q.shape
+    live = torch.ones((W, TQ), dtype=torch.bool, device=q.device)
+    if n_live is not None:
+        live = torch.arange(TQ, device=q.device)[None, :] < n_live.to(q.device)[:, None]
+    w, t, r = torch.nonzero(live[:, :, None] & valid[:, None, :], as_tuple=True)
+    scores = torch.full((W, TQ, v.shape[1]), _ref.NEG_INF, dtype=torch.float32, device=q.device)
+    if metric == "l2":
+        qn, vn = _ref.fmaf_chain(q, q), _ref.fmaf_chain(v, v)
+    for a in range(0, w.numel(), _PLAIN_PAIRS):
+        wc, tc, rc = w[a:a + _PLAIN_PAIRS], t[a:a + _PLAIN_PAIRS], r[a:a + _PLAIN_PAIRS]
+        sc = _ref.fmaf_chain(q[wc, tc], v[wc, rc])
+        if metric == "l2":
+            sc = (2.0 * sc - qn[wc, tc]) - vn[wc, rc]
+        scores[wc, tc, rc] = sc
+    s, i = _ref.masked_topk_of_scores(scores, valid, int(k))
     return _ref.dead_slots_absent(s, i, n_live)
+
+
+_PLAIN_PAIRS = 1 << 20  # (slot, row) pairs the plain version scores at once
 
 
 fused_knn_plain.calls = 0

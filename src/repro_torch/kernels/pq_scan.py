@@ -22,8 +22,9 @@ shaped as the Pallas kernel it replaces (``repro.kernels.pq_scan``):
     last block in the same launch (the LUT-stationary kernel again).
 
 Past ``MAX_M`` subspaces (a LUT row and a ring no longer fit a block's
-shared memory) all three take ``adc_wide_m_kernel`` (``adc_wide_m``): a warp
-per live slot, the LUT row read through L2. A k′ above ``MAX_K`` is taken in
+shared memory) all three take ``adc_wide_m_kernel`` (``adc_wide_m``): a block
+owns one LUT row and a tile of code rows, and the row passes through shared
+memory in slices, each staged once for the tile. A k′ above ``MAX_K`` is taken in
 ``fused_knn.floor_passes``, one launch a pass.
 
 ``score[q, v] = Σ_m lut[q, m, code[v, m]]`` (summed in the order m = 0 …
@@ -447,14 +448,34 @@ def _rows_pass(lut, codes, valid, k: int, floor):
 pq_scan.launches = 0
 
 
-_WIDE_WARPS = 4  # wide::kWarps of csrc/pq_scan.cu: slots a block, a warp each
+# wide::kWarps, kR, kMs of csrc/pq_scan.cu: warps a block, rows a lane carries across
+# the slices, LUT subspaces a slice
+_WIDE_WARPS, _WIDE_ROWS_PER_LANE, _WIDE_SLICE = 8, 8, 48
+_WIDE_UNITS, _WIDE_DENSE, _WIDE_ROWS = 0, 1, 2  # wide::kUnits, kDense, kRows
+_WIDE_BLOCKS_PER_SM = 2  # wide::kBlocksPerSm
 
 
-def wide_m_launch_shape(w: int, tq: int) -> tuple[int, int, int]:
-    """(blocks, threads, static shared bytes) of ``adc_wide_m_kernel`` for W·TQ
-    slots (mirrors ``adc_wide_m_shape``): a warp a slot, four a block, each
-    warp's candidate buffer of ``kSelectBuf`` entries in shared memory."""
-    return -(-w * tq // _WIDE_WARPS), _WIDE_WARPS * 32, _WIDE_WARPS * _SELECT_BUF * 8
+def wide_m_warps_per_slot(tv: int) -> int:
+    """Warps a slot's rows go to in ``adc_wide_m_kernel``'s units mode
+    (mirrors ``wide::warps_per_slot``): the fewest, a power of two, whose
+    tile of 256 rows each covers TV, at most 8."""
+    g = 1
+    while g < _WIDE_WARPS and g * 32 * _WIDE_ROWS_PER_LANE < tv:
+        g *= 2
+    return g
+
+
+def wide_m_launch_shape(w: int, tq: int, tv: int, dense: bool = False, sms: int = 132) -> tuple[int, ...]:
+    """(blocks, threads, dynamic shared bytes, slots an item P, warps a slot
+    g, LUT subspaces a slice) of ``adc_wide_m_kernel`` for W·TQ slots of TV
+    rows on a card of ``sms`` SMs (mirrors ``adc_wide_m_shape``): an item is
+    P = 8 / g slots of the sorted order (units) or one slot over all 8 warps
+    (dense), and two blocks an SM walk the items; shared memory holds two
+    48-subspace slices and the warps' candidate buffers."""
+    g = _WIDE_WARPS if dense else wide_m_warps_per_slot(tv)
+    p = _WIDE_WARPS // g
+    smem = 2 * _WIDE_SLICE * NBOOK * 4 + _WIDE_WARPS * _SELECT_BUF * 8
+    return min(-(-w * tq // p), _WIDE_BLOCKS_PER_SM * sms), _WIDE_WARPS * 32, smem, p, g, _WIDE_SLICE
 
 
 def _floor_ptrs(floor) -> tuple:
@@ -472,27 +493,54 @@ def adc_wide_m(
     n_live: torch.Tensor | None = None,  # i32 [W]: real slots per unit (expanded LUTs only)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``adc_wide_m_kernel``, which the three wrappers take past ``MAX_M``
-    (they check the operands): a warp per live slot, its LUT row read
-    through L2, bit-equal to the plain versions. One launch per pass of
-    ``floor_passes``; ``launches`` counts them."""
-    return floor_passes(int(k), lambda kp, floor: _wide_pass(lut, lut_idx, n_live, codes, valid, kp,
-                                                             floor))
+    (they check the operands): a block owns one LUT row and a tile of code
+    rows, the row passing through shared memory in 48-subspace slices staged
+    once for the tile, bit-equal to the plain versions. With ``lut_idx`` the
+    slots are sorted by table row (``slot_order``) and each run of one row
+    shares its slices; ``pq_scan`` passes one query as ``lut [1, 1, M,
+    256]`` with ``codes [1, NV, M]``, whose rows go over ``row_blocks``
+    blocks. One launch per pass of ``floor_passes``; ``launches`` counts
+    them."""
+    def run(kp, floor):
+        if lut_idx is not None:  # a slot the pass before left short holds no query
+            idx = lut_idx if floor is None else torch.where(floor[1] >= 0, lut_idx, -1)
+            return _wide_pass(lut, codes, valid, kp, floor, idx=idx)
+        return _wide_pass(lut, codes, valid, kp, floor, n_live=n_live)
+
+    return floor_passes(int(k), run)
 
 
-def _wide_pass(lut, lut_idx, n_live, codes, valid, k: int, floor):
-    """One launch of ``adc_wide_m_kernel`` (k <= ``MAX_K``); a slot whose
-    floor index is -1 reads nothing and is written ``(NEG_INF, -1)``."""
+def _wide_pass(lut, codes, valid, k: int, floor, *, idx=None, n_live=None):
+    """One launch of ``adc_wide_m_kernel`` (k <= ``MAX_K``): the units mode
+    with ``idx`` (a table row per slot), the rows mode for one query over
+    the whole code array, else the dense mode; a slot whose floor index is
+    -1 reads nothing and is written ``(NEG_INF, -1)``."""
     W, TV, M = codes.shape
-    TQ = lut_idx.shape[1] if lut_idx is not None else lut.shape[1]
     dev = codes.device
+    if idx is not None:
+        mode, TQ = _WIDE_UNITS, idx.shape[1]
+    else:
+        TQ = lut.shape[1]
+        mode = _WIDE_ROWS if W * TQ == 1 and n_live is None else _WIDE_DENSE
+    keys = order = None
+    G, part, U = 1, None, lut.shape[0]
+    if mode == _WIDE_UNITS:
+        keys, order = slot_order(idx)
+    elif mode == _WIDE_ROWS:
+        G = row_blocks(TV, _sm_count(dev.index))
+        # the blocks' lists (scores, then ids) and the counter, int32 words
+        part = torch.empty((2 * G * k + 1,), dtype=torch.int32, device=dev)
     out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=dev)
+    base = 0 if part is None else part.data_ptr()
     lib = _build.library("pq_scan")
     with _on(dev):
         rc = lib.adc_wide_m_launch(
-            lut.data_ptr(), 0 if lut_idx is None else lut_idx.data_ptr(), lut.shape[0],
-            0 if n_live is None else n_live.data_ptr(), codes.data_ptr(), valid.data_ptr(),
-            *_floor_ptrs(floor), out_s.data_ptr(), out_i.data_ptr(), W, TQ, TV, M, k,
+            mode, lut.data_ptr(), 0 if keys is None else keys.data_ptr(),
+            0 if order is None else order.data_ptr(), U, 0 if n_live is None else n_live.data_ptr(),
+            codes.data_ptr(), codes.data_ptr() + codes.numel(), valid.data_ptr(), *_floor_ptrs(floor),
+            base, base and base + 4 * G * k, base and base + 8 * G * k, out_s.data_ptr(),
+            out_i.data_ptr(), W, TQ, TV, M, k, G, _sm_count(dev.index),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, rc, "adc_wide_m")

@@ -114,6 +114,70 @@ def pairwise_scores_ref(q: torch.Tensor, v: torch.Tensor, metric: str = "ip") ->
     raise ValueError(metric)
 
 
+_LOW29, _MID = 0x1FFFFFFF, 0x10000000  # an fp64 value on an fp32 midpoint: its low 29 mantissa bits
+_TINY = 2.0**-125  # below it fp32 rounds at a coarser place (subnormals): always the exact path
+
+
+def fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """CUDA's ``fmaf`` on the CPU, bit for bit: ``a·b + c`` rounded once to
+    fp32 (round to nearest even). a, b, c: fp32 values (a and b may come
+    widened to fp64); returns fp32.
+
+    The product of two fp32 values is exact in fp64 (24 + 24 bits < 53).
+    Rounding ``p + c`` to fp64 and then to fp32 is not: the first rounding
+    can land on a midpoint between two fp32 values that ``p + c`` itself is
+    not on, and the second then breaks the tie the wrong way (a = b = 1 +
+    2⁻¹², c = 2⁻⁸⁰). That is the only way the two roundings go wrong (any
+    other fp32 midpoint between the sum and its fp64 rounding would be a
+    nearer fp64 value), so where the fp64 sum sits on a midpoint (or is
+    tiny) it is rounded to odd instead: TwoSum gives its rounding error, and
+    where that is not 0 and the sum's last bit is even, the sum moves one
+    fp64 ulp toward the error. A value rounded to odd with at least 2·24 + 2
+    bits rounds to fp32 as the exact sum would."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bits = s.view(torch.int64)
+    at_mid = ((bits & _LOW29) == _MID) | (s.abs() < _TINY)
+    if bool(at_mid.any()):
+        z = s - p
+        err = (p - (s - z)) + (c - z)  # p + c - s exactly (TwoSum)
+        nudge = at_mid & (err != 0) & ((bits & 1) == 0)
+        s = torch.where(nudge, torch.nextafter(s, torch.full_like(s, float("inf")).copysign_(err)), s)
+    return s.float()
+
+
+def fmaf_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``acc = fmaf(a[..., c], b[..., c], acc)`` from ``acc = 0.f`` over c = 0
+    … D-1 (a and b broadcast against each other), the order of the f32 scan
+    kernels' sums; fp32 [...]."""
+    a64, b64 = a.to(torch.float32).double(), b.to(torch.float32).double()
+    shape = torch.broadcast_shapes(a64.shape[:-1], b64.shape[:-1])
+    acc = torch.zeros(shape, dtype=torch.float32, device=a.device)
+    for c in range(a64.shape[-1]):
+        acc = fmaf(a64[..., c], b64[..., c], acc)
+    return acc
+
+
+def kernel_order_scores(q: torch.Tensor, v: torch.Tensor, metric: str = "ip") -> torch.Tensor:
+    """``pairwise_scores_ref`` summed in the f32 scan kernels' order
+    (``csrc/fused_knn.cu``), so that on the same inputs the kernels match it
+    bit for bit: q·v is one ``fmaf`` chain per (query, row) from 0.f over
+    c = 0 … D-1, ‖q‖² and ‖v‖² are chains of the same kind, and l2 is
+    ``(2·ip − ‖q‖²) − ‖v‖²`` in fp32; bf16 inputs are widened to fp32 first.
+    q [..., nq, d], v [..., nv, d] -> f32 [..., nq, nv]. A loop over d in
+    fp64: the kernels' plain version uses it, the exhaustive oracle and
+    k-means keep the matmul of ``pairwise_scores_ref``."""
+    if metric not in ("ip", "l2"):
+        raise ValueError(metric)
+    ip = fmaf_chain(q[..., :, None, :], v[..., None, :, :])
+    if metric == "ip":
+        return ip
+    qn = fmaf_chain(q, q)[..., :, None]
+    vn = fmaf_chain(v, v)[..., None, :]
+    return (2.0 * ip - qn) - vn
+
+
 def masked_topk_ref(
     q: torch.Tensor,
     v: torch.Tensor,
@@ -128,11 +192,10 @@ def masked_topk_ref(
     Returns (scores f32 [..., nq, k] best-first, idx int32 [..., nq, k]);
     masked-out or absent entries have score ``NEG_INF`` and idx -1.
     """
-    scores = pairwise_scores_ref(q, v, metric)
-    return _masked_topk_of_scores(scores, valid, k)
+    return masked_topk_of_scores(pairwise_scores_ref(q, v, metric), valid, k)
 
 
-def _masked_topk_of_scores(
+def masked_topk_of_scores(
     scores: torch.Tensor, valid: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mask scores [..., nq, nv] by valid [..., nv] and take the top-k under
@@ -188,7 +251,7 @@ def adc_topk_ref(
     [..., nq, k] best-first under (score desc, index asc), idx int32
     [..., nq, k]); masked-out or absent entries are (NEG_INF, -1).
     """
-    return _masked_topk_of_scores(adc_scores_ref(luts, codes), valid, int(k))
+    return masked_topk_of_scores(adc_scores_ref(luts, codes), valid, int(k))
 
 
 def workunit_pq_topk_ref(
@@ -229,7 +292,7 @@ def workunit_pq_topk_resident_ref(
     scores = torch.zeros((w.numel(), codes.shape[1]), dtype=torch.float32, device=table.device)
     for j in range(table.shape[1]):
         scores = scores + table[:, j, :].to(torch.float32)[rows, codes[:, :, j].to(torch.int64)[w]]
-    s, i = _masked_topk_of_scores(scores[:, None, :], valid[w], k)
+    s, i = masked_topk_of_scores(scores[:, None, :], valid[w], k)
     out_s[w, t] = s[:, 0]
     out_i[w, t] = i[:, 0]
     return out_s, out_i

@@ -134,10 +134,10 @@ def test_rows_that_keep_no_key_are_zero():
 @pytest.mark.parametrize("dh,ok", [(16, True), (128, True), (256, True), (257, False), (512, False)])
 def test_kernel_head_width_limit(dh, ok):
     """dh <= 256 fits the tiled kernels' shared-memory tiles; beyond it the
-    wrapper takes the wide-dh kernel (``wide_head``), whose K/V tiles hold
-    1 to 32 keys in 64 KiB. The plain version has no limit."""
+    wrapper takes the wide kernels (``wide_head``), which hold O in column
+    slices within a block's shared memory. The plain version has no limit."""
     assert fa.wide_head(dh) != ok
-    assert 1 <= fa.wide_tile_keys(dh, 4) <= 32
+    assert fa.wide_launch_shape(1, 3, 1, dh, 4)[4] <= 227 * 1024
     q, k, v = _t(*_qkv(1, 3, 1, 1, dh))
     assert fa.flash_attention(q, k, v).shape == q.shape
 
@@ -226,8 +226,9 @@ def _bf16_kernel_emulation(q, k, v, *, causal, window, bn, exact_keys=64.0):
 
 @pytest.mark.parametrize(
     "s,window,dh,bn",
-    [(1100, 1024, 128, 128), (1024, 0, 128, 128), (300, 0, 256, 64)],
-    ids=["gemma3-window-1024", "gemma3-global", "dh256-bn64"],
+    [(1100, 1024, 128, 128), (1024, 0, 128, 128), (300, 0, 256, 64), (260, 0, 512, 32),
+     (200, 100, 384, 32)],
+    ids=["gemma3-window-1024", "gemma3-global", "dh256-bn64", "dh512-bn32", "dh384-bn32-window"],
 )
 def test_bf16_kernel_arithmetic_within_attn_tol(s, window, dh, bn):
     """Justifies ``ATTN_TOL`` in bf16 before any card run. The kernel's new

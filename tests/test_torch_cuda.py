@@ -660,13 +660,12 @@ def _attn_close(got, want):
 
 
 WIDE_ATTN = [
-    # b, s, t, hq, hkv, dh, causal, window
-    (1, 200, 200, 4, 2, 288, True, 0),  # a lane holds 9 columns of 16
-    (1, 300, 300, 2, 1, 512, True, 100),  # the widest single-register build, windowed
-    (2, 70, 70, 2, 2, 640, False, 0),  # 32 columns a lane, not causal
-    (1, 40, 100, 4, 2, 320, True, 0),  # S < T (left-aligned rows)
+    # b, s, t, hq, hkv, dh, causal, window: for each width the issue names, a
+    # windowed S = T case and a global one with S < T (left-aligned rows)
+    *[c for dh in (264, 288, 384, 512, 520, 1024, 2100)
+      for c in ((1, 1100, 1100, 4, 2, dh, True, 1024), (1, 90, 200, 2, 1, dh, True, 0))],
+    (2, 70, 70, 2, 2, 640, False, 0),  # not causal, two batches
     (1, 90, 30, 2, 1, 384, False, 8),  # S > T: late rows keep no key and return 0
-    (1, 50, 50, 2, 1, 2100, True, 0),  # past 2048: two output slices, q read through L1
 ]
 
 
@@ -674,8 +673,9 @@ WIDE_ATTN = [
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", WIDE_ATTN)
 def test_flash_attention_wide_head(dev, dtype, b, s, t, hq, hkv, dh, causal, window):
-    """Head widths past 256 take the wide-dh kernel (a warp per query row):
-    one launch of it, none of the tiled kernels, within ATTN_TOL of the
+    """Head widths past 256 take the wide kernels (bf16 up to 512: wgmma at
+    DH 384 / 512 in two column slices; otherwise the sliced CUDA-core
+    kernel): one launch, none of the tiled kernels, within ATTN_TOL of the
     plain version."""
     q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, dtype, t)
     n0, w0 = fa.flash_attention.launches, fa.flash_attention_wide.launches
@@ -709,7 +709,7 @@ def test_flash_attention_misaligned_bf16_base(dev):
 
 @pytest.mark.cuda
 def test_flash_attention_limits(dev):
-    """dh beyond the tiles takes the wide-dh kernel (one launch, within
+    """dh beyond the tiles takes the wide kernels (one launch, within
     ATTN_TOL of the plain version); a non-contiguous input raises before
     launch."""
     n0, w0 = fa.flash_attention.launches, fa.flash_attention_wide.launches
@@ -872,13 +872,13 @@ def test_adc_floor_passes(dev, name, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ADC)
-@pytest.mark.parametrize("M", [191, 256, 384, 768])
-@pytest.mark.parametrize("k", [10, 80])
+@pytest.mark.parametrize("M", [191, 192, 256, 768, 769])
+@pytest.mark.parametrize("k", [40, 80, 400])
 def test_adc_wide_m(dev, name, M, k):
-    """M past MAX_M: all three wrappers take adc_wide_m_kernel (a warp per
-    live slot, the LUT row through L2), bit-equal to the plain version; k′
-    80 in two passes."""
-    W, TQ, TV = (1, 1, 3000) if name == "pq_scan" else (8, 16, 300)
+    """M past MAX_M: all three wrappers take adc_wide_m_kernel (a LUT row's
+    slices staged once for a tile of rows), bit-equal to the plain version,
+    odd M included; k′ 80 and 400 in passes of 64."""
+    W, TQ, TV = (1, 1, 3000) if name == "pq_scan" else (8, 16, 600)
     table, lut_idx, codes, valid = _adc_case(dev, M + k, W, TQ, TV, M, U=40)
     n0, f0 = adc.adc_wide_m.launches, getattr(adc, name).launches
     (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, k)
@@ -889,8 +889,42 @@ def test_adc_wide_m(dev, name, M, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ADC[:2])
+@pytest.mark.parametrize("TV", [2300, 5000])
+def test_adc_wide_m_long_units(dev, name, TV):
+    """Units longer than a block's tile of 2,048 rows: the row tiles run one
+    after another under the same lists, bit-equal to the plain version;
+    slots sharing a table row (U 3) share its slices."""
+    table, lut_idx, codes, valid = _adc_case(dev, TV, 3, 6, TV, 200, U=3, density=0.6)
+    (gs, gi), (ws, wi) = _adc_run(name, table, lut_idx, codes, valid, 70)
+    assert torch.equal(gs, ws) and torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(GRIDS) + ["unit_warps"])
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_f32_scans_bit_equal_to_plain(dev, grid, D, metric, dtype):
+    """The f32 scans sum one fmaf chain per (query, row) over c = 0 … D-1,
+    and the plain version (``ref.kernel_order_scores``) the same chain: the
+    two are bit-equal, scores and ids, ties included (duplicated rows);
+    through the split grid's merge, ``n_live``, a second pass (k 80) and the
+    units of one query (``fused_knn_unit_warps_kernel``)."""
+    W, TQ = (256, 1) if grid == "unit_warps" else (24, 64)
+    q, v, valid = _case(dev, D + TQ, W, TQ, 700, D, density=0.6, dtype=dtype)
+    v[:, 300:340] = v[:, :40]
+    n_live = torch.randint(0, TQ + 1, (W,), device=dev, dtype=torch.int32)
+    fn = fused_knn_db_stationary if grid == "unit_warps" else GRIDS[grid]
+    for k in (10, 80):
+        got = fn(q, v, valid, k=k, metric=metric, n_live=n_live)
+        want = fused_knn_plain(q, v, valid, k=k, metric=metric, n_live=n_live)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_wide_launch_shapes_match_the_c_entries(dev):
-    """The Python copies of the two new kernels' launch shapes
+    """The Python copies of the wide kernels' launch shapes
     (``flash_attention.wide_launch_shape``, ``pq_scan.wide_m_launch_shape``,
     which the CPU tests check) equal what the C entries compute."""
     import ctypes
@@ -898,13 +932,14 @@ def test_wide_launch_shapes_match_the_c_entries(dev):
     from repro_torch.kernels import _build
 
     lib = _build.library("flash_attention")
-    out = (ctypes.c_int * 6)()
-    for dh in (257, 288, 512, 640, 1025, 2048, 2100, 16384):
+    out = (ctypes.c_int * 7)()
+    for dh in (257, 264, 288, 384, 385, 512, 520, 640, 1025, 2048, 2100, 16384):
         for bf16 in (0, 1):
             assert lib.flash_attention_wide_shape(2, 100, 32, dh, bf16, ctypes.cast(out, ctypes.c_void_p)) == 0
             assert tuple(out) == fa.wide_launch_shape(2, 100, 32, dh, 2 if bf16 else 4), (dh, bf16)
     lib = _build.library("pq_scan")
-    out3 = (ctypes.c_int * 3)()
-    for w, tq in ((1, 1), (3, 5), (4096, 64)):
-        assert lib.adc_wide_m_shape(w, tq, ctypes.cast(out3, ctypes.c_void_p)) == 0
-        assert tuple(out3) == adc.wide_m_launch_shape(w, tq)
+    out6 = (ctypes.c_int * 6)()
+    for w, tq, tv in ((1, 1, 20_000), (3, 5, 700), (4096, 64, 64), (256, 64, 256), (6, 8, 3000)):
+        for dense in (0, 1):
+            assert lib.adc_wide_m_shape(w, tq, tv, dense, 132, ctypes.cast(out6, ctypes.c_void_p)) == 0
+            assert tuple(out6) == adc.wide_m_launch_shape(w, tq, tv, bool(dense), sms=132)

@@ -111,7 +111,8 @@ def _final(lst, k):
 
 
 def _scan_emulation(q, v, valid, *, k, metric, n_live=None, S=None, seed=0):
-    """The CUDA scan's decomposition over the plain version's fp32 scores: a
+    """The CUDA scan's decomposition over the kernels' fp32 scores
+    (``ref.kernel_order_scores``, the plain version's): a
     block per (unit, chunk of 64 slots, row range) (a warp per unit when
     TQ = 1); passes of 256 rows whose valid rows are compacted; tiles of 32
     of them, whose scores that rank above a slot's k-th entry are ranked
@@ -121,7 +122,7 @@ def _scan_emulation(q, v, valid, *, k, metric, n_live=None, S=None, seed=0):
     ``split_count``."""
     W, TQ, _ = q.shape
     TV = v.shape[1]
-    sc = ref.pairwise_scores_ref(q, v, metric).tolist()
+    sc = ref.kernel_order_scores(q, v, metric).tolist()
     ok = valid.tolist()
     live = [TQ] * W if n_live is None else [min(max(int(x), 0), TQ) for x in n_live]
     out_s = np.full((W, TQ, k), ref.NEG_INF, np.float32)

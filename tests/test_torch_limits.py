@@ -14,7 +14,7 @@
   * the ADC plain versions at M 256 against ``repro.kernels.ref``, and
     attention at dh 320 against ``flash_attention_pallas`` in interpret mode;
   * the routes (``kernel_passes``, ``wide_m``, ``wide_head``) and the Python
-    copies of the two new kernels' launch shapes, which
+    copies of the wide kernels' launch shapes, which
     ``tests/test_torch_cuda.py`` holds equal to the C entries on the card.
 """
 import numpy as np
@@ -130,7 +130,7 @@ def test_fused_knn_floor_passes_emulated(k, tq, metric, monkeypatch):
     """Both f32 grids' passes (``fused_knn._passes``, the TQ 1 units of the
     re-rank included) equal the plain version bit for bit."""
     q, v, valid, n_live = _knn_case(k + tq, 4, tq, 260)
-    scores = ref.pairwise_scores_ref(q, v, metric)
+    scores = ref.kernel_order_scores(q, v, metric)
     calls = []
 
     def launch_pass(wrapper, entry, q_, v_, valid_, kp, metric_, live, floor):
@@ -196,9 +196,12 @@ def test_adc_floor_passes_emulated(k, m, kernel, monkeypatch):
     else:
         table_mode = kernel == "wide-table"
         n_live = None if table_mode else torch.tensor([4, 1, 3], dtype=torch.int32)
-        alive = (lut_idx >= 0) if table_mode else torch.arange(4)[None, :] < n_live[:, None]
-        monkeypatch.setattr(ps, "_wide_pass", lambda l, idx, nl, c, vv, kp, floor: _emulated_pass(
-            scores, vv, alive, kp, floor, calls))
+
+        def wide_pass(l, c, vv, kp, floor, idx=None, n_live=None):
+            alive = (idx >= 0) if idx is not None else torch.arange(4)[None, :] < n_live[:, None]
+            return _emulated_pass(scores, vv, alive, kp, floor, calls)
+
+        monkeypatch.setattr(ps, "_wide_pass", wide_pass)
         if table_mode:
             got = ps.adc_wide_m(table, codes, valid, k=k, lut_idx=lut_idx)
             want = ps.workunit_pq_scan_streamed_plain(table, lut_idx, codes, valid, k=k)
@@ -207,7 +210,7 @@ def test_adc_floor_passes_emulated(k, m, kernel, monkeypatch):
             want = ps.workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
     assert len(calls) == fk.kernel_passes(k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    if kernel in ("units", "dense"):
+    if kernel in ("units", "dense", "wide-table"):
         _no_done_unit_read(calls)
 
 
@@ -283,23 +286,42 @@ def test_no_limit_left(k, m, dh):
 @pytest.mark.parametrize("dh", [257, 288, 320, 512, 640, 1024, 1025, 2048, 2100, 4096, 16384])
 @pytest.mark.parametrize("elem", [2, 4])
 def test_wide_attention_launch_shape(dh, elem):
-    """The wide-dh kernel's launch (a Python copy of
-    ``flash_attention_wide_shape``): K and V tiles of 1–32 keys in 64 KiB
-    (more only when one key does not fit), within a block's 227 KiB; output
-    slices cover dh; grid y = heads × slices stays under 65536."""
-    gx, gy, gz, threads, smem, tk = fa.wide_launch_shape(2, 100, 32, dh, elem)
-    assert (gx, gz, threads) == (13, 2, 256)
-    assert 1 <= tk <= 32 and smem == 2 * tk * dh * elem <= 227 * 1024
-    assert smem <= 64 * 1024 or tk == 1
-    slices = gy // 32
-    cols = 32 * (16 if dh <= 512 else 32 if dh <= 1024 else 64)
-    assert slices == -(-dh // cols) and (slices == 1) == (dh <= 2048)
+    """The wide kernels' launch (a Python copy of
+    ``flash_attention_wide_shape``). bf16 up to 512: the wgmma kernel at DH
+    384 or 512, a block per (128 query rows, head, batch, column slice of
+    192 or 256), 384 threads, 32-key K/V tiles. Otherwise the sliced CUDA-
+    core kernel: 256 threads and 64 query rows a block, 64-key tiles, dh in
+    the fewest blocks of at most 512 columns (two halves, a multiple of 32
+    each), grid y = heads × blocks under 65536. Both within a block's 227
+    KiB; every column covered."""
+    gx, gy, gz, threads, smem, keys, dv = fa.wide_launch_shape(2, 100, 32, dh, elem)
+    assert smem <= 227 * 1024 and dv % 32 == 0 and dv <= 256
+    if elem == 2 and dh <= fa.WIDE_WGMMA_MAX:
+        slices = gx // (32 * 2)
+        assert (gy, gz, threads, keys) == (1, 1, 384, 32) and dv in (192, 256)
+        assert gx == 1 * 32 * 2 * slices and (slices - 1) * dv < dh <= slices * dv
+        return
+    blocks = gy // 32
+    assert (gx, gz, threads, keys) == (2, 2, 256, 64) and gy == 32 * blocks < 65536
+    assert (blocks - 1) * 2 * dv < dh <= blocks * 2 * dv and blocks == -(-dh // 512) and dv >= 160
 
 
-@pytest.mark.parametrize("w,tq", [(1, 1), (3, 5), (4096, 64)])
-def test_wide_m_launch_shape(w, tq):
+@pytest.mark.parametrize("w,tq,tv", [(1, 1, 20_000), (3, 5, 700), (4096, 64, 64), (256, 64, 256),
+                                     (6, 8, 3000)])
+def test_wide_m_launch_shape(w, tq, tv):
     """``adc_wide_m_kernel``'s launch (a Python copy of ``adc_wide_m_shape``):
-    a warp a slot, four a block, every slot covered once."""
-    blocks, threads, smem = ps.wide_m_launch_shape(w, tq)
-    assert threads == 128 and smem == 4 * 64 * 8
-    assert (blocks - 1) * 4 < w * tq <= blocks * 4
+    256 threads; an item is P slots of the sorted order with g warps a slot
+    (units: P·g = 8, g·256 rows covering TV where 8 warps do) or one slot
+    over 8 warps (dense); two blocks an SM walk the items (no more blocks
+    than items); two 48-subspace slices and the candidate buffers, two
+    blocks an SM."""
+    for dense in (False, True):
+        blocks, threads, smem, p, g, ms = ps.wide_m_launch_shape(w, tq, tv, dense, sms=132)
+        items = -(-w * tq // p)
+        assert threads == 256 and ms == 48 and p * g == 8 and 2 * smem <= 228 * 1024
+        assert blocks == min(items, 2 * 132)
+        if dense:
+            assert (p, g) == (1, 8)
+        else:
+            assert g * 256 >= tv or g == 8
+            assert g == 1 or (g // 2) * 256 < tv
