@@ -36,6 +36,24 @@
    and the search at k = 100 (the f32 kernels in passes of 64): counters
    zeroed and read around one warm search, ids passing their filters with
    exact scores, recall@100 against ``exhaustive_search``, queries/s;
+(S4) the sharded engine on phase 3's index: ``HQIConfig.mesh`` set to four
+   ranks of the model axis on the one card (``make_test_mesh((4,),
+   ("model",), device="cuda")``); the f32 search and, with a codebook
+   attached (``pq_m`` 8), the PQ search at ``refine_factor=4`` (segmented),
+   each on ``mesh=None`` and on the mesh, interleaved, once cold and three
+   times warm, then traced once: bit-equal answers (scores and ids), queries/s of both (warm median),
+   counters zeroed and read around the last warm search of each (kernels
+   1-2, or kernel 3 and the re-rank, launch; no plain version; the same
+   launches and dispatches on both sides, so the same launches per bucket),
+   peak device memory of each; ``ShardStats`` against the reference's
+   assertions (ranks' units sum to the single plan's, their bytes to the
+   single scan's, ``gathered_per_query`` 4·k, and 4·(k′ + k) for PQ); one
+   sharded search under the profiler (coverage 1.0, four rank rows); the
+   dense merge layout at R 2 on 1,000 queries bit-equal to the segmented
+   one (f32 and PQ); 1,000 queries of stream A through ``HQIService`` on the
+   mesh index against ``mesh=None`` (``agree_untied``, and whether
+   bit-equal); where more than one card is visible, the f32 search on
+   ``make_production_mesh()`` (else a line says it did not run);
 (S1) the online service at real size on phase 3's index (then dropped):
    ``attach_pq`` a codebook trained on the card (``pq_m`` 8), then
    ``HQIService(k=10, nprobe=8, max_batch=256, deadline_s=0.005)``. Stream
@@ -194,7 +212,9 @@
 10. the reduced gemma3 in f32 with the same weights on the card and the CPU:
    prefill and decode logits within 2e-3, the served tokens equal, one
    kernel launch per prefill layer on the card;
-11. the ``kernels`` JSON line (all eight kernels), the ``nvidia-smi`` line,
+11. the ``kernels`` JSON line (all eight kernels; each with its launches in
+   S1's streams, S3's first stream and S4's sharded searches), the
+   ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -229,6 +249,9 @@ SERVICE_BURST, SERVICE_SHED_DEPTH, SERVICE_RECALL_QUERIES = 8_192, 4_096, 1_000
 # batches x ids (half base, half new), the queries answered before and after
 # the crash, the later-split queries streamed before the tune
 STORE_INSERTS, STORE_DELETES, STORE_QUERIES, STORE_SHIFT_QUERIES = (256, 128), (64, 64), 1_000, 2_000
+# the sharded engine on that index (S4): ranks on the one card, the queries
+# of the dense-layout and service checks
+SHARDED_RANKS, SHARDED_LAYOUT_QUERIES = 4, 1_000
 # the LUT-stationary kernels past M 109 (the row in slices), M 8 beside them
 WIDE_M = (8, 110, 128, 190)
 KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
@@ -279,7 +302,10 @@ DESIGN = {
 }
 NEG_INF = -3.4e38
 PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
-PROFILER_DROPS: list = []  # pad launches each device_ms trace lost
+PROFILER_POST = 16  # throwaway launches queued behind the trace's device sleep
+PROFILER_LEADS_MS = (20.0, 200.0, 2000.0)  # the device sleep ahead of the measured calls, by attempt
+SLEEP_CYCLES_PER_MS = 2.0e6  # torch.cuda._sleep cycles a ms at 2 GHz, at or above the H100's SM clock
+PROFILER_TRACES: list = []  # each device_ms trace: lead, pad launches lost before and after it, launches seen
 # flash_attention kernel vs plain, by element size: (rtol, atol, limit on
 # ||got - want|| / ||want||); in bf16, P's rounding (~1e-3 of |o|, with its
 # remainder added where rows have few keys) and one ulp of the output (2^-7)
@@ -320,36 +346,53 @@ def device_ms(fn, kernel: str, reps: int = 10) -> float:
     """The device time (ms) of the one launch whose name holds ``kernel`` in
     each call of ``fn``, from ``torch.profiler`` (a call's own host time,
     which CUDA events around one small call also see, left out): the mean
-    over the launches the trace holds. Once the process has run the service
-    phase, the profiler drops the first few device records of every trace,
-    whatever the kernels and the idle time before them, so each trace opens
-    with ``PROFILER_PAD`` launches of a small ``bitwise_not`` kernel that
-    take those places; the pad launches a trace lost are kept in
-    ``PROFILER_DROPS``. A trace holding fewer than half of ``reps`` is taken
-    again, three times at most."""
+    over the launches the trace holds.
+
+    Once the process has run for a while, the profiler drops the device
+    records at the start of every trace: those whose device timestamp falls
+    before the trace's window opens, by an offset that grows with the
+    process's age and differs from card to card. So each trace opens with
+    ``PROFILER_PAD`` launches of a small ``bitwise_not`` kernel, then holds
+    the card in a sleep of ``lead`` ms (``torch.cuda._sleep``) while the host
+    queues ``PROFILER_POST`` ``logical_not`` launches and the calls behind it:
+    their device timestamps lie ``lead`` ms past the window's opening. A
+    trace holding fewer than half of ``reps`` is taken again with a ten
+    times longer lead, three leads in all (``PROFILER_LEADS_MS``). Each
+    trace's record (``PROFILER_TRACES``) keeps the lead, the pad launches
+    lost before and after it, and the launches seen."""
     import torch
 
     for _ in range(3):
         fn()
     pad = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    post = torch.zeros(1024, dtype=torch.bool, device="cuda")
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):
+    for lead in PROFILER_LEADS_MS:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILER_PAD):
                 pad.bitwise_not_()
+            torch.cuda._sleep(int(lead * SLEEP_CYCLES_PER_MS))
+            for _ in range(PROFILER_POST):
+                post.logical_not_()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        PROFILER_DROPS.append(PROFILER_PAD - sum(
-            e.count for e in events if "bitwise_not" in e.key and not e.key.startswith("aten::")))
+
+        def count(name):
+            return sum(e.count for e in events if name in e.key and not e.key.startswith("aten::"))
+
         hits = [e for e in events if kernel in e.key]
         launches = sum(e.count for e in hits)
+        PROFILER_TRACES.append({"kernel": kernel, "lead_ms": lead, "pad_lost": PROFILER_PAD - count("bitwise_not"),
+                                "post_lost": PROFILER_POST - count("logical_not"), "launches": launches,
+                                "reps": reps})
         if 2 * launches >= reps:
             return sum(e.device_time_total for e in hits) / launches / 1e3
         seen.append(launches)
-    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in three traces of {reps} calls")
+    raise AssertionError(f"the profiler saw {seen} launches of {kernel} in three traces of {reps} calls "
+                         f"behind leads of {PROFILER_LEADS_MS} ms: {PROFILER_TRACES[-3:]}")
 
 
 def bound(q, v, valid, k: int, metric: str, q_live=None) -> tuple[float, str]:
@@ -785,6 +828,207 @@ def phase_card_vs_cpu(rec: dict):
     log(f"[card-vs-cpu] {wl.m} queries on a 100k-row index agree (CPU search {cpu_s:.3f} s); "
         f"at k={ENGINE_K} too ({tied} tied at the cut); the service at k={ENGINE_K}: " + json.dumps(svc))
     return kg, gpu
+
+
+# ------------------------------------------------------------ sharded engine
+
+
+def sharded_searches(index, wl, mesh, tag: str, **kw) -> dict:
+    """The same search on ``mesh=None`` and on ``mesh``, interleaved (each
+    side once cold, then three warm rounds of one search each, so a drift of
+    the host's speed falls on both): queries/s from each side's warm
+    median, counters zeroed and read around each side's last warm search,
+    peak device memory over each side's searches, then one traced search
+    each (ms per span). The answers must be bit-equal (scores and ids); the
+    kernels' launches and the dispatches equal on both sides (so the
+    launches per bucket); no plain version run."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    sides = (("single", None), ("sharded", mesh))
+    out: dict = {side: {"times": [], "peak": 0} for side, _ in sides}
+    res = {}
+    for i in range(4):  # one cold round, three warm; the last one is counted
+        for side, m in sides:
+            index.cfg.mesh = m
+            if i == 3:
+                zero_counters()
+                before = ops.dispatch_stats().snapshot()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res[side] = index.search(wl, nprobe=8, **kw)
+            out[side]["times"].append(time.perf_counter() - t0)
+            out[side]["peak"] = max(out[side]["peak"], torch.cuda.max_memory_allocated())
+            if i == 3:
+                out[side]["counts"] = read_counters()
+                out[side]["delta"] = ops.dispatch_stats().delta_since(before)
+    for side, m in sides:
+        index.cfg.mesh = m
+        o = out[side]
+        times, counts, delta = o.pop("times"), o.pop("counts"), o.pop("delta")
+        plain = {n: c for n, c in counts.items() if n.endswith("_plain") and c}
+        if plain:
+            raise AssertionError(f"[sharded {tag}] {side}: a plain version ran: {plain}")
+        traced_s, spans = traced_search(index, wl, f"sharded {tag} {side}", **kw)
+        out[side] = {"search_seconds_cold": times[0], "search_seconds_warm": times[1:],
+                     "traced_search_seconds": traced_s, "span_ms": spans,
+                     "qps_warm": wl.m / statistics.median(times[1:]),
+                     "launches": {n: c for n, c in counts.items() if c},
+                     "knn_calls": delta.knn_calls, "merge_calls": delta.merge_calls,
+                     "shapes": sorted(delta.shapes, key=str),
+                     "peak_device_bytes": o["peak"], "bytes_scanned": res[side].bytes_scanned}
+    index.cfg.mesh = None
+    a, b = res["single"], res["sharded"]
+    if not (np.array_equal(a.scores, b.scores) and np.array_equal(a.ids, b.ids)):
+        bad = int((~((a.ids == b.ids).all(1) & (a.scores == b.scores).all(1))).sum())
+        raise AssertionError(f"[sharded {tag}] not bit-equal to mesh=None: {bad} queries differ")
+    kern = [n for n in out["single"]["launches"] if not n.endswith("_plain")]
+    per_bucket = {s: sum(out[s]["launches"].get(n, 0) for n in kern) / max(out[s]["knn_calls"], 1)
+                  for s in out}
+    if (out["single"]["launches"] != out["sharded"]["launches"]
+            or out["single"]["knn_calls"] != out["sharded"]["knn_calls"]):
+        raise AssertionError(f"[sharded {tag}] launches or dispatches differ: {out}")
+    out["launches_per_bucket"] = per_bucket
+    out["result"] = b
+    log(f"[sharded {tag}] " + json.dumps({s: {key: v for key, v in out[s].items()
+                                              if key not in ("shapes", "span_ms")}
+                                          for s in ("single", "sharded")}, default=str))
+    return out
+
+
+def phase_sharded(rec: dict, main: dict) -> dict:
+    """(S4) The sharded engine on phase 3's index: four ranks of the model
+    axis on the one card (``make_test_mesh((4,), ("model",), "cuda")``).
+    The f32 search, then the same index with a codebook (``pq_m`` 8,
+    ``refine_factor`` 4, segmented), each bit-equal to ``mesh=None`` and
+    timed beside it (``sharded_searches``); ``ShardStats`` held to the
+    reference's assertions (the ranks' units partition the single plan's,
+    their scan bytes sum to the single scan's, ``gathered_per_query`` 4·k);
+    one f32 search under the profiler (coverage 1.0, four rank rows); the
+    dense merge layout at R 2 on 1,000 queries bit-equal to the segmented
+    one (f32 and PQ); 1,000 queries of stream A through ``HQIService`` on
+    the mesh index against ``mesh=None``; and, where more than one card is
+    visible, the f32 search on ``make_production_mesh()``."""
+    import torch
+
+    from repro_torch.core.ivf import ScanStats
+    from repro_torch.core.plan import build_plan
+    from repro_torch.core.pq import train_pq
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.service import HQIService, ServiceConfig
+
+    index, kg, wl = main["index"], main["kg"], main["wl"]
+    t_phase = time.perf_counter()
+    mesh = make_test_mesh((SHARDED_RANKS,), ("model",), device="cuda")
+    out: dict = {"ranks": SHARDED_RANKS, "n": index.db.n, "queries": wl.m,
+                 "devices": [str(d) for d in mesh.axis_devices("model")]}
+
+    f32 = sharded_searches(index, wl, mesh, "f32")
+    st = f32["result"].shard_stats
+    tasks, _, _ = index._engine_tasks(wl, nprobe=8, batch_vec=True, stats=ScanStats())
+    n_units = build_plan(index.arena, tasks, wl.vectors, m=wl.m, k=wl.k, cfg=index.cfg.plan).n_units
+    if (st.n_shards != SHARDED_RANKS or int(st.per_rank_units.sum()) != n_units
+            or int(st.per_rank_bytes.sum()) != f32["single"]["bytes_scanned"]
+            or st.gathered_per_query != SHARDED_RANKS * wl.k):
+        raise AssertionError(f"[sharded f32] ShardStats {st} against {n_units} units, "
+                             f"{f32['single']['bytes_scanned']} bytes")
+    if f32["sharded"]["launches"].get("fused_knn", 0) <= 0 or \
+            f32["sharded"]["launches"].get("fused_knn_db_stationary", 0) <= 0:
+        raise AssertionError(f"[sharded f32] kernels 1-2 did not both launch: {f32['sharded']}")
+    out["shard_stats_f32"] = {"per_rank_units": st.per_rank_units.tolist(),
+                              "per_rank_bytes": st.per_rank_bytes.tolist(),
+                              "per_rank_dispatches": st.per_rank_dispatches.tolist(),
+                              "gathered_per_query": st.gathered_per_query,
+                              "single_plan_units": n_units}
+    index.cfg.mesh = mesh
+    try:
+        prof = profiled_engine(index, wl, "sharded-f32")
+    finally:
+        index.cfg.mesh = None
+    if sorted(prof["ranks"]) != [str(r) for r in range(SHARDED_RANKS)]:
+        raise AssertionError(f"[sharded] profiler rank rows {prof['ranks']}")
+    out["profile_f32"] = prof
+
+    t0 = time.perf_counter()
+    index.attach_pq(train_pq(kg.db.vectors, 8, metric=kg.db.metric, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    out["attach_pq_seconds"] = time.perf_counter() - t0
+    pq = sharded_searches(index, wl, mesh, "pq", scan_mode="pq", refine_factor=4)
+    pst = pq["result"].shard_stats
+    if pq["sharded"]["launches"].get("workunit_pq_scan_streamed", 0) <= 0 or \
+            pq["sharded"]["launches"].get("fused_knn_db_stationary", 0) <= 0:
+        raise AssertionError(f"[sharded pq] kernel 3 or the re-rank did not launch: {pq['sharded']}")
+    if pst.gathered_per_query != SHARDED_RANKS * (4 * wl.k + wl.k):
+        raise AssertionError(f"[sharded pq] gathered {pst.gathered_per_query} a query")
+    out["shard_stats_pq"] = {"per_rank_units": pst.per_rank_units.tolist(),
+                             "per_rank_bytes": pst.per_rank_bytes.tolist(),
+                             "gathered_per_query": pst.gathered_per_query}
+    for tag, r in (("f32", f32), ("pq", pq)):
+        del r["result"]
+        out[tag] = r
+
+    # the dense merge layout at R 2 on 1,000 queries, bit-equal to the segmented one
+    sub = wl.subset(np.arange(SHARDED_LAYOUT_QUERIES))
+    index.cfg.mesh = make_test_mesh((2,), ("model",), device="cuda")
+    layouts: dict = {}
+    try:
+        for kw in ({}, {"scan_mode": "pq"}):
+            got = {}
+            for layout in ("segmented", "dense"):
+                index.cfg.plan.merge_layout = layout
+                got[layout] = index.search(sub, nprobe=8, **kw)
+            a, b = got["segmented"], got["dense"]
+            if not (np.array_equal(a.scores, b.scores) and np.array_equal(a.ids, b.ids)):
+                raise AssertionError(f"[sharded] dense layout differs from segmented {kw}")
+            layouts[kw.get("scan_mode", "f32")] = {"peak_candidate_bytes": {
+                "segmented": a.peak_candidate_bytes, "dense": b.peak_candidate_bytes}}
+    finally:
+        index.cfg.plan.merge_layout = "segmented"
+        index.cfg.mesh = None
+    out["dense_layout_r2"] = layouts
+
+    # 1,000 queries of stream A through the service, mesh against mesh=None
+    streams = {}
+    try:
+        for side, m in (("single", None), ("sharded", mesh)):
+            index.cfg.mesh = m
+            svc = HQIService(index, ServiceConfig(k=10, nprobe=8, max_batch=256, deadline_s=0.005))
+            streams[side] = service_stream(svc, sub)
+            del svc
+    finally:
+        index.cfg.mesh = None
+        get_registry().detach_source("service")
+        get_registry().detach_source("health")
+    a, b = streams["single"], streams["sharded"]
+    tied = agree_untied(a["scores"], a["ids"], b["scores"], b["ids"], "service mesh vs mesh=None")
+    out["service"] = {side: {key: streams[side][key] for key in ("seconds", "qps", "p50_s", "p99_s")}
+                      for side in streams}
+    out["service"]["tied_queries"] = tied
+    out["service"]["bit_equal"] = bool(np.array_equal(a["ids"], b["ids"])
+                                       and np.array_equal(a["scores"], b["scores"]))
+
+    if torch.cuda.device_count() > 1:
+        prod = make_production_mesh()
+        index.cfg.mesh = prod
+        try:
+            got = index.search(wl, nprobe=8)
+        finally:
+            index.cfg.mesh = None
+        ref = index.search(wl, nprobe=8)
+        if not (np.array_equal(got.scores, ref.scores) and np.array_equal(got.ids, ref.ids)):
+            raise AssertionError("[sharded] make_production_mesh() search differs from mesh=None")
+        out["production_mesh"] = {"cards": prod.shape["model"], "bit_equal": True}
+    else:
+        log("[sharded] one card visible: the make_production_mesh() step did not run")
+        out["production_mesh"] = "not run: one card visible"
+    out["seconds"] = time.perf_counter() - t_phase
+    log("[sharded] " + json.dumps({key: v for key, v in out.items() if key not in ("f32", "pq", "profile_f32")},
+                                  default=str))
+    rec["sharded"] = out
+    return {"f32": f32["sharded"]["launches"], "pq": pq["sharded"]["launches"]}
 
 
 # ------------------------------------------------------------ online service
@@ -2762,7 +3006,7 @@ def profiled_engine(index, wl, tag: str, **kw) -> dict:
     keep = ("dispatches", "device_s", "bytes", "flops", "gbps", "gflops", "frac_hbm", "frac_peak",
             "row_occupancy")
     out = {"hardware": rep["hardware"], "coverage": rep["coverage"], "issued": rep["issued"],
-           "attributed": rep["attributed"], "search_seconds": seconds,
+           "attributed": rep["attributed"], "search_seconds": seconds, "ranks": rep["ranks"],
            "totals": {pm: {key: t[key] for key in keep} for pm, t in totals.items()}}
     for pm, t in totals.items():
         if t["frac_hbm"] > 1.05 or t["frac_peak"] > 1.05:
@@ -2924,6 +3168,7 @@ def main() -> int:
     heaviest = phase_main_shapes(rec, main_run, max_err)
     rec["profile_f32"] = profiled_engine(main_run["index"], main_run["wl"], "f32")
     phase_limits_f32(rec, main_run)
+    sharded = phase_sharded(rec, main_run)
     service = phase_service(rec, main_run)
     phase_flight(rec, service.pop("svc"), main_run["wl"], args.out)
     store = phase_store(rec, main_run["index"], main_run["kg"], main_run["wl"], args.out)
@@ -3004,6 +3249,8 @@ def main() -> int:
         entry["service_launches"] = {tag: c[name] for tag, c in service["launches"].items()}
         # launches in S3's first stream (answers P, the delta past the PQ threshold)
         entry["store_launches"] = store["launches"][name]
+        # launches in S4's warm sharded searches (four ranks on the card), f32 and PQ
+        entry["sharded_launches"] = {tag: c.get(name, 0) for tag, c in sharded.items()}
         if name == "workunit_pq_scan":
             entry["delta_store_shapes"] = [
                 {key: s[key] for key in ("shape", "ms", "device_ms", "bound_ms", "bound_by")}
@@ -3012,9 +3259,13 @@ def main() -> int:
             raise AssertionError(f"{name}: no launch on its path")
         kernels.append(entry)
     rec["kernels"] = kernels
-    rec["profiler_pad_drops"] = PROFILER_DROPS
-    log(f"[profiler] device_ms traces {len(PROFILER_DROPS)}; leading pad launches lost per trace: "
-        f"max {max(PROFILER_DROPS, default=0)}, in {sum(d > 0 for d in PROFILER_DROPS)} traces")
+    rec["profiler_traces"] = PROFILER_TRACES
+    pad_lost = [t["pad_lost"] for t in PROFILER_TRACES]
+    post_lost = [t["post_lost"] for t in PROFILER_TRACES]
+    log(f"[profiler] device_ms traces {len(PROFILER_TRACES)}, {sum(t['lead_ms'] > PROFILER_LEADS_MS[0] for t in PROFILER_TRACES)} "
+        f"of them retaken with a longer lead; pad launches lost ahead of the device sleep: max "
+        f"{max(pad_lost, default=0)}, in {sum(d > 0 for d in pad_lost)} traces; behind it: max "
+        f"{max(post_lost, default=0)}, in {sum(d > 0 for d in post_lost)} traces")
     rec["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1, default=str)

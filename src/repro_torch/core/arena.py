@@ -18,8 +18,15 @@ Compressed storage: when a ``PQCodebook`` is attached, the arena also
 carries ``codes``, uint8 [N, M] PQ codes on the device, row-aligned with
 ``packed``, so the engine's ADC scan stage gathers M-byte code rows instead
 of d·4-byte vectors and the exact re-rank gathers the surviving f32 rows
-from the same arena. Sharding the arena waits for the sharded engine
-(ROADMAP.md §1, sharded engine).
+from the same arena.
+
+Sharded storage: ``shard()`` splits the arena into contiguous posting-list
+ranges, one per model-axis rank of a device mesh (``launch/mesh.py``). Rank
+r's rows, ids and PQ codes are a slice of the base arena on the rank's
+device: a view where that is the arena's device, a copy otherwise. ``gid``
+stays *global* in every shard, so the sharded executor's outputs need no
+cross-rank id translation, and ``packed_bitmap`` keeps working per shard
+because bitmap slices are partition-local already.
 """
 from __future__ import annotations
 
@@ -32,6 +39,19 @@ import torch
 from . import kmeans as km
 from .ivf import IVFIndex
 from .pq import PQCodebook, encode_pq_tensor
+
+
+def _nearest_cuts(boundary_rows: np.ndarray, targets: np.ndarray) -> np.ndarray:
+    """Index of the boundary NEAREST each row target (not the next one up —
+    snapping up degenerates badly under skew, e.g. partitions of 10 and 900
+    rows split 2 ways must cut at 10, not at the end)."""
+    hi = np.clip(
+        np.searchsorted(boundary_rows, targets, side="left"),
+        1, len(boundary_rows) - 1,
+    )
+    lo = hi - 1
+    pick_lo = (targets - boundary_rows[lo]) <= (boundary_rows[hi] - targets)
+    return np.where(pick_lo, lo, hi).astype(np.int64)
 
 
 @dataclasses.dataclass
@@ -160,6 +180,80 @@ class PackedArena:
                 else torch.from_numpy(np.array(state["codes"], dtype=np.uint8)).to(device)
             ),
         )
+
+    # ------------------------------------------------------------------ shard
+
+    def shard(
+        self,
+        n_shards: int,
+        bounds: Optional[Sequence[int]] = None,
+        devices: Optional[Sequence[torch.device]] = None,
+    ) -> "ShardedArena":
+        """Split into contiguous slices, one per model-axis rank.
+
+        The split is at *posting-list* granularity — the finest sharding
+        that keeps every work unit's posting list whole on one rank, the
+        invariant the sharded executor's exact parity rests on — and prefers
+        cuts on whole partition boundaries unless partition skew would leave
+        the mesh imbalanced, in which case the cut falls on posting-list
+        boundaries inside a partition (the standalone-IVF case, one
+        partition spread over every rank).
+
+        ``bounds`` (optional, ``n_shards + 1`` monotone GLOBAL list ids with
+        ``bounds[0] == 0`` and ``bounds[-1] == n_lists``) pins the split —
+        tests use it to force skewed and empty shards. The default cuts at
+        the boundary NEAREST each balanced-row target. ``devices`` (one per
+        rank; default: this arena's device for every rank) places each
+        rank's slice.
+        """
+        n_shards = int(n_shards)
+        assert n_shards >= 1, n_shards
+        G = self.n_lists
+        row_starts = np.append(self.list_start, self.n)  # i64 [G + 1]
+        if bounds is None:
+            targets = np.arange(1, n_shards) * (self.n / n_shards)
+            # candidate splits at both granularities; keep the better-balanced
+            # one (partition slices win ties)
+            by_part = self.list_base[
+                _nearest_cuts(self.part_row[: self.n_parts + 1], targets)
+            ]
+            by_list = _nearest_cuts(row_starts, targets)
+            candidates = []
+            for cuts in (by_part, by_list):
+                b = np.concatenate([[0], np.clip(cuts, 0, G), [G]]).astype(np.int64)
+                b = np.maximum.accumulate(b)
+                candidates.append((int(np.diff(row_starts[b]).max()), b))
+            list_bounds = min(candidates, key=lambda c: c[0])[1]
+        else:
+            list_bounds = np.asarray(bounds, dtype=np.int64)
+            assert list_bounds.shape == (n_shards + 1,), list_bounds
+            assert list_bounds[0] == 0 and list_bounds[-1] == G, list_bounds
+            assert (np.diff(list_bounds) >= 0).all(), list_bounds
+        return ShardedArena(
+            base=self,
+            list_bounds=list_bounds,
+            row_bounds=row_starts[list_bounds],
+            devices=None if devices is None else list(devices),
+        )
+
+    @staticmethod
+    def sharded_from_ivf(
+        ivf: IVFIndex, n_shards: int, devices: Optional[Sequence[torch.device]] = None
+    ) -> "ShardedArena":
+        """Sharded single-index arena, memoized per shard count and devices.
+
+        The split reuses the (memoized) ``from_ivf`` arena; a codebook
+        attached later needs no invalidation, since each rank cuts its codes
+        from the shared ``base`` when they change (``ArenaShard.codes``).
+        """
+        arena = PackedArena.from_ivf(ivf)
+        cache = getattr(ivf, "_sharded_cache", None)
+        if cache is None:
+            cache = ivf._sharded_cache = {}
+        key = (int(n_shards), None if devices is None else tuple(devices))
+        if key not in cache:
+            cache[key] = arena.shard(n_shards, devices=devices)
+        return cache[key]
 
     # ------------------------------------------------------------ constructors
 
@@ -303,3 +397,93 @@ def _extended_codes(old: PackedArena, p: int, ivf: IVFIndex) -> torch.Tensor:
             old.pq, ivf.packed[new], dev
         )
     return out
+
+
+def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` itself on its own device (a view stays a view), else a copy."""
+    return t if t.device == device else t.to(device)
+
+
+class ArenaShard:
+    """Rank r's slice of the base arena: packed rows ``[row0, row0 + n)``.
+
+    ``packed`` and ``gid`` (still GLOBAL ids) live on ``device``; ``codes``
+    is cut from the base arena's codes when first read after they change
+    (``attach_pq`` on the base), so a shard never serves stale codes.
+    """
+
+    def __init__(self, base: PackedArena, row0: int, row1: int, device: torch.device):
+        self.base = base
+        self.row0, self.n = int(row0), int(row1 - row0)
+        self.device = torch.device(device)
+        self.packed = _on(base.packed[self.row0:row1], self.device)
+        self.gid = _on(base.gid[self.row0:row1], self.device)
+        self._codes: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]] = (None, None)
+
+    @property
+    def d(self) -> int:
+        return self.base.d
+
+    @property
+    def codes(self) -> Optional[torch.Tensor]:
+        src = self.base.codes
+        if src is None:
+            return None
+        if self._codes[0] is not src:
+            self._codes = (src, _on(src[self.row0:self.row0 + self.n], self.device))
+        return self._codes[1]
+
+    def local(self, rows: np.ndarray) -> np.ndarray:
+        """Global packed rows -> this shard's rows, clamped into it (the
+        clamped rows are masked padding)."""
+        return np.clip(rows - self.row0, 0, max(self.n - 1, 0))
+
+
+@dataclasses.dataclass
+class ShardedArena:
+    """The arena split into per-rank contiguous posting-list ranges.
+
+    Built by ``PackedArena.shard``. Rank r owns global posting lists
+    ``[list_bounds[r], list_bounds[r+1])`` and therefore global packed rows
+    ``[row_bounds[r], row_bounds[r+1])`` — the sharded planner routes each
+    work unit to ``owner_of_list(unit.glist)`` and the compressed path's
+    re-rank uses ``owner_of_row`` to hand every rank exactly the candidate
+    rows it stores. An empty range is a rank with no data, which executes as
+    fully-masked padding. ``rank(r)`` is rank r's ``ArenaShard`` on
+    ``devices[r]``.
+    """
+
+    base: PackedArena
+    list_bounds: np.ndarray  # i64 [R + 1] — global posting-list split
+    row_bounds: np.ndarray  # i64 [R + 1] — global packed-row split
+    devices: Optional[List[torch.device]] = None  # per rank; default the base's
+
+    def __post_init__(self):
+        if self.devices is None:
+            self.devices = [self.base.device] * self.n_shards
+        assert len(self.devices) == self.n_shards, (len(self.devices), self.n_shards)
+        self.devices = [torch.device(d) for d in self.devices]
+        self._ranks: List[Optional[ArenaShard]] = [None] * self.n_shards
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.list_bounds) - 1
+
+    @property
+    def rows_per_shard(self) -> np.ndarray:
+        return np.diff(self.row_bounds)
+
+    def owner_of_list(self, glists: np.ndarray) -> np.ndarray:
+        """Owning rank per global list id (duplicate bounds = empty shards)."""
+        return np.searchsorted(self.list_bounds, glists, side="right") - 1
+
+    def owner_of_row(self, rows: np.ndarray) -> np.ndarray:
+        """Owning rank per global packed row."""
+        return np.searchsorted(self.row_bounds, rows, side="right") - 1
+
+    def rank(self, r: int) -> ArenaShard:
+        if self._ranks[r] is None:
+            self._ranks[r] = ArenaShard(
+                self.base, int(self.row_bounds[r]), int(self.row_bounds[r + 1]), self.devices[r]
+            )
+        return self._ranks[r]

@@ -27,10 +27,13 @@ an ADC scan over them followed by an exact f32 re-rank (core/planner.py).
 
 Device: k-means, probing, the arena and the engine run on the index's
 ``device`` ("cuda" unless the caller passes another, as the CPU tests pass
-"cpu"); the qd-tree, routing and plan are host numpy. Not ported yet: the
-sharded engine (``mesh``, ROADMAP.md §1, sharded engine). ``extend``
-folds new rows into the existing partitions (the online service's
-``refresh()``).
+"cpu"); the qd-tree, routing and plan are host numpy. ``extend`` folds new
+rows into the existing partitions (the online service's ``refresh()``).
+
+Sharded execution: with ``HQIConfig.mesh`` set (a ``launch.mesh.Mesh``),
+stage 2 runs across the mesh's model axis (``core/distributed.
+execute_sharded``): the arena shards over its ranks, each rank's slice on
+its device, and results are bit-identical to ``mesh=None``.
 
 Online search: same routing, per-query IVF scans (used standalone — the
 "workload-aware index only" configuration of Section 6.5). The "auto" mode
@@ -61,11 +64,6 @@ from .qdtree import QDTree, build_qdtree
 from .types import SearchResult, VectorDatabase, Workload
 
 
-MESH_NOT_PORTED = (
-    "sharded execution (HQIConfig.mesh) is not ported yet: ROADMAP.md §1, sharded engine"
-)
-
-
 @dataclasses.dataclass
 class HQIConfig:
     m: int = 0  # query-to-centroid fan-out of Section 4.1.1 (0 = attrs only)
@@ -83,10 +81,12 @@ class HQIConfig:
     scan_mode: Optional[str] = None  # None = keep plan.scan_mode
     refine_factor: Optional[int] = None  # None = keep plan.refine_factor
     pq_m: int = 8  # PQ subspaces (d must be divisible; d·4/M× compression)
-    # sharded execution: not ported yet (ROADMAP.md §1, sharded engine);
-    # anything but None raises at build and load
-    mesh: Optional[object] = None
-    shard_spec: Optional[object] = None
+    # sharded execution: a launch.mesh.Mesh routes every engine-backed search
+    # through core/distributed.execute_sharded — the arena shards over the
+    # mesh's model axis (shard_spec.model_axis, default "model"). Results are
+    # bit-identical to mesh=None (tests/test_torch_sharded.py).
+    mesh: Optional[object] = None  # launch.mesh.Mesh
+    shard_spec: Optional[object] = None  # core.distributed.ShardSpec
 
     def __post_init__(self):
         # replace, never mutate: the caller may share one PlanConfig across
@@ -201,8 +201,6 @@ class HQIIndex:
         pq: Optional[PQCodebook] = None,
         device: km.Device = "cuda",
     ):
-        if cfg.mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.device = torch.device(device)
         self.db = db
         self.tree = tree
@@ -213,6 +211,7 @@ class HQIIndex:
         self.pq = pq  # index-wide codebook (scan_mode="pq")
         self.router = Router(db, tree, coarse_centroids, cfg.m, device=self.device)
         self._arena: Optional[PackedArena] = None
+        self._sharded = None  # ShardedArena views, keyed off the live arena
 
     @property
     def arena(self) -> PackedArena:
@@ -225,16 +224,27 @@ class HQIIndex:
             )
         return self._arena
 
+    def sharded_arena(self, n_shards: int, devices=None):
+        """Per-rank views of the arena for ``cfg.mesh`` searches (rank r's
+        slice on ``devices[r]``), memoized until the arena itself is
+        invalidated."""
+        key = (int(n_shards), None if devices is None else tuple(devices))
+        if self._sharded is None or self._sharded[0] != key:
+            self._sharded = (key, self.arena.shard(int(n_shards), devices=devices))
+        return self._sharded[1]
+
     def attach_pq(self, pq: PQCodebook) -> None:
         """Attach a codebook to an index built without one (scan_mode="f32").
 
         Enables per-call ``search(scan_mode="pq")`` overrides (the serving
         layer's overload degradation) while default searches stay exact. An
-        already-materialized arena is re-encoded in place.
+        already-materialized arena is re-encoded in place; shard views are
+        invalidated.
         """
         self.pq = pq
         if self._arena is not None:
             self._arena.attach_pq(pq)
+            self._sharded = None
 
     # ------------------------------------------------------------------ build
 
@@ -248,8 +258,6 @@ class HQIIndex:
         """Build on ``device`` (default "cuda")."""
         cfg = HQIConfig() if cfg is None else cfg
         device = torch.device("cuda" if device is None else device)
-        if cfg.mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         if cfg.plan.scan_mode == "pq" and db.d % cfg.pq_m:
             raise ValueError(f"scan_mode='pq': d={db.d} not divisible by pq_m={cfg.pq_m}")
         info = BuildInfo()
@@ -429,19 +437,40 @@ class HQIIndex:
                 workload, nprobe=nprobe, batch_vec=batch_vec, stats=stats,
                 live_mask=live_mask,
             )
-        # the all-per-query path (batch_vec=False) never touches the arena
-        arena = self.arena if tasks else None
-        with tracer.span("plan.build", tasks=len(tasks)):
-            plan = build_plan(
-                arena, tasks, workload.vectors, m=m, k=k, cfg=plan_cfg, stats=stats
-            )
-        with tracer.span(
-            "plan.execute", buckets=len(plan.buckets), extras=len(extra)
-        ):
-            run_s, run_i = execute_plan(
-                plan, arena, workload.vectors, cfg=plan_cfg, extra=extra, stats=stats,
-                device=self.device,
-            )
+        shard_stats = None
+        if tasks and self.cfg.mesh is not None:
+            # sharded engine: same tasks, same routing, device-mesh execution
+            from .distributed import ShardSpec, execute_sharded
+
+            spec = self.cfg.shard_spec or ShardSpec()
+            mesh = self.cfg.mesh
+            with tracer.span("plan.execute", mode="sharded", tasks=len(tasks)):
+                run_s, run_i, shard_stats = execute_sharded(
+                    self.sharded_arena(spec.n_shards(mesh), spec.rank_devices(mesh)),
+                    tasks,
+                    workload.vectors,
+                    mesh=mesh,
+                    spec=spec,
+                    m=m,
+                    k=k,
+                    cfg=plan_cfg,
+                    extra=extra,
+                    stats=stats,
+                )
+        else:
+            # the all-per-query path (batch_vec=False) never touches the arena
+            arena = self.arena if tasks else None
+            with tracer.span("plan.build", tasks=len(tasks)):
+                plan = build_plan(
+                    arena, tasks, workload.vectors, m=m, k=k, cfg=plan_cfg, stats=stats
+                )
+            with tracer.span(
+                "plan.execute", buckets=len(plan.buckets), extras=len(extra)
+            ):
+                run_s, run_i = execute_plan(
+                    plan, arena, workload.vectors, cfg=plan_cfg, extra=extra, stats=stats,
+                    device=self.device,
+                )
         return SearchResult(
             ids=run_i,
             scores=run_s,
@@ -449,6 +478,7 @@ class HQIIndex:
             bytes_scanned=stats.bytes_scanned,
             peak_candidate_bytes=stats.peak_candidate_bytes,
             lut_bytes=stats.lut_bytes,
+            shard_stats=shard_stats,
             part_probes=part_probes,
         )
 
@@ -477,6 +507,7 @@ class HQIIndex:
         """
         self.router.clear_cache()
         self._arena = None
+        self._sharded = None
 
     def extend(self, new_db: VectorDatabase) -> np.ndarray:
         """Fold freshly inserted tuples into the existing partitioning.
@@ -522,6 +553,7 @@ class HQIIndex:
             self._arena = PackedArena.updated(
                 self._arena, [(p.rows, p.ivf) for p in self.partitions], changed
             )
+        self._sharded = None  # shard views alias the replaced arena
         return new_rows
 
     # ------------------------------------------------------------ persistence

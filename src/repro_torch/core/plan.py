@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .arena import PackedArena
+from .arena import PackedArena, ShardedArena
 from .ivf import ScanStats
 
 
@@ -188,6 +188,77 @@ def build_plan(
         n_slots=int(next_slot.max()) if m else 0,
         seg_counts=next_slot,  # final per-query slot counts = segment widths
     )
+
+
+@dataclasses.dataclass
+class ShardedPlan:
+    """The single-device plan, with every work unit routed to its owner rank.
+
+    ``plan`` is the EXACT ``build_plan`` output a single device would execute
+    — same probes, same buckets, same slot numbering, same compile-shape
+    ladder — so sharded execution inherits its correctness structurally.
+    ``rank_buckets[r]`` holds rank r's share of each bucket: a unit lands on
+    the rank that stores its posting list, every unit lands on exactly one
+    rank, and each shared pad executes as ONE sharded dispatch: one launch
+    per device, over its ranks' units concatenated (``ops.sharded_*``).
+    """
+
+    plan: ExecutionPlan  # the workload's single-device plan, reused verbatim
+    rank_buckets: List[Dict[int, List[WorkUnit]]]  # per rank: pad -> units
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.rank_buckets)
+
+    @property
+    def pads(self) -> List[int]:
+        return sorted(self.plan.buckets)
+
+    @property
+    def per_rank_units(self) -> np.ndarray:
+        return np.array(
+            [sum(len(u) for u in rb.values()) for rb in self.rank_buckets],
+            dtype=np.int64,
+        )
+
+    @property
+    def n_units(self) -> int:
+        return self.plan.n_units
+
+    @property
+    def n_dispatches(self) -> int:
+        """Sharded kernel dispatches stage 2 will issue — one per shared pad."""
+        return self.plan.n_dispatches
+
+
+def build_plan_sharded(
+    sharded: ShardedArena,
+    tasks: List[EngineTask],
+    q_vecs: np.ndarray,  # f32 [m, d]
+    *,
+    m: int,
+    k: int,
+    cfg: Optional[PlanConfig] = None,
+    stats: Optional[ScanStats] = None,
+) -> ShardedPlan:
+    """Shard-aware stage 1: plan once, route work units to owner ranks.
+
+    Probing, list grouping, query chunking, slot assignment, scan accounting,
+    and shape coalescing all run through the single-device ``build_plan`` —
+    sharding only PARTITIONS the resulting unit set by posting-list owner, so
+    per-rank unit counts always sum to the single-device plan's (a property
+    the hypothesis suite asserts) and the mesh shares one shape ladder.
+    """
+    plan = build_plan(sharded.base, tasks, q_vecs, m=m, k=k, cfg=cfg, stats=stats)
+    R = sharded.n_shards
+    rank_buckets: List[Dict[int, List[WorkUnit]]] = [{} for _ in range(R)]
+    for lp, units in plan.buckets.items():
+        owners = sharded.owner_of_list(
+            np.array([u.glist for u in units], dtype=np.int64)
+        )
+        for u, r in zip(units, owners):
+            rank_buckets[int(r)].setdefault(lp, []).append(u)
+    return ShardedPlan(plan=plan, rank_buckets=rank_buckets)
 
 
 def _coalesce_shapes(

@@ -33,9 +33,23 @@ and one ``workunit_topk`` dispatch re-ranks them exactly; the final merge
 folds in the adaptive executor's (exact) host-side candidates as on the f32
 path.
 
+Sharded execution (``execute_plan_sharded``): the same two stages across a
+device mesh (``launch/mesh.py``), single-controller as the reference's
+``shard_map`` is. Per shared shape bucket every rank assembles its own units'
+operands on its device from its arena shard (``bucket_operands`` /
+``pq_bucket_operands`` with ``shard=``), and one ``ops.sharded_*`` dispatch
+launches the kernel once per device over the ranks' units concatenated.
+Candidates reduce in two hops: a rank-local top-k (one segmented merge per
+device over its ranks' segments, or each rank's dense tensor), then the
+gather merge (``ops.sharded_merge_topk``, k·|model| candidates per query).
+Every (query, posting-list) pair is scored on exactly one rank by the same
+per-unit kernel, and an f32 score is one ``fmaf`` chain over D whatever the
+stacking, so results are bit-identical to ``execute_plan`` (ties at the k or
+k′ boundary aside, as in the reference); ``core/distributed.py`` is the thin
+mesh entry.
+
 ``batch_search_ivf`` is the single-index entry point (the baselines use it):
-a one-partition arena, a one-task plan, executed here. The sharded executor
-is not ported yet (ROADMAP.md §1, sharded engine). Every dispatch and merge
+a one-partition arena, a one-task plan, executed here. Every dispatch and merge
 sits in a tracer span and, while a profiler is enabled (``obs.profile``),
 records the reference's shape facts (bytes, FLOPs, units, rows, each real
 and padded), computed from the padded bucket shapes by the reference's
@@ -43,7 +57,8 @@ formulas, so both packages record equal rows for the same plan.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +67,17 @@ from ..kernels import ops as kops
 from ..kernels.pq_scan import NBOOK
 from ..obs.profile import get_profiler
 from ..obs.trace import fence, get_tracer
-from .arena import PackedArena
+from .arena import ArenaShard, PackedArena, ShardedArena
 from .ivf import IVFIndex, ScanStats
-from .plan import EngineTask, ExecutionPlan, PlanConfig, WorkUnit, _next_pow2, build_plan
+from .plan import (
+    EngineTask,
+    ExecutionPlan,
+    PlanConfig,
+    ShardedPlan,
+    WorkUnit,
+    _next_pow2,
+    build_plan,
+)
 from .pq import PQCodebook, adc_tables
 
 # Extra per-query candidates merged alongside the plan's output (the adaptive
@@ -109,6 +132,7 @@ def _assemble_bucket(
     lp: int,
     plan: ExecutionPlan,
     arena: PackedArena,
+    w_pad: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Scan-stage assembly for one shape bucket (host numpy).
 
@@ -116,11 +140,12 @@ def _assemble_bucket(
     qrow_of i64 [W, tq] workload query row per unit slot (-1 pad),
     slot_of i64 [W, tq] merge-tensor slot per unit slot). W is the unit count
     padded to a power of two, as in the reference, so the dispatch shapes
-    (``DispatchStats.shapes``) agree; padding units are fully masked.
+    (``DispatchStats.shapes``) agree, or ``w_pad`` (the sharded path's width
+    shared by every rank); padding units are fully masked.
     """
     tq = plan.tq
     n_packed = arena.n
-    W = _next_pow2(len(units), 1)
+    W = _next_pow2(len(units), 1) if w_pad is None else int(w_pad)
     Vrows = np.zeros((W, lp), dtype=np.int64)
     valid = np.zeros((W, lp), dtype=bool)
     qrow_of = np.full((W, tq), -1, dtype=np.int64)
@@ -192,20 +217,43 @@ def execute_plan(
     return _fold_extras_and_merge(out_scores, out_idx, extra, plan.n_slots, k)
 
 
-def bucket_operands(plan: ExecutionPlan, arena: PackedArena, q_dev: torch.Tensor, lp: int):
+def _bucket_rows(plan, arena, lp, units, w_pad, shard):
+    """``_assemble_bucket`` of a bucket's units (all of them, or a rank's),
+    with the rows to gather on the device that holds them: the arena's, or
+    with ``shard`` that rank's own rows (``ArenaShard.local``) on its device.
+    Returns (Vrows, valid, qrow_of, slot_of, source, rows tensor)."""
+    units = plan.buckets[lp] if units is None else units
+    Vrows, valid, qrow_of, slot_of = _assemble_bucket(units, lp, plan, arena, w_pad=w_pad)
+    src = arena if shard is None else shard
+    if shard is not None:
+        Vrows = shard.local(Vrows)
+    return Vrows, valid, qrow_of, slot_of, src, torch.from_numpy(Vrows).to(src.device)
+
+
+def bucket_operands(
+    plan: ExecutionPlan,
+    arena: PackedArena,
+    q_dev: torch.Tensor,
+    lp: int,
+    *,
+    units: Optional[List[WorkUnit]] = None,
+    w_pad: Optional[int] = None,
+    shard: Optional[ArenaShard] = None,
+):
     """One bucket's scan operands on the arena's device.
 
     Returns (qrow_of i64 [W, tq] host, slot_of i64 [W, tq] host, rows
     [W, lp] packed rows, Q [W, tq, d] with padding slots zeroed, V [W, lp, d]
-    gathered by one ``index_select``, valid bool [W, lp]).
+    gathered by one ``index_select``, valid bool [W, lp]). On the sharded
+    path, rank r's: its ``units`` of the bucket, W = ``w_pad``, ``rows`` its
+    shard's own, on its device (``q_dev`` there too).
     """
-    Vrows, valid, qrow_of, slot_of = _assemble_bucket(plan.buckets[lp], lp, plan, arena)
-    dev = arena.device
-    rows = torch.from_numpy(Vrows).to(dev)
+    _, valid, qrow_of, slot_of, src, rows = _bucket_rows(plan, arena, lp, units, w_pad, shard)
+    dev = src.device
     qrow_t = torch.from_numpy(qrow_of).to(dev)
     Q = q_dev[qrow_t.clamp(min=0)]
     Q = torch.where((qrow_t >= 0)[..., None], Q, torch.zeros((), device=dev))
-    V = arena.packed.index_select(0, rows.reshape(-1)).reshape(Vrows.shape[0], lp, arena.d)
+    V = src.packed.index_select(0, rows.reshape(-1)).reshape(rows.shape[0], lp, arena.d)
     return qrow_of, slot_of, rows, Q, V, torch.from_numpy(valid).to(dev)
 
 
@@ -441,7 +489,16 @@ def resident_luts(plan: ExecutionPlan, arena: PackedArena, q_vecs: np.ndarray):
     return torch.from_numpy(adc_tables(arena.pq, q_vecs[used])).to(arena.device), lut_pos
 
 
-def pq_bucket_operands(plan: ExecutionPlan, arena: PackedArena, lut_pos: np.ndarray, lp: int):
+def pq_bucket_operands(
+    plan: ExecutionPlan,
+    arena: PackedArena,
+    lut_pos: np.ndarray,
+    lp: int,
+    *,
+    units: Optional[List[WorkUnit]] = None,
+    w_pad: Optional[int] = None,
+    shard: Optional[ArenaShard] = None,
+):
     """One bucket's ADC scan operands on the arena's device.
 
     Returns (qrow_of i64 [W, tq] host, slot_of i64 [W, tq] host, rows [W, lp]
@@ -449,14 +506,14 @@ def pq_bucket_operands(plan: ExecutionPlan, arena: PackedArena, lut_pos: np.ndar
     (``lut_pos`` of its query; -1 for a padding slot, which the resident
     kernel never scores: ``repro`` points it at row 0, and both engines drop
     its output), codes uint8 [W, lp, M] gathered by one ``index_select``,
-    valid bool [W, lp]).
+    valid bool [W, lp]). ``units``, ``w_pad`` and ``shard`` as in
+    ``bucket_operands``.
     """
-    Vrows, valid, qrow_of, slot_of = _assemble_bucket(plan.buckets[lp], lp, plan, arena)
-    dev = arena.device
-    rows = torch.from_numpy(Vrows).to(dev)
+    _, valid, qrow_of, slot_of, src, rows = _bucket_rows(plan, arena, lp, units, w_pad, shard)
+    dev = src.device
     lut_idx = torch.from_numpy(np.where(qrow_of >= 0, lut_pos[np.maximum(qrow_of, 0)], -1)
                                .astype(np.int32)).to(dev)
-    codes = arena.codes.index_select(0, rows.reshape(-1)).reshape(Vrows.shape[0], lp, arena.pq.m)
+    codes = src.codes.index_select(0, rows.reshape(-1)).reshape(rows.shape[0], lp, arena.pq.m)
     return qrow_of, slot_of, rows, lut_idx, codes, torch.from_numpy(valid).to(dev)
 
 
@@ -646,6 +703,559 @@ def _pq_rerank_and_fold(
     return _fold_extras_and_merge(out_scores, out_idx, extra, 1, k)
 
 
+# ----------------------------------------------------------------- sharded
+
+
+@dataclasses.dataclass
+class ShardStats:
+    """Per-rank accounting of one sharded execution (the bench/test probe).
+
+    ``per_rank_bytes`` counts arena bytes each rank's scan stages gathered
+    for its REAL work units (stacking pad excluded) — the quantity that must
+    shrink ~1/|model| per rank versus a single device. ``gathered_per_query``
+    is the total candidate columns the gather merges moved per query:
+    O(k · |model|) by construction, independent of DB size.
+    """
+
+    n_shards: int
+    per_rank_bytes: np.ndarray  # i64 [R] — arena bytes scanned by rank r
+    per_rank_units: np.ndarray  # i64 [R] — real work units executed by rank r
+    per_rank_dispatches: np.ndarray  # i64 [R] — stages rank r had live work in
+    gathered_per_query: int = 0  # candidate columns gathered per query
+
+    @staticmethod
+    def zeros(n_shards: int) -> "ShardStats":
+        return ShardStats(
+            n_shards=int(n_shards),
+            per_rank_bytes=np.zeros(n_shards, dtype=np.int64),
+            per_rank_units=np.zeros(n_shards, dtype=np.int64),
+            per_rank_dispatches=np.zeros(n_shards, dtype=np.int64),
+        )
+
+
+def execute_plan_sharded(
+    splan: ShardedPlan,
+    sharded: ShardedArena,
+    q_vecs: np.ndarray,  # f32 [m, d]
+    *,
+    mesh,
+    axis: str = "model",
+    cfg: Optional[PlanConfig] = None,
+    extra: Sequence[ExtraCandidates] = (),
+    stats: Optional[ScanStats] = None,
+    shard_stats: Optional[ShardStats] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Stage 2 across a device mesh — bit-identical to ``execute_plan``.
+
+    Per shared shape bucket, every rank's work units run in ONE
+    ``sharded_workunit_topk`` (or ``_pq_topk``) dispatch: rank r gathers
+    rows/codes only from ITS arena shard, so per-rank scan traffic is its
+    shard's share of the workload. Candidates then reduce in two hops: a
+    rank-local top-k over each rank's own candidates, followed by the gather
+    merge (``sharded_merge_topk``) whose traffic is k·|model| (score, id)
+    pairs per query. Extras (the adaptive executor's host-side exact scans)
+    fold into the final merge exactly like the single-device paths.
+
+    Parity: every (query, posting-list) pair lives on exactly one rank and is
+    scored by the same per-unit kernel as on a single device, so the union of
+    per-rank candidates is the single-device candidate set and the two-hop
+    top-k selects the same result. Caveat, as in the reference: candidates
+    with EXACTLY equal scores straddling the k (or k′) boundary may resolve
+    in another order than the single-device flat merge (the two layouts
+    order candidates differently); on continuous data exact ties are
+    duplicate vectors.
+    """
+    cfg = PlanConfig() if cfg is None else cfg
+    if cfg.scan_mode not in ("f32", "pq"):
+        raise ValueError(f"unknown scan_mode {cfg.scan_mode!r}")
+    if cfg.merge_layout not in ("segmented", "dense"):
+        raise ValueError(f"unknown merge_layout {cfg.merge_layout!r}")
+    sstats = ShardStats.zeros(sharded.n_shards) if shard_stats is None else shard_stats
+    sstats.per_rank_units += splan.per_rank_units
+    m, k = splan.plan.m, splan.plan.k
+    if m == 0 or splan.n_units == 0:
+        n_slots = _extra_slot_width(extra, m)
+        if m == 0 or n_slots == 0:
+            return (
+                np.full((m, k), -np.inf, np.float32),
+                np.full((m, k), -1, np.int64),
+            )
+        dev0 = sharded.devices[0]
+        out_scores = torch.full((m, n_slots, k), -float("inf"), dtype=torch.float32, device=dev0)
+        out_idx = torch.full((m, n_slots, k), -1, dtype=torch.int64, device=dev0)
+        return _fold_extras_and_merge(out_scores, out_idx, extra, 0, k)
+    if cfg.scan_mode == "pq":
+        if sharded.base.codes is None or sharded.base.pq is None:
+            raise ValueError(
+                "scan_mode='pq' needs a PQ-encoded arena: build the HQIIndex "
+                "with HQIConfig(scan_mode='pq') or attach_pq() a codebook, or "
+                "pass pq= to batch_search_ivf"
+            )
+        return _execute_sharded_pq(
+            splan, sharded, q_vecs, mesh=mesh, axis=axis, cfg=cfg,
+            extra=extra, stats=stats, sstats=sstats,
+        )
+    return _execute_sharded_f32(
+        splan, sharded, q_vecs, mesh=mesh, axis=axis, cfg=cfg,
+        extra=extra, stats=stats, sstats=sstats,
+    )
+
+
+def _on_devices(x: torch.Tensor, devices: Sequence[torch.device]) -> Dict[torch.device, torch.Tensor]:
+    """One copy of ``x`` per distinct device (a replicated operand)."""
+    return {dev: x if x.device == dev else x.to(dev) for dev in dict.fromkeys(devices)}
+
+
+def _merge_with_extras(
+    ms: torch.Tensor,  # f32 [m, k] — the gather merge's final top-k
+    mi: torch.Tensor,  # i64 [m, k]
+    extra: Sequence[ExtraCandidates],
+    k: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Shared tail of both sharded scan modes: fold the adaptive executor's
+    host-side exact candidates (if any) into the merged device result —
+    slot 0 holds the sharded top-k, extras take the columns after it."""
+    if not extra:
+        return ms.cpu().numpy(), mi.cpu().numpy()
+    m = ms.shape[0]
+    out_slots = 1 + _extra_slot_width(extra, m)
+    out_scores = torch.full((m, out_slots, k), -float("inf"), dtype=torch.float32, device=ms.device)
+    out_idx = torch.full((m, out_slots, k), -1, dtype=torch.int64, device=ms.device)
+    out_scores[:, 0] = ms
+    out_idx[:, 0] = mi
+    return _fold_extras_and_merge(out_scores, out_idx, extra, 1, k)
+
+
+def _gather_merge(
+    mesh,
+    axis: str,
+    cand_s: Sequence[torch.Tensor],  # per rank: f32 [m, n_slots, kk] on its device
+    cand_i: Sequence[torch.Tensor],  # per rank: i64 [m, n_slots, kk]
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-hop reduction: rank-local top-k, then the k·|model| gather merge.
+    Candidate width pads pow2 (≥ k) with (-inf, -1), like the single-device
+    ``_padded_merge``. Returns (scores, ids) [m, k] on the first rank's
+    device, absent entries (-inf, -1)."""
+    R, m = len(cand_s), cand_s[0].shape[0]
+    flat_s = [c.reshape(m, -1) for c in cand_s]
+    flat_i = [c.reshape(m, -1) for c in cand_i]
+    real_width = flat_s[0].shape[1]
+    width = _next_pow2(real_width, k)
+    if width > real_width:
+        padc = width - real_width
+        flat_s = [torch.nn.functional.pad(t, (0, padc), value=-float("inf")) for t in flat_s]
+        flat_i = [torch.nn.functional.pad(t, (0, padc), value=-1) for t in flat_i]
+    prof = get_profiler()
+    t0 = prof.t0() if prof.enabled else 0
+    with get_tracer().span("merge.gather", ranks=R, m=m, width=width):
+        ms, mi = kops.sharded_merge_topk(mesh, axis, flat_s, flat_i, k)
+        ms, mi = fence(ms, mi)
+    if prof.enabled:
+        prof.record_dispatch(
+            "gather", "sharded", width, t0,
+            nbytes=R * m * width * 12 + m * k * 12,
+            flops=0.0, flops_padded=0.0,
+            units=R * m, units_padded=R * m,
+            rows=R * m * real_width, rows_padded=R * m * width,
+        )
+    return ms, mi
+
+
+def _rank_segments(keys: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """One rank's CSR layout for the sharded segmented merge, from its
+    candidates' ``q · S + slot`` keys in the order the executor met them.
+
+    Every (query, slot) pair lives in exactly one work unit, hence on exactly
+    one rank, so a rank's keys are distinct and its candidate rows are their
+    sorted set. Returns (row i64 of each key, in the given order; the keys
+    sorted): row j belongs to query ``sorted[j] // S``, ascending.
+    """
+    if not keys:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    flat = np.concatenate(keys)
+    order = np.argsort(flat)  # distinct keys: no tie to keep
+    row = np.empty_like(order)
+    row[order] = np.arange(len(order))
+    return row, flat[order]
+
+
+class _RankCandidates:
+    """One sharded stage's candidate buffers and their two-hop reduction.
+
+    Segmented layout: ranks' per-unit top-ks are held as they come, then
+    each device lays its ranks' rows out in ONE flat [C_pad, kk] buffer (rank
+    r's from an offset, in ``_rank_segments`` order) with segment j·m + q for
+    the device's j-th rank and query q, so one ragged merge per device gives
+    each of its ranks' local [m, kk] top-k — with every rank on one device,
+    the reference's one merge over R·m segments. Dense layout: rank r's
+    [m, n_slots, kk] tensor on its device.
+    """
+
+    def __init__(self, splan: ShardedPlan, sharded: ShardedArena, width: int, *,
+                 segmented: bool, stats: Optional[ScanStats]):
+        m = splan.plan.m
+        self.m, self.width, self.segmented, self.stats = m, width, segmented, stats
+        self.S = max(splan.plan.n_slots, 1)
+        self.devices = sharded.devices
+        self.groups: Dict[torch.device, List[int]] = {}
+        for r, dev in enumerate(self.devices):
+            self.groups.setdefault(dev, []).append(r)
+        if segmented:
+            self.held: List[list] = [[] for _ in self.devices]
+        else:
+            n_slots = splan.plan.n_slots
+            self.cand = [
+                (torch.full((m, n_slots, width), -float("inf"), dtype=torch.float32, device=dev),
+                 torch.full((m, n_slots, width), -1, dtype=torch.int64, device=dev))
+                for dev in self.devices
+            ]
+            _account_candidates(stats, sum(_nbytes(*c) for c in self.cand))
+
+    def put(self, r: int, qr: np.ndarray, sl: np.ndarray, kk: int,
+            s_w: torch.Tensor, i_w: torch.Tensor) -> None:
+        """Rank r's per-unit top-kk of its real slots (query rows ``qr``,
+        merge slots ``sl``)."""
+        if self.segmented:
+            self.held[r].append((qr * self.S + sl, kk, s_w, i_w))
+            return
+        dev = self.devices[r]
+        cand_s, cand_i = self.cand[r]
+        qr_t, sl_t = torch.from_numpy(qr).to(dev), torch.from_numpy(sl).to(dev)
+        cand_s[qr_t, sl_t, :kk] = s_w
+        cand_i[qr_t, sl_t, :kk] = i_w
+
+    def _lay_out(self, dev: torch.device, ranks: List[int]):
+        """The device's flat buffers and segment ids, filled from its ranks'
+        held top-ks."""
+        m, width = self.m, self.width
+        placed, segs, off = [], [], 0
+        for j, r in enumerate(ranks):
+            row, keys = _rank_segments([h[0] for h in self.held[r]])
+            placed.append((r, off + row))
+            segs.append(j * m + keys // self.S)
+            off += len(keys)
+        C_pad = _next_pow2(off, 1)
+        seg_of = np.full(C_pad, len(ranks) * m, dtype=np.int32)  # pad rows: dropped
+        seg_of[:off] = np.concatenate(segs)
+        flat_s = torch.full((C_pad, width), -float("inf"), dtype=torch.float32, device=dev)
+        flat_i = torch.full((C_pad, width), -1, dtype=torch.int64, device=dev)
+        for r, rows in placed:
+            a = 0
+            for keys, kk, s_w, i_w in self.held[r]:
+                rows_t = torch.from_numpy(rows[a:a + len(keys)]).to(dev)
+                flat_s[rows_t, :kk] = s_w
+                flat_i[rows_t, :kk] = i_w
+                a += len(keys)
+            self.held[r] = []
+        return flat_s, flat_i, seg_of, off
+
+    def reduce(self, mesh, axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Rank-local top-``width``, then the gather merge: [m, width] on the
+        first rank's device."""
+        if not self.segmented:
+            return _gather_merge(mesh, axis, [c[0] for c in self.cand],
+                                 [c[1] for c in self.cand], self.width)
+        m, width = self.m, self.width
+        per_s: List[Optional[torch.Tensor]] = [None] * len(self.devices)
+        per_i: List[Optional[torch.Tensor]] = [None] * len(self.devices)
+        bufs = {dev: self._lay_out(dev, ranks) for dev, ranks in self.groups.items()}
+        _account_candidates(self.stats, sum(_nbytes(b[0], b[1]) for b in bufs.values()))
+        prof = get_profiler()
+        for dev, ranks in self.groups.items():
+            flat_s, flat_i, seg_of, C_total = bufs[dev]
+            n_seg = len(ranks) * m
+            t0 = prof.t0() if prof.enabled else 0
+            with get_tracer().span("merge.segmented", m=n_seg, candidates=C_total):
+                seg_s, seg_i = kops.segmented_merge_topk(
+                    flat_s, flat_i, torch.from_numpy(seg_of).to(dev), n_seg, width
+                )
+                seg_s, seg_i = fence(seg_s, seg_i)
+            if prof.enabled:
+                prof.record_dispatch(
+                    "merge", "segmented", flat_s.shape[0], t0,
+                    nbytes=_nbytes(flat_s, flat_i) + seg_of.nbytes + n_seg * width * 12,
+                    flops=0.0, flops_padded=0.0,
+                    units=n_seg, units_padded=n_seg,
+                    rows=C_total, rows_padded=flat_s.shape[0],
+                )
+            for j, r in enumerate(ranks):
+                per_s[r] = seg_s[j * m:(j + 1) * m].reshape(m, 1, width)
+                per_i[r] = seg_i[j * m:(j + 1) * m].reshape(m, 1, width)
+        return _gather_merge(mesh, axis, per_s, per_i, width)
+
+
+def _record_sharded_scan(prof, mode: str, lp: int, t0: int, *, R: int, W: int, tq: int,
+                         kk: int, ops_: list, nbytes: int, pair_flops: float,
+                         rank_units: List[int], rank_bytes: List[int]) -> None:
+    """The reference's profiler row of one sharded scan dispatch, from its
+    stacked [R, W, ...] shapes; ``ops_[r]`` is rank r's bucket operands (or
+    None), whose ``qrow_of`` and ``valid`` give the real pairs and rows."""
+    pairs = rows = 0
+    for o in ops_:
+        if o is None:
+            continue
+        nq_w = (o[0] >= 0).sum(axis=1)
+        rows_w = o[5].sum(dim=1).cpu().numpy()
+        pairs += int((nq_w * rows_w).sum())
+        rows += int(rows_w.sum())
+    prof.record_dispatch(
+        "scan", mode, lp, t0,
+        nbytes=nbytes + R * W * tq * kk * 12,
+        flops=pair_flops * pairs,
+        flops_padded=pair_flops * R * W * tq * lp,
+        units=int(sum(rank_units)), units_padded=R * W,
+        rows=rows, rows_padded=R * W * lp,
+        rank_units=rank_units,
+        rank_bytes=rank_bytes,
+    )
+
+
+def _execute_sharded_f32(
+    splan: ShardedPlan,
+    sharded: ShardedArena,
+    q_vecs: np.ndarray,
+    *,
+    mesh,
+    axis: str,
+    cfg: PlanConfig,
+    extra: Sequence[ExtraCandidates],
+    stats: Optional[ScanStats],
+    sstats: ShardStats,
+) -> Tuple[np.ndarray, np.ndarray]:
+    R = sharded.n_shards
+    plan = splan.plan
+    k, tq = plan.k, plan.tq
+    d = q_vecs.shape[1]
+    arena = sharded.base
+    shards = [sharded.rank(r) for r in range(R)]
+    q_on = _on_devices(torch.from_numpy(np.ascontiguousarray(q_vecs, dtype=np.float32)),
+                       sharded.devices)
+    cands = _RankCandidates(splan, sharded, k, segmented=cfg.merge_layout == "segmented",
+                            stats=stats)
+    prof = get_profiler()
+    for lp in splan.pads:
+        unit_lists = [splan.rank_buckets[r].get(lp, []) for r in range(R)]
+        W = _next_pow2(max(len(u) for u in unit_lists), 1)
+        ops_: list = [None] * R
+        for r, units in enumerate(unit_lists):
+            if not units:
+                continue
+            sh = shards[r]
+            ops_[r] = bucket_operands(plan, arena, q_on[sh.device], lp,
+                                      units=units, w_pad=len(units), shard=sh)
+            sstats.per_rank_bytes[r] += len(units) * lp * d * 4
+            sstats.per_rank_dispatches[r] += 1
+        rank_units = [len(u) for u in unit_lists]
+        if stats is not None:
+            stats.bytes_scanned += sum(rank_units) * lp * d * 4
+        kk = min(k, lp)
+        t0 = prof.t0() if prof.enabled else 0
+        with get_tracer().span("dispatch.sharded", mode="f32", lp=lp, rank_units=rank_units):
+            res = kops.sharded_workunit_topk(
+                mesh, axis,
+                [o and o[3] for o in ops_], [o and o[4] for o in ops_], [o and o[5] for o in ops_],
+                kk, metric=arena.metric,
+                n_live=[o and live_slots(o[0], o[3].device) for o in ops_],
+            )
+            fence(*[t for pair in res if pair is not None for t in pair])
+        if prof.enabled:
+            _record_sharded_scan(
+                prof, "sharded-f32", lp, t0, R=R, W=W, tq=tq, kk=kk, ops_=ops_,
+                nbytes=R * W * tq * d * 4 + R * W * lp * d * 4 + R * W * lp,
+                pair_flops=2.0 * d, rank_units=rank_units,
+                rank_bytes=[n * lp * d * 4 for n in rank_units],
+            )
+        for r, pair in enumerate(res):
+            if pair is None:
+                continue
+            qrow_of, slot_of, rows = ops_[r][:3]
+            s, i_loc = pair
+            local = _unit_rows(rows, i_loc)
+            gidx = torch.where(local < 0, -1, shards[r].gid[local.clamp(min=0)])
+            wmask = qrow_of >= 0
+            wmask_t = torch.from_numpy(wmask).to(s.device)
+            cands.put(r, qrow_of[wmask], slot_of[wmask], s.shape[-1], s[wmask_t], gidx[wmask_t])
+    ms, mi = cands.reduce(mesh, axis)
+    sstats.gathered_per_query += R * k
+    return _merge_with_extras(ms, mi, extra, k)
+
+
+def _execute_sharded_pq(
+    splan: ShardedPlan,
+    sharded: ShardedArena,
+    q_vecs: np.ndarray,
+    *,
+    mesh,
+    axis: str,
+    cfg: PlanConfig,
+    extra: Sequence[ExtraCandidates],
+    stats: Optional[ScanStats],
+    sstats: ShardStats,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Compressed two-stage execution across the mesh.
+
+    Stage A mirrors the f32 path with uint8 code tiles: per shared bucket,
+    one sharded ADC dispatch; each rank keeps k′ = refine_factor · k ADC
+    candidates per (query, posting list) as GLOBAL packed rows. The ADC
+    candidate gather (k′·|model| per query) then selects the same global
+    top-k′ the single-device merge would — any global survivor is also a
+    local survivor on its rank — and stage B re-ranks exactly
+    (``_sharded_rerank``). Extras fold in last, as everywhere.
+    """
+    R = sharded.n_shards
+    plan = splan.plan
+    k, tq = plan.k, plan.tq
+    arena = sharded.base
+    M = arena.pq.m
+    kprime = max(k, int(cfg.refine_factor) * k)
+    shards = [sharded.rank(r) for r in range(R)]
+    segmented = cfg.merge_layout == "segmented"
+
+    luts_dev, lut_pos = resident_luts(plan, arena, q_vecs)
+    _account_lut(stats, _nbytes(luts_dev), expanded=False)
+    luts_on = _on_devices(luts_dev, sharded.devices)  # the table, replicated
+    cands = _RankCandidates(splan, sharded, kprime, segmented=segmented, stats=stats)
+    prof = get_profiler()
+    for lp in splan.pads:
+        unit_lists = [splan.rank_buckets[r].get(lp, []) for r in range(R)]
+        W = _next_pow2(max(len(u) for u in unit_lists), 1)
+        ops_: list = [None] * R
+        for r, units in enumerate(unit_lists):
+            if not units:
+                continue
+            ops_[r] = pq_bucket_operands(plan, arena, lut_pos, lp,
+                                         units=units, w_pad=len(units), shard=shards[r])
+            sstats.per_rank_bytes[r] += len(units) * lp * M
+            sstats.per_rank_dispatches[r] += 1
+        rank_units = [len(u) for u in unit_lists]
+        if stats is not None:
+            stats.bytes_scanned += sum(rank_units) * lp * M
+        kk = min(kprime, lp)
+        if not segmented:
+            # the dense dispatch expands every rank's [W_r, tq, M, 256] LUT
+            # operands; the segmented one reads the resident table
+            _account_lut(stats, sum(rank_units) * tq * M * NBOOK * 4, expanded=True)
+        t0 = prof.t0() if prof.enabled else 0
+        with get_tracer().span("dispatch.sharded", mode="pq", lp=lp, rank_units=rank_units):
+            res = kops.sharded_workunit_pq_topk(
+                mesh, axis,
+                [luts_on[dev] for dev in sharded.devices],
+                [o and o[3] for o in ops_], [o and o[4] for o in ops_], [o and o[5] for o in ops_],
+                kk, stream=segmented,
+                n_live=None if segmented else [o and live_slots(o[0], o[3].device) for o in ops_],
+            )
+            fence(*[t for pair in res if pair is not None for t in pair])
+        if prof.enabled:
+            n_slots_live = sum(int((o[0] >= 0).sum()) for o in ops_ if o is not None)
+            lut_b = n_slots_live * M * NBOOK * 4 if segmented else R * W * tq * M * NBOOK * 4
+            _record_sharded_scan(
+                prof, "sharded-pq", lp, t0, R=R, W=W, tq=tq, kk=kk, ops_=ops_,
+                nbytes=R * W * lp * M + R * W * lp + lut_b,
+                pair_flops=2.0 * M * NBOOK, rank_units=rank_units,
+                rank_bytes=[n * lp * M for n in rank_units],
+            )
+        for r, pair in enumerate(res):
+            if pair is None:
+                continue
+            qrow_of, slot_of, rows = ops_[r][:3]
+            s, i_loc = pair
+            local = _unit_rows(rows, i_loc)
+            grow = torch.where(local < 0, -1, local + shards[r].row0)  # global packed rows
+            wmask = qrow_of >= 0
+            wmask_t = torch.from_numpy(wmask).to(s.device)
+            cands.put(r, qrow_of[wmask], slot_of[wmask], s.shape[-1], s[wmask_t], grow[wmask_t])
+    # global top-k′ ADC candidates: the same selection as the single-device
+    # merge (a global survivor survives on its rank too)
+    _, top_rows = cands.reduce(mesh, axis)  # [m, k′] global rows (-1 pad), rank 0's device
+    sstats.gathered_per_query += R * kprime
+    return _sharded_rerank(mesh, axis, sharded, q_vecs, top_rows, k=k, kprime=kprime,
+                           extra=extra, stats=stats, sstats=sstats)
+
+
+def _sharded_rerank(mesh, axis: str, sharded: ShardedArena, q_vecs: np.ndarray,
+                    top_rows: torch.Tensor, *, k: int, kprime: int,
+                    extra: Sequence[ExtraCandidates], stats: Optional[ScanStats],
+                    sstats: ShardStats) -> Tuple[np.ndarray, np.ndarray]:
+    """Stage B across the mesh: rank r rescans the surviving rows IT stores
+    (``owner_of_row``; units of one query as in ``rerank_operands``, the
+    other ranks' rows masked) in one sharded dispatch, then the k·|model|
+    gather merge of the partial exact top-ks and the extras. A rank that
+    stores no survivor launches nothing and gives (-inf, -1); every unit of
+    stage A holds a valid row (``build_plan`` drops lists the bitmap
+    empties), so some rank always stores one."""
+    R = sharded.n_shards
+    m, d = q_vecs.shape
+    mp = _next_pow2(m, 1)
+    kk = min(k, kprime)
+    owner = torch.searchsorted(
+        torch.from_numpy(sharded.row_bounds).to(top_rows.device), top_rows.clamp(min=0), right=True
+    ) - 1
+    owner = torch.where(top_rows >= 0, owner, -1)  # an absent candidate (-1) goes nowhere
+    q_on = _on_devices(torch.from_numpy(np.ascontiguousarray(q_vecs, dtype=np.float32)),
+                       sharded.devices)
+    operands: list = [None] * R
+    n_real = 0
+    for r in range(R):
+        sh = sharded.rank(r)
+        own = owner == r
+        n_own = int(own.sum())
+        if n_own == 0:
+            continue
+        dev = sh.device
+        own, rows = own.to(dev), top_rows.to(dev)
+        rows_p = torch.zeros((mp, kprime), dtype=torch.int64, device=dev)
+        rows_p[:m] = torch.where(own, rows - sh.row0, 0)
+        valid = torch.zeros((mp, kprime), dtype=torch.bool, device=dev)
+        valid[:m] = own
+        Qr = torch.zeros((mp, 1, d), dtype=torch.float32, device=dev)
+        Qr[:m, 0] = q_on[dev]
+        Vr = sh.packed.index_select(0, rows_p.reshape(-1)).reshape(mp, kprime, d)
+        n_live = (torch.arange(mp, device=dev) < m).to(torch.int32)
+        operands[r] = (Qr, Vr, valid, n_live, rows)
+        sstats.per_rank_bytes[r] += n_own * d * 4
+        sstats.per_rank_dispatches[r] += 1
+        n_real += n_own
+    if stats is not None:
+        stats.bytes_scanned += n_real * d * 4
+    prof = get_profiler()
+    t0 = prof.t0() if prof.enabled else 0
+    with get_tracer().span("rerank.exact", mode="sharded", m=m, kprime=kprime):
+        res = kops.sharded_workunit_topk(
+            mesh, axis, [o and o[0] for o in operands], [o and o[1] for o in operands],
+            [o and o[2] for o in operands], kk, metric=sharded.base.metric,
+            n_live=[o and o[3] for o in operands],
+        )
+        fence(*[t for pair in res if pair is not None for t in pair])
+    if prof.enabled:
+        prof.record_dispatch(
+            "rerank", "sharded", kprime, t0,
+            nbytes=R * mp * d * 4 + R * mp * kprime * d * 4 + R * mp * kprime + R * mp * kk * 12,
+            flops=2.0 * d * n_real,
+            flops_padded=2.0 * d * R * mp * kprime,
+            units=m, units_padded=R * mp,
+            rows=n_real, rows_padded=R * mp * kprime,
+        )
+    part_s, part_i = [], []
+    for r, pair in enumerate(res):
+        sh = sharded.rank(r)
+        if pair is None:
+            part_s.append(torch.full((m, 1, kk), -float("inf"), dtype=torch.float32, device=sh.device))
+            part_i.append(torch.full((m, 1, kk), -1, dtype=torch.int64, device=sh.device))
+            continue
+        s = pair[0][:m, 0]  # [m, kk] exact partial scores
+        i_loc = pair[1][:m, 0].to(torch.int64)  # [m, kk] index into the k′ candidates
+        grow = torch.gather(operands[r][4], 1, i_loc.clamp(min=0))
+        gidx = torch.where(
+            (i_loc < 0) | (grow < 0), -1, sh.gid[(grow - sh.row0).clamp(0, max(sh.n - 1, 0))]
+        )
+        part_s.append(torch.where(gidx >= 0, s, -float("inf"))[:, None, :])
+        part_i.append(gidx[:, None, :])
+    ms, mi = _gather_merge(mesh, axis, part_s, part_i, k)
+    sstats.gathered_per_query += R * k
+    return _merge_with_extras(ms, mi, extra, k)
+
+
 def batch_search_ivf(
     ivf: IVFIndex,
     q_vecs: np.ndarray,  # [m, d] — one template group
@@ -656,9 +1266,16 @@ def batch_search_ivf(
     stats: Optional[ScanStats] = None,
     cfg: Optional[PlanConfig] = None,
     pq: Optional[PQCodebook] = None,  # required iff cfg.scan_mode == "pq"
+    mesh=None,  # launch.mesh.Mesh: shard the scan over its model axis
+    shard_spec=None,  # core.distributed.ShardSpec (default axes)
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Plan + execute one IVF index on its device: (scores f32 [m, k], local
-    idx i64 [m, k])."""
+    idx i64 [m, k]).
+
+    With ``mesh=`` the index is one partition spread over the model axis's
+    ranks at posting-list boundaries (``PackedArena.sharded_from_ivf``) and
+    executes through ``core.distributed.execute_sharded``; the results are
+    bit-identical to ``mesh=None``."""
     cfg = PlanConfig() if cfg is None else cfg
     m = q_vecs.shape[0]
     if m == 0:
@@ -678,5 +1295,15 @@ def batch_search_ivf(
         nprobe=int(min(nprobe, ivf.n_lists)),
         packed_bitmap=packed_bitmap,
     )
+    if mesh is not None:
+        from .distributed import ShardSpec, execute_sharded
+
+        spec = shard_spec or ShardSpec()
+        sharded = PackedArena.sharded_from_ivf(ivf, spec.n_shards(mesh), spec.rank_devices(mesh))
+        s, i, _ = execute_sharded(
+            sharded, [task], q_vecs,
+            mesh=mesh, spec=spec, m=m, k=k, cfg=cfg, stats=stats,
+        )
+        return s, i
     plan = build_plan(arena, [task], q_vecs, m=m, k=k, cfg=cfg, stats=stats)
     return execute_plan(plan, arena, q_vecs, cfg=cfg, stats=stats)

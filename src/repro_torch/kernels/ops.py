@@ -8,11 +8,21 @@ CUDA tensor and its plain version on a CPU tensor: the device decides, there
 is no backend switch. The merges, ``pairwise_scores`` and ``masked_topk``
 are plain PyTorch on the tensors' device, as the reference leaves them to
 XLA.
+
+The ``sharded_*`` wrappers are the reference's ``shard_map`` dispatches over
+a device mesh (``launch/mesh.py``), single-controller as it is: one process
+holds every rank's operands, each on its rank's device. A scan wrapper calls
+the single-device kernel once per distinct device, over that device's ranks'
+units concatenated along W; units are independent, so the stacking changes
+no result, and ranks that share a card make one launch per bucket. The only
+cross-rank step is ``sharded_merge_topk``'s gather of per-query top-k
+candidates to the first rank's device.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -171,6 +181,12 @@ def workunit_topk(
     ``(NEG_INF, -1)`` and are never scored.
     """
     _DISPATCH.record_knn((q.shape[0], q.shape[1], v.shape[1], int(k)))
+    return _unit_scan(q, v, valid, k, metric, n_live)
+
+
+def _unit_scan(q, v, valid, k: int, metric: str, n_live):
+    """``workunit_topk``'s grid choice and launch, unrecorded (the sharded
+    wrapper records its own dispatch)."""
     fn = fused_knn_db_stationary if use_db_stationary(q.shape[1], v.shape[1]) else fused_knn
     return fn(q, v, valid, k=int(k), metric=metric, n_live=n_live)
 
@@ -215,10 +231,14 @@ def merge_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-query top-k over candidate rows (stable: ties keep column order)."""
     _DISPATCH.record_merge()
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
-    top = torch.gather(scores, 1, order)
-    out_i = torch.gather(idx, 1, order)
-    return _ref.normalize_merge_sentinels(top, out_i)
+    return _ref.normalize_merge_sentinels(*_stable_topk(scores, idx, k))
+
+
+def _stable_topk(scores: torch.Tensor, idx: torch.Tensor, k: int):
+    """Top-k along the last dim by (score desc, position asc): ``lax.top_k``'s
+    tie rule, which ``torch.topk`` does not promise."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(scores, -1, order), torch.gather(idx, -1, order)
 
 
 def segmented_merge_topk(
@@ -233,3 +253,159 @@ def segmented_merge_topk(
     order (``ref.segmented_merge_topk_ref``)."""
     _DISPATCH.record_merge()
     return _ref.segmented_merge_topk_ref(flat_s, flat_i, seg_of, int(n_segments), int(k))
+
+
+# --------------------------------------------------------------------------
+# Sharded dispatch (device-mesh execution, see core/planner.py's sharded path)
+#
+# Operands are sequences over the mesh axis's ranks: rank r's tensors on its
+# device, or None where rank r has no units in the bucket (the reference's
+# fully-masked zero slice, which launches nothing here). Rank r's W is its
+# own unit count; the dispatch is recorded at the reference's stacked shape,
+# W the power of two at or above the largest rank's.
+
+
+def _n_ranks(mesh, axis: str, per_rank: Sequence) -> int:
+    R = int(mesh.shape[axis])
+    if len(per_rank) != R:
+        raise ValueError(f"{len(per_rank)} ranks' operands for mesh axis {axis!r} of {R}")
+    return R
+
+
+def _per_device(call: Callable, per_rank: Sequence[Optional[tuple]]) -> List[Optional[tuple]]:
+    """``call(device, *operands)`` once per distinct device, over its ranks'
+    operands concatenated along dim 0 (an operand that is None for every
+    rank stays None); the results are split back per rank, None where a
+    rank had no operands."""
+    groups: dict = {}
+    for r, ops_r in enumerate(per_rank):
+        if ops_r is not None:
+            groups.setdefault(ops_r[0].device, []).append(r)
+    out: List[Optional[tuple]] = [None] * len(per_rank)
+    for dev, ranks in groups.items():
+        parts = [per_rank[r] for r in ranks]
+        cat = [
+            None if parts[0][j] is None
+            else parts[0][j] if len(parts) == 1
+            else torch.cat([p[j] for p in parts])
+            for j in range(len(parts[0]))
+        ]
+        res = call(dev, *cat)
+        sizes = [p[0].shape[0] for p in parts]
+        splits = [torch.split(t, sizes) for t in res]
+        for g, r in enumerate(ranks):
+            out[r] = tuple(sp[g] for sp in splits)
+    return out
+
+
+def _stacked_shape(tensors: Sequence[Optional[torch.Tensor]]) -> tuple:
+    """The reference's stacked per-rank shape of a sharded operand: W the
+    power of two at or above the largest rank's unit count, the rest as
+    every rank's."""
+    live = [t for t in tensors if t is not None]
+    if not live or any(t.shape[1:] != live[0].shape[1:] for t in live):
+        raise ValueError(f"ranks' operands differ in shape: {[tuple(t.shape) for t in live]}")
+    W = 1 << (max(t.shape[0] for t in live) - 1).bit_length()
+    return (W,) + tuple(live[0].shape[1:])
+
+
+def sharded_workunit_topk(
+    mesh,
+    axis: str,
+    q: Sequence[Optional[torch.Tensor]],  # per rank: f32 [W_r, TQ, D] on its device
+    v: Sequence[Optional[torch.Tensor]],  # per rank: f32 [W_r, TV, D]
+    valid: Sequence[Optional[torch.Tensor]],  # per rank: bool [W_r, TV]
+    k: int,
+    *,
+    metric: str = "ip",
+    n_live: Optional[Sequence[Optional[torch.Tensor]]] = None,  # per rank: i32 [W_r]
+) -> List[Optional[tuple]]:
+    """``workunit_topk`` across the mesh: one dispatch, every rank its units.
+
+    Returns rank r's (scores f32 [W_r, TQ, kk], idx i32 [W_r, TQ, kk]) on its
+    device, None for a rank without units. Other mesh axes (data, pod)
+    replicate, as in the reference.
+    """
+    R = _n_ranks(mesh, axis, q)
+    W, TQ, _ = _stacked_shape(q)
+    TV = _stacked_shape(v)[1]
+    _DISPATCH.record_knn(("sh", R, W, TQ, TV, int(k)))
+    lives = [None] * R if n_live is None else n_live
+    per_rank = [None if q[r] is None else (q[r], v[r], valid[r], lives[r]) for r in range(R)]
+    return _per_device(
+        lambda dev, q_, v_, valid_, live_: _unit_scan(q_, v_, valid_, k, metric, live_), per_rank
+    )
+
+
+def sharded_workunit_pq_topk(
+    mesh,
+    axis: str,
+    luts: Sequence[torch.Tensor],  # per rank: f32 [U, M, 256], the resident table on its device
+    lut_idx: Sequence[Optional[torch.Tensor]],  # per rank: i32 [W_r, TQ] (-1: no query)
+    codes: Sequence[Optional[torch.Tensor]],  # per rank: uint8 [W_r, TV, M]
+    valid: Sequence[Optional[torch.Tensor]],  # per rank: bool [W_r, TV]
+    k: int,
+    *,
+    stream: bool = False,
+    n_live: Optional[Sequence[Optional[torch.Tensor]]] = None,  # per rank: i32 [W_r]
+) -> List[Optional[tuple]]:
+    """Compressed (ADC) sharded scan — ``workunit_pq_topk`` across the mesh.
+
+    The workload's ADC table is replicated: one copy per device. With
+    ``stream=True`` (the segmented layout) each device's call reads the
+    resident table through ``lut_idx`` (``workunit_pq_scan_streamed``), so
+    no expanded operand exists; with ``stream=False`` (the dense layout) each
+    device expands its units' [W, TQ, M, 256] LUTs and runs
+    ``workunit_pq_scan`` with ``n_live``.
+    """
+    R = _n_ranks(mesh, axis, codes)
+    W, TQ = _stacked_shape(lut_idx)
+    TV = _stacked_shape(codes)[1]
+    _DISPATCH.record_knn(("sh-pq", R, W, TQ, TV, int(k)))
+    table = {}
+    for r in range(R):
+        if codes[r] is not None:
+            table.setdefault(codes[r].device, luts[r])
+
+    def call(dev, idx, codes_, valid_, live_):
+        tab = table[dev]
+        if stream:
+            return workunit_pq_scan_streamed(tab, idx, codes_, valid_, k=int(k))
+        per_unit = tab.index_select(0, idx.clamp(min=0).reshape(-1)).reshape(
+            idx.shape + tab.shape[1:])
+        return workunit_pq_scan(per_unit, codes_, valid_, k=int(k), n_live=live_)
+
+    lives = [None] * R if n_live is None else n_live
+    per_rank = [None if codes[r] is None else (lut_idx[r], codes[r], valid[r], lives[r])
+                for r in range(R)]
+    return _per_device(call, per_rank)
+
+
+def sharded_merge_topk(
+    mesh,
+    axis: str,
+    scores: Sequence[torch.Tensor],  # per rank: f32 [m, C] on its device
+    idx: Sequence[torch.Tensor],  # per rank: i64 [m, C] GLOBAL candidate ids (-1 = absent)
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The engine's only cross-rank step: per-query top-k candidate gather.
+
+    Each rank first reduces its own C candidate columns to its local top-k
+    by (score desc, index asc) and normalizes the sentinels; the gather moves
+    every rank's [m, k] survivors to the first rank's device, rank-major
+    (k·|model| candidates per query, independent of DB size), and a final
+    top-k under the same rule selects the result: the smallest position in
+    that concatenation wins a tie, as ``lax.top_k`` does.
+    """
+    _DISPATCH.record_merge()
+    _n_ranks(mesh, axis, scores)
+    dev0 = mesh.axis_devices(axis)[0]
+    m = scores[0].shape[0]
+    gathered_s, gathered_i = [], []
+    for s, i in zip(scores, idx):
+        top, li = _ref.normalize_merge_sentinels(*_stable_topk(s, i, k))
+        gathered_s.append(top.to(dev0))
+        gathered_i.append(li.to(dev0))
+    cat_s = torch.stack(gathered_s, dim=1).reshape(m, -1)  # [m, R·k], rank-major
+    cat_i = torch.stack(gathered_i, dim=1).reshape(m, -1)
+    return _ref.normalize_merge_sentinels(*_stable_topk(cat_s, cat_i, k))

@@ -14,6 +14,7 @@ import dataclasses
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -587,6 +588,34 @@ def test_pq_engine_names_the_kernel_limits(dev):
                                    rtol=1e-4, atol=1e-4)
         for ra, rb in zip(a.ids, b.ids):
             assert set(ra[ra >= 0].tolist()) == set(rb[rb >= 0].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan_mode", ["f32", "pq"])
+@pytest.mark.parametrize("layout", ["segmented", "dense"])
+def test_sharded_engine_on_the_card(dev, scan_mode, layout):
+    """A two-rank mesh on the card (``HQIConfig.mesh``, both ranks on one
+    device) answers bit-equal to ``mesh=None``, f32 and PQ, both merge
+    layouts; its ranks' units launch the same kernels the same number of
+    times as the single-device search."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    kg = kg_style(n=20_000, d=16, queries_per_split=60, seed=0)
+    wl = kg.splits[1]
+    cfg = HQIConfig() if scan_mode == "f32" else HQIConfig(scan_mode="pq", pq_m=4)
+    cfg.plan.merge_layout = layout
+    index = HQIIndex.build(kg.db, kg.splits[0], cfg, device=dev)
+    grids = (fused_knn, fused_knn_db_stationary, adc.workunit_pq_scan_streamed, adc.workunit_pq_scan)
+    got = {}
+    for side, mesh in (("single", None), ("sharded", make_test_mesh((2,), ("model",), device="cuda"))):
+        index.cfg.mesh = mesh
+        n0 = [g.launches for g in grids]
+        got[side] = (index.search(wl, nprobe=8), [g.launches - n for g, n in zip(grids, n0)])
+    index.cfg.mesh = None
+    (a, la), (b, lb) = got["single"], got["sharded"]
+    assert b.shard_stats is not None and b.shard_stats.n_shards == 2
+    assert la == lb and sum(lb) > 0
+    assert np.array_equal(a.scores, b.scores) and np.array_equal(a.ids, b.ids)
 
 
 # --------------------------------------------------------- flash attention

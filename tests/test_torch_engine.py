@@ -21,6 +21,7 @@ from repro_torch.core import HQIConfig, PlanConfig
 from repro_torch.core.baselines import exhaustive_search
 from repro_torch.core.hqi import HQIIndex
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_test_mesh
 
 from conftest import assert_same_results, small_db, small_workload
 
@@ -152,14 +153,20 @@ def test_state_round_trip_both_ways(built):
 
 
 def test_unported_paths_raise(built):
-    """The sharded engine (ROADMAP.md §1, sharded engine) is the one path left
-    unported; a compressed search without a codebook is refused by name."""
+    """A compressed search without a codebook is refused by name; an index
+    built with a mesh (the sharded engine, once refused here) builds and
+    answers exactly as the same build without one."""
     db, wl, _, state = built
     port = HQIIndex.from_state(state, device="cpu")
     with pytest.raises(ValueError, match="attach_pq"):
         port.search(wl, nprobe=4, scan_mode="pq")
-    with pytest.raises(NotImplementedError, match="sharded engine"):
-        HQIIndex.build(db, wl, HQIConfig(**CFG, mesh=object()), device="cpu")
+    mesh = make_test_mesh((2, 2), ("data", "model"), device="cpu")
+    sharded = HQIIndex.build(db, wl, HQIConfig(**CFG, mesh=mesh), device="cpu")
+    single = HQIIndex.build(db, wl, HQIConfig(**CFG), device="cpu")
+    a, b = sharded.search(wl, nprobe=4), single.search(wl, nprobe=4)
+    assert a.shard_stats is not None and a.shard_stats.n_shards == 2 and b.shard_stats is None
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
     with pytest.raises(ValueError, match="pq_m"):
         HQIIndex.build(db, wl, HQIConfig(**CFG, scan_mode="pq", pq_m=5), device="cpu")
     assert dataclasses.asdict(port.cfg.plan) == state["cfg"]["plan"]

@@ -40,6 +40,7 @@ from repro_torch.core.baselines import exhaustive_search
 from repro_torch.core.predicates import NotNull, filter_from_state, make_filter
 from repro_torch.core.types import Column, VectorDatabase, Workload
 from repro_torch.fault import failpoints
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.service import ServiceConfig, ServiceReadOnly
 from repro_torch.store import (
     Compactor,
@@ -329,18 +330,22 @@ def test_open_service_loads_onto_the_card_by_default(tmp_path):
 @pytest.mark.parametrize("mesh", [False, True])
 def test_roundtrip_parity(tmp_path, metric, scan_mode, mesh):
     """build → save → load → bit-identical ids and scores (engine and
-    per-query paths); the sharded engine is not ported, so an index with a
-    mesh is refused by name."""
+    per-query paths). With ``mesh`` the index searches on a two-rank CPU
+    mesh; the snapshot drops the mesh (runtime wiring, not index state), and
+    the loaded index, given the mesh again, answers bit-identically."""
     db, wl, hqi = _build(metric, scan_mode)
-    if mesh:
-        with pytest.raises(NotImplementedError, match="sharded execution"):
-            HQIIndex.build(db, wl, HQIConfig(min_partition_size=128, max_leaves=8,
-                                             mesh=object()), device=CPU)
-        return
-    r0 = hqi.search(wl, nprobe=4)
-    save_snapshot(str(tmp_path), hqi)
+    two = make_test_mesh((2,), ("model",), device=CPU) if mesh else None
+    hqi.cfg.mesh = two
+    try:
+        r0 = hqi.search(wl, nprobe=4)
+        save_snapshot(str(tmp_path), hqi)
+    finally:
+        hqi.cfg.mesh = None
     loaded = load_snapshot(str(tmp_path), device=CPU).index
+    assert loaded.cfg.mesh is None
+    loaded.cfg.mesh = two
     r1 = loaded.search(wl, nprobe=4)
+    assert (r0.shard_stats is None) == (r1.shard_stats is None) == (not mesh)
     np.testing.assert_array_equal(r0.ids, r1.ids)
     np.testing.assert_array_equal(r0.scores, r1.scores)
     o0, o1 = hqi.search_online(wl, nprobe=4), loaded.search_online(wl, nprobe=4)
