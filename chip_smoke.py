@@ -212,7 +212,30 @@
 10. the reduced gemma3 in f32 with the same weights on the card and the CPU:
    prefill and decode logits within 2e-3, the served tokens equal, one
    kernel launch per prefill layer on the card;
-11. the ``kernels`` JSON line (all eight kernels; each with its launches in
+T. training: (a) the attention backward kernel
+   (``csrc/flash_attention_bwd.cu``) against its plain version on the
+   card: minicpm heads [2, 2048, 36/36, dh 64] causal, gemma3 heads [1,
+   4096, 32/16, dh 128] at window 0 and 1024, in bf16, and ``BWD_SMALL``
+   (ragged S, not causal, a window below the tile, a GQA group of 8, dh 16,
+   S < T, S > T with rows that keep no key, dh 64/128/200) in f32, three
+   also in bf16; each of dq, dk, dv within ``BWD_TOL`` (relative error 2e-2
+   in bf16, 1e-4 in f32); kernel, plain version and the library's backward
+   (``torch.autograd.grad`` through ``scaled_dot_product_attention``) timed
+   beside the bound (10·dh operations a kept pair and query head at the
+   input type's peak). (b) minicpm-2b at full width, all 40 layers, f32
+   masters, bf16 compute, remat; AdamW on its WSD schedule; ``SyntheticLM``
+   4 x 2048 in 2 microbatches, 20 steps through ``TrainLoop(...,
+   device="cuda")``: the loss falls; counters zeroed and read around the
+   last step (forward kernel 2 x 40 x 2 launches, backward 40 x 2, no plain
+   call); tokens/s (median step), peak memory, one step under the profiler
+   (busy share, the backward kernels' share); ``lm_hidden_embed`` on 65,536
+   sequences of 16 tokens with the trained weights (entities/s, finite).
+   (c) the reduced minicpm in f32 with the same weights and batches on the
+   card and the CPU: gradients, 3 steps' losses and parameters within 1e-4;
+   then a ``TrainLoop`` run 10 steps, checkpointed, dropped, restored and
+   run 10 more against an uninterrupted 20 (bit for bit, else the record
+   says by how much);
+11. the ``kernels`` JSON line (all nine kernels; each with its launches in
    S1's streams, S3's first stream and S4's sharded searches), the
    ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
@@ -255,7 +278,8 @@ SHARDED_RANKS, SHARDED_LAYOUT_QUERIES = 4, 1_000
 # the LUT-stationary kernels past M 109 (the row in slices), M 8 beside them
 WIDE_M = (8, 110, 128, 190)
 KERNELS = ("fused_knn", "fused_knn_db_stationary", "workunit_pq_scan_streamed",
-           "workunit_pq_scan", "pq_scan", "flash_attention", "adc_wide_m", "flash_attention_wide")
+           "workunit_pq_scan", "pq_scan", "flash_attention", "adc_wide_m", "flash_attention_wide",
+           "flash_attention_backward")
 # the shapes the card once refused: k′ past the 64-entry lists (floor passes),
 # M past the staged ADC kernels' 190 (adc_wide_m_kernel), dh past 256
 # (flash_attention_wide); the engine's k and refine_factor for them
@@ -266,6 +290,26 @@ ENGINE_K, ENGINE_REFINE = 100, 8
 # the LM serving phase: gemma3-27b at full width, depth cut 62 -> 12 (two 5:1 cycles)
 LM_LAYERS, LM_SLOTS, LM_NEW = 12, 4, 16
 LM_PROMPTS = (1100, 1536, 2048, 2500, 3000, 3500, 4000, 4096)
+# the training phase (T): minicpm-2b at full width, all 40 layers; global
+# batch x sequence in microbatches (8,192 tokens a step), steps; then
+# lm_hidden_embed on entities of a few tokens, in chunks of sequences
+TRAIN_ARCH, TRAIN_LAYERS = "minicpm-2b", 40
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2048, 2, 20
+EMBED_SEQS, EMBED_LEN, EMBED_CHUNK = 65_536, 16, 4_096
+# the backward kernel's small shapes (b, s, t, hq, hkv, dh, causal, window),
+# f32 (those in BWD_SMALL_BF16 in bf16 too); tests/test_torch_cuda.py runs them
+BWD_SMALL = (
+    ("f32-ragged", 2, 77, 77, 4, 2, 16, True, 0),
+    ("f32-not-causal", 2, 50, 50, 4, 4, 16, False, 0),
+    ("f32-window-below-tile", 1, 90, 90, 4, 2, 16, True, 7),
+    ("f32-gqa8-one-kv-head", 1, 40, 40, 8, 1, 16, True, 0),
+    ("f32-s-below-t", 1, 30, 60, 4, 2, 16, True, 0),
+    ("f32-s-above-t-no-key-rows", 1, 90, 30, 4, 2, 16, False, 8),
+    ("f32-dh64-window", 1, 300, 300, 4, 2, 64, True, 100),
+    ("f32-dh128", 2, 200, 200, 4, 2, 128, True, 0),
+    ("f32-dh200-two-slices", 1, 130, 130, 2, 1, 200, True, 0),
+)
+BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "fused_knn": "src/repro_torch/kernels/csrc/fused_knn.cu",
@@ -275,6 +319,7 @@ SOURCE = {
     "pq_scan": "src/repro_torch/kernels/csrc/pq_scan.cu",
     "adc_wide_m": "src/repro_torch/kernels/csrc/pq_scan.cu",
     "flash_attention_wide": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_backward": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
@@ -286,6 +331,8 @@ REPLACES = {
     # past M 190 all three ADC wrappers take it; its path is the segmented PQ search (kernel 3)
     "adc_wide_m": "src/repro/kernels/pq_scan.py:299",
     "flash_attention_wide": "src/repro/kernels/flash_attention.py:84",
+    # no Pallas backward: the reference differentiates its chunked online softmax
+    "flash_attention_backward": "src/repro/models/attention.py:90",
 }
 # each kernel's design: the kernels line marks the redesigned ones
 DESIGN = {
@@ -299,6 +346,8 @@ DESIGN = {
                   "by cp.async, sums carried in registers; M past 190 in all three wrappers",
     "flash_attention_wide": "redesigned: O in column slices, logits summed over dh in slices; bf16 to 512 "
                             "on wgmma + TMA, else register-tiled CUDA cores; dh past 256",
+    "flash_attention_backward": "new: statistics + dQ per query tile, dK/dV per key tile over the GQA group, "
+                                "no atomics; bf16 to dh 128 on mma.sync tensor cores, else f32 CUDA cores",
 }
 NEG_INF = -3.4e38
 PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
@@ -310,6 +359,13 @@ PROFILER_TRACES: list = []  # each device_ms trace: lead, pad launches lost befo
 # ||got - want|| / ||want||); in bf16, P's rounding (~1e-3 of |o|, with its
 # remainder added where rows have few keys) and one ulp of the output (2^-7)
 ATTN_TOL = {2: (2e-2, 2e-3, 1e-2), 4: (1e-4, 1e-4, 5e-5)}
+# flash_attention_backward vs plain, by element size: the limit on ||got -
+# want|| / ||want|| of each of dq, dk and dv. Both sum in f32 from the same
+# inputs; in f32 they differ in the order of the sums (over dh, keys,
+# queries and the GQA group); in bf16 the tensor-core kernels also round P
+# and dS to bf16 before their products (up to 2^-9 of each weight, ~1e-3 of
+# a gradient's norm) and each output is rounded to bf16 once (2^-9)
+BWD_TOL = {2: 2e-2, 4: 1e-4}
 
 
 def log(*a):
@@ -1973,11 +2029,13 @@ def counters():
         "workunit_pq_scan": adc.workunit_pq_scan, "pq_scan": adc.pq_scan,
         "flash_attention": fa.flash_attention, "adc_wide_m": adc.adc_wide_m,
         "flash_attention_wide": fa.flash_attention_wide,
+        "flash_attention_backward": fa.flash_attention_backward,
     }, {
         "fused_knn_plain": fk.fused_knn_plain,
         "workunit_pq_scan_streamed_plain": adc.workunit_pq_scan_streamed_plain,
         "workunit_pq_scan_plain": adc.workunit_pq_scan_plain, "pq_scan_plain": adc.pq_scan_plain,
         "flash_attention_plain": fa.flash_attention_plain,
+        "flash_attention_backward_plain": fa.flash_attention_backward_plain,
     }
 
 
@@ -2701,6 +2759,329 @@ def phase_lm_card_vs_cpu(rec: dict) -> None:
     log(f"[lm-card-vs-cpu] reduced gemma3 f32: logits within {err:.2e}, 5 requests' tokens equal")
 
 
+# ------------------------------------------------------ phase T: training
+
+
+def bwd_bound(q, k, causal: bool, window: int) -> dict:
+    """Least time (ms) of the attention backward: q, o, dO read and dq
+    written ([B, S, Hq, dh] each), k, v read and dk, dv written ([B, T, Hkv,
+    dh] each) over HBM; or 10·dh operations per kept pair and query head
+    (five products: S recomputed, dP, dV, dQ, dK) over the input type's peak.
+    The larger of the two."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    nbytes = (4 * b * s * hq * dh + 4 * b * t * hkv * dh) * q.element_size()
+    flops = 10.0 * dh * hq * b * kept_pairs(s, t, causal, window)
+    peak = BF16_FLOPS_PER_S if q.element_size() == 2 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "flops": flops}
+
+
+def bwd_rel_errors(got, want, label: str) -> list:
+    """||got - want|| / ||want|| of each of dq, dk, dv; each finite and
+    within BWD_TOL of the input type."""
+    import torch
+
+    rels = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"flash_attention_backward {label}: non-finite {name}")
+        g, w = g.float(), w.float()
+        rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))
+        if rel > BWD_TOL[got[0].element_size()]:
+            raise AssertionError(f"flash_attention_backward {label}: {name} relative error {rel:.3e} "
+                                 f"above {BWD_TOL[got[0].element_size()]}")
+        rels.append(rel)
+    return rels
+
+
+def bwd_case(rows, max_err, label, q, k, v, causal, window, reps):
+    """The backward kernel against its plain version on the same card
+    inputs (q, k, v, the forward kernel's o, a random dO): one launch, each
+    gradient within BWD_TOL; then kernel, plain and the library's backward
+    (``torch.autograd.grad`` through ``sdpa``, the graph built once) timed
+    beside the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(q.shape[1] + q.shape[-1])
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    n0, c0 = fa.flash_attention_backward.launches, fa.flash_attention_backward_plain.calls
+    got = fa.flash_attention_backward(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if fa.flash_attention_backward.launches != n0 + 1 or fa.flash_attention_backward_plain.calls != c0:
+        raise AssertionError(f"flash_attention_backward {label}: not one kernel launch")
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal=causal, window=window)
+    rels = bwd_rel_errors(got, want, label)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    max_err["flash_attention_backward"] = max(max_err["flash_attention_backward"], err)
+    del got, want
+    b, s, hq, dh = q.shape
+    row = {"case": label, "shape": [b, s, k.shape[1], hq, k.shape[2], dh], "dtype": str(q.dtype),
+           "causal": causal, "window": window, "max_abs_err": err, "rel_err": dict(zip(("dq", "dk", "dv"), rels)),
+           "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, causal=causal, window=window),
+                         reps=reps, warmup=1),
+           "plain_ms": cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+                                                                         window=window), reps=min(reps, 3),
+                               warmup=1)}
+    try:
+        leaves_ = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out = sdpa(*leaves_, causal, window)
+        dot = do.transpose(1, 2)
+        row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves_, dot, retain_graph=True),
+                                    reps=reps, warmup=1)
+        del out, leaves_
+    except (RuntimeError, torch.OutOfMemoryError) as e:  # a shape the library cannot run
+        row["library_ms"] = None
+        row["library_note"] = f"sdpa backward failed: {type(e).__name__}: {str(e)[:160]}"
+    torch.cuda.empty_cache()
+    row.update(bwd_bound(q, k, causal, window))
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["tflops"] = row["flops"] / row["ms"] / 1e9
+    if row["library_ms"]:
+        row["ms_over_library"] = row["ms"] / row["library_ms"]
+    rows.append(row)
+    log("[train-bwd] " + json.dumps(row))
+    return row
+
+
+def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
+    """Phase T(a): the backward kernel at minicpm's heads [2, 2048, 36/36,
+    dh 64] and gemma3's [1, 4096, 32/16, dh 128] at windows 0 and 1024 in
+    bf16, and at BWD_SMALL in f32 (and two small bf16 widths). Returns the
+    rows by label."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def qkv(b, s, t, hq, hkv, dh, dtype):
+        return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((b, s, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh)))
+
+    rows: list = []
+    out = {}
+    for label, b, s, hq, hkv, dh, w in (("minicpm-s2048", 2, 2048, 36, 36, 64, 0),
+                                        ("gemma3-s4096-w0", 1, 4096, 32, 16, 128, 0),
+                                        ("gemma3-s4096-w1024", 1, 4096, 32, 16, 128, 1024)):
+        q, k, v = qkv(b, s, s, hq, hkv, dh, torch.bfloat16)
+        out[label] = bwd_case(rows, max_err, label, q, k, v, True, w, 10)
+        if label == "minicpm-s2048":  # the launches alone, from the profiler
+            from repro_torch.kernels import flash_attention as fa
+
+            o = fa.flash_attention(q, k, v)
+            do = torch.randn_like(q)
+            out[label]["device_ms"] = sum(
+                device_ms(lambda: fa.flash_attention_backward(q, k, v, o, do), name)
+                for name in ("bwd_dq", "bwd_dkdv"))  # the mma or the CUDA-core pair, whichever ran
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, b, s, t, hq, hkv, dh, causal, w in BWD_SMALL:
+        for dtype in (torch.float32, torch.bfloat16) if label in BWD_SMALL_BF16 else (torch.float32,):
+            q, k, v = qkv(b, s, t, hq, hkv, dh, dtype)
+            tag = label if dtype == torch.float32 else label.replace("f32", "bf16")
+            bwd_case(rows, max_err, tag, q, k, v, causal, w, 5)
+    rec["backward_kernel_cases"] = rows
+    return out
+
+
+def phase_training(rec: dict) -> dict:
+    """Phase T(b): minicpm-2b at full width (d 2304, 36/36 heads, dh 64,
+    d_ff 5760, vocab 122753), TRAIN_LAYERS layers, f32 masters, bf16
+    compute, remat; AdamW on its WSD schedule as ``launch/train.py`` sets it
+    for TRAIN_STEPS steps; ``SyntheticLM`` batches of TRAIN_BATCH x
+    TRAIN_SEQ in TRAIN_MICRO microbatches through ``TrainLoop(...,
+    device="cuda")``, one step a ``run(1)`` (its metrics read back, so the
+    host clock holds the step's device work). Counters zeroed and read
+    around the last step: the forward kernel 2 x layers x microbatches
+    launches (remat), the backward layers x microbatches, no plain call.
+    Then one step under the profiler, and ``lm_hidden_embed`` on
+    EMBED_SEQS sequences of EMBED_LEN tokens with the trained weights."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, optimizer_for, schedule_for
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import api
+    from repro_torch.models.transformer import lm_hidden_embed
+    from repro_torch.train.fault_tolerance import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    opt = OptConfig(name=optimizer_for(TRAIN_ARCH), schedule=schedule_for(TRAIN_ARCH), peak_lr=3e-4,
+                    warmup_steps=max(10, TRAIN_STEPS // 20), total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(opt=opt, microbatches=TRAIN_MICRO)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, tcfg, dcfg, LoopConfig(ckpt_dir=tempfile.mkdtemp(), ckpt_every=0, log_every=1),
+                     seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.count_params(loop.state["params"])
+    log(f"[train] {TRAIN_ARCH}, {TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B f32 master parameters and "
+        f"AdamW state in {init_s:.1f} s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    step_s = []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            zero_counters()
+        t = time.perf_counter()
+        loop.run(1)  # ends in a host read of the step's metrics
+        step_s.append(time.perf_counter() - t)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in loop.metrics_history]
+    want_fwd = 2 * TRAIN_LAYERS * TRAIN_MICRO if cfg.remat else TRAIN_LAYERS * TRAIN_MICRO
+    want_bwd = TRAIN_LAYERS * TRAIN_MICRO
+    if (counts["flash_attention"] != want_fwd or counts["flash_attention_backward"] != want_bwd
+            or counts["flash_attention_plain"] or counts["flash_attention_backward_plain"]):
+        raise AssertionError(f"training step: forward launches {counts['flash_attention']} (want {want_fwd}), "
+                             f"backward {counts['flash_attention_backward']} (want {want_bwd}), plain calls "
+                             f"{counts['flash_attention_plain']}, {counts['flash_attention_backward_plain']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: the loss did not fall: {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_s[1:])
+    train = {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "params": n_params, "init_seconds": init_s,
+             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+             "optimizer": opt.name, "schedule": opt.schedule, "remat": cfg.remat,
+             "losses": losses, "grad_norms": [h["grad_norm"] for h in loop.metrics_history],
+             "step_seconds": step_s, "median_step_seconds": med, "tokens_per_s": tokens / med,
+             "peak_device_bytes": peak, "baseline_device_bytes": base, "peak_above_baseline_bytes": peak - base,
+             "launches": counts["flash_attention_backward"],
+             "forward_launches": counts["flash_attention"]}
+    log(f"[train] {TRAIN_STEPS} steps of {tokens} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median "
+        f"step {med:.3f} s ({train['tokens_per_s']:.0f} tokens/s; first {step_s[0]:.2f} s); peak device "
+        f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} GiB earlier "
+        f"phases hold); one step: forward kernel {counts['flash_attention']} launches, "
+        f"backward {counts['flash_attention_backward']}, plain calls 0")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        loop.run(1)
+        wall = time.perf_counter() - t
+    busy, top, device_us = device_split(prof, n=10)
+    bwd_us = sum(v for name, v in device_us.items() if "bwd_dq" in name or "bwd_dkdv" in name)
+    fwd_us = sum(v for name, v in device_us.items() if "flash_fwd" in name)
+    if bwd_us <= 0:
+        raise AssertionError("profiled training step: no backward kernel in the device trace")
+    train["profile"] = {"wall_seconds": wall, "device_busy_seconds": busy, "busy_share": busy / wall,
+                        "backward_kernel_ms": bwd_us / 1e3, "backward_share_of_busy": bwd_us / 1e6 / busy,
+                        "forward_kernel_ms": fwd_us / 1e3, "device_ops_ms": top}
+    log(f"[train] profiled step: {wall:.3f} s, device busy {busy:.3f} s ({busy / wall:.2%}); backward "
+        f"kernels {bwd_us / 1e3:.1f} ms ({train['profile']['backward_share_of_busy']:.2%} of busy), forward "
+        f"{fwd_us / 1e3:.1f} ms; top device ops (ms) " + json.dumps(top))
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (EMBED_SEQS, EMBED_LEN)).astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vecs = torch.cat([lm_hidden_embed(loop.state["params"], cfg, toks[i:i + EMBED_CHUNK])
+                      for i in range(0, EMBED_SEQS, EMBED_CHUNK)])
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t
+    if vecs.shape != (EMBED_SEQS, cfg.d_model) or vecs.dtype != torch.float32 or not torch.isfinite(vecs).all():
+        raise AssertionError(f"lm_hidden_embed: {tuple(vecs.shape)} {vecs.dtype}, finite "
+                             f"{bool(torch.isfinite(vecs).all())}")
+    train["hidden_embed"] = {"sequences": EMBED_SEQS, "tokens_each": EMBED_LEN, "chunk": EMBED_CHUNK,
+                             "seconds": embed_s, "entities_per_s": EMBED_SEQS / embed_s,
+                             "mean_norm": float(vecs.norm(dim=1).mean())}
+    log(f"[train] lm_hidden_embed: {EMBED_SEQS} entities of {EMBED_LEN} tokens in {embed_s:.2f} s "
+        f"({EMBED_SEQS / embed_s:.0f} entities/s), finite, mean norm {train['hidden_embed']['mean_norm']:.3f}")
+    rec["training"] = train
+    del loop, vecs, toks
+    torch.cuda.empty_cache()
+    return train
+
+
+def phase_train_card_vs_cpu(rec: dict, out_dir: str) -> None:
+    """Phase T(c), on the reduced minicpm in f32: the same master weights
+    and batches on the card and the CPU give the same gradients (each leaf
+    within 1e-4 of its norm: a gradient that never reached attention would
+    leave wq, wk, wv at 0) and, over 3 train steps, losses within 1e-4
+    relative and parameters within 1e-4. Then a ``TrainLoop`` on the card
+    runs 10 steps and checkpoints, is dropped, and a new loop restores and
+    runs 10 more: its losses against an uninterrupted 20-step run's (bit
+    for bit, or the record says by how much)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train.fault_tolerance import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig, init_opt
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+    from repro_torch.models.tree import leaves, leaves_with_paths, path_key, tree_map
+
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH), dtype=torch.float32)
+    tcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10))
+    gpu, _ = init_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(5))
+    cpu = tree_map(lambda p: p.detach().cpu().requires_grad_(True), gpu)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+    on = lambda b, dev: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    grad_rel = {}
+    for params, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        loss, _ = api.loss_fn(params, cfg, on(data.batch(0), dev))
+        loss.backward()
+    for (path, g), c in zip(leaves_with_paths(gpu), leaves(cpu)):
+        a, b = g.grad.cpu(), c.grad
+        grad_rel[path_key(path)] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        if not grad_rel[path_key(path)] <= 1e-4:
+            raise AssertionError(f"train card vs CPU: gradient of {path_key(path)} off by "
+                                 f"{grad_rel[path_key(path)]:.3e} of its norm")
+    step = make_train_step(cfg, tcfg)
+    sg, sc = init_opt(gpu, tcfg.opt), init_opt(cpu, tcfg.opt)
+    losses = []
+    for s in range(3):
+        gpu, sg, mg = step(gpu, sg, on(data.batch(s), "cuda"))
+        cpu, sc, mc = step(cpu, sc, on(data.batch(s), "cpu"))
+        losses.append((float(mg["loss"]), float(mc["loss"])))
+        if abs(losses[-1][0] - losses[-1][1]) > 1e-4 * abs(losses[-1][1]):
+            raise AssertionError(f"train card vs CPU: step {s} loss {losses[-1]}")
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(leaves(gpu), leaves(cpu)))
+    if param_err > 1e-4:
+        raise AssertionError(f"train card vs CPU: parameters differ by {param_err:.3e} after 3 steps")
+    log(f"[train-card-vs-cpu] reduced {TRAIN_ARCH} f32: gradients within "
+        f"{max(grad_rel.values()):.2e} of their norms, losses {losses}, parameters within {param_err:.2e}")
+
+    root = os.path.join(out_dir, "train_restart")
+    shutil.rmtree(root, ignore_errors=True)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    rcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=40))
+
+    def loop(name, every):
+        return TrainLoop(cfg, rcfg, dcfg, LoopConfig(ckpt_dir=os.path.join(root, name), ckpt_every=every,
+                                                     log_every=1), seed=3, device="cuda")
+
+    loop("a", 10).run(10)
+    resumed = loop("a", 10)
+    if not resumed.maybe_restore() or resumed.state["step"] != 10:
+        raise AssertionError("train restart: no checkpoint at step 10")
+    h_b = [h["loss"] for h in resumed.run(10)]
+    h_c = [h["loss"] for h in loop("b", 0).run(20)][10:]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(h_b, h_c))
+    shutil.rmtree(root, ignore_errors=True)
+    rec["train_card_vs_cpu"] = {"grad_rel_max": max(grad_rel.values()), "losses_card_cpu": losses,
+                                "param_max_abs_err": param_err, "restart_losses": h_b,
+                                "uninterrupted_losses": h_c, "restart_bit_equal": h_b == h_c,
+                                "restart_max_rel_diff": diff}
+    log(f"[train-restart] 10 + restore + 10 steps against 20 uninterrupted: "
+        f"{'bit-equal' if h_b == h_c else f'max relative difference {diff:.3e}'} ({h_b[-1]} vs {h_c[-1]})")
+    if diff > 1e-4:
+        raise AssertionError(f"train restart: losses differ by {diff:.3e} relative: {h_b} vs {h_c}")
+
+
 # ------------------------------------------ the shapes the card once refused
 
 
@@ -3201,6 +3582,12 @@ def main() -> int:
     wide_dh = phase_wide_dh(rec, max_err)
     serve = phase_serving(rec, max_err)
     phase_lm_card_vs_cpu(rec)
+    t_train = time.perf_counter()
+    bwd = phase_backward_kernels(rec, max_err)
+    train = phase_training(rec)
+    phase_train_card_vs_cpu(rec, args.out)
+    rec["training_phase_seconds"] = time.perf_counter() - t_train
+    log(f"[train] phase T in {rec['training_phase_seconds']:.1f} s")
 
     timed = {
         "fused_knn": (main_run["counts"]["fused_knn"], heaviest["fused_knn"]),
@@ -3215,6 +3602,8 @@ def main() -> int:
         "adc_wide_m": (wide_m_run["launches"], wide_m_run["heaviest"]),
         # the reduced gemma3 at dh 512 served on the card; dh 512, bf16, global
         "flash_attention_wide": (wide_dh["launches"], wide_dh["heaviest"]),
+        # one step of minicpm-2b training (phase T); minicpm's heads, bf16, causal
+        "flash_attention_backward": (train["launches"], bwd["minicpm-s2048"]),
     }
     kernels = []
     for name in KERNELS:
@@ -3232,6 +3621,10 @@ def main() -> int:
         if name == "flash_attention_wide":  # the same shape in f32 (flash_sliced_kernel)
             entry["f32"] = {key: wide_dh["f32"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                                    "library_ms", "ms_over_bound")}
+        if name == "flash_attention_backward":
+            entry["tflops"] = h["tflops"]
+            entry["gemma3"] = {w: {key: bwd[w][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                               for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024")}
         if name == "flash_attention":
             g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
             entry["tflops"] = h["tflops"]

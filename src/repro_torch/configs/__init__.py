@@ -1,7 +1,8 @@
 """Config registry of the archs whose family the port runs (dense).
 
 get_config(arch_id) -> full ModelConfig; get_reduced(arch_id) -> the small
-config of the same wiring the CPU tests use. Copies of the reference's
+config of the same wiring the CPU tests use; optimizer_for / schedule_for
+-> the optimizer and learning-rate schedule an arch trains with. Copies of the reference's
 ``repro.configs`` modules for these archs; the other six (internvl2-2b,
 mamba2-130m, whisper-large-v3, kimi-k2-1t-a32b, deepseek-moe-16b,
 zamba2-2.7b) wait for their families (ROADMAP.md §1, the rest of the LM
@@ -29,3 +30,11 @@ def get_config(arch_id: str):
 
 def get_reduced(arch_id: str):
     return _module(arch_id).reduced()
+
+
+def optimizer_for(arch_id: str) -> str:
+    return getattr(_module(arch_id), "OPTIMIZER", "adamw")
+
+
+def schedule_for(arch_id: str) -> str:
+    return getattr(_module(arch_id), "SCHEDULE", "cosine")

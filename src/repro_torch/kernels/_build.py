@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_attention", "fused_knn", "pq_scan")
+SOURCES = ("flash_attention", "flash_attention_bwd", "fused_knn", "pq_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
         "flash_attention_wide_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
         "flash_attention_wide_shape": (_I, _I, _I, _I, _I, _P),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+        ),
     },
     "fused_knn": {
         "fused_knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -13,6 +13,15 @@ runs the plain version, ``flash_attention_plain``. ``launches`` on the
 wrapper counts the tiled kernels' launches, ``flash_attention_wide.launches``
 the wide ones', and ``calls`` on the plain version its calls.
 
+Training: with grad enabled and an input that requires grad,
+``flash_attention`` goes through an autograd ``Function``
+(``FlashAttentionFn``) whose forward is the same kernel (or the plain
+version) and whose backward is ``flash_attention_backward``: on a CUDA
+tensor the kernels of ``csrc/flash_attention_bwd.cu`` (up to dh 256; past
+it the call raises), on a CPU tensor ``flash_attention_backward_plain``.
+Neither backward differentiates through the plain forward. Without grad
+(serving) the call takes the path above, with the same launches.
+
 Replaces (TPU): ``src/repro/kernels/flash_attention.py::flash_attention_pallas``;
 the plain version is the port of the chunked online softmax of
 ``src/repro/models/attention.py::flash_attention``, which the reference
@@ -164,9 +173,18 @@ def flash_attention(
     """See the module docstring. ``window`` 0 is global attention.
     ``q_chunk``/``kv_chunk`` are the plain version's chunks (CPU tensors);
     the kernels tile by their own sizes (bf16: 128 queries and 64 or 128
-    keys; f32: 64 and 64)."""
+    keys; f32: 64 and 64). Under grad, with an input that requires grad,
+    the result's ``grad_fn`` is ``FlashAttentionFn``'s."""
     _check(q, k, v)
     window = int(window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), window, q_chunk, kv_chunk)
+    return _forward(q, k, v, causal, window, q_chunk, kv_chunk)
+
+
+def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    """The forward of ``flash_attention`` on checked operands: the kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -238,3 +256,159 @@ def flash_attention_wide(
 
 
 flash_attention_wide.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor,  # [B, S, Hq, dh]
+    k: torch.Tensor,  # [B, T, Hkv, dh]
+    v: torch.Tensor,  # [B, T, Hkv, dh]
+    o: torch.Tensor,  # [B, S, Hq, dh], the forward's output
+    do: torch.Tensor,  # [B, S, Hq, dh], the gradient of the loss w.r.t. o
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_plain`` in f32, chunked as it is,
+    cast to the inputs' type. Per query chunk: a first sweep over the KV
+    chunks gives each row's statistics (max m and sum l of the forward, so
+    lse = m + log l), then a second sweep recomputes P = exp(S - lse) on the
+    kept entries and accumulates, with D_i = rowsum(dO ∘ O):
+    dS = P ∘ (dO·Vᵀ - D), dQ += scale·dS·K, dK += scale·dSᵀ·Q, dV += Pᵀ·dO.
+    Masked entries carry P = 0, so a row that keeps no key (its output is
+    the constant 0) gets zero gradients and adds nothing to dK and dV."""
+    flash_attention_backward_plain.calls += 1
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = dh**-0.5
+    qc, kc = min(q_chunk, s), min(kv_chunk, t)
+    qf = q.to(torch.float32).reshape(b, s, hkv, g, dh)
+    dof = do.to(torch.float32).reshape(b, s, hkv, g, dh)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    delta = (dof * o.to(torch.float32).reshape(b, s, hkv, g, dh)).sum(-1).permute(0, 2, 3, 1)  # [b,h,g,s]
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, s, qc):
+        q1 = min(q0 + qc, s)
+        q_pos = torch.arange(q0, q1, device=q.device)
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        hi = min(t, q1) if causal else t
+        qs = qf[:, q0:q1] * scale
+        chunks = []
+        for k0 in range((lo // kc) * kc, hi, kc):
+            k1 = min(k0 + kc, t)
+            k_pos = torch.arange(k0, k1, device=q.device)
+            mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            chunks.append((k0, k1, mask))
+
+        def logits_of(k0, k1, mask):
+            x = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf[:, k0:k1])
+            return x.masked_fill(~mask, NEG_INF)
+
+        m = torch.full((b, hkv, g, q1 - q0), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        for k0, k1, mask in chunks:  # the forward's row statistics
+            x = logits_of(k0, k1, mask)
+            m_new = torch.maximum(m, x.amax(dim=-1))
+            p = torch.exp(x - m_new[..., None]).masked_fill(~mask, 0.0)
+            l = l * torch.exp(m - m_new) + p.sum(dim=-1)
+            m = m_new
+        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        d_rows = delta[..., q0:q1]
+        dq_c = torch.zeros((b, q1 - q0, hkv, g, dh), dtype=torch.float32, device=q.device)
+        for k0, k1, mask in chunks:
+            p = torch.exp(logits_of(k0, k1, mask) - lse[..., None]).masked_fill(~mask, 0.0)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dof[:, q0:q1], vf[:, k0:k1])
+            ds = p * (dp - d_rows[..., None])
+            dq_c += torch.einsum("bhgqk,bkhd->bqhgd", ds, kf[:, k0:k1]) * scale
+            dk[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+            dv[:, k0:k1] += torch.einsum("bhgqk,bqhgd->bkhd", p, dof[:, q0:q1])
+        dq[:, q0:q1] = dq_c
+    return dq.reshape(b, s, hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_backward_plain.calls = 0
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` in the inputs' type. On a CUDA
+    tensor one call of ``csrc/flash_attention_bwd.cu`` (two kernels on the
+    current stream: the row statistics and dQ per query tile, then dK and dV
+    per key tile; f32 sums, no atomics, so the result is deterministic; bf16
+    up to dh 128 on the tensor cores, otherwise on CUDA cores); up to dh
+    ``MAX_HEAD_DIM`` (past it this raises). On a CPU tensor
+    ``flash_attention_backward_plain``. ``launches`` counts the CUDA calls."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    window = int(window)
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, do.to(q.dtype), causal=causal, window=window,
+                                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward runs on cuda or cpu tensors, got {q.device}")
+    B, S, Hq, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if dh > MAX_HEAD_DIM:
+        raise NotImplementedError(f"flash_attention_backward: head width {dh} above {MAX_HEAD_DIM} "
+                                  f"(ROADMAP.md §3)")
+    q, k, v, o = (x.contiguous() for x in (q, k, v, o))
+    do = do.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _build.library("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            B, S, T, Hq, Hkv, dh, int(bool(causal)), window, dh**-0.5,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, rc, "flash_attention_backward")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward kernel (or plain
+    version) forward, ``flash_attention_backward`` backward. Saves q, k, v
+    and the output; the backward recomputes P from row statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int):
+        o = _forward(q, k, v, causal, window, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.opts = dict(causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None

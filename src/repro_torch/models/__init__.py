@@ -1,3 +1,4 @@
-"""The decoder-only LM of the serving path (dense family): layers, attention
-with the flash-attention kernel, prefill/decode, and the reference's weights
+"""The decoder-only LM (dense family): layers, attention with the
+flash-attention kernels (forward, and backward under grad), prefill/decode,
+the training loss, parameter trees (``tree``), and the reference's weights
 carried across (``convert``)."""

@@ -1,46 +1,57 @@
-"""Model API of the serving path: init / prefill / decode / cache.
+"""Model API: init / loss / prefill / decode / cache.
 
-The counterpart of the serving half of ``repro.models.api`` for the dense
-family. Training (``loss_fn``) and the dry-run shape specs are not ported
-yet (ROADMAP.md §1, the rest of the LM scaffolding).
+The counterpart of ``repro.models.api`` for the dense family. The dry-run
+shape specs (``input_specs``, ``params_specs``) are not ported yet
+(ROADMAP.md §1, the rest of the LM scaffolding).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from . import decode as dec
-from .transformer import ModelConfig, init_lm
+from .transformer import ModelConfig, init_lm, lm_forward
+from .tree import leaves, tree_map
 
 
-def init_model(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
-    """Random weights drawn from ``gen``, on its device."""
-    return init_lm(cfg, gen)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def init_model(cfg: ModelConfig, gen: torch.Generator, *, masters: bool = False) -> Dict[str, Any]:
+    """Random weights drawn from ``gen``, on its device; ``masters``: every
+    leaf in f32 (training)."""
+    return init_lm(cfg, gen, masters=masters)
 
 
 def count_params(params) -> int:
-    return sum(int(x.numel()) for x in _leaves(params))
+    return sum(int(x.numel()) for x in leaves(params))
 
 
 def params_to(tree, device):
     """The same weights with every leaf moved to ``device``."""
-    if isinstance(tree, dict):
-        return {n: params_to(v, device) for n, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_to(v, device) for v in tree)
-    return tree.to(device)
+    return tree_map(lambda x: x.to(device), tree)
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+    """Causal-LM cross entropy, the reference's formula: batch {"tokens",
+    "labels"} int [B, S], a label < 0 ignored (not only -100); the mean
+    over kept labels, divided by ``max(count, 1)`` so that an all-ignored
+    batch gives 0 (``F.cross_entropy(ignore_index=-100)`` would give NaN).
+    Returns (total, {"ce_loss", "lb_loss", "z_loss", "dropped_frac"}); the
+    dense family's aux losses are 0 and enter the total with the
+    reference's weights."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    logits, aux = lm_forward(params, cfg, tokens)
+    mask = (labels >= 0).to(torch.float32)
+    safe = torch.clamp(labels, min=0).to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + 0.01 * aux["lb_loss"] + 1e-4 * aux["z_loss"]
+    return total, {"ce_loss": loss, **aux}
 
 
 def serve_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,

@@ -1,9 +1,12 @@
 """Attention: GQA with RoPE, qk-norm, optional QKV bias, sliding windows.
 
-The counterpart of ``repro.models.attention``. Prefill runs the hand-written
-flash-attention kernel through ``kernels.flash_attention.flash_attention``
-(on a CPU tensor its plain version, ``flash_attention_plain``: the chunked
-online softmax the reference runs here).
+The counterpart of ``repro.models.attention``. Prefill and training run the
+hand-written flash-attention kernels through
+``kernels.flash_attention.flash_attention`` (on a CPU tensor the plain
+versions: ``flash_attention_plain``, the chunked online softmax the
+reference runs here, and under grad ``flash_attention_backward_plain``);
+with grad enabled the call goes through an autograd ``Function`` whose
+backward is the backward kernel.
 Decode (one new token against a KV cache) is a masked one-step softmax in
 plain torch, as in the reference. Without a device mesh the reference's
 ``shard_activation`` and ``_kv_repeat_for_tp`` are identities, so the port
@@ -61,13 +64,13 @@ def qkv_project(
     """x [B, S, D] -> q [B,S,Hq,dh], k/v [B,S,Hkv,dh] (roped, normed)."""
     b, s, _ = x.shape
     dh = cfg.dh
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     q = q.reshape(b, s, cfg.n_heads, dh)
     k = k.reshape(b, s, cfg.n_kv_heads, dh)
     v = v.reshape(b, s, cfg.n_kv_heads, dh)
@@ -134,4 +137,4 @@ def attention_block(
         vc[rows, idx] = v[:, 0].to(vc.dtype)
         out = decode_attention(q, kc, vc, cache_len, window=window)
         new_cache = (kc, vc)
-    return out.reshape(b, s, -1) @ p["wo"], new_cache
+    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype), new_cache

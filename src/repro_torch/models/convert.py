@@ -1,13 +1,17 @@
-"""Carry the reference's parameters into the port.
+"""Carry the reference's parameters into the port, and back out.
 
 ``params_from_jax`` takes the pytree that ``repro.models.api.init_model``
 returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), with the
 stacked ``[L, ...]`` layer leaves of ``init_lm``, and returns the port's
 parameter dict: the layers unstacked into a list, matmul weights and biases
 in ``cfg.dtype``, norm weights and embedding tables in f32 (what the
-reference's per-use casts give). Both packages then compute the same
-function, which is how the tests compare them. This module imports neither
-jax nor the reference: it reads plain arrays.
+reference's per-use casts give); with ``masters=True`` every leaf in f32,
+as the reference keeps them for training. Both packages then compute the
+same function, which is how the tests compare them. ``params_to_numpy`` is
+the inverse: the port's tree (parameters, or an optimizer state of the same
+structure) as numpy arrays with the layers stacked again, so updated trees
+compare leaf by leaf. This module imports neither jax nor the reference: it
+reads and writes plain arrays.
 """
 from __future__ import annotations
 
@@ -21,13 +25,13 @@ from .transformer import ModelConfig, require_dense
 _F32_LEAVES = ("embedding", "lm_head", "final_norm", "attn_norm", "mlp_norm", "q_norm", "k_norm")
 
 
-def _tensor(name: str, arr, cfg: ModelConfig, device) -> torch.Tensor:
-    dtype = torch.float32 if name in _F32_LEAVES else cfg.dtype
+def _tensor(name: str, arr, dtype, device) -> torch.Tensor:
+    dtype = torch.float32 if name in _F32_LEAVES else dtype
     return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
-def _convert(tree: Dict[str, Any], cfg: ModelConfig, device) -> Dict[str, Any]:
-    return {name: _convert(v, cfg, device) if isinstance(v, dict) else _tensor(name, v, cfg, device)
+def _convert(tree: Dict[str, Any], dtype, device) -> Dict[str, Any]:
+    return {name: _convert(v, dtype, device) if isinstance(v, dict) else _tensor(name, v, dtype, device)
             for name, v in tree.items()}
 
 
@@ -36,9 +40,34 @@ def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
             for name, v in tree.items()}
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda", *,
+                    masters: bool = False) -> Dict[str, Any]:
     require_dense(cfg)
-    params = _convert({k: v for k, v in tree.items() if k != "layers"}, cfg, device)
-    params["layers"] = [_convert(_layer(tree["layers"], i), cfg, device)
+    dtype = torch.float32 if masters else cfg.dtype
+    params = _convert({k: v for k, v in tree.items() if k != "layers"}, dtype, device)
+    params["layers"] = [_convert(_layer(tree["layers"], i), dtype, device)
                         for i in range(cfg.n_layers)]
     return params
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def params_to_numpy(tree) -> Dict[str, Any]:
+    """The port's tree as numpy f32 arrays in the reference's layout: a
+    ``layers`` list becomes one dict of ``[L, ...]`` stacked leaves."""
+    if isinstance(tree, dict):
+        return {k: _stack(v) if k == "layers" else params_to_numpy(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def _stack(layers):
+    per = [params_to_numpy(lp) for lp in layers]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    return stack(*per)

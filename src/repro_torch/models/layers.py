@@ -2,10 +2,13 @@
 
 The counterpart of ``repro.models.layers``. Parameters are plain dicts of
 tensors and every layer is a function. Initializers draw from an explicit
-``torch.Generator`` on the generator's device. Matmul weights are stored in
-the model's working dtype (the reference keeps f32 masters and casts them at
-each use, which gives the same product); norm weights and embedding tables
-stay f32, since ``rmsnorm`` and ``unembed`` read them in f32.
+``torch.Generator`` on the generator's device. As in the reference, every
+matmul weight is cast to the activation's type at each use
+(``p["wq"].to(x.dtype)``): serving stores matmul weights in the model's
+working dtype, so the cast is a no-op there, and training keeps f32 masters
+of every leaf (``init_lm(..., masters=True)``) whose gradients arrive in
+f32. Norm weights and embedding tables stay f32, since ``rmsnorm`` and
+``unembed`` read them in f32.
 """
 from __future__ import annotations
 
@@ -72,12 +75,12 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    up = x @ p["w_up"]
+    up = x @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
-        h = _act(x @ p["w_gate"], act) * up
+        h = _act(x @ p["w_gate"].to(x.dtype), act) * up
     else:
         h = _act(up, act)
-    return h @ p["w_down"]
+    return h @ p["w_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

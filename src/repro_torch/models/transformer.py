@@ -5,7 +5,9 @@ pattern).
 The counterpart of ``repro.models.transformer``. Parameters are a plain
 dict: ``embedding`` (f32 [V, D]), ``final_norm``, optional ``lm_head``, and
 ``layers``, a list of per-layer dicts (the reference stacks them on a
-leading axis and scans; here a Python loop walks the list). The moe, ssm,
+leading axis and scans; here a Python loop walks the list; under grad with
+``cfg.remat`` each layer runs through ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` over the scanned layer body). The moe, ssm,
 hybrid, vlm and encdec families are not ported yet (ROADMAP.md §1, the rest
 of the LM scaffolding):
 their entry points raise ``NotImplementedError``.
@@ -16,6 +18,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import AttnConfig, attention_block, init_attention
 from .layers import (embed, embed_scale, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm,
@@ -48,7 +51,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     embed_scale: bool = False  # gemma-style sqrt(d) embedding scaling
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True  # a training option of the reference; serving ignores it
+    remat: bool = True  # recompute each layer in the backward pass (training); serving ignores it
     q_chunk: int = 1024  # chunks of the plain attention (CPU); the kernel tiles by 64
     kv_chunk: int = 1024
 
@@ -89,19 +92,23 @@ def require_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_dense_layer(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+def init_dense_layer(gen: torch.Generator, cfg: ModelConfig,
+                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    dtype = dtype or cfg.dtype
     return {
         "attn_norm": init_rmsnorm(cfg.d_model, gen.device),
-        "attn": init_attention(gen, cfg.attn_cfg(), dtype=cfg.dtype),
+        "attn": init_attention(gen, cfg.attn_cfg(), dtype=dtype),
         "mlp_norm": init_rmsnorm(cfg.d_model, gen.device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=cfg.dtype),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dtype),
     }
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+def init_lm(cfg: ModelConfig, gen: torch.Generator, *, masters: bool = False) -> Dict[str, Any]:
     """Random weights on ``gen``'s device (the draws differ from the
     reference's ``jax.random``; ``convert.params_from_jax`` carries the
-    reference's weights across)."""
+    reference's weights across). Matmul weights in ``cfg.dtype`` for
+    serving; with ``masters`` every leaf in f32, as the reference keeps
+    them for training (the layers cast per use)."""
     require_dense(cfg)
     params: Dict[str, Any] = {
         "embedding": init_embedding(gen, cfg.vocab, cfg.d_model),
@@ -109,7 +116,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab, cfg.d_model)
-    params["layers"] = [init_dense_layer(gen, cfg) for _ in range(cfg.n_layers)]
+    dtype = torch.float32 if masters else cfg.dtype
+    params["layers"] = [init_dense_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
     return params
 
 
@@ -154,15 +162,39 @@ def logits_of(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _layers(params, cfg: ModelConfig, x: torch.Tensor, *, remat: bool) -> torch.Tensor:
+    """Every layer over x [B, S, D]. With ``remat`` (and grad enabled) each
+    layer is a ``torch.utils.checkpoint`` region: its activations are
+    recomputed in the backward pass, so only the layer inputs stay alive."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    remat = remat and torch.is_grad_enabled()
+    for lp, w in zip(params["layers"], cfg.layer_windows()):
+        if remat:
+            x = checkpoint(lambda x, lp=lp, w=w: dense_body(cfg, lp, x, positions, w)[0], x,
+                           use_reentrant=False)
+        else:
+            x, _ = dense_body(cfg, lp, x, positions, w)
+    return x
+
+
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor):
     """tokens int [B, S] -> (logits f32 [B, S, V], aux losses). The dense
     family has no auxiliary losses; the dict keeps the reference's keys."""
     require_dense(cfg)
-    x = embed_tokens(params, cfg, tokens)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    for lp, w in zip(params["layers"], cfg.layer_windows()):
-        x, _ = dense_body(cfg, lp, x, positions, w)
+    x = _layers(params, cfg, embed_tokens(params, cfg, tokens), remat=cfg.remat)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "z_loss": zero, "dropped_frac": zero}
     return logits_of(params, cfg, x), aux
+
+
+@torch.no_grad()
+def lm_hidden_embed(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean-pooled final hidden state, f32 [B, D]: the entity-embedding
+    producer of the HQI integration (models emit vectors; HQI indexes them).
+    As in the reference, the embedding is not scaled by ``sqrt(d)`` here
+    even where ``cfg.embed_scale`` is set. Builds no autograd graph."""
+    require_dense(cfg)
+    x = _layers(params, cfg, embed(params["embedding"], tokens, cfg.dtype), remat=False)
+    x = rmsnorm(x, params["final_norm"])
+    return x.mean(dim=1).to(torch.float32)

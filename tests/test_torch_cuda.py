@@ -59,6 +59,30 @@ def _check(got, want, tol):
     assert torch.equal(gi[~tied], wi[~tied])
 
 
+def _traced(fn, wrapper, kernel):
+    """(fn()'s result, the device kernel names of its trace), one call of
+    ``fn`` a trace adding one launch to ``wrapper.launches``. Once the
+    process has run a while, torch.profiler drops the device records at the
+    start of a trace (chip_smoke.py's ``device_ms`` works around the same),
+    so the call is queued behind pad launches and a device sleep, and the
+    trace is taken again behind a longer sleep while it holds no launch of
+    ``kernel``."""
+    pad = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    for lead_ms in (20.0, 200.0, 2000.0):
+        n0 = wrapper.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.bitwise_not_()
+            torch.cuda._sleep(int(lead_ms * 2.0e6))  # cycles at ~2 GHz
+            out = fn()
+            torch.cuda.synchronize()
+        assert wrapper.launches == n0 + 1
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any(kernel in n for n in names):
+            break
+    return out, names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 @pytest.mark.parametrize("k", [1, 8, 10, 16, 32, MAX_K])  # every register-list size
@@ -188,15 +212,8 @@ def test_split_rows_merge_in_one_launch(dev, W, k):
     fn = fused_knn_db_stationary
     _check(fn(q, v, valid, k=k, metric="l2"), fused_knn_plain(q, v, valid, k=k, metric="l2"), 1e-4)
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a trace's launches: trace again
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            fn(q, v, valid, k=k)
-            torch.cuda.synchronize()
-        device = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        if any("fused_knn" in e.key for e in device):
-            break
-    names = [e.key for e in device]
-    assert sum(e.count for e in device if "fused_knn" in e.key) == 1, names
+    _, names = _traced(lambda: fn(q, v, valid, k=k), fn, "fused_knn")
+    assert sum("fused_knn" in n for n in names) == 1, names
     assert not any("merge_partials" in n for n in names), names
 
 
@@ -491,12 +508,7 @@ def test_pq_scan_is_one_launch_at_a_million_rows(dev):
     valid = torch.rand((1_000_000,), generator=g, device=dev) < 0.7
     adc.pq_scan(lut, codes, valid, k=40)  # built and warm
     torch.cuda.synchronize()
-    n0 = adc.pq_scan.launches
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        got = adc.pq_scan(lut, codes, valid, k=40)
-        torch.cuda.synchronize()
-    assert adc.pq_scan.launches == n0 + 1
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    got, names = _traced(lambda: adc.pq_scan(lut, codes, valid, k=40), adc.pq_scan, "lut_stationary_rows_kernel")
     assert sum("lut_stationary_rows_kernel" in n for n in names) == 1, names
     assert not any("merge_partials" in n or "adc_slot_warps_kernel" in n for n in names), names
     want = adc.pq_scan_plain(lut, codes, valid, k=40)
@@ -553,15 +565,8 @@ def test_dense_adc_long_unit_is_one_launch(dev, W, TQ, TV, k):
     luts, codes, valid, n_live = _dense_case(dev, TV + k, W, TQ, TV, 8, "ragged")
     adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live)  # built and warm
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a trace's launches: trace again
-        n0 = adc.workunit_pq_scan.launches
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            got = adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live)
-            torch.cuda.synchronize()
-        assert adc.workunit_pq_scan.launches == n0 + 1
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if any("adc_slot_warps_kernel" in n for n in names):
-            break
+    got, names = _traced(lambda: adc.workunit_pq_scan(luts, codes, valid, k=k, n_live=n_live),
+                         adc.workunit_pq_scan, "adc_slot_warps_kernel")
     assert sum("adc_slot_warps_kernel" in n for n in names) == 1, names
     assert not any("merge_partials" in n for n in names), names
     want = adc.workunit_pq_scan_plain(luts, codes, valid, k=k, n_live=n_live)
@@ -764,6 +769,88 @@ def test_reduced_lm_serves_alike_on_card_and_cpu(dev):
     rec = {}
     smoke.phase_lm_card_vs_cpu(rec)
     assert rec["lm_card_vs_cpu"]["max_abs_logit_err"] <= 2e-3
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# chip_smoke.py's BWD_SMALL (phase T(a)): b, s, t, hq, hkv, dh, causal, window
+BWD = [
+    (2, 77, 77, 4, 2, 16, True, 0),  # ragged S, dh 16 (the 32-wide build)
+    (2, 50, 50, 4, 4, 16, False, 0),  # not causal
+    (1, 90, 90, 4, 2, 16, True, 7),  # a window below the tile
+    (1, 40, 40, 8, 1, 16, True, 0),  # a GQA group of 8 on one KV head
+    (1, 30, 60, 4, 2, 16, True, 0),  # S < T
+    (1, 90, 30, 4, 2, 16, False, 8),  # S > T: rows 37.. keep no key
+    (1, 300, 300, 4, 2, 64, True, 100),
+    (2, 200, 200, 4, 2, 128, True, 0),
+    (1, 130, 130, 2, 1, 200, True, 0),  # the 256-wide build in two column slices
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", BWD)
+def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
+    """The backward kernel against its plain version on the same card inputs
+    (the forward kernel's o, a random dO): one launch, no plain call, each of
+    dq, dk, dv finite and within ``chip_smoke.BWD_TOL`` of the plain
+    version's norm (f32: the order of the sums; bf16: also P and dS rounded
+    to bf16 before their tensor-core products, and one rounding of each
+    output); rows that keep no key get dq = 0."""
+    q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, dtype, t)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    do = torch.randn_like(q)
+    n0, c0 = fa.flash_attention_backward.launches, fa.flash_attention_backward_plain.calls
+    got = fa.flash_attention_backward(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == n0 + 1 and fa.flash_attention_backward_plain.calls == c0
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal=causal, window=window)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and torch.isfinite(g).all()
+        assert torch.linalg.vector_norm(g.float() - w.float()) <= tol * torch.linalg.vector_norm(w.float())
+    if s > t and not causal and window:
+        assert torch.all(got[0][:, t + window - 1:] == 0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_misaligned_bf16(dev):
+    """bf16 operands off a 16-byte boundary take the CUDA-core kernels (the
+    tensor-core ones stage 16 bytes at a time): the same gradients."""
+    b, s, hq, hkv, dh = 1, 100, 4, 2, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.randn(b * s * hq * dh + 1, generator=g, device=dev).to(torch.bfloat16)
+    q = flat[1:].view(b, s, hq, dh)
+    _, k, v = _attn_case(dev, 6, b, s, hq, hkv, dh, torch.bfloat16)
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    o = fa.flash_attention(q.clone(), k, v, window=30)
+    do = torch.randn_like(o)
+    got = fa.flash_attention_backward(q, k, v, o, do, window=30)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, window=30)
+    for gr, w in zip(got, want):
+        assert torch.linalg.vector_norm(gr.float() - w.float()) <= 2e-2 * torch.linalg.vector_norm(w.float())
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_raises_past_dh_256(dev):
+    q, k, v = _attn_case(dev, 1, 1, 64, 2, 1, 264, torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_backward(q, k, v, q, q)
+
+
+@pytest.mark.cuda
+def test_training_card_equals_cpu(dev, tmp_path):
+    """``chip_smoke.py``'s phase T(c): the reduced minicpm in f32 with the
+    same weights and batches on the card and the CPU (gradients, 3 steps'
+    losses and parameters within 1e-4), then a restarted ``TrainLoop`` on
+    the card against an uninterrupted one."""
+    rec = {}
+    _smoke().phase_train_card_vs_cpu(rec, str(tmp_path))
+    assert rec["train_card_vs_cpu"]["param_max_abs_err"] <= 1e-4
 
 
 @pytest.mark.cuda
