@@ -186,9 +186,12 @@
    adds P's bf16 remainder on tiles whose rows have few effective keys,
    where one rounding could move a near-zero output past atol; the outputs'
    own bf16 rounding (one ulp, at most 2^-7 of |o|) is the rest, which rtol
-   covers. Then the wide kernels (bf16 up to 512 on wgmma, else the sliced
-   CUDA-core kernel; O in column slices) at dh in {288, 512, 1024}, S = T =
-   2048, 8/4 heads, causal, window 0 and 1024, bf16 and f32, and their
+   covers. Every case also runs the training forward (``return_lse=True``):
+   its output bit-equal to the serving call's, its lse within ``LSE_TOL`` of
+   the plain version's. Then the wide kernels (bf16 up to 512 on wgmma,
+   else the sliced CUDA-core kernel; O in column slices) at dh in {288,
+   512, 1024}, S = T = 2048, 8/4 heads, causal, window 0 and 1024, bf16
+   and f32, and their
    path: the reduced gemma3 at head width 512 served on the card (one wide
    launch per prefill layer) and the CPU (the same tokens, logits within
    2e-3). Kernel, plain
@@ -207,22 +210,26 @@
    (8 x 12) and the plain version never. Prefill and decode tokens/s, peak
    memory, a profiled prefill and a profiled decode step; then the first
    request layer by layer, each layer's kernel output held against the
-   plain version on that layer's own q/k/v (``ATTN_TOL``), ending in the
-   token the server gave;
+   plain version on that layer's own q/k/v (``ATTN_TOL``; the training
+   forward's output bit-equal to it, its lse within ``LSE_TOL``), ending in
+   the token the server gave;
 10. the reduced gemma3 in f32 with the same weights on the card and the CPU:
    prefill and decode logits within 2e-3, the served tokens equal, one
    kernel launch per prefill layer on the card;
-T. training: (a) the attention backward kernel
-   (``csrc/flash_attention_bwd.cu``) against its plain version on the
-   card: minicpm heads [2, 2048, 36/36, dh 64] causal, gemma3 heads [1,
-   4096, 32/16, dh 128] at window 0 and 1024, in bf16, and ``BWD_SMALL``
-   (ragged S, not causal, a window below the tile, a GQA group of 8, dh 16,
-   S < T, S > T with rows that keep no key, dh 64/128/200) in f32, three
-   also in bf16; each of dq, dk, dv within ``BWD_TOL`` (relative error 2e-2
-   in bf16, 1e-4 in f32); kernel, plain version and the library's backward
+T. training: (a) the attention backward kernels
+   (``csrc/flash_attention_bwd.cu``) on the training forward's o and lse
+   against their plain version on the card: minicpm heads [2, 2048, 36/36,
+   dh 64] causal, gemma3 heads [1, 4096, 32/16, dh 128] at window 0 and
+   1024, in bf16 (the wgmma pair), [1, 2048, 8/4, dh 512] causal in bf16
+   and f32 (the wide pair), and ``BWD_SMALL`` (ragged S, not causal, a
+   window below the tile, a GQA group of 8, dh 16, S < T, S > T with rows
+   that keep no key, dh 64/128/200/320) in f32, four also in bf16; each of
+   dq, dk, dv within ``BWD_TOL`` (relative error 2e-2 in bf16, 1e-4 in
+   f32); kernels, plain version and the library's backward
    (``torch.autograd.grad`` through ``scaled_dot_product_attention``) timed
    beside the bound (10·dh operations a kept pair and query head at the
-   input type's peak). (b) minicpm-2b at full width, all 40 layers, f32
+   input type's peak), and at the five large shapes the two launches alone
+   by the profiler. (b) minicpm-2b at full width, all 40 layers, f32
    masters, bf16 compute, remat; AdamW on its WSD schedule; ``SyntheticLM``
    4 x 2048 in 2 microbatches, 20 steps through ``TrainLoop(...,
    device="cuda")``: the loss falls; counters zeroed and read around the
@@ -308,8 +315,9 @@ BWD_SMALL = (
     ("f32-dh64-window", 1, 300, 300, 4, 2, 64, True, 100),
     ("f32-dh128", 2, 200, 200, 4, 2, 128, True, 0),
     ("f32-dh200-two-slices", 1, 130, 130, 2, 1, 200, True, 0),
+    ("f32-dh320-wide", 1, 130, 130, 4, 2, 320, True, 0),
 )
-BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices")
+BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices", "f32-dh320-wide")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "fused_knn": "src/repro_torch/kernels/csrc/fused_knn.cu",
@@ -346,8 +354,9 @@ DESIGN = {
                   "by cp.async, sums carried in registers; M past 190 in all three wrappers",
     "flash_attention_wide": "redesigned: O in column slices, logits summed over dh in slices; bf16 to 512 "
                             "on wgmma + TMA, else register-tiled CUDA cores; dh past 256",
-    "flash_attention_backward": "new: statistics + dQ per query tile, dK/dV per key tile over the GQA group, "
-                                "no atomics; bf16 to dh 128 on mma.sync tensor cores, else f32 CUDA cores",
+    "flash_attention_backward": "redesigned: lse from the training forward, no statistics sweep; dQ per query "
+                                "tile, dK/dV per key tile over the GQA group, no atomics; bf16 to dh 128 on "
+                                "wgmma fed by a TMA ring, else CUDA cores; past dh 256 in column slices",
 }
 NEG_INF = -3.4e38
 PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
@@ -359,6 +368,10 @@ PROFILER_TRACES: list = []  # each device_ms trace: lead, pad launches lost befo
 # ||got - want|| / ||want||); in bf16, P's rounding (~1e-3 of |o|, with its
 # remainder added where rows have few keys) and one ulp of the output (2^-7)
 ATTN_TOL = {2: (2e-2, 2e-3, 1e-2), 4: (1e-4, 1e-4, 5e-5)}
+# the training forward's lse vs the plain version's, by element size: atol
+# (rtol 1e-5); both sum exp of the same f32 logits, the bf16 kernel in log2
+# units with ex2.approx (~2^-22 a term) and log2f, converted back
+LSE_TOL = {2: 2e-3, 4: 1e-4}
 # flash_attention_backward vs plain, by element size: the limit on ||got -
 # want|| / ||want|| of each of dq, dk and dv. Both sum in f32 from the same
 # inputs; in f32 they differ in the order of the sums (over dh, keys,
@@ -2446,6 +2459,23 @@ def attn_agree(got, want, label: str, max_err: dict, name: str = "flash_attentio
     return err, rel
 
 
+def forward_lse_check(got, want_lse, q, k, v, causal: bool, window: int, label: str) -> float:
+    """The training forward (``return_lse=True``) on the same inputs: its
+    output bit-equal to the serving call's ``got`` (the lse pointer changes
+    nothing else), its lse within LSE_TOL of the plain version's. Returns
+    max |lse - plain lse| over the rows that keep a key."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    if not torch.equal(o, got):
+        raise AssertionError(f"flash_attention {label}: the output with lse differs from the serving output")
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=LSE_TOL[q.element_size()])
+    live = want_lse > fa.NEG_INF / 2
+    return float((lse - want_lse).abs()[live].max()) if live.any() else 0.0
+
+
 def attn_case(rec_rows, max_err, label, q, k, v, causal, window, reps):
     """Kernel against its plain version on the same card inputs, then kernel,
     plain and the library call timed (median of ``reps``) beside the bound.
@@ -2462,15 +2492,16 @@ def attn_case(rec_rows, max_err, label, q, k, v, causal, window, reps):
     torch.cuda.synchronize()
     if fn.launches != n0 + 1 or fa.flash_attention.launches + fa.flash_attention_wide.launches != t0 + 1:
         raise AssertionError(f"flash_attention {label}: {name} was not the one launch")
-    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
     err, rel = attn_agree(got, want, label, max_err, name)
+    lse_err = forward_lse_check(got, want_lse, q, k, v, causal, window, label)
     want_abs = want.float().abs()
     median_abs = float(want_abs.flatten()[:: max(1, want_abs.numel() // (1 << 24))].median())
     del got, want, want_abs
     b, s, hq, dh = q.shape
     row = {"case": label, "shape": [b, s, k.shape[1], hq, k.shape[2], dh], "dtype": str(q.dtype),
            "causal": causal, "window": window, "max_abs_err": err, "rel_err": rel,
-           "median_abs_out": median_abs,
+           "median_abs_out": median_abs, "lse_max_abs_err": lse_err,
            "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
                          reps=reps, warmup=1),
            "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window),
@@ -2694,8 +2725,9 @@ def phase_serving(rec: dict, max_err: dict) -> dict:
     for i, (lp, w) in enumerate(zip(params["layers"], cfg.layer_windows())):
         q, k, v = qkv_project(lp["attn"], rmsnorm(x, lp["attn_norm"]), acfg, positions)
         got = fa.flash_attention(q, k, v, window=w)
-        want = fa.flash_attention_plain(q, k, v, window=w)
+        want, want_lse = fa.flash_attention_plain(q, k, v, window=w, return_lse=True)
         err, rel = attn_agree(got, want, f"layer {i}", max_err)
+        forward_lse_check(got, want_lse, q, k, v, True, w, f"layer {i}")
         layers.append({"layer": i, "window": w, "max_abs_err": err, "rel_err": rel,
                        "median_abs_out": float(want.float().abs().median())})
         x = x + got.reshape(1, s, -1) @ lp["attn"]["wo"]
@@ -2796,25 +2828,26 @@ def bwd_rel_errors(got, want, label: str) -> list:
     return rels
 
 
-def bwd_case(rows, max_err, label, q, k, v, causal, window, reps):
-    """The backward kernel against its plain version on the same card
-    inputs (q, k, v, the forward kernel's o, a random dO): one launch, each
-    gradient within BWD_TOL; then kernel, plain and the library's backward
-    (``torch.autograd.grad`` through ``sdpa``, the graph built once) timed
-    beside the bound."""
+def bwd_case(rows, max_err, label, q, k, v, causal, window, reps, kernel_alone=False):
+    """The backward kernels against their plain version on the same card
+    inputs (q, k, v, the forward kernel's o and lse, a random dO): one
+    launch, each gradient within BWD_TOL; then kernels, plain and the
+    library's backward (``torch.autograd.grad`` through ``sdpa``, the graph
+    built once) timed beside the bound; with ``kernel_alone`` also the two
+    launches alone from the profiler (``device_ms``, summed)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(q.shape[1] + q.shape[-1])
-    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
     n0, c0 = fa.flash_attention_backward.launches, fa.flash_attention_backward_plain.calls
-    got = fa.flash_attention_backward(q, k, v, o, do, causal=causal, window=window)
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=window)
     torch.cuda.synchronize()
     if fa.flash_attention_backward.launches != n0 + 1 or fa.flash_attention_backward_plain.calls != c0:
         raise AssertionError(f"flash_attention_backward {label}: not one kernel launch")
-    want = fa.flash_attention_backward_plain(q, k, v, o, do, causal=causal, window=window)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, lse, causal=causal, window=window)
     rels = bwd_rel_errors(got, want, label)
     err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
     max_err["flash_attention_backward"] = max(max_err["flash_attention_backward"], err)
@@ -2822,11 +2855,16 @@ def bwd_case(rows, max_err, label, q, k, v, causal, window, reps):
     b, s, hq, dh = q.shape
     row = {"case": label, "shape": [b, s, k.shape[1], hq, k.shape[2], dh], "dtype": str(q.dtype),
            "causal": causal, "window": window, "max_abs_err": err, "rel_err": dict(zip(("dq", "dk", "dv"), rels)),
-           "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, causal=causal, window=window),
+           "ms": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=window),
                          reps=reps, warmup=1),
-           "plain_ms": cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, do, causal=causal,
+           "plain_ms": cuda_ms(lambda: fa.flash_attention_backward_plain(q, k, v, o, do, lse, causal=causal,
                                                                          window=window), reps=min(reps, 3),
                                warmup=1)}
+    if kernel_alone:  # the dQ and the dK/dV launch, whichever design ran
+        for name in ("bwd_dq", "bwd_dkdv"):
+            row[f"{name}_device_ms"] = device_ms(
+                lambda: fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=window), name, reps=5)
+        row["device_ms"] = row["bwd_dq_device_ms"] + row["bwd_dkdv_device_ms"]
     try:
         leaves_ = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         out = sdpa(*leaves_, causal, window)
@@ -2850,10 +2888,12 @@ def bwd_case(rows, max_err, label, q, k, v, causal, window, reps):
 
 
 def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
-    """Phase T(a): the backward kernel at minicpm's heads [2, 2048, 36/36,
+    """Phase T(a): the backward kernels at minicpm's heads [2, 2048, 36/36,
     dh 64] and gemma3's [1, 4096, 32/16, dh 128] at windows 0 and 1024 in
-    bf16, and at BWD_SMALL in f32 (and two small bf16 widths). Returns the
-    rows by label."""
+    bf16 (the wgmma pair), the wide pair at [1, 2048, 8/4, dh 512] causal in
+    bf16 and f32 (row 8's shape), each with its launches alone from the
+    profiler; and at BWD_SMALL in f32 (and four small bf16 widths). Returns
+    the rows by label."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2868,15 +2908,12 @@ def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
                                         ("gemma3-s4096-w0", 1, 4096, 32, 16, 128, 0),
                                         ("gemma3-s4096-w1024", 1, 4096, 32, 16, 128, 1024)):
         q, k, v = qkv(b, s, s, hq, hkv, dh, torch.bfloat16)
-        out[label] = bwd_case(rows, max_err, label, q, k, v, True, w, 10)
-        if label == "minicpm-s2048":  # the launches alone, from the profiler
-            from repro_torch.kernels import flash_attention as fa
-
-            o = fa.flash_attention(q, k, v)
-            do = torch.randn_like(q)
-            out[label]["device_ms"] = sum(
-                device_ms(lambda: fa.flash_attention_backward(q, k, v, o, do), name)
-                for name in ("bwd_dq", "bwd_dkdv"))  # the mma or the CUDA-core pair, whichever ran
+        out[label] = bwd_case(rows, max_err, label, q, k, v, True, w, 10, kernel_alone=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = qkv(1, 2048, 2048, 8, 4, 512, dtype)
+        out[f"dh512-{tag}"] = bwd_case(rows, max_err, f"dh512-{tag}", q, k, v, True, 0, 3, kernel_alone=True)
         del q, k, v
         torch.cuda.empty_cache()
     for label, b, s, t, hq, hkv, dh, causal, w in BWD_SMALL:
@@ -3623,15 +3660,19 @@ def main() -> int:
                                                                    "library_ms", "ms_over_bound")}
         if name == "flash_attention_backward":
             entry["tflops"] = h["tflops"]
-            entry["gemma3"] = {w: {key: bwd[w][key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-                               for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024")}
+            # gemma3's heads (the wgmma pair at DH 128) and row 8's shape past dh 256 (the wide pair)
+            entry["more_shapes"] = {
+                w: {key: bwd[w][key] for key in ("shape", "ms", "device_ms", "bwd_dq_device_ms", "bwd_dkdv_device_ms",
+                                                   "plain_ms", "bound_ms", "library_ms", "tflops")}
+                for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024", "dh512-bf16", "dh512-f32")}
         if name == "flash_attention":
             g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
             entry["tflops"] = h["tflops"]
             entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                               "tflops", "bound_share")}
         for key in ("bound_bytes", "lut_streamed_bytes", "staged_lut_bytes", "real_query_slots",
-                    "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets", "lookup_bound_ms"):
+                    "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets", "lookup_bound_ms",
+                    "bwd_dq_device_ms", "bwd_dkdv_device_ms"):
             if key in h:
                 entry[key] = h[key]
         if name == "fused_knn_db_stationary":

@@ -36,8 +36,8 @@ _F = ctypes.c_float
 # C signatures of every entry point: name -> argument types (all return int)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention": {
-        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
-        "flash_attention_wide_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        "flash_attention_wide_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
         "flash_attention_wide_shape": (_I, _I, _I, _I, _I, _P),
     },
     "flash_attention_bwd": {

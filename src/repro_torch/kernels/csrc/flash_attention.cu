@@ -70,6 +70,14 @@
 // 384 and 512 with O in column slices, and past that, and for f32, a
 // sliced form of the CUDA-core kernel takes any width.
 //
+// Training: every kernel also takes an optional lse pointer, f32 [B, Hq,
+// S]: when it is not null the kernel writes each row's log-sum-exp of its
+// kept logits, lse = m + ln l in the natural log of (q·k)·scale (the bf16
+// kernel keeps m and l in log2 units and converts them back), NEG_INF for a
+// row that keeps no key; the backward (flash_attention_bwd.cu) reads it
+// instead of recomputing the statistics. A null pointer is serving: the
+// outputs and the launches are those of a kernel without the argument.
+//
 // Plain C interface for ctypes: pointers and the stream are void*; the entry
 // returns cudaGetLastError() (0 = launched).
 
@@ -197,7 +205,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[4][kCols], const float* pt,
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, Shape sh) {
+                     T* __restrict__ o, float* __restrict__ lse, Shape sh) {
   static_assert(DH % 32 == 0, "DH is a multiple of 32");
   constexpr int kCols = DH / 8;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -276,6 +284,7 @@ __global__ void __launch_bounds__(kThreads)
     const int s = q0 + ty * 4 + i;
     if (s >= sh.S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((size_t)b * sh.Hq + h) * sh.S + s] = l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
 #pragma unroll
     for (int u = 0; u < DH / 32; ++u)
 #pragma unroll
@@ -287,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
                    cudaStream_t stream) {
   const size_t smem = flash_smem_bytes(DH);
   cudaError_t err = hqi::prepare(flash_fwd_kernel<T, DH>, smem);
@@ -295,16 +304,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
   const dim3 grid((sh.S + kBQ - 1) / kBQ, sh.Hq, sh.B);
   flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sh);
+      static_cast<T*>(o), lse, sh);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32_dh(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+cudaError_t launch_f32_dh(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
                           cudaStream_t stream) {
-  if (sh.dh <= 32) return launch<float, 32>(q, k, v, o, sh, stream);
-  if (sh.dh <= 64) return launch<float, 64>(q, k, v, o, sh, stream);
-  if (sh.dh <= 128) return launch<float, 128>(q, k, v, o, sh, stream);
-  return launch<float, 256>(q, k, v, o, sh, stream);
+  if (sh.dh <= 32) return launch<float, 32>(q, k, v, o, lse, sh, stream);
+  if (sh.dh <= 64) return launch<float, 64>(q, k, v, o, lse, sh, stream);
+  if (sh.dh <= 128) return launch<float, 128>(q, k, v, o, lse, sh, stream);
+  return launch<float, 256>(q, k, v, o, lse, sh, stream);
 }
 
 // ------------------------------------------------- bf16: wgmma + TMA ring
@@ -385,8 +394,8 @@ template <int DH>
 __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk, unsigned char* sv,
                                         uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
                                         uint64_t* empty, __nv_bfloat16* __restrict__ o,
-                                        const Shape& sh, int wg, int q0, int h, int b, int c0,
-                                        int tile_lo, int n_tiles) {
+                                        float* __restrict__ lse, const Shape& sh, int wg, int q0, int h,
+                                        int b, int c0, int tile_lo, int n_tiles) {
   constexpr int BN = Tile<DH>::BN, STAGES = Tile<DH>::STAGES, NPV = Tile<DH>::NPV;
   constexpr int NCH = Tile<DH>::DV / NPV;
   sm90::reg_alloc<240>();
@@ -580,11 +589,15 @@ __device__ __forceinline__ void consume(unsigned char* sq, unsigned char* sk, un
   sm90::wgmma_wait<0>();  // nothing is in flight here; tells ptxas so
   fence_o();
 
-  // o = acc / max(l, 1e-30), written as bf16 pairs (dh is a multiple of 8).
+  // o = acc / max(l, 1e-30), written as bf16 pairs (dh is a multiple of 8);
+  // lse (training) back in the natural log: (ms + log2 l) · ln 2.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int srow = wq0 + row0 + i * 8;
+    if (lse != nullptr && c0 == 0 && (lane & 3) == 0 && srow < sh.S)
+      lse[((size_t)b * sh.Hq + h) * sh.S + srow] = l[i] > 0.f ? (ms[i] + log2f(l[i])) * 0.6931471805599453f : kNegInf;
     l[i] = 1.f / fmaxf(l[i], 1e-30f);
   }
   const size_t q_row = (size_t)sh.Hq * sh.dh;
@@ -609,7 +622,7 @@ template <int DH>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                           Shape sh, int slices) {
+                           float* __restrict__ lse, Shape sh, int slices) {
   constexpr int BN = Tile<DH>::BN, STAGES = Tile<DH>::STAGES, NBOX = DH / kBox;
   constexpr int VBOX = Tile<DH>::DV / kBox;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
@@ -683,7 +696,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
-    consume<DH>(sq, sk, sv, q_full, k_full, v_full, empty, o, sh, wg, q0, h, b, c0, tile_lo, n_tiles);
+    consume<DH>(sq, sk, sv, q_full, k_full, v_full, empty, o, lse, sh, wg, q0, h, b, c0, tile_lo, n_tiles);
   }
 }
 
@@ -692,7 +705,7 @@ __host__ inline long long wgmma_blocks(const Shape& sh, int slices) {
 }
 
 template <int DH>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
                         cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = sm90::make_map_bf16_4d(&tq, q, sh.dh, sh.Hq, sh.S, sh.B, kBox, kBM);
@@ -706,16 +719,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, co
   const long long blocks = wgmma_blocks(sh, slices);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   flash_fwd_wgmma_kernel<DH><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sh, slices);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, sh, slices);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
                            cudaStream_t stream) {
   if (sh.dh % 8 != 0) return cudaErrorInvalidValue;  // TMA strides: the wrapper pads dh to 8
-  if (sh.dh <= 64) return launch_bf16<64>(q, k, v, o, sh, stream);
-  if (sh.dh <= 128) return launch_bf16<128>(q, k, v, o, sh, stream);
-  return launch_bf16<256>(q, k, v, o, sh, stream);
+  if (sh.dh <= 64) return launch_bf16<64>(q, k, v, o, lse, sh, stream);
+  if (sh.dh <= 128) return launch_bf16<128>(q, k, v, o, lse, sh, stream);
+  return launch_bf16<256>(q, k, v, o, lse, sh, stream);
 }
 
 // ------------------------------------------------- dh > 256
@@ -813,7 +826,7 @@ __device__ __forceinline__ void put_chunk(float* dst, int stride, const float4 (
 template <typename T, int DV>
 __global__ void __launch_bounds__(kSlicedThreads)
     flash_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        T* __restrict__ o, Shape sh, int slices) {
+                        T* __restrict__ o, float* __restrict__ lse, Shape sh, int slices) {
   static_assert(DV % 32 == 0, "DV is a multiple of 32");
   constexpr int kCols = DV / 8;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -965,6 +978,10 @@ __global__ void __launch_bounds__(kSlicedThreads)
   if (sx == 0) {
     l_s[srow] = l[0];
     l_s[srow + 1] = l[1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (lse != nullptr && c0 == 0 && q0 + srow + i < sh.S)
+        lse[((size_t)b * sh.Hq + h) * sh.S + q0 + srow + i] = l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
   }
   __syncthreads();
   T* ob = o + ((size_t)b * sh.S) * q_row + (size_t)h * dh + c0 + half * DV;
@@ -997,7 +1014,7 @@ __host__ inline int wide_wgmma_width(int dh, int bf16) {
 }
 
 template <typename T, int DV>
-cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
                           cudaStream_t stream) {
   const size_t smem = sliced_smem_bytes(DV);
   cudaError_t err = hqi::prepare(flash_sliced_kernel<T, DV>, smem);
@@ -1006,29 +1023,30 @@ cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, 
   const dim3 grid((sh.S + kBQ - 1) / kBQ, sh.Hq * slices, sh.B);
   flash_sliced_kernel<T, DV><<<grid, kSlicedThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-      sh, slices);
+      lse, sh, slices);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_sliced_dh(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+cudaError_t launch_sliced_dh(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
                              cudaStream_t stream) {
   switch (sliced_cols(sh.dh)) {
     case 160:
-      return launch_sliced<T, 160>(q, k, v, o, sh, stream);
+      return launch_sliced<T, 160>(q, k, v, o, lse, sh, stream);
     case 192:
-      return launch_sliced<T, 192>(q, k, v, o, sh, stream);
+      return launch_sliced<T, 192>(q, k, v, o, lse, sh, stream);
     case 224:
-      return launch_sliced<T, 224>(q, k, v, o, sh, stream);
+      return launch_sliced<T, 224>(q, k, v, o, lse, sh, stream);
     default:
-      return launch_sliced<T, 256>(q, k, v, o, sh, stream);
+      return launch_sliced<T, 256>(q, k, v, o, lse, sh, stream);
   }
 }
 }  // namespace
 
 extern "C" {
 
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+// lse: f32 [B, Hq, S] written when not null (training), else nothing.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
                            int T, int Hq, int Hkv, int dh, int causal, int window, float scale,
                            int bf16, void* stream) {
   if (B < 1 || S < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || dh > 256 ||
@@ -1036,7 +1054,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_bf16_dh(q, k, v, o, sh, st) : launch_f32_dh(q, k, v, o, sh, st);
+  float* l = static_cast<float*>(lse);
+  const cudaError_t err = bf16 ? launch_bf16_dh(q, k, v, o, l, sh, st) : launch_f32_dh(q, k, v, o, l, sh, st);
   return (int)err;
 }
 
@@ -1074,7 +1093,7 @@ int flash_attention_wide_shape(int B, int S, int Hq, int dh, int bf16, int* out)
 // The same contract past dh 256 (the wrapper takes it there): O in column
 // slices of at most 256, the logits summed over dh in slices (see the head
 // of this section).
-int flash_attention_wide_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+int flash_attention_wide_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
                                 int T, int Hq, int Hkv, int dh, int causal, int window, float scale,
                                 int bf16, void* stream) {
   int shape[7];
@@ -1083,16 +1102,18 @@ int flash_attention_wide_launch(const void* q, const void* k, const void* v, voi
     return (int)cudaErrorInvalidValue;
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   switch (wide_wgmma_width(dh, bf16)) {
     case 384:
-      err = dh % 8 ? cudaErrorInvalidValue : launch_bf16<384>(q, k, v, o, sh, st);
+      err = dh % 8 ? cudaErrorInvalidValue : launch_bf16<384>(q, k, v, o, l, sh, st);
       break;
     case 512:
-      err = dh % 8 ? cudaErrorInvalidValue : launch_bf16<512>(q, k, v, o, sh, st);
+      err = dh % 8 ? cudaErrorInvalidValue : launch_bf16<512>(q, k, v, o, l, sh, st);
       break;
     default:
-      err = bf16 ? launch_sliced_dh<__nv_bfloat16>(q, k, v, o, sh, st) : launch_sliced_dh<float>(q, k, v, o, sh, st);
+      err = bf16 ? launch_sliced_dh<__nv_bfloat16>(q, k, v, o, l, sh, st)
+                 : launch_sliced_dh<float>(q, k, v, o, l, sh, st);
   }
   return (int)err;
 }

@@ -11,54 +11,54 @@
 //
 // Semantics (flash_attention_plain's, and its backward,
 // flash_attention_backward_plain): q, o, dO [B, S, Hq, dh], k, v
-// [B, T, Hkv, dh] (f32 or bf16, one type, contiguous) -> dq, dk, dv in that
-// type. Query head h reads KV head h / (Hq / Hkv). Key j is kept for query
-// row i (left-aligned) iff j < T, j <= i when causal, and j > i - window
-// when window > 0. S_ij = (q_i · k_j) · scale, P_ij = exp(S_ij - lse_i) on
-// kept entries and 0 elsewhere, D_i = dO_i · O_i, dS = P ∘ (dO·Vᵀ - D),
-// dQ = scale · dS·K, dK = scale · dSᵀ·Q (summed over the g = Hq / Hkv query
-// heads of the KV head), dV = Pᵀ·dO. A row that keeps no key has output 0
-// whatever its inputs: every entry of it is masked, so it gets dq = 0 and
-// adds nothing to dk and dv.
+// [B, T, Hkv, dh] (f32 or bf16, one type, contiguous), and lse f32
+// [B, Hq, S], each row's log-sum-exp of its kept logits as the training
+// forward writes it -> dq, dk, dv in the inputs' type. Query head h reads KV
+// head h / (Hq / Hkv). Key j is kept for query row i (left-aligned) iff
+// j < T, j <= i when causal, and j > i - window when window > 0.
+// S_ij = (q_i · k_j) · scale, P_ij = exp(S_ij - lse_i) on kept entries and 0
+// elsewhere, D_i = dO_i · O_i, dS = P ∘ (dO·Vᵀ - D), dQ = scale · dS·K,
+// dK = scale · dSᵀ·Q (summed over the g = Hq / Hkv query heads of the KV
+// head), dV = Pᵀ·dO. A row that keeps no key has output 0 whatever its
+// inputs: every entry of it is masked, so it gets dq = 0 and adds nothing to
+// dk and dv, whatever its lse.
 //
 // Two launches on the caller's stream, no atomics (deterministic):
-//  1. bwd_dq_kernel, one block per (query tile of 64, query head, batch,
-//     column slice): a first sweep over the KV tiles of the tile's band
-//     recomputes each row's max and sum (the forward's m and l, as
-//     lse = m + log l), D from dO and O; slice 0 writes lse and D; a second
-//     sweep recomputes P, dP = dO·Vᵀ and dS, and sums dQ over the keys.
-//  2. bwd_dkdv_kernel, one block per (key tile of 64, KV head, batch, column
-//     slice): K and V of the tile stay in shared memory while the block walks
-//     the g query heads of its group and, for each, the query tiles that keep
-//     any of its keys, in that fixed order, reading lse and D.
-// Both recompute S and dP, so the serving forward stays untouched.
-//
-// Two designs of that pair. bf16 up to dh 128 (dh a multiple of 8, 16-byte
-// aligned operands; every head of the repo's configs) runs
-// bwd_dq_mma_kernel / bwd_dkdv_mma_kernel: the products on the tensor cores
-// as mma.sync (its section below). f32, and bf16 otherwise, runs
-// bwd_dq_kernel / bwd_dkdv_kernel in f32 on CUDA cores: each thread owns a
-// 4 x 8 tile of a 64 x 64 product (4 rows, 8 columns) and 4 rows of the
-// output columns, reading operands from shared memory as float4, as the
-// forward's f32 kernel does. Operands are staged transposed ([DH][64 + pad])
-// for the S- and dP-type products, row-major for the dQ/dK/dV products;
-// every staging zero-fills rows past S or T and columns past dh, so DH is
-// the width compiled (32, 64, 128, 256) and dh anything up to it. Each
-// output slice is DV = min(DH, 128) columns (dk and dv: 2 x 4 x DV / 8
-// floats a thread); at DH 256 a block owns one of two slices and recomputes
-// S and dP over all 256 columns.
+//  1. a dQ kernel, one block per query tile (and head, batch, column slice):
+//     D from dO and O (written for the second launch), then over the KV
+//     tiles of the tile's band P from the forward's lse, dP = dO·Vᵀ, dS, and
+//     dQ summed over the keys;
+//  2. a dK/dV kernel, one block per key tile (and KV head, batch, column
+//     slice): K and V of the tile stay put while the block walks the g query
+//     heads of its group and, for each, the query tiles that keep any of its
+//     keys, in that fixed order, reading lse and D.
+// Each computes S and dP once: 14·dh operations a kept pair against the
+// 10·dh of five products. Three designs of that pair:
+//  * bf16 up to dh 128 (every head of the repo's configs; the wrapper pads
+//    dh to a multiple of 8 and 16-byte aligns the operands):
+//    bwd_dq_wgmma_kernel / bwd_dkdv_wgmma_kernel, wgmma fed by a TMA ring
+//    (their section below);
+//  * f32 up to dh 256, and bf16 from 129 to 256: bwd_dq_kernel /
+//    bwd_dkdv_kernel in f32 on CUDA cores: each thread owns a 4 x 8 tile of a
+//    64 x 64 product and 4 rows of the output columns, reading operands from
+//    shared memory as float4, as the forward's f32 kernel does. Operands are
+//    staged transposed ([DH][64 + pad]) for the S- and dP-type products,
+//    row-major for the dQ/dK/dV products, zero past S or T and dh; DH is the
+//    width compiled (32, 64, 128, 256). Each output slice is DV = min(DH,
+//    128) columns; at DH 256 a block owns one of two slices and computes S
+//    and dP over all 256 columns;
+//  * past dh 256, both types: bwd_dq_wide_kernel / bwd_dkdv_wide_kernel, the
+//    same CUDA-core tiles with S and dP summed over dh in staged slices of
+//    kWideDC columns (as the forward's flash_sliced_kernel does) and the
+//    outputs in column slices of kWideDV, a block each (every slice computes
+//    S and dP again: right first, the wide backward is not yet fast).
 //
 // What bounds it on the H100: 10·dh operations per kept (query, key) pair
 // and query head (five products: S, dP, dV, dQ, dK), against q, k, v, o,
 // dO read once and dq, dk, dv written once. At minicpm's shapes ([2, 2048,
 // 36/36, dh 64], causal) that is 96.7 GFLOP against 151 MB: about 640
 // operations a byte, above the card's bf16 balance point (~295), so the
-// bf16 tensor cores' 989 TFLOP/s set the bound (0.098 ms). These kernels do
-// 16·dh per pair (S three times, the statistics sweep's included, and dP
-// twice), with
-// synchronous staging and no overlap of loads and products: wgmma tiles fed
-// by TMA, and the forward writing lse, are the levers (ROADMAP.md §2,
-// kernel 6).
+// bf16 tensor cores' 989 TFLOP/s set the bound (0.098 ms).
 //
 // Plain C interface for ctypes: pointers and the stream are void*; the
 // entry returns the first CUDA error of its launches (0 = launched).
@@ -68,6 +68,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
 #include "topk.cuh"
 
 namespace {
@@ -177,18 +178,33 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ float group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
+// D_i = dO_i · O_i and lse_i of the thread's rows q0 + ty·4 + i (0 past S),
+// a row group's 8 lanes splitting the columns; `put` (one block of the
+// row's column slices) writes D for the dK/dV launch.
+template <typename T>
+__device__ __forceinline__ void row_terms(float (&delta)[4], float (&lse)[4], const T* o, const T* dout,
+                                          const float* lse_in, float* delta_out, size_t q_off, size_t q_row,
+                                          size_t at0, int q0, int ty, int tx, bool put, const Shape& sh) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty * 4 + i;
+    float acc = 0.f;
+    if (s < sh.S)
+      for (int d = tx; d < sh.dh; d += 8) {
+        const size_t at = q_off + (size_t)s * q_row + d;
+        acc = fmaf(to_f32(dout[at]), to_f32(o[at]), acc);
+      }
+    delta[i] = group_sum(acc);
+    lse[i] = s < sh.S ? lse_in[at0 + s] : 0.f;
+    if (put && tx == 0 && s < sh.S) delta_out[at0 + s] = delta[i];
+  }
 }
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
-                  float* __restrict__ lse_out, float* __restrict__ delta_out, Shape sh) {
+                  const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse_in,
+                  T* __restrict__ dq, float* __restrict__ delta_out, Shape sh) {
   constexpr int DV = slice_cols(DH);
   constexpr int kSlices = DH / DV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -211,70 +227,17 @@ __global__ void __launch_bounds__(kThreads)
 
   stage_t<T, DH>(qt, q + q_off, q_row, q0, sh.S, dh);
   stage_t<T, DH>(dot, dout + q_off, q_row, q0, sh.S, dh);
-  __syncthreads();
-
-  // D_i = dO_i · O_i (f32), a row group's 8 lanes splitting the columns
-  float delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, s = q0 + r;
-    float acc = 0.f;
-    if (s < sh.S)
-      for (int d = tx; d < dh; d += 8) acc = fmaf(dot[d * kStride + r], to_f32(o[q_off + (size_t)s * q_row + d]), acc);
-    delta[i] = group_sum(acc);
-  }
+  float delta[4], lse[4];
+  row_terms(delta, lse, o, dout, lse_in, delta_out, q_off, q_row, ((size_t)b * sh.Hq + h) * sh.S, q0, ty, tx,
+            c0 == 0, sh);
 
   const int q_last = min(q0 + kB, sh.S) - 1;
   const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
   const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
-  const int t_first = (kv_lo / kB) * kB;
 
-  // sweep 1: the forward's row statistics
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  for (int t0 = t_first; t0 < kv_hi; t0 += kB) {
-    __syncthreads();
-    stage_t<T, DH>(buf, kb, kv_row, t0, sh.T, dh);
-    __syncthreads();
-    float s[4][8] = {};
-    product<DH>(s, qt, buf, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = kept(qpos, t0 + tile_col(tx, j), sh) ? s[i][j] * sh.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sum += s[i][j] > kNegInf ? expf(s[i][j] - m_new) : 0.f;
-      l[i] = l[i] * expf(m[i] - m_new) + group_sum(sum);
-      m[i] = m_new;
-    }
-  }
-  float lse[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;  // no kept key: every P of the row is 0
-    const int s = q0 + ty * 4 + i;
-    if (c0 == 0 && tx == 0 && s < sh.S) {
-      const size_t at = ((size_t)b * sh.Hq + h) * sh.S + s;
-      lse_out[at] = lse[i];
-      delta_out[at] = delta[i];
-    }
-  }
-
-  // sweep 2: P, dS, and dQ over the keys
   float acc[4][DV / 8] = {};
-  for (int t0 = t_first; t0 < kv_hi; t0 += kB) {
-    __syncthreads();  // the previous tile's K rows and dS are consumed
+  for (int t0 = (kv_lo / kB) * kB; t0 < kv_hi; t0 += kB) {
+    __syncthreads();  // the previous tile's K rows and dS are consumed (and Qt, dOt staged)
     stage_t<T, DH>(buf, kb, kv_row, t0, sh.T, dh);
     __syncthreads();
     float p[4][8] = {};
@@ -422,7 +385,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                   void* dk, void* dv, float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+                   void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
   constexpr int kSlices = DH / slice_cols(DH);
   const size_t smem = bwd_smem_bytes(DH);
   cudaError_t err = hqi::prepare(bwd_dq_kernel<T, DH>, smem);
@@ -433,7 +396,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
   bwd_dq_kernel<T, DH><<<dim3((sh.S + kB - 1) / kB, sh.Hq * kSlices, sh.B), kThreads, smem, stream>>>(
-      qp, kp, vp, static_cast<const T*>(o), dop, static_cast<T*>(dq), lse, delta, sh);
+      qp, kp, vp, static_cast<const T*>(o), dop, lse, static_cast<T*>(dq), delta, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bwd_dkdv_kernel<T, DH><<<dim3((sh.T + kB - 1) / kB, sh.Hkv * kSlices, sh.B), kThreads, smem, stream>>>(
@@ -443,389 +406,850 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 
 template <typename T>
 cudaError_t launch_dh(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                      void* dk, void* dv, float* lse, float* delta, const Shape& sh, cudaStream_t st) {
+                      void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t st) {
   if (sh.dh <= 32) return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
   if (sh.dh <= 64) return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
   if (sh.dh <= 128) return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
   return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
 }
 
-
-// ---------------------------------------------- bf16: mma.sync tensor cores
+// ------------------------------------------------------------ dh > 256
 //
-// The same two kernels for bf16 inputs up to dh 128 (dh a multiple of 8, the
-// operands 16-byte aligned), with the five products on the tensor cores as
-// mma.sync.m16n8k16 (bf16 in, f32 sums). Four warps a block; warp w owns
-// rows 16w..16w+15 of the block's 64 (queries in bwd_dq_mma_kernel, keys in
-// bwd_dkdv_mma_kernel) and keeps its sums in registers in the accumulator
-// layout: thread (g = lane / 4, t = lane % 4) holds rows g and g + 8,
-// columns 2t and 2t + 1 of every 8-column tile. Tiles stay bf16 in shared
-// memory, rows padded by 8 elements so that a fragment's 32-bit loads fall
-// in distinct banks; the operands a product needs with the other index
-// contiguous (Kᵀ for dQ, Qᵀ and dOᵀ for dK and dV) are staged a second time
-// transposed. P and dS enter their products from registers (the f32
-// accumulator layout of two adjacent 8-column tiles is the A-fragment layout
-// of one 16-deep step), rounded to bf16; dS itself is formed in f32.
+// The CUDA-core tiles above at any width: S and dP summed over dh a slice of
+// kWideDC columns at a time (the four operands' slices staged transposed,
+// again for every tile: a block cannot hold a whole row of q at dh 2100),
+// each block owning kWideDV columns of dq (or of dk and dv). Shared memory:
+// four [kWideDC][kStride] slices, a [kB][kStride] tile of P or dS, a
+// [kB][kWideDV] tile of K, dO or Q rows, and lse and D for the dK/dV kernel:
+// 85.5 KB at any dh.
 
-constexpr int kMmaThreads = 128;  // four warps
-constexpr int kTStride = kB + 8;    // row stride of a transposed [DH][kB] tile (bf16)
+constexpr int kWideDC = 32;   // columns of the S and dP products staged at once
+constexpr int kWideDV = 128;  // output columns a block owns
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__host__ __device__ constexpr size_t wide_smem_bytes() {
+  return ((size_t)4 * kWideDC * kStride + (size_t)kB * kStride + (size_t)kB * kWideDV + 2 * kB) * sizeof(float);
 }
 
-__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+__host__ __device__ constexpr int wide_slices(int dh) { return (dh + kWideDV - 1) / kWideDV; }
 
-// acc[n] += X · Yᵀ: X the warp's 16 rows of a [.][ldx] tile (depth KD), Y a
-// [N8·8][ldy] tile whose rows are the product's columns.
-template <int KD, int N8>
-__device__ __forceinline__ void mma_tiles(float (&acc)[N8][4], const __nv_bfloat16* x, int ldx,
-                                          const __nv_bfloat16* y, int ldy, int g, int t) {
-#pragma unroll
-  for (int k0 = 0; k0 < KD; k0 += 16) {
-    const uint32_t a0 = ld32(x + g * ldx + k0 + 2 * t), a1 = ld32(x + (g + 8) * ldx + k0 + 2 * t);
-    const uint32_t a2 = ld32(x + g * ldx + k0 + 2 * t + 8), a3 = ld32(x + (g + 8) * ldx + k0 + 2 * t + 8);
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const __nv_bfloat16* yr = y + (n * 8 + g) * ldy + k0 + 2 * t;
-      mma(acc[n], a0, a1, a2, a3, ld32(yr), ld32(yr + 8));
-    }
-  }
-}
-
-// acc[n] += W · Yᵀ with W the warp's [16][kB] weights (P or dS) held in the
-// accumulator layout, rounded to bf16 here.
-template <int N8>
-__device__ __forceinline__ void mma_weights(float (&acc)[N8][4], const float (&w)[kB / 8][4], const __nv_bfloat16* y,
-                                            int ldy, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kB / 16; ++kk) {
-    const uint32_t a0 = pack(w[2 * kk][0], w[2 * kk][1]), a1 = pack(w[2 * kk][2], w[2 * kk][3]);
-    const uint32_t a2 = pack(w[2 * kk + 1][0], w[2 * kk + 1][1]), a3 = pack(w[2 * kk + 1][2], w[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const __nv_bfloat16* yr = y + (n * 8 + g) * ldy + kk * 16 + 2 * t;
-      mma(acc[n], a0, a1, a2, a3, ld32(yr), ld32(yr + 8));
-    }
-  }
-}
-
-// Rows r0..r0+63 of a bf16 [., ld] array, 8 columns (16 bytes) at a time, into
-// rows [kB][DH + 8] and, when `tr` is given, transposed [DH][kTStride]; 0 past
-// `rows` or dh (dh is a multiple of 8 here).
-template <int DH>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* rows_out, __nv_bfloat16* tr, const __nv_bfloat16* src,
-                                           size_t ld, int r0, int rows, int dh) {
-  for (int e = threadIdx.x; e < kB * (DH / 8); e += kMmaThreads) {
-    const int r = e / (DH / 8), d = (e - r * (DH / 8)) * 8;
-    const int s = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < rows && d < dh) val = *reinterpret_cast<const uint4*>(src + (size_t)s * ld + d);
-    if (rows_out) *reinterpret_cast<uint4*>(rows_out + r * (DH + 8) + d) = val;
-    if (tr) {
-      const uint32_t words[4] = {val.x, val.y, val.z, val.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tr[(d + 2 * i) * kTStride + r] = __ushort_as_bfloat16((unsigned short)(words[i] & 0xffffu));
-        tr[(d + 2 * i + 1) * kTStride + r] = __ushort_as_bfloat16((unsigned short)(words[i] >> 16));
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int DH>
-struct MmaSmem {
-  static constexpr int kRow = kB * (DH + 8);  // a [kB][DH + 8] tile
-  static constexpr int kTr = DH * kTStride;   // a [DH][kB + 8] tile
-  // dq: Q, dO, K, V rows and Kᵀ; dkdv: K, V, Q, dO rows, Qᵀ, dOᵀ and lse, D
-  static constexpr size_t dq_bytes = (4 * kRow + kTr) * 2;
-  static constexpr size_t dkdv_bytes = (4 * kRow + 2 * kTr) * 2 + 2 * kB * sizeof(float);
-};
-
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                      const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dq,
-                      float* __restrict__ lse_out, float* __restrict__ delta_out, Shape sh) {
-  using S = MmaSmem<DH>;
-  constexpr int ld = DH + 8;
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse_in,
+                       T* __restrict__ dq, float* __restrict__ delta_out, Shape sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + S::kRow;
-  __nv_bfloat16* ks = dos + S::kRow;
-  __nv_bfloat16* vs = ks + S::kRow;
-  __nv_bfloat16* kts = vs + S::kRow;
+  float* qt = reinterpret_cast<float*>(smem_raw);  // [kWideDC][kStride] slices of q, dO, K, V
+  float* dot = qt + kWideDC * kStride;
+  float* kt = dot + kWideDC * kStride;
+  float* vt = kt + kWideDC * kStride;
+  float* dst = vt + kWideDC * kStride;  // [kB keys][kStride] dS
+  float* rows = dst + kB * kStride;     // [kB][kWideDV] K rows of the block's columns
 
+  const int slices = wide_slices(sh.dh);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // heavy (late causal) tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y / slices;
+  const int c0 = (blockIdx.y - h * slices) * kWideDV;
+  const int b = blockIdx.z;
   const int hk = h / (sh.Hq / sh.Hkv);
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   const int dh = sh.dh;
   const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
   const size_t q_off = ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-  const __nv_bfloat16* kb = k + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-  const __nv_bfloat16* vb = v + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
+  const T* kb = k + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
+  const T* vb = v + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
 
-  stage_bf16<DH>(qs, nullptr, q + q_off, q_row, q0, sh.S, dh);
-  stage_bf16<DH>(dos, nullptr, dout + q_off, q_row, q0, sh.S, dh);
-  __syncthreads();
-
-  const int r0 = 16 * w;  // the warp's rows; the thread's are r0 + g and r0 + g + 8
-  float delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + g + 8 * i, s = q0 + r;
-    float acc = 0.f;
-    if (s < sh.S)
-      for (int d = t; d < dh; d += 4)
-        acc = fmaf(__bfloat162float(dos[r * ld + d]), __bfloat162float(o[q_off + (size_t)s * q_row + d]), acc);
-    delta[i] = quad_sum(acc);
-  }
+  float delta[4], lse[4];
+  row_terms(delta, lse, o, dout, lse_in, delta_out, q_off, q_row, ((size_t)b * sh.Hq + h) * sh.S, q0, ty, tx,
+            c0 == 0, sh);
 
   const int q_last = min(q0 + kB, sh.S) - 1;
   const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
   const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
-  const int t_first = (kv_lo / kB) * kB;
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  for (int t0 = t_first; t0 < kv_hi; t0 += kB) {  // sweep 1: the forward's row statistics
-    __syncthreads();
-    stage_bf16<DH>(ks, nullptr, kb, kv_row, t0, sh.T, dh);
-    __syncthreads();
-    float s[kB / 8][4] = {};
-    mma_tiles<DH, kB / 8>(s, qs + r0 * ld, ld, ks, ld, g, t);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qpos = q0 + r0 + g + 8 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int n = 0; n < kB / 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float& x = s[n][2 * i + c];
-          x = kept(qpos, t0 + n * 8 + 2 * t + c, sh) ? x * sh.scale : kNegInf;
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[i], quad_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < kB / 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) sum += s[n][2 * i + c] > kNegInf ? expf(s[n][2 * i + c] - m_new) : 0.f;
-      l[i] = l[i] * expf(m[i] - m_new) + quad_sum(sum);
-      m[i] = m_new;
+  float acc[4][kWideDV / 8] = {};
+  for (int t0 = (kv_lo / kB) * kB; t0 < kv_hi; t0 += kB) {
+    float p[4][8] = {}, dp[4][8] = {};
+    for (int d0 = 0; d0 < dh; d0 += kWideDC) {
+      __syncthreads();  // the previous slice's products (and tile's K rows, dS) are consumed
+      stage_t<T, kWideDC>(qt, q + q_off + d0, q_row, q0, sh.S, dh - d0);
+      stage_t<T, kWideDC>(dot, dout + q_off + d0, q_row, q0, sh.S, dh - d0);
+      stage_t<T, kWideDC>(kt, kb + d0, kv_row, t0, sh.T, dh - d0);
+      stage_t<T, kWideDC>(vt, vb + d0, kv_row, t0, sh.T, dh - d0);
+      __syncthreads();
+      product<kWideDC>(p, qt, kt, ty, tx);
+      product<kWideDC>(dp, dot, vt, ty, tx);
     }
-  }
-  float lse[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;  // no kept key: every P of the row is 0
-    const int s = q0 + r0 + g + 8 * i;
-    if (t == 0 && s < sh.S) {
-      const size_t at = ((size_t)b * sh.Hq + h) * sh.S + s;
-      lse_out[at] = lse[i];
-      delta_out[at] = delta[i];
-    }
-  }
-
-  float acc[DH / 8][4] = {};
-  for (int t0 = t_first; t0 < kv_hi; t0 += kB) {  // sweep 2: P, dS, and dQ over the keys
-    __syncthreads();
-    stage_bf16<DH>(ks, kts, kb, kv_row, t0, sh.T, dh);
-    stage_bf16<DH>(vs, nullptr, vb, kv_row, t0, sh.T, dh);
-    __syncthreads();
-    float p[kB / 8][4] = {}, ds[kB / 8][4] = {};
-    mma_tiles<DH, kB / 8>(p, qs + r0 * ld, ld, ks, ld, g, t);
-    mma_tiles<DH, kB / 8>(ds, dos + r0 * ld, ld, vs, ld, g, t);  // dP
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int n = 0; n < kB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float pe = kept(q0 + r0 + g + 8 * i, t0 + n * 8 + 2 * t + (e & 1), sh)
-                             ? expf(p[n][e] * sh.scale - lse[i]) : 0.f;
-        ds[n][e] = pe * (ds[n][e] - delta[i]);
+      for (int j = 0; j < 8; ++j) {
+        const float pe = kept(q0 + ty * 4 + i, t0 + tile_col(tx, j), sh) ? expf(p[i][j] * sh.scale - lse[i]) : 0.f;
+        dst[tile_col(tx, j) * kStride + ty * 4 + i] = pe * (dp[i][j] - delta[i]);
       }
-    mma_weights<DH / 8>(acc, ds, kts, kTStride, g, t);
+    stage_rows<T, kWideDV>(rows, kb, kv_row, t0, sh.T, c0, dh);
+    __syncthreads();  // dS and the K rows are visible
+    accumulate<kWideDV>(acc, dst, rows, ty, tx);
   }
 
-  __nv_bfloat16* dqb = dq + q_off;
+  T* dqb = dq + q_off;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = q0 + r0 + g + 8 * i;
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty * 4 + i;
     if (s >= sh.S) continue;
 #pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const int d = n * 8 + 2 * t;
-      if (d < dh) {  // dh is a multiple of 8: both columns or neither
-        *reinterpret_cast<__nv_bfloat162*>(dqb + (size_t)s * q_row + d) =
-            __floats2bfloat162_rn(acc[n][2 * i] * sh.scale, acc[n][2 * i + 1] * sh.scale);
+    for (int u = 0; u < kWideDV / 32; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = c0 + u * 32 + tx * 4 + c;
+        if (d < dh) store(dqb + (size_t)s * q_row + d, acc[i][u * 4 + c] * sh.scale);
       }
-    }
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse_in, const float* __restrict__ delta_in,
-                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
-  using S = MmaSmem<DH>;
-  constexpr int ld = DH + 8;
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const T* __restrict__ dout, const float* __restrict__ lse_in,
+                         const float* __restrict__ delta_in, T* __restrict__ dk, T* __restrict__ dv, Shape sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + S::kRow;
-  __nv_bfloat16* qs = vs + S::kRow;
-  __nv_bfloat16* dos = qs + S::kRow;
-  __nv_bfloat16* qts = dos + S::kRow;
-  __nv_bfloat16* dots = qts + S::kTr;
-  float* lse_s = reinterpret_cast<float*>(dots + S::kTr);
-  float* delta_s = lse_s + kB;
+  float* kt = reinterpret_cast<float*>(smem_raw);  // [kWideDC][kStride] slices of K, V, q, dO
+  float* vt = kt + kWideDC * kStride;
+  float* qt = vt + kWideDC * kStride;
+  float* dot = qt + kWideDC * kStride;
+  float* wt = dot + kWideDC * kStride;  // [kB queries][kStride] P, then dS
+  float* rows = wt + kB * kStride;      // [kB][kWideDV] dO, then Q rows of the block's columns
+  float* lse_s = rows + kB * kWideDV;   // [kB]
+  float* delta_s = lse_s + kB;          // [kB]
 
+  const int slices = wide_slices(sh.dh);
   const int k0 = blockIdx.x * kB;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int grp = sh.Hq / sh.Hkv;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * w;  // the warp's keys; the thread's are r0 + g and r0 + g + 8
+  const int hk = blockIdx.y / slices;
+  const int c0 = (blockIdx.y - hk * slices) * kWideDV;
+  const int b = blockIdx.z;
+  const int g = sh.Hq / sh.Hkv;
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // keys ty·4 + i, queries tile_col(tx, j)
   const int dh = sh.dh;
   const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
   const size_t kv_off = ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-
-  stage_bf16<DH>(ks, nullptr, k + kv_off, kv_row, k0, sh.T, dh);
-  stage_bf16<DH>(vs, nullptr, v + kv_off, kv_row, k0, sh.T, dh);
 
   const int k_last = min(k0 + kB, sh.T) - 1;
   const int q_lo = sh.causal ? k0 : 0;
   const int q_hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
 
-  float dk_acc[DH / 8][4] = {}, dv_acc[DH / 8][4] = {};
-  for (int h = hk * grp; h < hk * grp + grp; ++h) {
+  float dk_acc[4][kWideDV / 8] = {}, dv_acc[4][kWideDV / 8] = {};
+  for (int h = hk * g; h < hk * g + g; ++h) {
     const size_t q_off = ((size_t)b * sh.S) * q_row + (size_t)h * dh;
     const float* lse_h = lse_in + ((size_t)b * sh.Hq + h) * sh.S;
     const float* delta_h = delta_in + ((size_t)b * sh.Hq + h) * sh.S;
     for (int q0 = (q_lo / kB) * kB; q0 < q_hi; q0 += kB) {
-      __syncthreads();  // the previous tile's products are done with the staged tiles
-      stage_bf16<DH>(qs, qts, q + q_off, q_row, q0, sh.S, dh);
-      stage_bf16<DH>(dos, dots, dout + q_off, q_row, q0, sh.S, dh);
-      for (int r = threadIdx.x; r < kB; r += kMmaThreads) {
-        const bool in = q0 + r < sh.S;
-        lse_s[r] = in ? lse_h[q0 + r] : 0.f;
-        delta_s[r] = in ? delta_h[q0 + r] : 0.f;
+      float s[4][8] = {}, ds[4][8] = {};  // Sᵀ, dPᵀ [key][query]
+      for (int d0 = 0; d0 < dh; d0 += kWideDC) {
+        __syncthreads();  // the previous slice's products (and tile's P, dS and rows) are consumed
+        stage_t<T, kWideDC>(kt, k + kv_off + d0, kv_row, k0, sh.T, dh - d0);
+        stage_t<T, kWideDC>(vt, v + kv_off + d0, kv_row, k0, sh.T, dh - d0);
+        stage_t<T, kWideDC>(qt, q + q_off + d0, q_row, q0, sh.S, dh - d0);
+        stage_t<T, kWideDC>(dot, dout + q_off + d0, q_row, q0, sh.S, dh - d0);
+        if (d0 == 0)
+          for (int r = threadIdx.x; r < kB; r += kThreads) {
+            const bool in = q0 + r < sh.S;
+            lse_s[r] = in ? lse_h[q0 + r] : 0.f;
+            delta_s[r] = in ? delta_h[q0 + r] : 0.f;
+          }
+        __syncthreads();
+        product<kWideDC>(s, kt, qt, ty, tx);
+        product<kWideDC>(ds, vt, dot, ty, tx);
       }
-      __syncthreads();
-      float p[kB / 8][4] = {}, ds[kB / 8][4] = {};
-      mma_tiles<DH, kB / 8>(p, ks + r0 * ld, ld, qs, ld, g, t);    // Sᵀ[key][query]
-      mma_tiles<DH, kB / 8>(ds, vs + r0 * ld, ld, dos, ld, g, t);  // dPᵀ
 #pragma unroll
-      for (int n = 0; n < kB / 8; ++n)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + 2 * t + (e & 1);
-          const float pe = kept(q0 + col, k0 + r0 + g + 8 * (e >> 1), sh)
-                               ? expf(p[n][e] * sh.scale - lse_s[col]) : 0.f;
-          p[n][e] = pe;
-          ds[n][e] = pe * (ds[n][e] - delta_s[col]);
+        for (int j = 0; j < 8; ++j) {
+          const int col = tile_col(tx, j);
+          const float pe = kept(q0 + col, k0 + ty * 4 + i, sh) ? expf(s[i][j] * sh.scale - lse_s[col]) : 0.f;
+          wt[col * kStride + ty * 4 + i] = pe;
+          ds[i][j] = pe * (ds[i][j] - delta_s[col]);
         }
-      mma_weights<DH / 8>(dv_acc, p, dots, kTStride, g, t);   // dV += Pᵀ·dO
-      mma_weights<DH / 8>(dk_acc, ds, qts, kTStride, g, t);   // dK += dSᵀ·Q
+      stage_rows<T, kWideDV>(rows, dout + q_off, q_row, q0, sh.S, c0, dh);
+      __syncthreads();  // P and the dO rows are visible
+      accumulate<kWideDV>(dv_acc, wt, rows, ty, tx);  // dV += Pᵀ·dO
+      __syncthreads();  // P and the dO rows are consumed
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) wt[tile_col(tx, j) * kStride + ty * 4 + i] = ds[i][j];
+      stage_rows<T, kWideDV>(rows, q + q_off, q_row, q0, sh.S, c0, dh);
+      __syncthreads();
+      accumulate<kWideDV>(dk_acc, wt, rows, ty, tx);  // dK += dSᵀ·Q
     }
   }
 
 #pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + ty * 4 + i;
+    if (t >= sh.T) continue;
+#pragma unroll
+    for (int u = 0; u < kWideDV / 32; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int d = c0 + u * 32 + tx * 4 + c;
+        if (d < dh) {
+          const size_t at = kv_off + (size_t)t * kv_row + d;
+          store(dk + at, dk_acc[i][u * 4 + c] * sh.scale);
+          store(dv + at, dv_acc[i][u * 4 + c]);
+        }
+      }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+                        void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes();
+  cudaError_t err = hqi::prepare(bwd_dq_wide_kernel<T>, smem);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const int slices = wide_slices(sh.dh);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  bwd_dq_wide_kernel<T><<<dim3((sh.S + kB - 1) / kB, sh.Hq * slices, sh.B), kThreads, smem, stream>>>(
+      qp, kp, vp, static_cast<const T*>(o), dop, lse, static_cast<T*>(dq), delta, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_wide_kernel<T><<<dim3((sh.T + kB - 1) / kB, sh.Hkv * slices, sh.B), kThreads, smem, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- bf16: wgmma + TMA ring
+//
+// bf16 up to dh 128 (dh a multiple of 8, operands 16-byte aligned, as TMA
+// wants), every product on the tensor cores as wgmma with f32 sums, in the
+// shape of the forward's flash_fwd_wgmma_kernel: 384 threads a block, two
+// consumer warpgroups of 64 stationary rows each and a producer warpgroup
+// whose first warp feeds a ring of STAGES shared-memory stages through TMA
+// and mbarriers (full: the bytes landed; empty: the eight consumer warps
+// are done with the stage), setmaxnreg moving registers to the consumers.
+// Tiles are 128B-swizzled boxes of 64 columns (sm90.cuh); TMA zero-fills
+// columns past dh and rows past S or T.
+//
+//  * bwd_dq_wgmma_kernel: a block owns 128 query rows of one head. Q and dO
+//    are loaded once; K and V tiles of BN keys stream through the ring. Per
+//    tile a consumer runs S = Q·Kᵀ and dP = dO·Vᵀ (both operands K-major in
+//    shared memory), P = exp2(S·scale·log2 e - lse·log2 e) and
+//    dS = P ∘ (dP - D) in registers, and dQ += dS·K with dS as register A
+//    fragments (the f32 accumulator layout of two 8-column tiles is one
+//    A fragment) and K as an MN-major B (transpose bit). D = dO · O is
+//    computed first, from device memory, and written for the dK/dV launch.
+//  * bwd_dkdv_wgmma_kernel: a block owns 128 keys of one KV head; K and V
+//    are loaded once. The ring streams Q and dO tiles of BQ queries, with
+//    their rows' lse (in log2 units) and D, over the g heads of the group
+//    and, per head, the query tiles that keep any key of the block. Per tile
+//    the key rows are wgmma's M: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS), Pᵀ and
+//    dSᵀ in registers, dV += Pᵀ·dO and dK += dSᵀ·Q (register A, MN-major B).
+//    No operand is staged transposed by hand: the transpose bit reads Q and
+//    dO as they land.
+//
+// Each consumer issues the next tile's S and dP before the previous tile's
+// accumulating products, and runs its softmax arithmetic while those finish
+// (as the forward does); only the tiles crossing the causal diagonal, the
+// window's lower edge or the ragged end compute the mask. P and dS enter
+// their products rounded to bf16.
+
+constexpr int kWgThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kConsumerWarps = 8;
+constexpr int kRows = 128;       // stationary rows a block: 64 a consumer warpgroup
+constexpr int kBox = 64;         // bf16 columns of a 128-byte swizzled box
+constexpr int kRowBytes = kBox * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Per padded width: BN keys a dQ tile and its stages, BQ queries a dK/dV
+// tile and its stages. Registers a consumer thread: dQ 64·DH/128 + S and dP
+// BN/2 each + dS BN/4; dK and dV DH/2 each + Sᵀ and dPᵀ BQ/2 each + P and
+// dS BQ/4 each (176 at DH 128, under the 240 setmaxnreg gives).
+template <int DH>
+struct WgTile;
+template <>
+struct WgTile<64> {
+  static constexpr int BN = 64, DQ_STAGES = 4, BQ = 64, KV_STAGES = 4;
+};
+template <>
+struct WgTile<128> {
+  static constexpr int BN = 64, DQ_STAGES = 3, BQ = 32, KV_STAGES = 4;
+};
+
+template <int DH>
+struct DqSmem {
+  static constexpr int STAGES = WgTile<DH>::DQ_STAGES;
+  static constexpr uint32_t Q = kRows * DH * 2;                 // the Q tile, and the dO tile
+  static constexpr uint32_t KV = WgTile<DH>::BN * DH * 2;      // a K tile, and a V tile
+  static constexpr size_t bytes = 1024 /* alignment slack */ + 2 * Q + (size_t)STAGES * 2 * KV + (1 + 2 * STAGES) * 8;
+};
+
+template <int DH>
+struct DkvSmem {
+  static constexpr int STAGES = WgTile<DH>::KV_STAGES, BQ = WgTile<DH>::BQ;
+  static constexpr uint32_t KV = kRows * DH * 2;                // the K tile, and the V tile
+  static constexpr uint32_t Q = BQ * DH * 2;                    // a Q tile, and a dO tile
+  static constexpr size_t bytes =
+      1024 + 2 * KV + (size_t)STAGES * (2 * Q + 2 * BQ * sizeof(float)) + (1 + 2 * STAGES) * 8;
+};
+
+// exp2 on the MUFU unit (ex2.approx, flush-to-zero: exp2(-inf) = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Σ of the eight products of two 16-byte words of bf16 pairs, into acc.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(__uint_as_float(x[i] << 16), __uint_as_float(y[i] << 16), acc);
+    acc = fmaf(__uint_as_float(x[i] & 0xffff0000u), __uint_as_float(y[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// wgmma descriptors of a [rows][DH] bf16 tile in 64-column boxes at shared
+// address `base`. K-major (DH is the product's depth): the 16 columns of
+// k-step kk. MN-major (the tile's rows are the depth, its columns the N
+// dimension): rows 16·kk .. 16·kk + 15, the boxes `rows` x 128 bytes apart.
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int rows, int kk) {
+  return sm90::desc_sw128(base + (kk / 4) * rows * kRowBytes + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t base, int rows, int kk) {
+  return sm90::desc_sw128(base + kk * 16 * kRowBytes, rows * kRowBytes, 1024);
+}
+
+template <int DH>
+__device__ __forceinline__ void dq_consume(unsigned char* sq, unsigned char* sdo, unsigned char* sk,
+                                           unsigned char* sv, uint64_t* q_full, uint64_t* full, uint64_t* empty,
+                                           const __nv_bfloat16* __restrict__ o,
+                                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                                           float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                                           const Shape& sh, int wg, int q0, int h, int b, int tile_lo,
+                                           int n_tiles) {
+  constexpr int BN = WgTile<DH>::BN, STAGES = DqSmem<DH>::STAGES;
+  sm90::reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wq0 = q0 + wg * 64;
+  const int row0 = warp * 16 + lane / 4;  // this thread's rows: row0 and row0 + 8
+  // This warpgroup's own band; tiles of the block's band outside it are
+  // waited for and released without compute.
+  const int wq_last = min(wq0 + 64, sh.S) - 1;
+  const int w_lo = sh.window > 0 ? max(0, wq0 - sh.window + 1) : 0;
+  const int w_hi = wq0 < sh.S ? (sh.causal ? min(sh.T, wq_last + 1) : sh.T) : 0;
+  const float c_log2 = sh.scale * kLog2e;  // logits -> log2 units
+  const size_t q_row = (size_t)sh.Hq * sh.dh;
+  const size_t q_off = (size_t)b * sh.S * q_row + (size_t)h * sh.dh;
+  const size_t at0 = ((size_t)b * sh.Hq + h) * sh.S;
+
+  // Each row's lse (log2 units) and D = dO · O, the four lanes of a quad
+  // splitting the columns 8 at a time; 0 past S.
+  float lse2[2], dlt[2];
+#pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int tk = k0 + r0 + g + 8 * i;
+    const int r = wq0 + row0 + 8 * i;
+    float acc = 0.f;
+    if (r < sh.S)
+      for (int d = (lane & 3) * 8; d < sh.dh; d += 32) {
+        const size_t at = q_off + (size_t)r * q_row + d;
+        acc = dot8(*reinterpret_cast<const uint4*>(o + at), *reinterpret_cast<const uint4*>(dout + at), acc);
+      }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlt[i] = acc;
+    lse2[i] = r < sh.S ? lse[at0 + r] * kLog2e : 0.f;
+    if ((lane & 3) == 0 && r < sh.S) delta[at0 + r] = acc;
+  }
+
+  float sacc[BN / 2], dpacc[BN / 2], dqacc[DH / 2];
+  uint32_t dsf[BN / 16][4];  // dS as wgmma A fragments
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) dqacc[e] = 0.f;
+  const uint32_t q_base = sm90::smem_u32(sq) + wg * 64 * kRowBytes;
+  const uint32_t do_base = sm90::smem_u32(sdo) + wg * 64 * kRowBytes;
+  const uint32_t k_base = sm90::smem_u32(sk), v_base = sm90::smem_u32(sv);
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(bar);
+  };
+  auto issue_dq = [&](int s) {  // dQ += dS · K of stage s
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      sm90::wgmma_rs_tb(dqacc, dsf[kk], mnmajor(k_base + s * DqSmem<DH>::KV, BN, kk));
+    sm90::wgmma_commit();
+  };
+  int pending = -1;  // stage whose dQ product is still to be issued
+  auto flush = [&]() {
+    sm90::fence_regs(dqacc);
+    sm90::wgmma_fence();
+    issue_dq(pending);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dqacc);
+    release(&empty[pending]);
+    pending = -1;
+  };
+
+  sm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int t0 = (tile_lo + it) * BN;
+    if (t0 >= w_hi || t0 + BN <= w_lo) {
+      if (pending >= 0) flush();  // stages are released in ring order
+      sm90::mbar_wait(&full[s], phase);
+      release(&empty[s]);
+      continue;
+    }
+    // S and dP for this tile, then dQ += dS · K for the previous one.
+    sm90::mbar_wait(&full[s], phase);
+    sm90::fence_regs(dqacc);
+    sm90::wgmma_fence();
+    const uint32_t ks = k_base + s * DqSmem<DH>::KV, vs = v_base + s * DqSmem<DH>::KV;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) sm90::wgmma_ss(sacc, kmajor(q_base, kRows, kk), kmajor(ks, BN, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) sm90::wgmma_ss(dpacc, kmajor(do_base, kRows, kk), kmajor(vs, BN, kk), kk > 0);
+    sm90::wgmma_commit();
+    if (pending >= 0) {
+      issue_dq(pending);
+      sm90::wgmma_wait<1>();
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dpacc);
+
+    // P and dS; the mask only on tiles that cross the diagonal, the window's
+    // lower edge or T (dS is written on every tile: wgmma operands written
+    // under a branch make ptxas serialise the products).
+    const bool need_mask = t0 + BN > sh.T || (sh.causal && t0 + BN - 1 > wq0) ||
+                           (sh.window > 0 && t0 <= wq0 + 63 - sh.window);
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int i = (e >> 1) & 1;
+      float p = ex2(fmaf(sacc[e], c_log2, -lse2[i]));
+      if (need_mask) {
+        const int qpos = wq0 + row0 + i * 8;
+        const int kpos = t0 + (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
+        bool keep = kpos < sh.T;
+        if (sh.causal) keep = keep && kpos <= qpos;
+        if (sh.window > 0) keep = keep && kpos > qpos - sh.window;
+        if (!keep) p = 0.f;
+      }
+      dpacc[e] = p * (dpacc[e] - dlt[i]);
+    }
+    if (pending >= 0) {
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dqacc);
+      release(&empty[pending]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dsf[kk][r] = pack_bf16(dpacc[8 * kk + 2 * r], dpacc[8 * kk + 2 * r + 1]);
+    pending = s;
+  }
+  if (pending >= 0) flush();
+  sm90::wgmma_wait<0>();  // nothing is in flight here; tells ptxas so
+  sm90::fence_regs(dqacc);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int srow = wq0 + row0 + i * 8;
+    if (srow >= sh.S) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      const int d = n * 8 + (lane & 3) * 2;
+      if (d < sh.dh)
+        *reinterpret_cast<uint32_t*>(dq + q_off + (size_t)srow * q_row + d) =
+            pack_bf16(dqacc[4 * n + 2 * i] * sh.scale, dqacc[4 * n + 2 * i + 1] * sh.scale);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                        const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                        Shape sh) {
+  using M = DqSmem<DH>;
+  constexpr int BN = WgTile<DH>::BN, STAGES = M::STAGES, NBOX = DH / kBox;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sq = wg_smem + ((1024 - (sm90::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sdo = sq + M::Q;
+  unsigned char* sk = sdo + M::Q;
+  unsigned char* sv = sk + STAGES * M::KV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + STAGES * M::KV);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  // Heavy tiles first: every (batch, head)'s last query tile, then the one before.
+  const int hb_n = sh.Hq * sh.B;
+  const int n_qt = (sh.S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / hb_n)) * kRows;
+  const int h = (int)(blockIdx.x % hb_n) % sh.Hq, b = (int)(blockIdx.x % hb_n) / sh.Hq;
+  const int hk = h / (sh.Hq / sh.Hkv);
+
+  const int q_last = min(q0 + kRows, sh.S) - 1;
+  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
+  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
+  const int tile_lo = kv_lo / BN;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN - tile_lo : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);  // warp-uniform for ptxas
+  if (wg == 2) {
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      sm90::tma_prefetch(&tq);
+      sm90::tma_prefetch(&tdo);
+      sm90::tma_prefetch(&tk);
+      sm90::tma_prefetch(&tv);
+      sm90::mbar_expect_tx(q_full, 2 * M::Q);
+#pragma unroll
+      for (int c = 0; c < NBOX; ++c) {
+        sm90::tma_load_4d(sq + c * kRows * kRowBytes, &tq, q_full, c * kBox, h, q0, b);
+        sm90::tma_load_4d(sdo + c * kRows * kRowBytes, &tdo, q_full, c * kBox, h, q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int t0 = (tile_lo + it) * BN;
+        sm90::mbar_expect_tx(&full[s], 2 * M::KV);
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c) {
+          sm90::tma_load_4d(sk + s * M::KV + c * BN * kRowBytes, &tk, &full[s], c * kBox, hk, t0, b);
+          sm90::tma_load_4d(sv + s * M::KV + c * BN * kRowBytes, &tv, &full[s], c * kBox, hk, t0, b);
+        }
+      }
+    }
+  } else {
+    dq_consume<DH>(sq, sdo, sk, sv, q_full, full, empty, o, dout, lse, delta, dq, sh, wg, q0, h, b, tile_lo,
+                   n_tiles);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void dkdv_consume(unsigned char* sk, unsigned char* sv, unsigned char* sq,
+                                             unsigned char* sdo, const float* lse_s, const float* d_s,
+                                             uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+                                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                             const Shape& sh, int wg, int k0, int hk, int b, int qt_lo, int n_qt,
+                                             int n_tiles) {
+  using M = DkvSmem<DH>;
+  constexpr int BQ = M::BQ, STAGES = M::STAGES;
+  sm90::reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wk0 = k0 + wg * 64;
+  const int row0 = warp * 16 + lane / 4;  // this thread's keys: wk0 + row0 and + 8
+  // The queries that keep any key of this warpgroup: [wq_lo, wq_hi).
+  const int wk_last = min(wk0 + 64, sh.T) - 1;
+  const int wq_lo = sh.causal ? wk0 : 0;
+  const int wq_hi = wk0 < sh.T ? (sh.window > 0 ? min(sh.S, wk_last + sh.window) : sh.S) : 0;
+  const float c_log2 = sh.scale * kLog2e;
+
+  float sacc[BQ / 2], dpacc[BQ / 2], dkacc[DH / 2], dvacc[DH / 2];
+  uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];  // Pᵀ and dSᵀ as wgmma A fragments
+#pragma unroll
+  for (int e = 0; e < DH / 2; ++e) {
+    dkacc[e] = 0.f;
+    dvacc[e] = 0.f;
+  }
+  const uint32_t k_base = sm90::smem_u32(sk) + wg * 64 * kRowBytes;
+  const uint32_t v_base = sm90::smem_u32(sv) + wg * 64 * kRowBytes;
+  const uint32_t q_base = sm90::smem_u32(sq), do_base = sm90::smem_u32(sdo);
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(bar);
+  };
+  auto fence_kv = [&]() {
+    sm90::fence_regs(dkacc);
+    sm90::fence_regs(dvacc);
+  };
+  auto issue_kv = [&](int s) {  // dV += Pᵀ · dO and dK += dSᵀ · Q of stage s
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      sm90::wgmma_rs_tb(dvacc, pf[kk], mnmajor(do_base + s * M::Q, BQ, kk));
+      sm90::wgmma_rs_tb(dkacc, dsf[kk], mnmajor(q_base + s * M::Q, BQ, kk));
+    }
+    sm90::wgmma_commit();
+  };
+  int pending = -1;
+  auto flush = [&]() {
+    fence_kv();
+    sm90::wgmma_fence();
+    issue_kv(pending);
+    sm90::wgmma_wait<0>();
+    fence_kv();
+    release(&empty[pending]);
+    pending = -1;
+  };
+
+  sm90::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    if (q0 >= wq_hi || q0 + BQ <= wq_lo) {
+      if (pending >= 0) flush();
+      sm90::mbar_wait(&full[s], phase);
+      release(&empty[s]);
+      continue;
+    }
+    sm90::mbar_wait(&full[s], phase);
+    fence_kv();
+    sm90::wgmma_fence();
+    const uint32_t qs = q_base + s * M::Q, dos = do_base + s * M::Q;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) sm90::wgmma_ss(sacc, kmajor(k_base, kRows, kk), kmajor(qs, BQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) sm90::wgmma_ss(dpacc, kmajor(v_base, kRows, kk), kmajor(dos, BQ, kk), kk > 0);
+    sm90::wgmma_commit();
+    if (pending >= 0) {
+      issue_kv(pending);
+      sm90::wgmma_wait<1>();
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(sacc);
+    sm90::fence_regs(dpacc);
+
+    // Pᵀ and dSᵀ: column (query) e's lse and D from the stage; the mask only
+    // where the tile crosses the diagonal, the window's edge or S.
+    const float* ls = lse_s + s * BQ;
+    const float* dl = d_s + s * BQ;
+    const bool need_mask = q0 + BQ > sh.S || (sh.causal && wk0 + 63 > q0) ||
+                           (sh.window > 0 && wk0 <= q0 + BQ - 1 - sh.window);
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) {
+      const int col = (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
+      float p = ex2(fmaf(sacc[e], c_log2, -ls[col]));
+      if (need_mask) {
+        const int qpos = q0 + col;
+        const int kpos = wk0 + row0 + ((e >> 1) & 1) * 8;
+        bool keep = qpos < sh.S;
+        if (sh.causal) keep = keep && kpos <= qpos;
+        if (sh.window > 0) keep = keep && kpos > qpos - sh.window;
+        if (!keep) p = 0.f;
+      }
+      sacc[e] = p;
+      dpacc[e] = p * (dpacc[e] - dl[col]);
+    }
+    if (pending >= 0) {
+      sm90::wgmma_wait<0>();
+      fence_kv();
+      release(&empty[pending]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pf[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+        dsf[kk][r] = pack_bf16(dpacc[8 * kk + 2 * r], dpacc[8 * kk + 2 * r + 1]);
+      }
+    pending = s;
+  }
+  if (pending >= 0) flush();
+  sm90::wgmma_wait<0>();
+  fence_kv();
+
+  const size_t kv_row = (size_t)sh.Hkv * sh.dh;
+  const size_t kv_off = (size_t)b * sh.T * kv_row + (size_t)hk * sh.dh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tk = wk0 + row0 + i * 8;
     if (tk >= sh.T) continue;
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
-      const int d = n * 8 + 2 * t;
-      if (d < dh) {
+      const int d = n * 8 + (lane & 3) * 2;
+      if (d < sh.dh) {
         const size_t at = kv_off + (size_t)tk * kv_row + d;
-        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
-            __floats2bfloat162_rn(dk_acc[n][2 * i] * sh.scale, dk_acc[n][2 * i + 1] * sh.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dk + at) =
+            pack_bf16(dkacc[4 * n + 2 * i] * sh.scale, dkacc[4 * n + 2 * i + 1] * sh.scale);
+        *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dvacc[4 * n + 2 * i], dvacc[4 * n + 2 * i + 1]);
       }
     }
   }
 }
 
 template <int DH>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                       void* dk, void* dv, float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
-  using Bf = __nv_bfloat16;
-  cudaError_t err = hqi::prepare(bwd_dq_mma_kernel<DH>, MmaSmem<DH>::dq_bytes);
-  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_mma_kernel<DH>, MmaSmem<DH>::dkdv_bytes);
-  if (err != cudaSuccess) return err;
-  const Bf* qp = static_cast<const Bf*>(q);
-  const Bf* kp = static_cast<const Bf*>(k);
-  const Bf* vp = static_cast<const Bf*>(v);
-  const Bf* dop = static_cast<const Bf*>(dout);
-  bwd_dq_mma_kernel<DH><<<dim3((sh.S + kB - 1) / kB, sh.Hq, sh.B), kMmaThreads, MmaSmem<DH>::dq_bytes, stream>>>(
-      qp, kp, vp, static_cast<const Bf*>(o), dop, static_cast<Bf*>(dq), lse, delta, sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkdv_mma_kernel<DH><<<dim3((sh.T + kB - 1) / kB, sh.Hkv, sh.B), kMmaThreads, MmaSmem<DH>::dkdv_bytes,
-                            stream>>>(qp, kp, vp, dop, lse, delta, static_cast<Bf*>(dk), static_cast<Bf*>(dv), sh);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
+  using M = DkvSmem<DH>;
+  constexpr int BQ = M::BQ, STAGES = M::STAGES, NBOX = DH / kBox;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sk = wg_smem + ((1024 - (sm90::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sv = sk + M::KV;
+  unsigned char* sq = sv + M::KV;
+  unsigned char* sdo = sq + STAGES * M::Q;
+  float* lse_s = reinterpret_cast<float*>(sdo + STAGES * M::Q);  // [STAGES][BQ], log2 units
+  float* d_s = lse_s + STAGES * BQ;                               // [STAGES][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(d_s + STAGES * BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  // Heavy tiles first: under a causal mask the first key tiles are kept by the most queries.
+  const int hb_n = sh.Hkv * sh.B;
+  const int k0 = (int)(blockIdx.x / hb_n) * kRows;
+  const int hk = (int)(blockIdx.x % hb_n) % sh.Hkv, b = (int)(blockIdx.x % hb_n) / sh.Hkv;
+  const int g = sh.Hq / sh.Hkv;
+
+  // The query tiles that keep any key of the block, walked for each of the g heads.
+  const int k_last = min(k0 + kRows, sh.T) - 1;
+  const int q_lo = sh.causal ? k0 : 0;
+  const int q_hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+  const int qt_lo = q_lo / BQ;
+  const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt_lo : 0;
+  const int n_tiles = g * n_qt;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1 + 32);  // the TMA bytes' arrival and the 32 lanes that wrote lse and D
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x < 256 + 32) {  // the producer's first warp
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        sm90::tma_prefetch(&tq);
+        sm90::tma_prefetch(&tdo);
+        sm90::tma_prefetch(&tk);
+        sm90::tma_prefetch(&tv);
+        sm90::mbar_expect_tx(kv_full, 2 * M::KV);
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c) {
+          sm90::tma_load_4d(sk + c * kRows * kRowBytes, &tk, kv_full, c * kBox, hk, k0, b);
+          sm90::tma_load_4d(sv + c * kRows * kRowBytes, &tv, kv_full, c * kBox, hk, k0, b);
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int h = hk * g + it / n_qt;
+        const int q0 = (qt_lo + it % n_qt) * BQ;
+        if (lane == 0) {
+          sm90::mbar_expect_tx(&full[s], 2 * M::Q);
+#pragma unroll
+          for (int c = 0; c < NBOX; ++c) {
+            sm90::tma_load_4d(sq + s * M::Q + c * BQ * kRowBytes, &tq, &full[s], c * kBox, h, q0, b);
+            sm90::tma_load_4d(sdo + s * M::Q + c * BQ * kRowBytes, &tdo, &full[s], c * kBox, h, q0, b);
+          }
+        }
+        const size_t at0 = ((size_t)b * sh.Hq + h) * sh.S;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < sh.S;
+          lse_s[s * BQ + r] = in ? lse[at0 + q0 + r] * kLog2e : 0.f;
+          d_s[s * BQ + r] = in ? delta[at0 + q0 + r] : 0.f;
+        }
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    dkdv_consume<DH>(sk, sv, sq, sdo, lse_s, d_s, kv_full, full, empty, dk, dv, sh, wg, k0, hk, b, qt_lo, n_qt,
+                     n_tiles);
+  }
 }
 
-// bf16 up to dh 128 with dh a multiple of 8 and 16-byte aligned operands
-// (16-byte staging loads): the tensor-core kernels; otherwise the CUDA-core ones.
-bool takes_mma(const void* const* ptrs, int n, const Shape& sh) {
-  if (sh.dh > 128 || sh.dh % 8 != 0) return false;
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-  return true;
+template <int DH>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+                         void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+  using Bf = __nv_bfloat16;
+  // Q and dO boxes of 128 rows (dQ) or BQ rows (dK/dV); K and V boxes of BN rows (dQ) or 128 rows (dK/dV)
+  CUtensorMap q_dq, do_dq, k_dq, v_dq, q_kv, do_kv, k_kv, v_kv;
+  const int BN = WgTile<DH>::BN, BQ = WgTile<DH>::BQ;
+  cudaError_t err = sm90::make_map_bf16_4d(&q_dq, q, sh.dh, sh.Hq, sh.S, sh.B, kBox, kRows);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&do_dq, dout, sh.dh, sh.Hq, sh.S, sh.B, kBox, kRows);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&k_dq, k, sh.dh, sh.Hkv, sh.T, sh.B, kBox, BN);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&v_dq, v, sh.dh, sh.Hkv, sh.T, sh.B, kBox, BN);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&q_kv, q, sh.dh, sh.Hq, sh.S, sh.B, kBox, BQ);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&do_kv, dout, sh.dh, sh.Hq, sh.S, sh.B, kBox, BQ);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&k_kv, k, sh.dh, sh.Hkv, sh.T, sh.B, kBox, kRows);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&v_kv, v, sh.dh, sh.Hkv, sh.T, sh.B, kBox, kRows);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dq_wgmma_kernel<DH>, DqSmem<DH>::bytes);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_wgmma_kernel<DH>, DkvSmem<DH>::bytes);
+  if (err != cudaSuccess) return err;
+  const long long dq_blocks = (long long)((sh.S + kRows - 1) / kRows) * sh.Hq * sh.B;
+  const long long kv_blocks = (long long)((sh.T + kRows - 1) / kRows) * sh.Hkv * sh.B;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  bwd_dq_wgmma_kernel<DH><<<(unsigned)dq_blocks, kWgThreads, DqSmem<DH>::bytes, stream>>>(
+      q_dq, do_dq, k_dq, v_dq, static_cast<const Bf*>(o), static_cast<const Bf*>(dout), lse, delta,
+      static_cast<Bf*>(dq), sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_wgmma_kernel<DH><<<(unsigned)kv_blocks, kWgThreads, DkvSmem<DH>::bytes, stream>>>(
+      q_kv, do_kv, k_kv, v_kv, lse, delta, static_cast<Bf*>(dk), static_cast<Bf*>(dv), sh);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dq, dk, dv (the inputs' type) of flash_attention; lse and delta are f32
-// [B, Hq, S] scratch the wrapper allocates (the rows' log-sum-exp and
-// dO · O, written by the first kernel, read by the second).
+// dq, dk, dv (the inputs' type) of flash_attention, from the training
+// forward's lse (f32 [B, Hq, S]); delta is f32 [B, Hq, S] scratch the
+// wrapper allocates (dO · O, written by the first kernel, read by the
+// second). bf16 up to dh 128 takes the wgmma pair and wants dh a multiple of
+// 8 and 16-byte aligned operands (the wrapper pads and copies).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                               void* dq, void* dk, void* dv, void* lse, void* delta, int B, int S, int T,
+                               void* dq, void* dk, void* dv, const void* lse, void* delta, int B, int S, int T,
                                int Hq, int Hkv, int dh, int causal, int window, float scale, int bf16,
                                void* stream) {
-  if (B < 1 || S < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || dh > 256 ||
-      2 * Hq > 65535 || B > 65535)
+  if (B < 1 || S < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || B > 65535 ||
+      (long long)Hq * (dh > 256 ? wide_slices(dh) : 2) > 65535)
     return (int)cudaErrorInvalidValue;
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
   cudaError_t err;
-  if (bf16 && takes_mma(ptrs, 8, sh)) {
-    err = sh.dh <= 32   ? launch_mma<32>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
-          : sh.dh <= 64 ? launch_mma<64>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
-                        : launch_mma<128>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
-  } else {
+  if (bf16 && dh <= 128) {
+    const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (dh % 8 != 0) return (int)cudaErrorInvalidValue;
+    err = dh <= 64 ? launch_wgmma<64>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+                   : launch_wgmma<128>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
+  } else if (dh <= 256) {
     err = bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
                : launch_dh<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
+  } else {
+    err = bf16 ? launch_wide<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+               : launch_wide<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
   }
   return (int)err;
 }

@@ -16,11 +16,14 @@ the wide ones', and ``calls`` on the plain version its calls.
 Training: with grad enabled and an input that requires grad,
 ``flash_attention`` goes through an autograd ``Function``
 (``FlashAttentionFn``) whose forward is the same kernel (or the plain
-version) and whose backward is ``flash_attention_backward``: on a CUDA
-tensor the kernels of ``csrc/flash_attention_bwd.cu`` (up to dh 256; past
-it the call raises), on a CPU tensor ``flash_attention_backward_plain``.
-Neither backward differentiates through the plain forward. Without grad
-(serving) the call takes the path above, with the same launches.
+version) asked also for each row's log-sum-exp, ``lse`` f32 [B, Hq, S], and
+whose backward is ``flash_attention_backward`` reading that lse: on a CUDA
+tensor the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 up to dh 128 on
+wgmma fed by TMA, f32 and bf16 up to 256 on CUDA cores, past 256 a wide
+CUDA-core pair with the outputs in column slices; any dh), on a CPU tensor
+``flash_attention_backward_plain``. Neither backward differentiates through
+the plain forward. Without grad (serving) the call takes the path above,
+with the same launches and no lse.
 
 Replaces (TPU): ``src/repro/kernels/flash_attention.py::flash_attention_pallas``;
 the plain version is the port of the chunked online softmax of
@@ -39,6 +42,9 @@ from . import _build
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
 MAX_HEAD_DIM = 256  # widest compiled width of the tiled kernels (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
+# widest bf16 head the backward runs on wgmma (DH 64 and 128): past it a
+# warpgroup's dK and dV accumulators (64 x dh each) would outgrow its registers
+WGMMA_BWD_MAX = 128
 # widest bf16 head the wide path runs on the tensor cores (DH 384 and 512): past it
 # a wgmma block's 128-row Q tile would outgrow shared memory beside its K/V ring
 WIDE_WGMMA_MAX = 512
@@ -98,12 +104,16 @@ def flash_attention_plain(
     window: int = 0,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Double-chunked online-softmax attention in f32 (the reference's
     ``models.attention.flash_attention`` with ``q_offset=0``). KV chunks that
     no row of a query chunk keeps are skipped, and masked entries add p = 0;
     for every row that keeps a key both leave the result as the reference's
-    (its skipped chunks are scaled by exactly 0 once a kept key arrives)."""
+    (its skipped chunks are scaled by exactly 0 once a kept key arrives).
+    With ``return_lse`` it returns ``(o, lse)``: lse f32 [B, Hq, S] is each
+    row's m + log l, the log-sum-exp of its kept logits (NEG_INF for a row
+    that keeps no key)."""
     flash_attention_plain.calls += 1
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -113,6 +123,7 @@ def flash_attention_plain(
     qf = (q.to(torch.float32) * scale).reshape(b, s, hkv, g, dh)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     out = torch.empty((b, s, hkv, g, dh), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hkv, g, s), dtype=torch.float32, device=q.device)
     for q0 in range(0, s, qc):
         q1 = min(q0 + qc, s)
         q_pos = torch.arange(q0, q1, device=q.device)
@@ -139,7 +150,9 @@ def flash_attention_plain(
             m = m_new
         res = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q1] = res.permute(0, 3, 1, 2, 4)
-    return out.reshape(b, s, hq, dh).to(q.dtype)
+        lse[..., q0:q1] = m + torch.log(torch.clamp(l, min=1e-30))
+    o = out.reshape(b, s, hq, dh).to(q.dtype)
+    return (o, lse.reshape(b, hq, s)) if return_lse else o
 
 
 flash_attention_plain.calls = 0
@@ -169,25 +182,35 @@ def flash_attention(
     window: int = 0,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """See the module docstring. ``window`` 0 is global attention.
     ``q_chunk``/``kv_chunk`` are the plain version's chunks (CPU tensors);
     the kernels tile by their own sizes (bf16: 128 queries and 64 or 128
     keys; f32: 64 and 64). Under grad, with an input that requires grad,
-    the result's ``grad_fn`` is ``FlashAttentionFn``'s."""
+    the result's ``grad_fn`` is ``FlashAttentionFn``'s. ``return_lse``
+    (outside grad: for calling ``flash_attention_backward`` by hand) returns
+    ``(o, lse)``, the same o and each row's log-sum-exp, f32 [B, Hq, S]."""
     _check(q, k, v)
     window = int(window)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if return_lse:
+        if grad:
+            raise ValueError("return_lse gives a result autograd cannot see; under grad the "
+                             "Function saves lse itself")
+        return _forward(q, k, v, causal, window, q_chunk, kv_chunk, with_lse=True)
+    if grad:
         return FlashAttentionFn.apply(q, k, v, bool(causal), window, q_chunk, kv_chunk)
     return _forward(q, k, v, causal, window, q_chunk, kv_chunk)
 
 
-def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int, with_lse: bool = False):
     """The forward of ``flash_attention`` on checked operands: the kernel on
-    a CUDA tensor, the plain version on a CPU tensor."""
+    a CUDA tensor, the plain version on a CPU tensor; ``(o, lse)`` when
+    ``with_lse``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                     q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     B, S, Hq, dh = q.shape
@@ -195,9 +218,10 @@ def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int) ->
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if q.numel() == 0 or T == 0:
-        return torch.zeros_like(q)
+        o = torch.zeros_like(q)
+        return (o, torch.full((B, Hq, S), NEG_INF, dtype=torch.float32, device=q.device)) if with_lse else o
     if wide_head(dh):
-        return flash_attention_wide(q, k, v, causal=causal, window=window)
+        return flash_attention_wide(q, k, v, causal=causal, window=window, return_lse=with_lse)
     bf16 = q.dtype == torch.bfloat16
     # The bf16 kernel reads q, k and v with TMA, whose row strides must be
     # multiples of 16 bytes: other widths are zero-padded to a multiple of 8
@@ -209,16 +233,18 @@ def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int) ->
     elif bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
         q, k, v = (x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
             B, S, T, Hq, Hkv, dp, int(bool(causal)), window, dh**-0.5,
             int(bf16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "flash_attention")
     flash_attention.launches += 1
-    return o if dp == dh else o[..., :dh].contiguous()
+    o = o if dp == dh else o[..., :dh].contiguous()
+    return (o, lse) if with_lse else o
 
 
 flash_attention.launches = 0
@@ -226,14 +252,15 @@ flash_attention.launches = 0
 
 def flash_attention_wide(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The kernels past ``MAX_HEAD_DIM``, which ``flash_attention`` takes
     after checking the operands (contiguous, CUDA): O in column slices of at
     most 256 (a block each), the logits summed over dh in slices. bf16 up to
     ``WIDE_WGMMA_MAX``: ``flash_fwd_wgmma_kernel`` at DH 384 or 512 (dh
     zero-padded to a multiple of 8 here for TMA's strides, then to DH by
     TMA's fill); f32, and bf16 past it: ``flash_sliced_kernel`` on CUDA
-    cores. Any dh; one launch."""
+    cores. Any dh; one launch; ``(o, lse)`` with ``return_lse``."""
     B, S, Hq, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     bf16 = q.dtype == torch.bfloat16
@@ -243,16 +270,18 @@ def flash_attention_wide(
     elif bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
         q, k, v = (x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_wide_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
             B, S, T, Hq, Hkv, dp, int(bool(causal)), int(window), dh**-0.5,
             int(bf16), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, rc, "flash_attention_wide")
     flash_attention_wide.launches += 1
-    return o if dp == dh else o[..., :dh].contiguous()
+    o = o if dp == dh else o[..., :dh].contiguous()
+    return (o, lse) if return_lse else o
 
 
 flash_attention_wide.launches = 0
@@ -267,6 +296,7 @@ def flash_attention_backward_plain(
     v: torch.Tensor,  # [B, T, Hkv, dh]
     o: torch.Tensor,  # [B, S, Hq, dh], the forward's output
     do: torch.Tensor,  # [B, S, Hq, dh], the gradient of the loss w.r.t. o
+    lse: torch.Tensor | None = None,  # [B, Hq, S] f32, the forward's log-sum-exp
     *,
     causal: bool = True,
     window: int = 0,
@@ -274,13 +304,14 @@ def flash_attention_backward_plain(
     kv_chunk: int = 1024,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention_plain`` in f32, chunked as it is,
-    cast to the inputs' type. Per query chunk: a first sweep over the KV
-    chunks gives each row's statistics (max m and sum l of the forward, so
-    lse = m + log l), then a second sweep recomputes P = exp(S - lse) on the
-    kept entries and accumulates, with D_i = rowsum(dO ∘ O):
-    dS = P ∘ (dO·Vᵀ - D), dQ += scale·dS·K, dK += scale·dSᵀ·Q, dV += Pᵀ·dO.
-    Masked entries carry P = 0, so a row that keeps no key (its output is
-    the constant 0) gets zero gradients and adds nothing to dK and dV."""
+    cast to the inputs' type. Per query chunk: each row's lse (the forward's
+    ``return_lse``; with ``lse=None`` a first sweep over the KV chunks
+    recomputes it from the forward's max m and sum l, lse = m + log l), then
+    a sweep recomputes P = exp(S - lse) on the kept entries and accumulates,
+    with D_i = rowsum(dO ∘ O): dS = P ∘ (dO·Vᵀ - D), dQ += scale·dS·K,
+    dK += scale·dSᵀ·Q, dV += Pᵀ·dO. Masked entries carry P = 0, so a row
+    that keeps no key (its output is the constant 0) gets zero gradients and
+    adds nothing to dK and dV, whatever its lse."""
     flash_attention_backward_plain.calls += 1
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -293,6 +324,7 @@ def flash_attention_backward_plain(
     delta = (dof * o.to(torch.float32).reshape(b, s, hkv, g, dh)).sum(-1).permute(0, 2, 3, 1)  # [b,h,g,s]
     dq = torch.empty_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    given = None if lse is None else lse.to(torch.float32).reshape(b, hkv, g, s)
     for q0 in range(0, s, qc):
         q1 = min(q0 + qc, s)
         q_pos = torch.arange(q0, q1, device=q.device)
@@ -314,19 +346,22 @@ def flash_attention_backward_plain(
             x = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf[:, k0:k1])
             return x.masked_fill(~mask, NEG_INF)
 
-        m = torch.full((b, hkv, g, q1 - q0), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros_like(m)
-        for k0, k1, mask in chunks:  # the forward's row statistics
-            x = logits_of(k0, k1, mask)
-            m_new = torch.maximum(m, x.amax(dim=-1))
-            p = torch.exp(x - m_new[..., None]).masked_fill(~mask, 0.0)
-            l = l * torch.exp(m - m_new) + p.sum(dim=-1)
-            m = m_new
-        lse = m + torch.log(torch.clamp(l, min=1e-30))
+        if given is None:
+            m = torch.full((b, hkv, g, q1 - q0), NEG_INF, dtype=torch.float32, device=q.device)
+            l = torch.zeros_like(m)
+            for k0, k1, mask in chunks:  # the forward's row statistics
+                x = logits_of(k0, k1, mask)
+                m_new = torch.maximum(m, x.amax(dim=-1))
+                p = torch.exp(x - m_new[..., None]).masked_fill(~mask, 0.0)
+                l = l * torch.exp(m - m_new) + p.sum(dim=-1)
+                m = m_new
+            lse_c = m + torch.log(torch.clamp(l, min=1e-30))
+        else:
+            lse_c = given[..., q0:q1]
         d_rows = delta[..., q0:q1]
         dq_c = torch.zeros((b, q1 - q0, hkv, g, dh), dtype=torch.float32, device=q.device)
         for k0, k1, mask in chunks:
-            p = torch.exp(logits_of(k0, k1, mask) - lse[..., None]).masked_fill(~mask, 0.0)
+            p = torch.exp(logits_of(k0, k1, mask) - lse_c[..., None]).masked_fill(~mask, 0.0)
             dp = torch.einsum("bqhgd,bkhd->bhgqk", dof[:, q0:q1], vf[:, k0:k1])
             ds = p * (dp - d_rows[..., None])
             dq_c += torch.einsum("bhgqk,bkhd->bqhgd", ds, kf[:, k0:k1]) * scale
@@ -345,50 +380,71 @@ def flash_attention_backward(
     v: torch.Tensor,
     o: torch.Tensor,
     do: torch.Tensor,
+    lse: torch.Tensor | None = None,
     *,
     causal: bool = True,
     window: int = 0,
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``flash_attention`` in the inputs' type. On a CUDA
-    tensor one call of ``csrc/flash_attention_bwd.cu`` (two kernels on the
-    current stream: the row statistics and dQ per query tile, then dK and dV
-    per key tile; f32 sums, no atomics, so the result is deterministic; bf16
-    up to dh 128 on the tensor cores, otherwise on CUDA cores); up to dh
-    ``MAX_HEAD_DIM`` (past it this raises). On a CPU tensor
-    ``flash_attention_backward_plain``. ``launches`` counts the CUDA calls."""
+    """(dq, dk, dv) of ``flash_attention`` in the inputs' type, from the
+    forward's output ``o`` and its ``lse`` (``flash_attention(...,
+    return_lse=True)``, or what ``FlashAttentionFn`` saved). On a CUDA tensor
+    one call of ``csrc/flash_attention_bwd.cu``, which needs lse (it raises
+    without it: the kernels do not recompute the statistics): two kernels on
+    the current stream, D and dQ per query tile, then dK and dV per key tile;
+    f32 sums, no atomics, so the result is deterministic. bf16 up to dh
+    ``WGMMA_BWD_MAX`` runs on wgmma (dh zero-padded to a multiple of 8 and
+    misaligned bases copied here, as the forward does), f32 and bf16 up to
+    ``MAX_HEAD_DIM`` on CUDA cores, wider heads on the wide CUDA-core pair;
+    any dh. On a CPU tensor ``flash_attention_backward_plain`` (lse
+    optional). ``launches`` counts the CUDA calls."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    B, S, Hq, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if lse is not None and (tuple(lse.shape) != (B, Hq, S) or lse.device != q.device):
+        raise ValueError(f"lse {tuple(lse.shape)} on {lse.device} must be [B, Hq, S] = {(B, Hq, S)} on {q.device}")
     window = int(window)
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(q, k, v, o, do.to(q.dtype), causal=causal, window=window,
+        return flash_attention_backward_plain(q, k, v, o, do.to(q.dtype), lse, causal=causal, window=window,
                                               q_chunk=q_chunk, kv_chunk=kv_chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on cuda or cpu tensors, got {q.device}")
-    B, S, Hq, dh = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    if dh > MAX_HEAD_DIM:
-        raise NotImplementedError(f"flash_attention_backward: head width {dh} above {MAX_HEAD_DIM} "
-                                  f"(ROADMAP.md §3)")
+    if lse is None:
+        raise ValueError("flash_attention_backward on the card reads the forward's lse: pass "
+                         "flash_attention(..., return_lse=True)'s")
     q, k, v, o = (x.contiguous() for x in (q, k, v, o))
     do = do.to(q.dtype).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    # The wgmma pair reads q, k, v and dO with TMA (16-byte row strides and
+    # bases) and o 16 bytes at a time: pad dh to a multiple of 8 (zero columns
+    # add nothing to S or dP and give zero gradients, cut off below) and copy
+    # misaligned bases.
+    dp = -(-dh // 8) * 8 if bf16 and dh <= WGMMA_BWD_MAX else dh
+    if dp != dh:
+        q, k, v, o, do = (torch.nn.functional.pad(x, (0, dp - dh)) for x in (q, k, v, o, do))
+    elif bf16 and dh <= WGMMA_BWD_MAX and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+        q, k, v, o, do = (x.clone() for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or T == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    lib = _build.library("flash_attention_bwd")
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            B, S, T, Hq, Hkv, dh, int(bool(causal)), window, dh**-0.5,
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, rc, "flash_attention_backward")
-    flash_attention_backward.launches += 1
+        dq, dk, dv = dq.zero_(), dk.zero_(), dv.zero_()
+    else:
+        delta = torch.empty_like(lse)
+        lib = _build.library("flash_attention_bwd")
+        with torch.cuda.device(q.device):
+            rc = lib.flash_attention_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                B, S, T, Hq, Hkv, dp, int(bool(causal)), window, dh**-0.5,
+                int(bf16), torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(lib, rc, "flash_attention_backward")
+        flash_attention_backward.launches += 1
+    if dp != dh:
+        dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -397,18 +453,20 @@ flash_attention_backward.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` under autograd: the forward kernel (or plain
-    version) forward, ``flash_attention_backward`` backward. Saves q, k, v
-    and the output; the backward recomputes P from row statistics."""
+    version) forward, asked for each row's lse; ``flash_attention_backward``
+    backward. Saves q, k, v, the output and lse; the backward recomputes P
+    from lse. Under ``torch.utils.checkpoint`` the forward reruns in the
+    backward and saves lse again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int):
-        o = _forward(q, k, v, causal, window, q_chunk, kv_chunk)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, window, q_chunk, kv_chunk, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, do, **ctx.opts)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, lse, **ctx.opts)
         return dq, dk, dv, None, None, None, None

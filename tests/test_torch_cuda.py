@@ -792,54 +792,142 @@ BWD = [
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", BWD)
-def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
-    """The backward kernel against its plain version on the same card inputs
-    (the forward kernel's o, a random dO): one launch, no plain call, each of
-    dq, dk, dv finite and within ``chip_smoke.BWD_TOL`` of the plain
-    version's norm (f32: the order of the sums; bf16: also P and dS rounded
-    to bf16 before their tensor-core products, and one rounding of each
-    output); rows that keep no key get dq = 0."""
+def _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
+    """The backward kernels on the forward kernel's o and lse and a random
+    dO against the plain backward, which recomputes its own statistics (so
+    the kernel's lse is checked too): one launch, no plain call, each of dq,
+    dk, dv finite and within ``tol`` of the plain version's norm. Returns
+    the kernels' gradients."""
     q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, dtype, t)
-    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
     do = torch.randn_like(q)
     n0, c0 = fa.flash_attention_backward.launches, fa.flash_attention_backward_plain.calls
-    got = fa.flash_attention_backward(q, k, v, o, do, causal=causal, window=window)
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention_backward.launches == n0 + 1 and fa.flash_attention_backward_plain.calls == c0
     want = fa.flash_attention_backward_plain(q, k, v, o, do, causal=causal, window=window)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape and torch.isfinite(g).all()
         assert torch.linalg.vector_norm(g.float() - w.float()) <= tol * torch.linalg.vector_norm(w.float())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", BWD)
+def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
+    """The backward kernels (bf16 up to dh 128: the wgmma pair; otherwise the
+    CUDA-core pair) against their plain version within
+    ``chip_smoke.BWD_TOL`` (f32: the order of the sums; bf16: also P and dS
+    rounded to bf16 before their tensor-core products, and one rounding of
+    each output); rows that keep no key get dq = 0."""
+    got = _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window)
+    if s > t and not causal and window:
+        assert torch.all(got[0][:, t + window - 1:] == 0)
+
+
+# past dh 256 (the wide pair): b, s, t, hq, hkv, dh, causal, window
+WIDE_BWD = [
+    (1, 64, 64, 2, 1, 264, True, 0),  # just past the CUDA-core pair's 256
+    (1, 130, 130, 4, 2, 320, True, 0),  # three column slices, GQA 2
+    (1, 90, 200, 2, 1, 320, True, 0),  # S < T
+    (1, 90, 30, 2, 1, 320, False, 8),  # S > T: rows 37.. keep no key
+    (1, 150, 150, 4, 2, 512, True, 50),  # a window, four column slices
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", WIDE_BWD)
+def test_flash_attention_backward_wide_head(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
+    """Head widths past 256 run on the wide CUDA-core pair (S and dP summed
+    over dh in slices, outputs in column slices of 128), within
+    ``chip_smoke.BWD_TOL`` of the plain version (bf16: the inputs are bf16,
+    the sums f32, one rounding of each output)."""
+    got = _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window)
     if s > t and not causal and window:
         assert torch.all(got[0][:, t + window - 1:] == 0)
 
 
 @pytest.mark.cuda
 def test_flash_attention_backward_misaligned_bf16(dev):
-    """bf16 operands off a 16-byte boundary take the CUDA-core kernels (the
-    tensor-core ones stage 16 bytes at a time): the same gradients."""
+    """bf16 operands off a 16-byte boundary (TMA wants aligned bases): the
+    wrapper copies them and the wgmma pair gives the same gradients."""
     b, s, hq, hkv, dh = 1, 100, 4, 2, 64
     g = torch.Generator(device=dev).manual_seed(5)
     flat = torch.randn(b * s * hq * dh + 1, generator=g, device=dev).to(torch.bfloat16)
     q = flat[1:].view(b, s, hq, dh)
     _, k, v = _attn_case(dev, 6, b, s, hq, hkv, dh, torch.bfloat16)
     assert q.data_ptr() % 16 != 0 and q.is_contiguous()
-    o = fa.flash_attention(q.clone(), k, v, window=30)
+    o, lse = fa.flash_attention(q.clone(), k, v, window=30, return_lse=True)
     do = torch.randn_like(o)
-    got = fa.flash_attention_backward(q, k, v, o, do, window=30)
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, window=30)
     want = fa.flash_attention_backward_plain(q, k, v, o, do, window=30)
     for gr, w in zip(got, want):
         assert torch.linalg.vector_norm(gr.float() - w.float()) <= 2e-2 * torch.linalg.vector_norm(w.float())
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_raises_past_dh_256(dev):
-    q, k, v = _attn_case(dev, 1, 1, 64, 2, 1, 264, torch.bfloat16)
-    with pytest.raises(NotImplementedError):
+def test_flash_attention_backward_needs_lse_on_the_card(dev):
+    """The kernels read the forward's lse and never recompute the
+    statistics: without it the call raises before any launch."""
+    q, k, v = _attn_case(dev, 1, 1, 64, 2, 1, 64, torch.bfloat16)
+    n0 = fa.flash_attention_backward.launches
+    with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_backward(q, k, v, q, q)
+    assert fa.flash_attention_backward.launches == n0
+
+
+# the forward's lse: (b, s, t, hq, hkv, dh, causal, window), tiled and wide
+LSE_CASES = [
+    (1, 300, 300, 36, 36, 64, True, 0),  # minicpm heads
+    (1, 600, 600, 32, 16, 128, True, 100),  # gemma3 heads, a window
+    (1, 90, 30, 4, 2, 32, False, 8),  # S > T: rows that keep no key (NEG_INF)
+    (1, 70, 70, 2, 2, 200, True, 0),
+    (1, 130, 200, 4, 2, 320, True, 0),  # wide: bf16 on wgmma at DH 384, f32 sliced
+    (1, 100, 100, 2, 1, 640, True, 30),  # wide: both types sliced
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-3), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", LSE_CASES)
+def test_forward_lse_leaves_the_output_unchanged(dev, dtype, atol, b, s, t, hq, hkv, dh, causal, window):
+    """The forward asked for lse gives the output bit for bit as serving
+    does (the same launches), and its lse matches the plain version's: each
+    row's m + log l in the natural log of the scaled logits (the bf16
+    kernel's log2-unit statistics converted back), NEG_INF where a row keeps
+    no key."""
+    q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, dtype, t)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    o_lse, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_lse)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    _, want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,kernels", [
+    (torch.bfloat16, 64, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
+    (torch.bfloat16, 128, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
+    (torch.bfloat16, 200, ("bwd_dq_kernel", "bwd_dkdv_kernel")),
+    (torch.float32, 64, ("bwd_dq_kernel", "bwd_dkdv_kernel")),
+    (torch.bfloat16, 320, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
+    (torch.float32, 320, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
+], ids=["bf16-dh64", "bf16-dh128", "bf16-dh200", "f32-dh64", "bf16-dh320", "f32-dh320"])
+def test_flash_attention_backward_launch_names(dev, dtype, dh, kernels):
+    """A traced call launches the two kernels of its design, by name
+    (chip_smoke.py's ``device_ms`` finds them by the ``bwd_dq`` and
+    ``bwd_dkdv`` in their names)."""
+    q, k, v = _attn_case(dev, 3, 1, 256, 4, 2, dh, dtype)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    do = torch.randn_like(q)
+    _, names = _traced(lambda: fa.flash_attention_backward(q, k, v, o, do, lse), fa.flash_attention_backward,
+                       kernels[0])
+    for kernel in kernels:
+        assert sum(kernel in n for n in names) == 1, (kernel, names)
 
 
 @pytest.mark.cuda

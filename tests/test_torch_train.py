@@ -329,10 +329,118 @@ def test_flash_attention_under_grad_goes_through_the_function():
         assert fa.flash_attention(*ts, window=5).grad_fn is None
 
 
+LSE_SHAPES = BWD_SHAPES + [NO_KEY_SHAPE]
+
+
+@functools.partial(jax.jit, static_argnames=("causal", "window"))
+def _reference_lse(q, k, causal, window):
+    """``jax.nn.logsumexp`` over the keys of the reference's masked logits
+    ((q · scale) · k in f32, NEG_INF where a key is not kept), [B, Hq, S]."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qf = q.reshape(b, s, hkv, hq // hkv, dh) * dh**-0.5
+    logits = jnp.einsum("bqhgd,bkhd->bhgqk", qf, k)
+    q_pos, k_pos = jnp.arange(s)[:, None], jnp.arange(t)[None, :]
+    mask = jnp.ones((s, t), dtype=bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    logits = jnp.where(mask, logits, fa.NEG_INF)
+    return jax.nn.logsumexp(logits, axis=-1).reshape(b, hq, s)
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", LSE_SHAPES)
+def test_plain_forward_lse_matches_logsumexp(b, s, t, hq, hkv, dh, causal, window):
+    """The plain forward's lse (m + log l of its chunked online softmax)
+    against ``jax.nn.logsumexp`` of the reference's masked logits from the
+    same numpy inputs, within 1e-5; rows that keep no key get NEG_INF (the
+    reference's logsumexp of NEG_INF entries rounds to it in f32). The
+    output is the one without lse."""
+    q, k, v, _ = _qkv_do(b, s, t, hq, hkv, dh, s + t)
+    ts = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = fa.flash_attention_plain(*ts, causal=causal, window=window, q_chunk=32, kv_chunk=32,
+                                      return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    assert torch.equal(o, fa.flash_attention_plain(*ts, causal=causal, window=window, q_chunk=32, kv_chunk=32))
+    want = np.asarray(_reference_lse(jnp.asarray(q), jnp.asarray(k), causal=causal, window=window))
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+    if (b, s, t, hq, hkv, dh, causal, window) == NO_KEY_SHAPE:
+        assert torch.all(lse[..., t + window - 1:] == fa.NEG_INF) and torch.all(lse[..., : t + window - 1] > -1e3)
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", LSE_SHAPES)
+def test_plain_backward_with_lse_matches_without(b, s, t, hq, hkv, dh, causal, window):
+    """The plain backward given the forward's lse (no statistics sweep)
+    against the same backward recomputing them (``lse=None``), within
+    1e-6."""
+    q, k, v, do = _qkv_do(b, s, t, hq, hkv, dh, s + 2 * t)
+    ts = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = fa.flash_attention_plain(*ts, causal=causal, window=window, q_chunk=32, kv_chunk=32,
+                                      return_lse=True)
+    given = fa.flash_attention_backward_plain(*ts, o, torch.from_numpy(do), lse, causal=causal, window=window,
+                                              q_chunk=32, kv_chunk=32)
+    swept = fa.flash_attention_backward_plain(*ts, o, torch.from_numpy(do), causal=causal, window=window,
+                                              q_chunk=32, kv_chunk=32)
+    for a, w in zip(given, swept):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", [
+    (1, 40, 40, 2, 1, 320, True, 5),  # a wide head, causal with a window
+    (1, 24, 40, 4, 2, 320, False, 0),  # S < T, not causal, GQA 2
+])
+def test_plain_backward_wide_head_matches_jax_vjp(b, s, t, hq, hkv, dh, causal, window):
+    """At a head width past 256 (the card's wide pair): the plain backward,
+    given the forward's lse, against ``jax.vjp`` of the reference's chunked
+    online softmax, within 1e-5 (f32)."""
+    q, k, v, do = _qkv_do(b, s, t, hq, hkv, dh, dh + s)
+    chunk = 16
+    ts = [torch.from_numpy(x) for x in (q, k, v)]
+    o, lse = fa.flash_attention_plain(*ts, causal=causal, window=window, q_chunk=chunk, kv_chunk=chunk,
+                                      return_lse=True)
+    got = fa.flash_attention_backward_plain(*ts, o, torch.from_numpy(do), lse, causal=causal, window=window,
+                                            q_chunk=chunk, kv_chunk=chunk)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jflash_attention(q_, k_, v_, causal=causal, window=window,
+                                                         q_chunk=chunk, kv_chunk=chunk),
+                     *map(jnp.asarray, (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_function_saves_lse_and_hands_it_to_the_backward(monkeypatch):
+    """On the CPU ``FlashAttentionFn`` saves the forward's lse beside q, k,
+    v and o and passes it to ``flash_attention_backward`` (a spy on the
+    module's function): the lse of ``flash_attention(..., return_lse=True)``
+    on the same inputs. ``return_lse`` under grad raises (its result would
+    be invisible to autograd)."""
+    q, k, v, do = _qkv_do(1, 40, 40, 4, 2, 16, 11)
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    seen = []
+    real = fa.flash_attention_backward
+
+    def spy(*args, **kw):
+        seen.append(args[5])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_backward", spy)
+    o = fa.flash_attention(*ts, window=5)
+    saved = o.grad_fn.saved_tensors
+    torch.autograd.grad(o, ts, torch.from_numpy(do))
+    with torch.no_grad():
+        _, want = fa.flash_attention(*ts, window=5, return_lse=True)
+    assert len(saved) == 5 and torch.equal(saved[4], want)
+    assert len(seen) == 1 and torch.equal(seen[0], want)
+    with pytest.raises(ValueError, match="return_lse"):
+        fa.flash_attention(*ts, window=5, return_lse=True)
+
+
 def test_backward_rejects_mismatched_operands():
     q, k, v, do = (torch.from_numpy(x) for x in _qkv_do(1, 8, 8, 2, 1, 16, 1))
     with pytest.raises(ValueError):
         fa.flash_attention_backward(q, k, v, q[:, :4], do)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward(q, k, v, q, do, torch.zeros(1, 2, 4))
 
 
 # ------------------------------------------------------------ train step
