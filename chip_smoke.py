@@ -219,11 +219,13 @@
 T. training: (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) on the training forward's o and lse
    against their plain version on the card: minicpm heads [2, 2048, 36/36,
-   dh 64] causal, gemma3 heads [1, 4096, 32/16, dh 128] at window 0 and
-   1024, in bf16 (the wgmma pair), [1, 2048, 8/4, dh 512] causal in bf16
-   and f32 (the wide pair), and ``BWD_SMALL`` (ragged S, not causal, a
-   window below the tile, a GQA group of 8, dh 16, S < T, S > T with rows
-   that keep no key, dh 64/128/200/320) in f32, four also in bf16; each of
+   dh 64] causal in bf16 (the wgmma pair) and f32 (the tiled CUDA-core
+   pair), gemma3 heads [1, 4096, 32/16, dh 128] at window 0 and 1024 in
+   bf16, [1, 2048, 8/4, dh 256] causal in bf16 and [1, 2048, 8/4, dh 512]
+   causal in bf16 (the split wgmma pair) and f32 (the wide pair), and
+   ``BWD_SMALL`` (ragged S, not causal, a window below the tile, a GQA group
+   of 8, dh 16, S < T, S > T with rows that keep no key, dh
+   64/128/200/320/520) in f32, five also in bf16 (dh 520: the wide pair); each of
    dq, dk, dv within ``BWD_TOL`` (relative error 2e-2 in bf16, 1e-4 in
    f32); kernels, plain version and the library's backward
    (``torch.autograd.grad`` through ``scaled_dot_product_attention``) timed
@@ -316,8 +318,9 @@ BWD_SMALL = (
     ("f32-dh128", 2, 200, 200, 4, 2, 128, True, 0),
     ("f32-dh200-two-slices", 1, 130, 130, 2, 1, 200, True, 0),
     ("f32-dh320-wide", 1, 130, 130, 4, 2, 320, True, 0),
+    ("f32-dh520-wide", 1, 130, 130, 4, 2, 520, True, 0),
 )
-BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices", "f32-dh320-wide")
+BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices", "f32-dh320-wide", "f32-dh520-wide")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "fused_knn": "src/repro_torch/kernels/csrc/fused_knn.cu",
@@ -356,7 +359,10 @@ DESIGN = {
                             "on wgmma + TMA, else register-tiled CUDA cores; dh past 256",
     "flash_attention_backward": "redesigned: lse from the training forward, no statistics sweep; dQ per query "
                                 "tile, dK/dV per key tile over the GQA group, no atomics; bf16 to dh 128 on "
-                                "wgmma fed by a TMA ring, else CUDA cores; past dh 256 in column slices",
+                                "wgmma fed by a TMA ring, 129-512 on wgmma with the two consumer warpgroups "
+                                "splitting the products; f32 to 256 on CUDA cores; f32 past 256 and bf16 past "
+                                "512 on CUDA cores with S and dP once a tile for up to 512 output columns, the "
+                                "stationary rows staged once, the rest streamed by cp.async",
 }
 NEG_INF = -3.4e38
 PROFILER_PAD = 64  # throwaway launches opening each device_ms trace
@@ -2890,10 +2896,11 @@ def bwd_case(rows, max_err, label, q, k, v, causal, window, reps, kernel_alone=F
 def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
     """Phase T(a): the backward kernels at minicpm's heads [2, 2048, 36/36,
     dh 64] and gemma3's [1, 4096, 32/16, dh 128] at windows 0 and 1024 in
-    bf16 (the wgmma pair), the wide pair at [1, 2048, 8/4, dh 512] causal in
-    bf16 and f32 (row 8's shape), each with its launches alone from the
-    profiler; and at BWD_SMALL in f32 (and four small bf16 widths). Returns
-    the rows by label."""
+    bf16 (the wgmma pair), minicpm's heads in f32 (the tiled pair), [1,
+    2048, 8/4, dh 256] causal in bf16 and row 8's shape [1, 2048, 8/4, dh
+    512] causal in bf16 (the split wgmma pair) and f32 (the wide pair), each
+    with its launches alone from the profiler; and at BWD_SMALL in f32 (and
+    five small bf16 widths). Returns the rows by label."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2911,9 +2918,14 @@ def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
         out[label] = bwd_case(rows, max_err, label, q, k, v, True, w, 10, kernel_alone=True)
         del q, k, v
         torch.cuda.empty_cache()
-    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        q, k, v = qkv(1, 2048, 2048, 8, 4, 512, dtype)
-        out[f"dh512-{tag}"] = bwd_case(rows, max_err, f"dh512-{tag}", q, k, v, True, 0, 3, kernel_alone=True)
+    q, k, v = qkv(2, 2048, 2048, 36, 36, 64, torch.float32)
+    out["minicpm-s2048-f32"] = bwd_case(rows, max_err, "minicpm-s2048-f32", q, k, v, True, 0, 5, kernel_alone=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    for dtype, tag, dh in ((torch.bfloat16, "bf16", 256), (torch.bfloat16, "bf16", 512), (torch.float32, "f32", 512)):
+        q, k, v = qkv(1, 2048, 2048, 8, 4, dh, dtype)
+        label = f"dh{dh}-{tag}"
+        out[label] = bwd_case(rows, max_err, label, q, k, v, True, 0, 5 if tag == "bf16" else 3, kernel_alone=True)
         del q, k, v
         torch.cuda.empty_cache()
     for label, b, s, t, hq, hkv, dh, causal, w in BWD_SMALL:
@@ -3660,11 +3672,13 @@ def main() -> int:
                                                                    "library_ms", "ms_over_bound")}
         if name == "flash_attention_backward":
             entry["tflops"] = h["tflops"]
-            # gemma3's heads (the wgmma pair at DH 128) and row 8's shape past dh 256 (the wide pair)
+            # gemma3's heads (the wgmma pair at DH 128), minicpm's in f32 (the tiled pair), dh 256 and row
+            # 8's shape in bf16 (the split wgmma pair) and f32 (the wide pair)
             entry["more_shapes"] = {
                 w: {key: bwd[w][key] for key in ("shape", "ms", "device_ms", "bwd_dq_device_ms", "bwd_dkdv_device_ms",
                                                    "plain_ms", "bound_ms", "library_ms", "tflops")}
-                for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024", "dh512-bf16", "dh512-f32")}
+                for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024", "minicpm-s2048-f32", "dh256-bf16", "dh512-bf16",
+                          "dh512-f32")}
         if name == "flash_attention":
             g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
             entry["tflops"] = h["tflops"]

@@ -44,6 +44,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_bwd_launch": (
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
         ),
+        "flash_attention_bwd_plan": (_I, _I, _P),
     },
     "fused_knn": {
         "fused_knn_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

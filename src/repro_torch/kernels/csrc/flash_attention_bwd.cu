@@ -32,26 +32,30 @@
 //     slice): K and V of the tile stay put while the block walks the g query
 //     heads of its group and, for each, the query tiles that keep any of its
 //     keys, in that fixed order, reading lse and D.
-// Each computes S and dP once: 14·dh operations a kept pair against the
-// 10·dh of five products. Three designs of that pair:
+// Four designs of that pair, by type and width (bwd_route; the wrapper's
+// backward_plan mirrors flash_attention_bwd_plan):
 //  * bf16 up to dh 128 (every head of the repo's configs; the wrapper pads
 //    dh to a multiple of 8 and 16-byte aligns the operands):
 //    bwd_dq_wgmma_kernel / bwd_dkdv_wgmma_kernel, wgmma fed by a TMA ring
-//    (their section below);
-//  * f32 up to dh 256, and bf16 from 129 to 256: bwd_dq_kernel /
-//    bwd_dkdv_kernel in f32 on CUDA cores: each thread owns a 4 x 8 tile of a
-//    64 x 64 product and 4 rows of the output columns, reading operands from
-//    shared memory as float4, as the forward's f32 kernel does. Operands are
-//    staged transposed ([DH][64 + pad]) for the S- and dP-type products,
-//    row-major for the dQ/dK/dV products, zero past S or T and dh; DH is the
-//    width compiled (32, 64, 128, 256). Each output slice is DV = min(DH,
-//    128) columns; at DH 256 a block owns one of two slices and computes S
-//    and dP over all 256 columns;
-//  * past dh 256, both types: bwd_dq_wide_kernel / bwd_dkdv_wide_kernel, the
-//    same CUDA-core tiles with S and dP summed over dh in staged slices of
-//    kWideDC columns (as the forward's flash_sliced_kernel does) and the
-//    outputs in column slices of kWideDV, a block each (every slice computes
-//    S and dP again: right first, the wide backward is not yet fast).
+//    (their section below). S and dP once in each kernel: 14·dh operations
+//    a kept pair against the 10·dh of five products;
+//  * bf16 from 129 to 512: bwd_dq_wgmma_split_kernel /
+//    bwd_dkdv_wgmma_split_kernel at DH 256, 384, 512, the same ring with
+//    the two consumer warpgroups splitting the products (their section):
+//    14·dh a kept pair at DH 256, 18·dh at 384 and 512;
+//  * f32 up to dh 256: bwd_dq_kernel / bwd_dkdv_kernel on CUDA cores: each
+//    thread owns a 4 x 8 tile of a 64 x 64 product and 4 rows of the output
+//    columns, reading operands from shared memory as float4, as the
+//    forward's f32 kernel does. Operands are staged transposed ([DH][64 +
+//    pad]) for the S- and dP-type products, row-major for the dQ/dK/dV
+//    products, zero past S or T and dh; DH is the width compiled (32, 64,
+//    128, 256). Each output slice is DV = min(DH, 128) columns; at DH 256 a
+//    block owns one of two slices and computes S and dP over all 256 columns;
+//  * f32 past dh 256 and bf16 past 512: bwd_dq_wide_kernel /
+//    bwd_dkdv_wide_kernel on CUDA cores, 32 stationary rows a block staged
+//    once, the other operand streamed by cp.async, S and dP once a tile for
+//    every output column of the block (up to 512: 14·dh a kept pair up to dh
+//    512) (their section).
 //
 // What bounds it on the H100: 10·dh operations per kept (query, key) pair
 // and query head (five products: S, dP, dV, dQ, dK), against q, k, v, o,
@@ -76,7 +80,6 @@ namespace {
 constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
 constexpr int kB = 64;         // rows of a query tile, keys of a KV tile
 constexpr int kStride = kB + 4;  // row stride of the transposed tiles (floats)
-constexpr float kNegInf = -3.0e38f;  // models/attention.py NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -413,212 +416,422 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, const void* o
   return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
 }
 
-// ------------------------------------------------------------ dh > 256
+// --------------------------- f32 past dh 256, bf16 past 512: the wide pair
 //
-// The CUDA-core tiles above at any width: S and dP summed over dh a slice of
-// kWideDC columns at a time (the four operands' slices staged transposed,
-// again for every tile: a block cannot hold a whole row of q at dh 2100),
-// each block owning kWideDV columns of dq (or of dk and dv). Shared memory:
-// four [kWideDC][kStride] slices, a [kB][kStride] tile of P or dS, a
-// [kB][kWideDV] tile of K, dO or Q rows, and lse and D for the dK/dV kernel:
-// 85.5 KB at any dh.
+// bwd_dq_wide_kernel / bwd_dkdv_wide_kernel on CUDA cores, 256 threads. A
+// block owns kWR = 32 stationary rows (query rows of one head for dQ; keys
+// of one KV head for dK/dV) and one slice of at most kWMaxCols output
+// columns (one slice up to dh 512; past it ceil(dh / 512) slices). It walks
+// tiles of kWM = 64 moving rows (the KV tiles of its band; for dK/dV the
+// query tiles of each of the g heads of the group) and per tile:
+//  1. sums S and dP once over all of dh, kWC columns a chunk:
+//     S[r][m] = stat1_r · mov1_m and dP[r][m] = stat2_r · mov2_m (dK/dV:
+//     K, V against Q, dO, so S and dP come transposed; dQ: Q, dO against K,
+//     V), a thread owning stationary rows t, t + 16 and moving rows
+//     u + 16i (t = tid % 16, u = tid / 16; conflict-free float4 reads);
+//  2. forms P = exp(S·scale - lse) where kept (0 elsewhere) and
+//     dS = P ∘ (dP - D) in f32 and writes them to shared memory;
+//  3. accumulates over the tile's moving rows, kWQ at a time: dK += dSᵀ·Q
+//     and dV += Pᵀ·dO (dQ += dS·K), a thread owning 4 stationary rows and
+//     4·NU columns (NU = 3 or 4: a slice of 257..512 columns; dK and dV at
+//     512 columns are 128 registers a thread).
+// So a kept pair costs 14·dh operations over both kernels up to dh 512 (S
+// and dP once in each, dQ, dK and dV once); past 512 each slice computes
+// its S and dP again.
+// The stationary rows are staged once for the block, over all of dh (in
+// the input type), when they fit beside the rest (the dK/dV kernel: f32 to
+// dh 608, bf16 to 1408); wider, their kWC-column chunks ride along with
+// the moving ones. The moving rows stream through a ring of kWStages
+// stages by cp.async (16 bytes a copy, zero-filled past S, T, dh or the
+// slice): chunks [kWM][kWC] of both moving operands for step 1,
+// [kWQ][128·NU] of the block's columns for step 3. Every operand row is 16-byte aligned in global memory
+// (the wrapper pads dh to a multiple of 8 and copies misaligned bases).
+// One __syncthreads a chunk; no scalar transposed stores on the hot loop.
 
-constexpr int kWideDC = 32;   // columns of the S and dP products staged at once
-constexpr int kWideDV = 128;  // output columns a block owns
+constexpr int kWideThreads = 256;
+constexpr int kWR = 32;          // stationary rows a block
+constexpr int kWM = 64;          // moving rows a tile
+constexpr int kWC = 32;          // columns of a step-1 chunk
+constexpr int kWQ = 4;           // moving rows of a step-3 chunk
+constexpr int kWStages = 3;      // cp.async ring
+constexpr int kWMaxCols = 512;   // output columns a slice, at most
+constexpr int kWW = kWR + 4;     // row stride (floats) of the [kWM][kWW] P and dS tiles
+constexpr size_t kSmemMax = 232448;
 
-__host__ __device__ constexpr size_t wide_smem_bytes() {
-  return ((size_t)4 * kWideDC * kStride + (size_t)kB * kStride + (size_t)kB * kWideDV + 2 * kB) * sizeof(float);
+// The launch plan of one side (dq or dk/dv) at padded width dh, in
+// elements of the input type (esize bytes); flash_attention.py's
+// backward_plan mirrors it.
+struct WidePlan {
+  int slices, cols, nu, dhc, stationary;
+  int ld_stat, ld_chunk, ld_rows;  // row strides in shared memory (elements)
+  size_t stat_bytes, stage_bytes, w_bytes, smem;
+};
+
+__host__ __device__ inline WidePlan wide_plan(int dh, int esize, int dkdv) {
+  WidePlan p;
+  const int pad = 16 / esize;  // one 16-byte pad: rows stay 16-byte aligned, float4 reads conflict-free
+  p.slices = (dh + kWMaxCols - 1) / kWMaxCols;
+  p.cols = ((dh + p.slices - 1) / p.slices + 7) / 8 * 8;
+  p.nu = (p.cols + 127) / 128;
+  p.dhc = (dh + kWC - 1) / kWC * kWC;
+  p.ld_stat = p.dhc + pad;
+  p.ld_chunk = kWC + pad;
+  p.ld_rows = 128 * p.nu + pad;
+  const int nops = dkdv ? 2 : 1;
+  p.w_bytes = (size_t)nops * kWM * kWW * 4 + (dkdv ? 0 : kWR * 4);  // dQ: also D of the block's rows
+  p.stat_bytes = (size_t)2 * kWR * p.ld_stat * esize;
+  const size_t p2 = (size_t)nops * kWQ * p.ld_rows;
+  for (int stationary = 1; stationary >= 0; --stationary) {
+    const size_t p1 = (size_t)2 * kWM * p.ld_chunk + (stationary ? 0 : (size_t)2 * kWR * p.ld_chunk);
+    p.stage_bytes = ((p1 > p2 ? p1 : p2) * esize + 15) / 16 * 16;
+    p.smem = (stationary ? p.stat_bytes : 0) + kWStages * p.stage_bytes + p.w_bytes;
+    p.stationary = stationary;
+    if (p.smem <= kSmemMax) break;
+  }
+  return p;
 }
 
-__host__ __device__ constexpr int wide_slices(int dh) { return (dh + kWideDV - 1) / kWideDV; }
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u), __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
 
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Rows [r0, r0 + rows) x columns [c0, c0 + cols) of src (row stride ld_src
+// elements) into dst (row stride ld_dst) by cp.async, 16 bytes a copy;
+// zeros past row_end or col_end. cols, c0 and col_end are multiples of 16
+// bytes' worth of elements.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void stage_async(T* dst, int ld_dst, const T* src, size_t ld_src, int r0, int rows,
+                                            int row_end, int c0, int cols, int col_end) {
+  constexpr int kE = 16 / sizeof(T);
+  const int units = cols / kE;
+  for (int e = threadIdx.x; e < rows * units; e += kWideThreads) {
+    const int r = e / units, x = e - r * units;
+    const int row = r0 + r, col = c0 + x * kE;
+    const bool ok = row < row_end && col < col_end;
+    sm90::cp_async16_zfill(dst + r * ld_dst + x * kE, ok ? src + (size_t)row * ld_src + col : src, ok);
+  }
+}
+
+// One side of the wide pair: dQ (DKDV false: out1 = dq) or dK/dV (out1 =
+// dk, out2 = dv).
+template <typename T, int NU, bool DKDV>
+__device__ __forceinline__ void wide_side(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                          const T* __restrict__ o, const T* __restrict__ dout,
+                                          const float* __restrict__ lse_in, float* __restrict__ delta,
+                                          T* __restrict__ out1, T* __restrict__ out2, const Shape& sh) {
+  constexpr int kCols = 128 * NU;
+  const WidePlan pl = wide_plan(sh.dh, sizeof(T), DKDV);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stat = reinterpret_cast<T*>(smem_raw);  // [2][kWR][ld_stat] when stationary
+  unsigned char* after_stat = smem_raw + (pl.stationary ? pl.stat_bytes : 0);
+  T* stages = reinterpret_cast<T*>(after_stat);
+  float* w = reinterpret_cast<float*>(after_stat + kWStages * pl.stage_bytes);  // [DKDV ? 2 : 1][kWM][kWW]: dS, P
+  const int stage_elems = (int)(pl.stage_bytes / sizeof(T));
+
+  // block -> (rank of its 32 stationary rows, slice, head, batch), heavy first
+  // for every head: dK/dV's early keys, dQ's late queries
+  const int H = DKDV ? sh.Hkv : sh.Hq;
+  const int st_end = DKDV ? sh.T : sh.S, mv_end = DKDV ? sh.S : sh.T;
+  const int n_rt = (st_end + kWR - 1) / kWR;
+  const int per = pl.slices * H * sh.B;
+  const int rank = (int)(blockIdx.x / per), rest = (int)(blockIdx.x % per);
+  const int slice = rest % pl.slices, hh = (rest / pl.slices) % H, b = rest / pl.slices / H;
+  const int r0 = (DKDV ? rank : n_rt - 1 - rank) * kWR;
+  const int c0 = slice * pl.cols, c_end = min(sh.dh, c0 + pl.cols);
+  const int g = sh.Hq / sh.Hkv, dh = sh.dh;
+  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
+  const size_t st_ld = DKDV ? kv_row : q_row, mv_ld = DKDV ? q_row : kv_row;
+  const size_t st_off = DKDV ? (size_t)b * sh.T * kv_row + (size_t)hh * dh : (size_t)b * sh.S * q_row + (size_t)hh * dh;
+  const T* st1 = (DKDV ? k : q) + st_off;  // pairs with mov1 in S
+  const T* st2 = (DKDV ? v : dout) + st_off;  // pairs with mov2 in dP
+  const int tid = threadIdx.x;
+  const int t = tid & 15, u = tid >> 4;    // step 1: stationary rows t, t + 16; moving rows u + 16i
+  const int wr = tid >> 5, ln = tid & 31;  // step 3: stationary rows 4·wr + i; columns 4·ln + 128·x + c
+
+  // The moving tiles: dK/dV the query tiles keeping any of the block's keys,
+  // for each head of the group; dQ the KV tiles of the rows' band.
+  int mt_lo, n_mt;
+  if (DKDV) {
+    const int k_last = min(r0 + kWR, sh.T) - 1;
+    const int lo = sh.causal ? r0 : 0;
+    const int hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+    mt_lo = lo / kWM;
+    n_mt = hi > lo ? (hi + kWM - 1) / kWM - mt_lo : 0;
+  } else {
+    const int q_last = min(r0 + kWR, sh.S) - 1;
+    const int lo = sh.window > 0 ? max(0, r0 - sh.window + 1) : 0;
+    const int hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
+    mt_lo = lo / kWM;
+    n_mt = hi > lo ? (hi + kWM - 1) / kWM - mt_lo : 0;
+  }
+  const int n_tiles = DKDV ? g * n_mt : n_mt;
+  const int n1 = pl.dhc / kWC, per_tile = n1 + kWM / kWQ;
+  const int n_chunks = n_tiles * per_tile;
+  // tile ti: its query head (dK/dV), first moving row and the moving operands
+  auto tile = [&](int ti, int& hq, int& m0) {
+    hq = DKDV ? hh * g + ti / n_mt : hh;
+    m0 = (mt_lo + (DKDV ? ti % n_mt : ti)) * kWM;
+  };
+  auto mov = [&](int hq, const T*& m1, const T*& m2) {
+    const size_t off = DKDV ? (size_t)b * sh.S * q_row + (size_t)hq * dh
+                            : (size_t)b * sh.T * kv_row + (size_t)(hh / g) * dh;
+    m1 = (DKDV ? q : k) + off;
+    m2 = (DKDV ? dout : v) + off;
+  };
+
+  auto issue = [&](int c) {
+    if (c < n_chunks) {
+      const int ti = c / per_tile, j = c - ti * per_tile;
+      T* buf = stages + (c % kWStages) * stage_elems;
+      int hq, m0;
+      tile(ti, hq, m0);
+      const T *m1, *m2;
+      mov(hq, m1, m2);
+      if (j < n1) {
+        const int d0 = j * kWC;
+        stage_async(buf, pl.ld_chunk, m1, mv_ld, m0, kWM, mv_end, d0, kWC, dh);
+        stage_async(buf + kWM * pl.ld_chunk, pl.ld_chunk, m2, mv_ld, m0, kWM, mv_end, d0, kWC, dh);
+        if (!pl.stationary) {
+          T* sb = buf + 2 * kWM * pl.ld_chunk;
+          stage_async(sb, pl.ld_chunk, st1, st_ld, r0, kWR, st_end, d0, kWC, dh);
+          stage_async(sb + kWR * pl.ld_chunk, pl.ld_chunk, st2, st_ld, r0, kWR, st_end, d0, kWC, dh);
+        }
+      } else {
+        const int mr = m0 + (j - n1) * kWQ;
+        stage_async(buf, pl.ld_rows, m1, mv_ld, mr, kWQ, mv_end, c0, kCols, c_end);
+        if (DKDV) stage_async(buf + kWQ * pl.ld_rows, pl.ld_rows, m2, mv_ld, mr, kWQ, mv_end, c0, kCols, c_end);
+      }
+    }
+    sm90::cp_async_commit();  // empty groups too: the wait below counts groups
+  };
+
+  if (pl.stationary) {
+    stage_async(stat, pl.ld_stat, st1, st_ld, r0, kWR, st_end, 0, pl.dhc, dh);
+    stage_async(stat + kWR * pl.ld_stat, pl.ld_stat, st2, st_ld, r0, kWR, st_end, 0, pl.dhc, dh);
+  }
+  sm90::cp_async_commit();
+  for (int c = 0; c < kWStages - 1; ++c) issue(c);
+
+  // dQ: D = dO · O of the block's rows (a warp a row; written for the dK/dV
+  // launch by slice 0) and their lse, for rows t and t + 16.
+  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};
+  if (!DKDV) {
+    float* d_s = w + kWM * kWW;
+    const size_t at0 = ((size_t)b * sh.Hq + hh) * sh.S;
+    for (int rr = wr; rr < kWR; rr += kWideThreads / 32) {
+      const int row = r0 + rr;
+      float a = 0.f;
+      if (row < sh.S)
+        for (int d = ln; d < dh; d += 32) {
+          const size_t at = st_off + (size_t)row * q_row + d;
+          a = fmaf(to_f32(dout[at]), to_f32(o[at]), a);
+        }
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) a += __shfl_xor_sync(0xffffffffu, a, x);
+      if (ln == 0) {
+        d_s[rr] = a;
+        if (slice == 0 && row < sh.S) delta[at0 + row] = a;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int row = r0 + t + 16 * jj;
+      d_r[jj] = d_s[t + 16 * jj];
+      lse_r[jj] = row < sh.S ? lse_in[at0 + row] : 0.f;
+    }
+  }
+
+  float acc0[4][4 * NU], acc1[DKDV ? 4 : 1][DKDV ? 4 * NU : 1];  // dK or dQ; dV
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int x = 0; x < 4 * NU; ++x) {
+      acc0[i][x] = 0.f;
+      if constexpr (DKDV) acc1[i][x] = 0.f;
+    }
+
+  // Chunk c: wait for it, make it visible, and reuse the stage read at c - 1.
+  auto step = [&](int c) {
+    sm90::cp_async_wait<kWStages - 2>();
+    __syncthreads();
+    issue(c + kWStages - 1);
+  };
+  int c = 0;
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    int hq, m0;
+    tile(ti, hq, m0);
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[jj][i] = dp[jj][i] = 0.f;
+    for (int j = 0; j < n1; ++j, ++c) {  // S and dP over dh
+      step(c);
+      const T* buf = stages + (c % kWStages) * stage_elems;
+      const T* a1 = pl.stationary ? stat + j * kWC : buf + 2 * kWM * pl.ld_chunk;
+      const int lda = pl.stationary ? pl.ld_stat : pl.ld_chunk;
+      const T* a2 = a1 + kWR * lda;
+      const T* x1 = buf;
+      const T* x2 = buf + kWM * pl.ld_chunk;
+#pragma unroll 1
+      for (int d = 0; d < kWC; d += 4) {
+        const float4 a[2] = {ld4(a1 + t * lda + d), ld4(a1 + (t + 16) * lda + d)};
+        const float4 bb[2] = {ld4(a2 + t * lda + d), ld4(a2 + (t + 16) * lda + d)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 x = ld4(x1 + (u + 16 * i) * pl.ld_chunk + d);
+          const float4 y = ld4(x2 + (u + 16 * i) * pl.ld_chunk + d);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            s[jj][i] = dot4(a[jj], x, s[jj][i]);
+            dp[jj][i] = dot4(bb[jj], y, dp[jj][i]);
+          }
+        }
+      }
+    }
+    // P and dS of the tile, read after the next chunk's barrier (the
+    // previous tile's last reads of w were before this chunk's).
+    float lse_m[4], d_m[4];  // dK/dV: the tile's query rows u + 16i
+    if constexpr (DKDV) {
+      const size_t at0 = ((size_t)b * sh.Hq + hq) * sh.S;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qr = m0 + u + 16 * i;
+        lse_m[i] = qr < sh.S ? lse_in[at0 + qr] : 0.f;
+        d_m[i] = qr < sh.S ? delta[at0 + qr] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int sr = r0 + t + 16 * jj, mr = m0 + u + 16 * i;
+        float l, dd;
+        bool keep;
+        if constexpr (DKDV) {
+          keep = kept(mr, sr, sh);
+          l = lse_m[i], dd = d_m[i];
+        } else {
+          keep = kept(sr, mr, sh);
+          l = lse_r[jj], dd = d_r[jj];
+        }
+        const float p = keep ? expf(s[jj][i] * sh.scale - l) : 0.f;
+        const int at = (u + 16 * i) * kWW + t + 16 * jj;
+        w[at] = p * (dp[jj][i] - dd);
+        if constexpr (DKDV) w[kWM * kWW + at] = p;
+      }
+    for (int j = 0; j < kWM / kWQ; ++j, ++c) {  // dK += dSᵀ·Q, dV += Pᵀ·dO (dQ += dS·K)
+      step(c);
+      const T* buf = stages + (c % kWStages) * stage_elems;
+#pragma unroll 1
+      for (int r = 0; r < kWQ; ++r) {
+        const float4 w0 = *reinterpret_cast<const float4*>(w + (j * kWQ + r) * kWW + 4 * wr);
+        const float wv0[4] = {w0.x, w0.y, w0.z, w0.w};
+#pragma unroll
+        for (int x = 0; x < NU; ++x) {
+          const float4 b0 = ld4(buf + r * pl.ld_rows + 4 * ln + 128 * x);
+          const float bv0[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) acc0[i][4 * x + cc] = fmaf(wv0[i], bv0[cc], acc0[i][4 * x + cc]);
+        }
+        if constexpr (DKDV) {
+          const float4 w1 = *reinterpret_cast<const float4*>(w + kWM * kWW + (j * kWQ + r) * kWW + 4 * wr);
+          const float wv1[4] = {w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int x = 0; x < NU; ++x) {
+            const float4 b1 = ld4(buf + kWQ * pl.ld_rows + r * pl.ld_rows + 4 * ln + 128 * x);
+            const float bv1[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int cc = 0; cc < 4; ++cc) acc1[i][4 * x + cc] = fmaf(wv1[i], bv1[cc], acc1[i][4 * x + cc]);
+          }
+        }
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  // dK (and dQ) take the scale; dV does not.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + 4 * wr + i;
+    if (row >= st_end) continue;
+#pragma unroll
+    for (int x = 0; x < NU; ++x)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int col = c0 + 4 * ln + 128 * x + cc;
+        if (col < c_end) {
+          const size_t at = st_off + (size_t)row * st_ld + col;
+          store(out1 + at, acc0[i][4 * x + cc] * sh.scale);
+          if constexpr (DKDV) store(out2 + at, acc1[i][4 * x + cc]);
+        }
+      }
+  }
+}
+
+template <typename T, int NU>
+__global__ void __launch_bounds__(kWideThreads, 1)
     bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse_in,
                        T* __restrict__ dq, float* __restrict__ delta_out, Shape sh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [kWideDC][kStride] slices of q, dO, K, V
-  float* dot = qt + kWideDC * kStride;
-  float* kt = dot + kWideDC * kStride;
-  float* vt = kt + kWideDC * kStride;
-  float* dst = vt + kWideDC * kStride;  // [kB keys][kStride] dS
-  float* rows = dst + kB * kStride;     // [kB][kWideDV] K rows of the block's columns
-
-  const int slices = wide_slices(sh.dh);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // heavy (late causal) tiles first
-  const int h = blockIdx.y / slices;
-  const int c0 = (blockIdx.y - h * slices) * kWideDV;
-  const int b = blockIdx.z;
-  const int hk = h / (sh.Hq / sh.Hkv);
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  const int dh = sh.dh;
-  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
-  const size_t q_off = ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-  const T* kb = k + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-  const T* vb = v + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-
-  float delta[4], lse[4];
-  row_terms(delta, lse, o, dout, lse_in, delta_out, q_off, q_row, ((size_t)b * sh.Hq + h) * sh.S, q0, ty, tx,
-            c0 == 0, sh);
-
-  const int q_last = min(q0 + kB, sh.S) - 1;
-  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
-
-  float acc[4][kWideDV / 8] = {};
-  for (int t0 = (kv_lo / kB) * kB; t0 < kv_hi; t0 += kB) {
-    float p[4][8] = {}, dp[4][8] = {};
-    for (int d0 = 0; d0 < dh; d0 += kWideDC) {
-      __syncthreads();  // the previous slice's products (and tile's K rows, dS) are consumed
-      stage_t<T, kWideDC>(qt, q + q_off + d0, q_row, q0, sh.S, dh - d0);
-      stage_t<T, kWideDC>(dot, dout + q_off + d0, q_row, q0, sh.S, dh - d0);
-      stage_t<T, kWideDC>(kt, kb + d0, kv_row, t0, sh.T, dh - d0);
-      stage_t<T, kWideDC>(vt, vb + d0, kv_row, t0, sh.T, dh - d0);
-      __syncthreads();
-      product<kWideDC>(p, qt, kt, ty, tx);
-      product<kWideDC>(dp, dot, vt, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pe = kept(q0 + ty * 4 + i, t0 + tile_col(tx, j), sh) ? expf(p[i][j] * sh.scale - lse[i]) : 0.f;
-        dst[tile_col(tx, j) * kStride + ty * 4 + i] = pe * (dp[i][j] - delta[i]);
-      }
-    stage_rows<T, kWideDV>(rows, kb, kv_row, t0, sh.T, c0, dh);
-    __syncthreads();  // dS and the K rows are visible
-    accumulate<kWideDV>(acc, dst, rows, ty, tx);
-  }
-
-  T* dqb = dq + q_off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= sh.S) continue;
-#pragma unroll
-    for (int u = 0; u < kWideDV / 32; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = c0 + u * 32 + tx * 4 + c;
-        if (d < dh) store(dqb + (size_t)s * q_row + d, acc[i][u * 4 + c] * sh.scale);
-      }
-  }
+  wide_side<T, NU, false>(q, k, v, o, dout, lse_in, delta_out, dq, nullptr, sh);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int NU>
+__global__ void __launch_bounds__(kWideThreads, 1)
     bwd_dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ dout, const float* __restrict__ lse_in,
-                         const float* __restrict__ delta_in, T* __restrict__ dk, T* __restrict__ dv, Shape sh) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* kt = reinterpret_cast<float*>(smem_raw);  // [kWideDC][kStride] slices of K, V, q, dO
-  float* vt = kt + kWideDC * kStride;
-  float* qt = vt + kWideDC * kStride;
-  float* dot = qt + kWideDC * kStride;
-  float* wt = dot + kWideDC * kStride;  // [kB queries][kStride] P, then dS
-  float* rows = wt + kB * kStride;      // [kB][kWideDV] dO, then Q rows of the block's columns
-  float* lse_s = rows + kB * kWideDV;   // [kB]
-  float* delta_s = lse_s + kB;          // [kB]
-
-  const int slices = wide_slices(sh.dh);
-  const int k0 = blockIdx.x * kB;
-  const int hk = blockIdx.y / slices;
-  const int c0 = (blockIdx.y - hk * slices) * kWideDV;
-  const int b = blockIdx.z;
-  const int g = sh.Hq / sh.Hkv;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // keys ty·4 + i, queries tile_col(tx, j)
-  const int dh = sh.dh;
-  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
-  const size_t kv_off = ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-
-  const int k_last = min(k0 + kB, sh.T) - 1;
-  const int q_lo = sh.causal ? k0 : 0;
-  const int q_hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
-
-  float dk_acc[4][kWideDV / 8] = {}, dv_acc[4][kWideDV / 8] = {};
-  for (int h = hk * g; h < hk * g + g; ++h) {
-    const size_t q_off = ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-    const float* lse_h = lse_in + ((size_t)b * sh.Hq + h) * sh.S;
-    const float* delta_h = delta_in + ((size_t)b * sh.Hq + h) * sh.S;
-    for (int q0 = (q_lo / kB) * kB; q0 < q_hi; q0 += kB) {
-      float s[4][8] = {}, ds[4][8] = {};  // Sᵀ, dPᵀ [key][query]
-      for (int d0 = 0; d0 < dh; d0 += kWideDC) {
-        __syncthreads();  // the previous slice's products (and tile's P, dS and rows) are consumed
-        stage_t<T, kWideDC>(kt, k + kv_off + d0, kv_row, k0, sh.T, dh - d0);
-        stage_t<T, kWideDC>(vt, v + kv_off + d0, kv_row, k0, sh.T, dh - d0);
-        stage_t<T, kWideDC>(qt, q + q_off + d0, q_row, q0, sh.S, dh - d0);
-        stage_t<T, kWideDC>(dot, dout + q_off + d0, q_row, q0, sh.S, dh - d0);
-        if (d0 == 0)
-          for (int r = threadIdx.x; r < kB; r += kThreads) {
-            const bool in = q0 + r < sh.S;
-            lse_s[r] = in ? lse_h[q0 + r] : 0.f;
-            delta_s[r] = in ? delta_h[q0 + r] : 0.f;
-          }
-        __syncthreads();
-        product<kWideDC>(s, kt, qt, ty, tx);
-        product<kWideDC>(ds, vt, dot, ty, tx);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = tile_col(tx, j);
-          const float pe = kept(q0 + col, k0 + ty * 4 + i, sh) ? expf(s[i][j] * sh.scale - lse_s[col]) : 0.f;
-          wt[col * kStride + ty * 4 + i] = pe;
-          ds[i][j] = pe * (ds[i][j] - delta_s[col]);
-        }
-      stage_rows<T, kWideDV>(rows, dout + q_off, q_row, q0, sh.S, c0, dh);
-      __syncthreads();  // P and the dO rows are visible
-      accumulate<kWideDV>(dv_acc, wt, rows, ty, tx);  // dV += Pᵀ·dO
-      __syncthreads();  // P and the dO rows are consumed
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) wt[tile_col(tx, j) * kStride + ty * 4 + i] = ds[i][j];
-      stage_rows<T, kWideDV>(rows, q + q_off, q_row, q0, sh.S, c0, dh);
-      __syncthreads();
-      accumulate<kWideDV>(dk_acc, wt, rows, ty, tx);  // dK += dSᵀ·Q
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
-    if (t >= sh.T) continue;
-#pragma unroll
-    for (int u = 0; u < kWideDV / 32; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = c0 + u * 32 + tx * 4 + c;
-        if (d < dh) {
-          const size_t at = kv_off + (size_t)t * kv_row + d;
-          store(dk + at, dk_acc[i][u * 4 + c] * sh.scale);
-          store(dv + at, dv_acc[i][u * 4 + c]);
-        }
-      }
-  }
+                         float* __restrict__ delta_in, T* __restrict__ dk, T* __restrict__ dv, Shape sh) {
+  wide_side<T, NU, true>(q, k, v, nullptr, dout, lse_in, delta_in, dk, dv, sh);
 }
 
-template <typename T>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                        void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes();
-  cudaError_t err = hqi::prepare(bwd_dq_wide_kernel<T>, smem);
-  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_wide_kernel<T>, smem);
+template <typename T, int NU>
+cudaError_t launch_wide_nu(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+                           void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+  const WidePlan pq = wide_plan(sh.dh, sizeof(T), 0), pk = wide_plan(sh.dh, sizeof(T), 1);
+  cudaError_t err = hqi::prepare(bwd_dq_wide_kernel<T, NU>, pq.smem);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_wide_kernel<T, NU>, pk.smem);
   if (err != cudaSuccess) return err;
-  const int slices = wide_slices(sh.dh);
+  const long long dq_blocks = (long long)((sh.S + kWR - 1) / kWR) * pq.slices * sh.Hq * sh.B;
+  const long long kv_blocks = (long long)((sh.T + kWR - 1) / kWR) * pk.slices * sh.Hkv * sh.B;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
-  bwd_dq_wide_kernel<T><<<dim3((sh.S + kB - 1) / kB, sh.Hq * slices, sh.B), kThreads, smem, stream>>>(
+  bwd_dq_wide_kernel<T, NU><<<(unsigned)dq_blocks, kWideThreads, pq.smem, stream>>>(
       qp, kp, vp, static_cast<const T*>(o), dop, lse, static_cast<T*>(dq), delta, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkdv_wide_kernel<T><<<dim3((sh.T + kB - 1) / kB, sh.Hkv * slices, sh.B), kThreads, smem, stream>>>(
+  bwd_dkdv_wide_kernel<T, NU><<<(unsigned)kv_blocks, kWideThreads, pk.smem, stream>>>(
       qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
   return cudaGetLastError();
+}
+
+// dh a multiple of 8, operands 16-byte aligned (the wrapper pads and copies);
+// a slice is 257..512 columns wide, so NU is 3 or 4.
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+                        void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+  const int nu = wide_plan(sh.dh, sizeof(T), 0).nu;
+  if (nu == 3) return launch_wide_nu<T, 3>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, stream);
+  if (nu == 4) return launch_wide_nu<T, 4>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, stream);
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------- bf16: wgmma + TMA ring
@@ -1216,37 +1429,635 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
+
+// ------------------------------------- bf16 dh 129..512: the split wgmma pair
+//
+// Past dh 128 a warpgroup can no longer hold dK and dV of 64 keys (64 x dh
+// each, dh registers a thread) nor Q and dO of 128 rows beside a ring
+// (128 KiB each at dh 512). So the two consumer warpgroups of a block share
+// its 64 stationary rows and split the products between them, handing P
+// across in shared memory (f32, in the accumulator's fragment order, behind
+// mbarriers: full when all 128 threads of the writer wrote, empty when all
+// 128 of the reader read). Padded widths DH 256, 384 and 512 (TMA fills
+// columns past dh with zeros); tiles and rings as SplitTile says.
+//
+//  * bwd_dq_wgmma_split_kernel: a block owns 64 query rows of one head; Q
+//    and dO stay put, K and V tiles of BN keys stream through the ring.
+//    Warpgroup 0 runs S = Q·Kᵀ and P, warpgroup 1 dP = dO·Vᵀ, D, and
+//    dS = P ∘ (dP - D), which it hands back as bf16 A fragments; then each
+//    accumulates half of dQ's columns, dQ[:, half] += dS·K[:, half]
+//    (register A, K MN-major). S, dP and dQ once a kept pair: 6·dh.
+//  * bwd_dkdv_wgmma_split_kernel: a block owns 64 keys of one KV head and
+//    one slice of DV output columns (DV = DH up to 256; DH / 2 at 384 and
+//    512, a block each); K and V stay put, Q and dO tiles of BQ queries
+//    (with lse and D) stream through the ring over the g heads of the group.
+//    Warpgroup 0 runs Sᵀ = K·Qᵀ, Pᵀ and dV += Pᵀ·dO[:, slice]; warpgroup 1
+//    dPᵀ = V·dOᵀ, dSᵀ and dK += dSᵀ·Q[:, slice]. 8·dh a kept pair at one
+//    slice, 12·dh at two.
+// So a kept pair costs 14·dh at DH 256 and 18·dh at DH 384 and 512 (the
+// tiled designs: 14·dh). Registers a consumer thread: dQ's half DH/4 + S or
+// dP BN/2 + dS BN/4; dV or dK DV/2 + Sᵀ or dPᵀ BQ/2 + its fragments BQ/4
+// (176 at DH 256, 120 at 384, 140 at 512; setmaxnreg gives 240). P and dS
+// enter their products rounded to bf16, as at dh <= 128.
+
+template <int DH>
+struct SplitTile;
+template <>
+struct SplitTile<256> {
+  static constexpr int BN = 64, DQ_STAGES = 2, BQ = 64, KV_STAGES = 2, DV = 256;
+};
+template <>
+struct SplitTile<384> {
+  static constexpr int BN = 32, DQ_STAGES = 2, BQ = 32, KV_STAGES = 2, DV = 192;
+};
+template <>
+struct SplitTile<512> {
+  static constexpr int BN = 16, DQ_STAGES = 2, BQ = 16, KV_STAGES = 2, DV = 256;
+};
+
+// The N of each accumulating wgmma over `cols` output columns.
+__host__ __device__ constexpr int split_npv(int cols) { return cols % 128 == 0 ? 128 : 64; }
+
+template <int DH>
+struct DqSplitSmem {
+  static constexpr int BN = SplitTile<DH>::BN, STAGES = SplitTile<DH>::DQ_STAGES;
+  static constexpr uint32_t Q = 64 * DH * 2;                 // the Q tile, and the dO tile
+  static constexpr uint32_t KV = BN * DH * 2;                // a K tile, and a V tile
+  static constexpr uint32_t XP = BN / 2 * 128 * 4;           // P, warpgroup 0 -> 1
+  static constexpr uint32_t XDS = BN / 16 * 4 * 128 * 4;     // dS fragments, warpgroup 1 -> 0
+  static constexpr size_t bytes = 1024 + 2 * Q + (size_t)STAGES * 2 * KV + XP + XDS + (5 + 2 * STAGES) * 8;
+};
+
+template <int DH>
+struct DkvSplitSmem {
+  static constexpr int BQ = SplitTile<DH>::BQ, STAGES = SplitTile<DH>::KV_STAGES;
+  static constexpr uint32_t KV = 64 * DH * 2;                // the K tile, and the V tile
+  static constexpr uint32_t Q = BQ * DH * 2;                 // a Q tile, and a dO tile
+  static constexpr uint32_t XP = BQ / 2 * 128 * 4;           // Pᵀ, warpgroup 0 -> 1
+  static constexpr size_t bytes =
+      1024 + 2 * KV + (size_t)STAGES * (2 * Q + 2 * BQ * sizeof(float)) + XP + (3 + 2 * STAGES) * 8;
+};
+
+// One consumer warpgroup of the dQ kernel: ROLE 0 computes S and P and
+// owns dQ's columns [0, DH/2); ROLE 1 computes dP, D and dS and owns
+// [DH/2, DH). x_bar: P full, P empty, dS full, dS empty.
+template <int DH, int ROLE>
+__device__ __forceinline__ void dq_split_consume(unsigned char* sq, unsigned char* sdo, unsigned char* sk,
+                                                 unsigned char* sv, float* xp, uint32_t* xds, uint64_t* q_full,
+                                                 uint64_t* full, uint64_t* empty, uint64_t* x_bar,
+                                                 const __nv_bfloat16* __restrict__ o,
+                                                 const __nv_bfloat16* __restrict__ dout,
+                                                 const float* __restrict__ lse, float* __restrict__ delta,
+                                                 __nv_bfloat16* __restrict__ dq, const Shape& sh, int q0, int h,
+                                                 int b, int tile_lo, int n_tiles) {
+  using M = DqSplitSmem<DH>;
+  constexpr int BN = M::BN, STAGES = M::STAGES, HALF = DH / 2, NPV = split_npv(HALF), NCH = HALF / NPV;
+  sm90::reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = warp * 16 + lane / 4;  // this thread's rows: q0 + row0 and + 8
+  const float c_log2 = sh.scale * kLog2e;
+  const size_t q_row = (size_t)sh.Hq * sh.dh;
+  const size_t q_off = (size_t)b * sh.S * q_row + (size_t)h * sh.dh;
+  const size_t at0 = ((size_t)b * sh.Hq + h) * sh.S;
+  uint64_t *p_full = x_bar, *p_empty = x_bar + 1, *ds_full = x_bar + 2, *ds_empty = x_bar + 3;
+
+  // ROLE 0: each row's lse (log2 units); ROLE 1: D = dO · O, the four lanes
+  // of a quad splitting the columns, written for the dK/dV launch. 0 past S.
+  float rs[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row0 + 8 * i;
+    if constexpr (ROLE == 0) {
+      rs[i] = r < sh.S ? lse[at0 + r] * kLog2e : 0.f;
+    } else {
+      float acc = 0.f;
+      if (r < sh.S)
+        for (int d = (lane & 3) * 8; d < sh.dh; d += 32) {
+          const size_t at = q_off + (size_t)r * q_row + d;
+          acc = dot8(*reinterpret_cast<const uint4*>(o + at), *reinterpret_cast<const uint4*>(dout + at), acc);
+        }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      rs[i] = acc;
+      if ((lane & 3) == 0 && r < sh.S) delta[at0 + r] = acc;
+    }
+  }
+
+  float acc[BN / 2], dqacc[NCH][NPV / 2];
+  uint32_t dsf[BN / 16][4];  // dS as wgmma A fragments
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < NPV / 2; ++e) dqacc[c][e] = 0.f;
+  const uint32_t a_base = sm90::smem_u32(ROLE == 0 ? sq : sdo);
+  const uint32_t b_base = sm90::smem_u32(ROLE == 0 ? sk : sv);
+  const uint32_t k_base = sm90::smem_u32(sk);
+  constexpr int col0 = ROLE * HALF;  // this warpgroup's dQ columns
+
+  sm90::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1, xph = it & 1;
+    const int t0 = (tile_lo + it) * BN;
+    sm90::mbar_wait(&full[s], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::wgmma_ss(acc, kmajor(a_base, 64, kk), kmajor(b_base + s * M::KV, BN, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if constexpr (ROLE == 0) {
+      // P; the mask only on tiles that cross the diagonal, the window's
+      // lower edge or T.
+      const bool need_mask = t0 + BN > sh.T || (sh.causal && t0 + BN - 1 > q0) ||
+                             (sh.window > 0 && t0 <= q0 + 63 - sh.window);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int i = (e >> 1) & 1;
+        float p = ex2(fmaf(acc[e], c_log2, -rs[i]));
+        if (need_mask) {
+          const int qpos = q0 + row0 + i * 8;
+          const int kpos = t0 + (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
+          bool keep = kpos < sh.T;
+          if (sh.causal) keep = keep && kpos <= qpos;
+          if (sh.window > 0) keep = keep && kpos > qpos - sh.window;
+          if (!keep) p = 0.f;
+        }
+        acc[e] = p;
+      }
+      sm90::mbar_wait(p_empty, xph ^ 1);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) xp[e * 128 + tid] = acc[e];
+      sm90::mbar_arrive(p_full);
+      sm90::mbar_wait(ds_full, xph);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsf[kk][r] = xds[(kk * 4 + r) * 128 + tid];
+      sm90::mbar_arrive(ds_empty);
+    } else {
+      sm90::mbar_wait(p_full, xph);
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[e] = xp[e * 128 + tid] * (acc[e] - rs[(e >> 1) & 1]);
+      sm90::mbar_arrive(p_empty);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsf[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+      sm90::mbar_wait(ds_empty, xph ^ 1);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) xds[(kk * 4 + r) * 128 + tid] = dsf[kk][r];
+      sm90::mbar_arrive(ds_full);
+    }
+    // dQ[:, col0 ..) += dS · K of stage s
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) sm90::fence_regs(dqacc[c]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::wgmma_rs_tb(dqacc[c], dsf[kk],
+                          mnmajor(k_base + s * M::KV + (col0 + c * NPV) / kBox * BN * kRowBytes, BN, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) sm90::fence_regs(dqacc[c]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int srow = q0 + row0 + i * 8;
+    if (srow >= sh.S) continue;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int n = 0; n < NPV / 8; ++n) {
+        const int d = col0 + c * NPV + n * 8 + (lane & 3) * 2;
+        if (d < sh.dh)
+          *reinterpret_cast<uint32_t*>(dq + q_off + (size_t)srow * q_row + d) =
+              pack_bf16(dqacc[c][4 * n + 2 * i] * sh.scale, dqacc[c][4 * n + 2 * i + 1] * sh.scale);
+      }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dq_wgmma_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                              const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse, float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, Shape sh) {
+  using M = DqSplitSmem<DH>;
+  constexpr int BN = M::BN, STAGES = M::STAGES, NBOX = DH / kBox;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sq = wg_smem + ((1024 - (sm90::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sdo = sq + M::Q;
+  unsigned char* sk = sdo + M::Q;
+  unsigned char* sv = sk + STAGES * M::KV;
+  float* xp = reinterpret_cast<float*>(sv + STAGES * M::KV);
+  uint32_t* xds = reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(xp) + M::XP);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(xds) + M::XDS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* x_bar = empty + STAGES;  // P full, P empty, dS full, dS empty
+
+  // Heavy tiles first: every (batch, head)'s last 64 query rows, then the ones before.
+  const int hb_n = sh.Hq * sh.B;
+  const int n_qt = (sh.S + 63) / 64;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / hb_n)) * 64;
+  const int h = (int)(blockIdx.x % hb_n) % sh.Hq, b = (int)(blockIdx.x % hb_n) / sh.Hq;
+  const int hk = h / (sh.Hq / sh.Hkv);
+
+  // The KV tiles that some row of the block keeps (each tile of the band has a kept key).
+  const int q_last = min(q0 + 64, sh.S) - 1;
+  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
+  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
+  const int tile_lo = kv_lo / BN;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN - tile_lo : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    for (int x = 0; x < 4; ++x) sm90::mbar_init(&x_bar[x], 128);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);  // warp-uniform for ptxas
+  if (wg == 2) {
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 256) {
+      sm90::tma_prefetch(&tq);
+      sm90::tma_prefetch(&tdo);
+      sm90::tma_prefetch(&tk);
+      sm90::tma_prefetch(&tv);
+      sm90::mbar_expect_tx(q_full, 2 * M::Q);
+#pragma unroll
+      for (int c = 0; c < NBOX; ++c) {
+        sm90::tma_load_4d(sq + c * 64 * kRowBytes, &tq, q_full, c * kBox, h, q0, b);
+        sm90::tma_load_4d(sdo + c * 64 * kRowBytes, &tdo, q_full, c * kBox, h, q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int t0 = (tile_lo + it) * BN;
+        sm90::mbar_expect_tx(&full[s], 2 * M::KV);
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c) {
+          sm90::tma_load_4d(sk + s * M::KV + c * BN * kRowBytes, &tk, &full[s], c * kBox, hk, t0, b);
+          sm90::tma_load_4d(sv + s * M::KV + c * BN * kRowBytes, &tv, &full[s], c * kBox, hk, t0, b);
+        }
+      }
+    }
+  } else if (wg == 0) {
+    dq_split_consume<DH, 0>(sq, sdo, sk, sv, xp, xds, q_full, full, empty, x_bar, o, dout, lse, delta, dq, sh, q0,
+                            h, b, tile_lo, n_tiles);
+  } else {
+    dq_split_consume<DH, 1>(sq, sdo, sk, sv, xp, xds, q_full, full, empty, x_bar, o, dout, lse, delta, dq, sh, q0,
+                            h, b, tile_lo, n_tiles);
+  }
+}
+
+// One consumer warpgroup of the dK/dV kernel: ROLE 0 computes Sᵀ and Pᵀ
+// and owns dV[:, c0 .. c0 + DV); ROLE 1 computes dPᵀ and dSᵀ and owns
+// dK[:, c0 ..). x_bar: Pᵀ full, Pᵀ empty.
+template <int DH, int ROLE>
+__device__ __forceinline__ void dkdv_split_consume(unsigned char* sk, unsigned char* sv, unsigned char* sq,
+                                                   unsigned char* sdo, const float* lse_s, const float* d_s,
+                                                   float* xp, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+                                                   uint64_t* x_bar, __nv_bfloat16* __restrict__ dk,
+                                                   __nv_bfloat16* __restrict__ dv, const Shape& sh, int k0, int c0,
+                                                   int hk, int b, int qt_lo, int n_qt, int n_tiles) {
+  using M = DkvSplitSmem<DH>;
+  constexpr int BQ = M::BQ, STAGES = M::STAGES, DV = SplitTile<DH>::DV, NPV = split_npv(DV), NCH = DV / NPV;
+  sm90::reg_alloc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = warp * 16 + lane / 4;  // this thread's keys: k0 + row0 and + 8
+  const float c_log2 = sh.scale * kLog2e;
+  uint64_t *p_full = x_bar, *p_empty = x_bar + 1;
+
+  float acc[BQ / 2], oacc[NCH][NPV / 2];
+  uint32_t frag[BQ / 16][4];  // Pᵀ or dSᵀ as wgmma A fragments
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < NPV / 2; ++e) oacc[c][e] = 0.f;
+  const uint32_t a_base = sm90::smem_u32(ROLE == 0 ? sk : sv);
+  const uint32_t b_base = sm90::smem_u32(ROLE == 0 ? sq : sdo);   // Sᵀ reads Q, dPᵀ reads dO
+  const uint32_t o_base = sm90::smem_u32(ROLE == 0 ? sdo : sq);   // dV reads dO, dK reads Q
+
+  sm90::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES;
+    const uint32_t phase = (it / STAGES) & 1, xph = it & 1;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    sm90::mbar_wait(&full[s], phase);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      sm90::wgmma_ss(acc, kmajor(a_base, 64, kk), kmajor(b_base + s * M::Q, BQ, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    if constexpr (ROLE == 0) {
+      // Pᵀ: column (query) e's lse from the stage; the mask only where the
+      // tile crosses the diagonal, the window's edge or S.
+      const float* ls = lse_s + s * BQ;
+      const bool need_mask = q0 + BQ > sh.S || (sh.causal && k0 + 63 > q0) ||
+                             (sh.window > 0 && k0 <= q0 + BQ - 1 - sh.window);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
+        float p = ex2(fmaf(acc[e], c_log2, -ls[col]));
+        if (need_mask) {
+          const int qpos = q0 + col;
+          const int kpos = k0 + row0 + ((e >> 1) & 1) * 8;
+          bool keep = qpos < sh.S;
+          if (sh.causal) keep = keep && kpos <= qpos;
+          if (sh.window > 0) keep = keep && kpos > qpos - sh.window;
+          if (!keep) p = 0.f;
+        }
+        acc[e] = p;
+      }
+      sm90::mbar_wait(p_empty, xph ^ 1);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) xp[e * 128 + tid] = acc[e];
+      sm90::mbar_arrive(p_full);
+    } else {
+      const float* dl = d_s + s * BQ;
+      sm90::mbar_wait(p_full, xph);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = (e >> 2) * 8 + (lane & 3) * 2 + (e & 1);
+        acc[e] = xp[e * 128 + tid] * (acc[e] - dl[col]);
+      }
+      sm90::mbar_arrive(p_empty);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) frag[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+    // dV += Pᵀ · dO[:, slice] (ROLE 0), dK += dSᵀ · Q[:, slice] (ROLE 1)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) sm90::fence_regs(oacc[c]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        sm90::wgmma_rs_tb(oacc[c], frag[kk],
+                          mnmajor(o_base + s * M::Q + (c0 + c * NPV) / kBox * BQ * kRowBytes, BQ, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) sm90::fence_regs(oacc[c]);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  const size_t kv_row = (size_t)sh.Hkv * sh.dh;
+  const size_t kv_off = (size_t)b * sh.T * kv_row + (size_t)hk * sh.dh;
+  __nv_bfloat16* out = ROLE == 0 ? dv : dk;
+  const float scale = ROLE == 0 ? 1.f : sh.scale;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int tk = k0 + row0 + i * 8;
+    if (tk >= sh.T) continue;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int n = 0; n < NPV / 8; ++n) {
+        const int d = c0 + c * NPV + n * 8 + (lane & 3) * 2;
+        if (d < sh.dh)
+          *reinterpret_cast<uint32_t*>(out + kv_off + (size_t)tk * kv_row + d) =
+              pack_bf16(oacc[c][4 * n + 2 * i] * scale, oacc[c][4 * n + 2 * i + 1] * scale);
+      }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    bwd_dkdv_wgmma_split_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                                const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, Shape sh) {
+  using M = DkvSplitSmem<DH>;
+  constexpr int BQ = M::BQ, STAGES = M::STAGES, NBOX = DH / kBox, DV = SplitTile<DH>::DV, NSL = DH / DV;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sk = wg_smem + ((1024 - (sm90::smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* sv = sk + M::KV;
+  unsigned char* sq = sv + M::KV;
+  unsigned char* sdo = sq + STAGES * M::Q;
+  float* lse_s = reinterpret_cast<float*>(sdo + STAGES * M::Q);  // [STAGES][BQ], log2 units
+  float* d_s = lse_s + STAGES * BQ;                               // [STAGES][BQ]
+  float* xp = d_s + STAGES * BQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(xp) + M::XP);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* x_bar = empty + STAGES;  // Pᵀ full, Pᵀ empty
+
+  // Heavy tiles first: under a causal mask the first key tiles are kept by the most queries.
+  const int per = NSL * sh.Hkv * sh.B;
+  const int k0 = (int)(blockIdx.x / per) * 64;
+  const int rest = (int)(blockIdx.x % per);
+  const int c0 = (rest % NSL) * DV, hk = (rest / NSL) % sh.Hkv, b = rest / NSL / sh.Hkv;
+  const int g = sh.Hq / sh.Hkv;
+
+  // The query tiles that keep any key of the block, walked for each of the g heads.
+  const int k_last = min(k0 + 64, sh.T) - 1;
+  const int q_lo = sh.causal ? k0 : 0;
+  const int q_hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+  const int qt_lo = q_lo / BQ;
+  const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt_lo : 0;
+  const int n_tiles = g * n_qt;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1 + 32);  // the TMA bytes' arrival and the 32 lanes that wrote lse and D
+      sm90::mbar_init(&empty[s], kConsumerWarps);
+    }
+    sm90::mbar_init(&x_bar[0], 128);
+    sm90::mbar_init(&x_bar[1], 128);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 2) {
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x < 256 + 32) {  // the producer's first warp
+      const int lane = threadIdx.x - 256;
+      if (lane == 0) {
+        sm90::tma_prefetch(&tq);
+        sm90::tma_prefetch(&tdo);
+        sm90::tma_prefetch(&tk);
+        sm90::tma_prefetch(&tv);
+        sm90::mbar_expect_tx(kv_full, 2 * M::KV);
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c) {
+          sm90::tma_load_4d(sk + c * 64 * kRowBytes, &tk, kv_full, c * kBox, hk, k0, b);
+          sm90::tma_load_4d(sv + c * 64 * kRowBytes, &tv, kv_full, c * kBox, hk, k0, b);
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        sm90::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        const int h = hk * g + it / n_qt;
+        const int q0 = (qt_lo + it % n_qt) * BQ;
+        if (lane == 0) {
+          sm90::mbar_expect_tx(&full[s], 2 * M::Q);
+#pragma unroll
+          for (int c = 0; c < NBOX; ++c) {
+            sm90::tma_load_4d(sq + s * M::Q + c * BQ * kRowBytes, &tq, &full[s], c * kBox, h, q0, b);
+            sm90::tma_load_4d(sdo + s * M::Q + c * BQ * kRowBytes, &tdo, &full[s], c * kBox, h, q0, b);
+          }
+        }
+        const size_t at0 = ((size_t)b * sh.Hq + h) * sh.S;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool in = q0 + r < sh.S;
+          lse_s[s * BQ + r] = in ? lse[at0 + q0 + r] * kLog2e : 0.f;
+          d_s[s * BQ + r] = in ? delta[at0 + q0 + r] : 0.f;
+        }
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+  } else if (wg == 0) {
+    dkdv_split_consume<DH, 0>(sk, sv, sq, sdo, lse_s, d_s, xp, kv_full, full, empty, x_bar, dk, dv, sh, k0, c0, hk,
+                              b, qt_lo, n_qt, n_tiles);
+  } else {
+    dkdv_split_consume<DH, 1>(sk, sv, sq, sdo, lse_s, d_s, xp, kv_full, full, empty, x_bar, dk, dv, sh, k0, c0, hk,
+                              b, qt_lo, n_qt, n_tiles);
+  }
+}
+
+template <int DH>
+cudaError_t launch_split(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+                         void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+  using Bf = __nv_bfloat16;
+  constexpr int NSL = DH / SplitTile<DH>::DV;
+  // Q and dO boxes of 64 rows (dQ) or BQ rows (dK/dV); K and V boxes of BN rows (dQ) or 64 rows (dK/dV)
+  CUtensorMap q_dq, do_dq, k_dq, v_dq, q_kv, do_kv, k_kv, v_kv;
+  const int BN = SplitTile<DH>::BN, BQ = SplitTile<DH>::BQ;
+  cudaError_t err = sm90::make_map_bf16_4d(&q_dq, q, sh.dh, sh.Hq, sh.S, sh.B, kBox, 64);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&do_dq, dout, sh.dh, sh.Hq, sh.S, sh.B, kBox, 64);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&k_dq, k, sh.dh, sh.Hkv, sh.T, sh.B, kBox, BN);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&v_dq, v, sh.dh, sh.Hkv, sh.T, sh.B, kBox, BN);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&q_kv, q, sh.dh, sh.Hq, sh.S, sh.B, kBox, BQ);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&do_kv, dout, sh.dh, sh.Hq, sh.S, sh.B, kBox, BQ);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&k_kv, k, sh.dh, sh.Hkv, sh.T, sh.B, kBox, 64);
+  if (err == cudaSuccess) err = sm90::make_map_bf16_4d(&v_kv, v, sh.dh, sh.Hkv, sh.T, sh.B, kBox, 64);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dq_wgmma_split_kernel<DH>, DqSplitSmem<DH>::bytes);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_wgmma_split_kernel<DH>, DkvSplitSmem<DH>::bytes);
+  if (err != cudaSuccess) return err;
+  const long long dq_blocks = (long long)((sh.S + 63) / 64) * sh.Hq * sh.B;
+  const long long kv_blocks = (long long)((sh.T + 63) / 64) * NSL * sh.Hkv * sh.B;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  bwd_dq_wgmma_split_kernel<DH><<<(unsigned)dq_blocks, kWgThreads, DqSplitSmem<DH>::bytes, stream>>>(
+      q_dq, do_dq, k_dq, v_dq, static_cast<const Bf*>(o), static_cast<const Bf*>(dout), lse, delta,
+      static_cast<Bf*>(dq), sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_wgmma_split_kernel<DH><<<(unsigned)kv_blocks, kWgThreads, DkvSplitSmem<DH>::bytes, stream>>>(
+      q_kv, do_kv, k_kv, v_kv, lse, delta, static_cast<Bf*>(dk), static_cast<Bf*>(dv), sh);
+  return cudaGetLastError();
+}
+
+// The design at (padded) width dh: 0 the wgmma pair (bf16 to 128), 1 the
+// split wgmma pair (bf16 129..512), 2 the tiled CUDA-core pair (f32 to
+// 256), 3 the wide pair (f32 past 256, bf16 past 512).
+int bwd_route(int dh, int bf16) { return bf16 ? (dh <= 128 ? 0 : dh <= 512 ? 1 : 3) : (dh <= 256 ? 2 : 3); }
+
+int tiled_width(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256; }
+int split_width(int dh) { return dh <= 256 ? 256 : dh <= 384 ? 384 : 512; }
+
 }  // namespace
 
 extern "C" {
 
+// The launch plan at (padded) width dh, for flash_attention.py's
+// backward_plan to be held against: out[9] = route, width compiled (the
+// wide pair: dh rounded up to its chunk), column slices of the dQ and of
+// the dK/dV kernel, their dynamic shared bytes, threads a block, and
+// whether the wide pair's dQ and dK/dV kernels stage their stationary rows
+// once (1) or stream them (0). Returns 0.
+int flash_attention_bwd_plan(int dh, int bf16, int* out) {
+  const int route = bwd_route(dh, bf16);
+  int w = 0, sq = 1, skv = 1, thr = kWgThreads, st_q = 0, st_kv = 0;
+  size_t mq = 0, mkv = 0;
+  if (route == 0) {
+    w = dh <= 64 ? 64 : 128;
+    mq = w == 64 ? DqSmem<64>::bytes : DqSmem<128>::bytes;
+    mkv = w == 64 ? DkvSmem<64>::bytes : DkvSmem<128>::bytes;
+  } else if (route == 1) {
+    w = split_width(dh);
+    mq = w == 256 ? DqSplitSmem<256>::bytes : w == 384 ? DqSplitSmem<384>::bytes : DqSplitSmem<512>::bytes;
+    mkv = w == 256 ? DkvSplitSmem<256>::bytes : w == 384 ? DkvSplitSmem<384>::bytes : DkvSplitSmem<512>::bytes;
+    skv = w / (w == 256 ? SplitTile<256>::DV : w == 384 ? SplitTile<384>::DV : SplitTile<512>::DV);
+  } else if (route == 2) {
+    w = tiled_width(dh);
+    sq = skv = w / slice_cols(w);
+    mq = mkv = bwd_smem_bytes(w);
+    thr = kThreads;
+  } else {
+    const int es = bf16 ? 2 : 4;
+    const WidePlan pq = wide_plan(dh, es, 0), pk = wide_plan(dh, es, 1);
+    w = pq.dhc;
+    sq = pq.slices, skv = pk.slices;
+    mq = pq.smem, mkv = pk.smem;
+    thr = kWideThreads;
+    st_q = pq.stationary, st_kv = pk.stationary;
+  }
+  const int vals[9] = {route, w, sq, skv, (int)mq, (int)mkv, thr, st_q, st_kv};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
+}
+
 // dq, dk, dv (the inputs' type) of flash_attention, from the training
 // forward's lse (f32 [B, Hq, S]); delta is f32 [B, Hq, S] scratch the
 // wrapper allocates (dO · O, written by the first kernel, read by the
-// second). bf16 up to dh 128 takes the wgmma pair and wants dh a multiple of
-// 8 and 16-byte aligned operands (the wrapper pads and copies).
+// second). Every route but the f32 tiled pair wants dh a multiple of 8 and
+// 16-byte aligned operands (the wrapper pads and copies).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                void* dq, void* dk, void* dv, const void* lse, void* delta, int B, int S, int T,
                                int Hq, int Hkv, int dh, int causal, int window, float scale, int bf16,
                                void* stream) {
   if (B < 1 || S < 1 || T < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || B > 65535 ||
-      (long long)Hq * (dh > 256 ? wide_slices(dh) : 2) > 65535)
+      (long long)Hq * 2 > 65535)
     return (int)cudaErrorInvalidValue;
+  const int route = bwd_route(dh, bf16);
+  if (route != 2) {
+    const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
+    for (const void* p : ptrs)
+      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (dh % 8 != 0) return (int)cudaErrorInvalidValue;
+  }
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   cudaError_t err;
-  if (bf16 && dh <= 128) {
-    const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
-    for (const void* p : ptrs)
-      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
-    if (dh % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (route == 0) {
     err = dh <= 64 ? launch_wgmma<64>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
                    : launch_wgmma<128>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
-  } else if (dh <= 256) {
-    err = bf16 ? launch_dh<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
-               : launch_dh<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
+  } else if (route == 1) {
+    const int w = split_width(dh);
+    err = w == 256   ? launch_split<256>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+          : w == 384 ? launch_split<384>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+                     : launch_split<512>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
+  } else if (route == 2) {
+    err = launch_dh<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
   } else {
     err = bf16 ? launch_wide<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
                : launch_wide<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);

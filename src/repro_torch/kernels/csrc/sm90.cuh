@@ -88,6 +88,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
+// The same copy, or 16 zero bytes when `valid` is false (src is then not read).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 // Wait until at most N of this thread's most recent cp.async groups are in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -145,6 +152,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 
 // D[64 x N] (+)= A[64 x 16] · B[16 x N], bf16 in, f32 accumulate; A and B
 // K-major in shared memory. `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F8(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
@@ -202,6 +218,9 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
 #undef SM90_R64
 
 // Dispatch on the accumulator's width.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_n16(d, a, b, acc);
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_n32(d, a, b, acc);
 }

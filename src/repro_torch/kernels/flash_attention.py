@@ -18,10 +18,10 @@ Training: with grad enabled and an input that requires grad,
 (``FlashAttentionFn``) whose forward is the same kernel (or the plain
 version) asked also for each row's log-sum-exp, ``lse`` f32 [B, Hq, S], and
 whose backward is ``flash_attention_backward`` reading that lse: on a CUDA
-tensor the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 up to dh 128 on
-wgmma fed by TMA, f32 and bf16 up to 256 on CUDA cores, past 256 a wide
-CUDA-core pair with the outputs in column slices; any dh), on a CPU tensor
-``flash_attention_backward_plain``. Neither backward differentiates through
+tensor the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 up to dh 512 on
+wgmma fed by TMA, f32 up to 256 on CUDA cores, f32 past 256 and bf16 past
+512 on a wide CUDA-core pair; any dh; ``backward_plan`` says which), on a
+CPU tensor ``flash_attention_backward_plain``. Neither backward differentiates through
 the plain forward. Without grad (serving) the call takes the path above,
 with the same launches and no lse.
 
@@ -42,9 +42,19 @@ from . import _build
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
 MAX_HEAD_DIM = 256  # widest compiled width of the tiled kernels (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
-# widest bf16 head the backward runs on wgmma (DH 64 and 128): past it a
-# warpgroup's dK and dV accumulators (64 x dh each) would outgrow its registers
-WGMMA_BWD_MAX = 128
+# widest bf16 head the backward runs on wgmma (DH 64 and 128 the wgmma pair,
+# 256, 384 and 512 the split pair): past it a block's 64 stationary rows of
+# two operands (128 KiB at 512) leave no room for a ring of two stages
+WGMMA_BWD_MAX = 512
+# the wgmma backward by padded width DH (WgTile, SplitTile): keys a dQ tile and
+# its ring stages, queries a dK/dV tile and its stages, dK/dV columns a slice
+_BWD_WGMMA = {64: (64, 4, 64, 4, 64), 128: (64, 3, 32, 4, 128), 256: (64, 2, 64, 2, 256),
+              384: (32, 2, 32, 2, 192), 512: (16, 2, 16, 2, 256)}
+# the wide backward pair (WidePlan): stationary rows a block, moving rows a tile,
+# columns of an S/dP chunk, moving rows of an accumulating chunk, ring stages,
+# output columns a slice at most
+_WIDE_R, _WIDE_M, _WIDE_C, _WIDE_Q, _WIDE_STAGES, _WIDE_COLS = 32, 64, 32, 4, 3, 512
+SMEM_MAX = 232448  # dynamic shared bytes a block may hold on the H100
 # widest bf16 head the wide path runs on the tensor cores (DH 384 and 512): past it
 # a wgmma block's 128-row Q tile would outgrow shared memory beside its K/V ring
 WIDE_WGMMA_MAX = 512
@@ -93,6 +103,76 @@ def wide_launch_shape(b: int, s: int, hq: int, dh: int, elem_size: int) -> tuple
     smem = (2 * _SLICED_DC * (_SLICED_BQ + _PAD) + _SLICED_BK * (_SLICED_BQ + _PAD) + _SLICED_BK * 2 * dv
             + 2 * _SLICED_BQ) * 4
     return (-(-s // _SLICED_BQ), hq * -(-dh // (2 * dv)), b, _SLICED_THREADS, smem, _SLICED_BK, dv)
+
+
+def _wide_bwd_side(dp: int, esize: int, dkdv: bool) -> tuple[int, int, int, int, int]:
+    """(slices, columns a slice, dynamic shared bytes, stationary, dh rounded
+    up to a chunk) of one kernel of the wide backward pair (mirrors
+    ``wide_plan``): the stationary rows over all of dh staged once when they
+    fit beside the ring and the P/dS tiles, else streamed by chunks."""
+    pad = 16 // esize
+    slices = -(-dp // _WIDE_COLS)
+    cols = -(-(-(-dp // slices)) // 8) * 8
+    nu = -(-cols // 128)
+    dhc = -(-dp // _WIDE_C) * _WIDE_C
+    nops = 2 if dkdv else 1
+    w_bytes = nops * _WIDE_M * (_WIDE_R + 4) * 4 + (0 if dkdv else _WIDE_R * 4)
+    stat_bytes = 2 * _WIDE_R * (dhc + pad) * esize
+    p2 = nops * _WIDE_Q * (128 * nu + pad)
+    for stationary in (1, 0):
+        p1 = 2 * _WIDE_M * (_WIDE_C + pad) + (0 if stationary else 2 * _WIDE_R * (_WIDE_C + pad))
+        stage = -(-max(p1, p2) * esize // 16) * 16
+        smem = (stat_bytes if stationary else 0) + _WIDE_STAGES * stage + w_bytes
+        if smem <= SMEM_MAX:
+            break
+    return slices, cols, smem, stationary, dhc
+
+
+def backward_plan(dh: int, elem_size: int) -> dict:
+    """The launch plan of ``flash_attention_backward`` for a head width and
+    element size (mirrors the C entry's ``flash_attention_bwd_plan``, which
+    a card test holds it to): ``route`` (``wgmma``: bf16 up to 128, DH 64 or
+    128; ``wgmma_split``: bf16 129..512, DH 256, 384 or 512, the two
+    consumer warpgroups splitting the products; ``tiled``: f32 up to 256 on
+    CUDA cores; ``wide``: f32 past 256 and bf16 past 512 on CUDA cores),
+    ``dp`` (the width the wrapper hands the kernels: dh padded to a
+    multiple of 8 on every route but ``tiled``), ``width`` (compiled; the
+    wide pair's dh rounded up to its chunk), each kernel's column slices
+    and dynamic shared bytes, ``threads``, the wide pair's ``stationary``
+    flags (dq, dk/dv), ``cols`` (columns a dk/dv slice) and ``regs``, the
+    wgmma consumers' registers a thread for accumulators and operands (dq,
+    dk/dv), which setmaxnreg caps at 240."""
+    bf16 = elem_size == 2
+    dp8 = -(-dh // 8) * 8
+    out = {"stationary": (0, 0), "regs": None}
+    if bf16 and dh <= WGMMA_BWD_MAX:
+        split = dh > 128
+        width = (64 if dh <= 64 else 128) if not split else (256 if dh <= 256 else 384 if dh <= 384 else 512)
+        bn, dq_st, bq, kv_st, dv = _BWD_WGMMA[width]
+        if split:  # 64 stationary rows a block; P (and dS) handed across in shared memory
+            dq_smem = 1024 + 2 * 64 * width * 2 + dq_st * 2 * bn * width * 2 + bn // 2 * 512 + bn // 16 * 2048 \
+                + (5 + 2 * dq_st) * 8
+            kv_smem = 1024 + 2 * 64 * width * 2 + kv_st * (2 * bq * width * 2 + 2 * bq * 4) + bq // 2 * 512 \
+                + (3 + 2 * kv_st) * 8
+            regs = (width // 4 + bn // 2 + bn // 4, dv // 2 + bq // 2 + bq // 4)
+        else:  # 128 stationary rows a block, 64 a consumer warpgroup
+            dq_smem = 1024 + 2 * 128 * width * 2 + dq_st * 2 * bn * width * 2 + (1 + 2 * dq_st) * 8
+            kv_smem = 1024 + 2 * 128 * width * 2 + kv_st * (2 * bq * width * 2 + 2 * bq * 4) + (1 + 2 * kv_st) * 8
+            regs = (width // 2 + bn + bn // 4, width + bq + bq // 2)
+        out.update(route="wgmma_split" if split else "wgmma", dp=dp8, width=width, dq_slices=1,
+                   dkdv_slices=width // dv, dq_smem=dq_smem, dkdv_smem=kv_smem, threads=384, cols=dv, regs=regs)
+    elif not bf16 and dh <= MAX_HEAD_DIM:
+        width = 32 if dh <= 32 else 64 if dh <= 64 else 128 if dh <= 128 else 256
+        smem = (3 * width * (64 + _PAD) + 64 * (64 + _PAD) + 2 * 64) * 4
+        out.update(route="tiled", dp=dh, width=width, dq_slices=width // min(width, 128),
+                   dkdv_slices=width // min(width, 128), dq_smem=smem, dkdv_smem=smem, threads=128,
+                   cols=min(width, 128))
+    else:
+        sq, cols, mq, st_q, dhc = _wide_bwd_side(dp8, elem_size, False)
+        skv, _, mkv, st_kv, _ = _wide_bwd_side(dp8, elem_size, True)
+        out.update(route="wide", dp=dp8, width=dhc, dq_slices=sq, dkdv_slices=skv, dq_smem=mq, dkdv_smem=mkv,
+                   threads=256, cols=cols, stationary=(st_q, st_kv))
+    return out
 
 
 def flash_attention_plain(
@@ -393,12 +473,14 @@ def flash_attention_backward(
     one call of ``csrc/flash_attention_bwd.cu``, which needs lse (it raises
     without it: the kernels do not recompute the statistics): two kernels on
     the current stream, D and dQ per query tile, then dK and dV per key tile;
-    f32 sums, no atomics, so the result is deterministic. bf16 up to dh
-    ``WGMMA_BWD_MAX`` runs on wgmma (dh zero-padded to a multiple of 8 and
-    misaligned bases copied here, as the forward does), f32 and bf16 up to
-    ``MAX_HEAD_DIM`` on CUDA cores, wider heads on the wide CUDA-core pair;
-    any dh. On a CPU tensor ``flash_attention_backward_plain`` (lse
-    optional). ``launches`` counts the CUDA calls."""
+    f32 sums, no atomics, so the result is deterministic. The design is
+    ``backward_plan``'s: bf16 up to dh ``WGMMA_BWD_MAX`` on wgmma, f32 up to
+    ``MAX_HEAD_DIM`` on the tiled CUDA-core pair, wider heads on the wide
+    CUDA-core pair; any dh. Every route but the tiled one reads whole 16-byte
+    rows, so dh is zero-padded to a multiple of 8 and misaligned bases are
+    copied here (as the forward does). On a CPU tensor
+    ``flash_attention_backward_plain`` (lse optional). ``launches`` counts
+    the CUDA calls."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
@@ -419,14 +501,15 @@ def flash_attention_backward(
     do = do.to(q.dtype).contiguous()
     lse = lse.to(torch.float32).contiguous()
     bf16 = q.dtype == torch.bfloat16
-    # The wgmma pair reads q, k, v and dO with TMA (16-byte row strides and
-    # bases) and o 16 bytes at a time: pad dh to a multiple of 8 (zero columns
-    # add nothing to S or dP and give zero gradients, cut off below) and copy
-    # misaligned bases.
-    dp = -(-dh // 8) * 8 if bf16 and dh <= WGMMA_BWD_MAX else dh
+    # The wgmma pairs read q, k, v and dO with TMA (16-byte row strides and
+    # bases) and o 16 bytes at a time, the wide pair every operand by 16-byte
+    # cp.async: pad dh to a multiple of 8 (zero columns add nothing to S or
+    # dP and give zero gradients, cut off below) and copy misaligned bases.
+    plan = backward_plan(dh, q.element_size())
+    dp = plan["dp"]
     if dp != dh:
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, dp - dh)) for x in (q, k, v, o, do))
-    elif bf16 and dh <= WGMMA_BWD_MAX and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+    elif plan["route"] != "tiled" and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         q, k, v, o, do = (x.clone() for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or T == 0:

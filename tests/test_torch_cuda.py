@@ -778,7 +778,8 @@ def _smoke():
     return smoke
 
 
-# chip_smoke.py's BWD_SMALL (phase T(a)): b, s, t, hq, hkv, dh, causal, window
+# chip_smoke.py's BWD_SMALL (phase T(a)) up to dh 200, and two more of the split pair's:
+# b, s, t, hq, hkv, dh, causal, window
 BWD = [
     (2, 77, 77, 4, 2, 16, True, 0),  # ragged S, dh 16 (the 32-wide build)
     (2, 50, 50, 4, 4, 16, False, 0),  # not causal
@@ -788,7 +789,9 @@ BWD = [
     (1, 90, 30, 4, 2, 16, False, 8),  # S > T: rows 37.. keep no key
     (1, 300, 300, 4, 2, 64, True, 100),
     (2, 200, 200, 4, 2, 128, True, 0),
-    (1, 130, 130, 2, 1, 200, True, 0),  # the 256-wide build in two column slices
+    (1, 130, 130, 2, 1, 200, True, 0),  # f32: the 256-wide build in two column slices
+    (1, 130, 130, 4, 2, 136, True, 0),  # bf16: the split wgmma pair at DH 256, ragged S, GQA 2
+    (1, 100, 60, 4, 2, 256, True, 0),  # S > T, causal, a full DH 256
 ]
 
 
@@ -816,8 +819,9 @@ def _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", BWD)
 def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
-    """The backward kernels (bf16 up to dh 128: the wgmma pair; otherwise the
-    CUDA-core pair) against their plain version within
+    """The backward kernels (bf16 up to dh 128: the wgmma pair, past it the
+    split wgmma pair; f32 the tiled CUDA-core pair) against their plain
+    version within
     ``chip_smoke.BWD_TOL`` (f32: the order of the sums; bf16: also P and dS
     rounded to bf16 before their tensor-core products, and one rounding of
     each output); rows that keep no key get dq = 0."""
@@ -826,13 +830,18 @@ def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hk
         assert torch.all(got[0][:, t + window - 1:] == 0)
 
 
-# past dh 256 (the wide pair): b, s, t, hq, hkv, dh, causal, window
+# past dh 256 (bf16 to 512 the split wgmma pair, f32 and wider bf16 the
+# wide pair): b, s, t, hq, hkv, dh, causal, window
 WIDE_BWD = [
-    (1, 64, 64, 2, 1, 264, True, 0),  # just past the CUDA-core pair's 256
-    (1, 130, 130, 4, 2, 320, True, 0),  # three column slices, GQA 2
+    (1, 64, 64, 2, 1, 264, True, 0),  # just past the tiled pair's 256; bf16 at DH 384
+    (1, 130, 130, 4, 2, 320, True, 0),  # GQA 2, ragged S
     (1, 90, 200, 2, 1, 320, True, 0),  # S < T
     (1, 90, 30, 2, 1, 320, False, 8),  # S > T: rows 37.. keep no key
-    (1, 150, 150, 4, 2, 512, True, 50),  # a window, four column slices
+    (1, 150, 150, 4, 2, 512, True, 50),  # a window; bf16 at DH 512 in two dK/dV slices
+    (1, 90, 30, 2, 1, 384, False, 8),  # S > T at a full DH 384
+    (2, 77, 77, 4, 2, 384, True, 0),  # two batches, ragged S
+    (1, 130, 130, 4, 2, 520, True, 0),  # past 512: the wide pair in both types, two slices
+    (1, 100, 100, 2, 1, 640, True, 30),  # a window; f32 streams its dK/dV stationary rows
 ]
 
 
@@ -840,10 +849,10 @@ WIDE_BWD = [
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
 @pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", WIDE_BWD)
 def test_flash_attention_backward_wide_head(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
-    """Head widths past 256 run on the wide CUDA-core pair (S and dP summed
-    over dh in slices, outputs in column slices of 128), within
-    ``chip_smoke.BWD_TOL`` of the plain version (bf16: the inputs are bf16,
-    the sums f32, one rounding of each output)."""
+    """Head widths past 256: bf16 up to 512 on the split wgmma pair (P and
+    dS rounded to bf16), f32 and wider bf16 on the wide CUDA-core pair (S
+    and dP once a tile for a slice of up to 512 columns, all sums f32),
+    within ``chip_smoke.BWD_TOL`` of the plain version."""
     got = _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window)
     if s > t and not causal and window:
         assert torch.all(got[0][:, t + window - 1:] == 0)
@@ -865,6 +874,45 @@ def test_flash_attention_backward_misaligned_bf16(dev):
     want = fa.flash_attention_backward_plain(q, k, v, o, do, window=30)
     for gr, w in zip(got, want):
         assert torch.linalg.vector_norm(gr.float() - w.float()) <= 2e-2 * torch.linalg.vector_norm(w.float())
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_misaligned_bf16_wide(dev):
+    """bf16 operands off a 16-byte boundary at dh 320 (the split wgmma
+    pair): the wrapper copies them and the gradients hold."""
+    b, s, hq, hkv, dh = 1, 100, 4, 2, 320
+    g = torch.Generator(device=dev).manual_seed(6)
+    flat = torch.randn(b * s * hq * dh + 1, generator=g, device=dev).to(torch.bfloat16)
+    q = flat[1:].view(b, s, hq, dh)
+    _, k, v = _attn_case(dev, 7, b, s, hq, hkv, dh, torch.bfloat16)
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    o, lse = fa.flash_attention(q.clone(), k, v, window=30, return_lse=True)
+    do = torch.randn_like(o)
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, window=30)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, window=30)
+    for gr, w in zip(got, want):
+        assert torch.linalg.vector_norm(gr.float() - w.float()) <= 2e-2 * torch.linalg.vector_norm(w.float())
+
+
+@pytest.mark.cuda
+def test_backward_plan_matches_the_c_entry(dev):
+    """``flash_attention.backward_plan`` (which the CPU tests check and the
+    wrapper pads by) equals the C entry's ``flash_attention_bwd_plan`` for
+    every dh up to 1,100 in both types: route, width, slices, shared bytes,
+    threads and the wide pair's staging."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("flash_attention_bwd")
+    out = (ctypes.c_int * 9)()
+    routes = {"wgmma": 0, "wgmma_split": 1, "tiled": 2, "wide": 3}
+    for es in (2, 4):
+        for dh in range(1, 1101):
+            p = fa.backward_plan(dh, es)
+            assert lib.flash_attention_bwd_plan(p["dp"], int(es == 2), ctypes.cast(out, ctypes.c_void_p)) == 0
+            assert list(out) == [routes[p["route"]], p["width"], p["dq_slices"], p["dkdv_slices"], p["dq_smem"],
+                                 p["dkdv_smem"], p["threads"], *p["stationary"]], (es, dh)
 
 
 @pytest.mark.cuda
@@ -912,11 +960,12 @@ def test_forward_lse_leaves_the_output_unchanged(dev, dtype, atol, b, s, t, hq, 
 @pytest.mark.parametrize("dtype,dh,kernels", [
     (torch.bfloat16, 64, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
     (torch.bfloat16, 128, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
-    (torch.bfloat16, 200, ("bwd_dq_kernel", "bwd_dkdv_kernel")),
+    (torch.bfloat16, 200, ("bwd_dq_wgmma_split_kernel", "bwd_dkdv_wgmma_split_kernel")),
     (torch.float32, 64, ("bwd_dq_kernel", "bwd_dkdv_kernel")),
-    (torch.bfloat16, 320, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
+    (torch.bfloat16, 320, ("bwd_dq_wgmma_split_kernel", "bwd_dkdv_wgmma_split_kernel")),
     (torch.float32, 320, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
-], ids=["bf16-dh64", "bf16-dh128", "bf16-dh200", "f32-dh64", "bf16-dh320", "f32-dh320"])
+    (torch.bfloat16, 520, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
+], ids=["bf16-dh64", "bf16-dh128", "bf16-dh200", "f32-dh64", "bf16-dh320", "f32-dh320", "bf16-dh520"])
 def test_flash_attention_backward_launch_names(dev, dtype, dh, kernels):
     """A traced call launches the two kernels of its design, by name
     (chip_smoke.py's ``device_ms`` finds them by the ``bwd_dq`` and
