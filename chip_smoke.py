@@ -219,10 +219,12 @@
 T. training: (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) on the training forward's o and lse
    against their plain version on the card: minicpm heads [2, 2048, 36/36,
-   dh 64] causal in bf16 (the wgmma pair) and f32 (the tiled CUDA-core
-   pair), gemma3 heads [1, 4096, 32/16, dh 128] at window 0 and 1024 in
-   bf16, [1, 2048, 8/4, dh 256] causal in bf16 and [1, 2048, 8/4, dh 512]
-   causal in bf16 (the split wgmma pair) and f32 (the wide pair), and
+   dh 64] causal in bf16 (the wgmma pair) and f32 (the 3xTF32 pair, and
+   beside it the f32 forward kernel on the same inputs), gemma3 heads [1,
+   4096, 32/16, dh 128] at window 0 and 1024 in bf16, [1, 2048, 8/4, dh
+   256] causal in bf16 (the split wgmma pair) and f32 (the 3xTF32 pair),
+   [1, 2048, 8/4, dh 512] causal in bf16 (the split wgmma pair) and f32
+   (the wide pair), f32 [1, 16384, 4/4, dh 64] causal, and
    ``BWD_SMALL`` (ragged S, not causal, a window below the tile, a GQA group
    of 8, dh 16, S < T, S > T with rows that keep no key, dh
    64/128/200/320/520) in f32, five also in bf16 (dh 520: the wide pair); each of
@@ -230,8 +232,9 @@ T. training: (a) the attention backward kernels
    f32); kernels, plain version and the library's backward
    (``torch.autograd.grad`` through ``scaled_dot_product_attention``) timed
    beside the bound (10·dh operations a kept pair and query head at the
-   input type's peak), and at the five large shapes the two launches alone
-   by the profiler. (b) minicpm-2b at full width, all 40 layers, f32
+   input type's peak; in f32 the lesser of the fp32 peak and three TF32
+   passes), and at the seven large shapes the two launches alone by the
+   profiler. (b) minicpm-2b at full width, all 40 layers, f32
    masters, bf16 compute, remat; AdamW on its WSD schedule; ``SyntheticLM``
    4 x 2048 in 2 microbatches, 20 steps through ``TrainLoop(...,
    device="cuda")``: the loss falls; counters zeroed and read around the
@@ -258,6 +261,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -270,6 +274,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # one 4-byte shared-memory read a bank a clock: 32 banks, 132 SMs, 1.98 GHz boost
 SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, CUDA cores (no tensor cores)
+# H100 SXM, dense TF32 tensor cores: f32 work at f32 accuracy takes three TF32
+# passes (hi·hi + hi·lo + lo·hi), so an f32 product's floor is the lesser of
+# the fp32 peak and three passes at this rate (165 TFLOP/s of f32 work)
+TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 MAIN_ROWS, MAIN_QUERIES = 1_000_000, 10_000  # the main path's kg_style size
 # the online service's writes on that index (S1): rows inserted, base rows
@@ -360,7 +368,8 @@ DESIGN = {
     "flash_attention_backward": "redesigned: lse from the training forward, no statistics sweep; dQ per query "
                                 "tile, dK/dV per key tile over the GQA group, no atomics; bf16 to dh 128 on "
                                 "wgmma fed by a TMA ring, 129-512 on wgmma with the two consumer warpgroups "
-                                "splitting the products; f32 to 256 on CUDA cores; f32 past 256 and bf16 past "
+                                "splitting the products; f32 to 256 on the tensor cores in three TF32 passes "
+                                "(mma.sync, hi/lo split, a cp.async ring); f32 past 256 and bf16 past "
                                 "512 on CUDA cores with S and dP once a tile for up to 512 output columns, the "
                                 "stationary rows staged once, the rest streamed by cp.async",
 }
@@ -550,10 +559,35 @@ def phase_build(rec: dict, out_dir: str) -> None:
     with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
         for name, text in _build.build_log.items():
             f.write(f"== {name}\n{text}\n")
-    for name, text in _build.build_log.items():
+    rec["ptxas"] = ptxas_usage(_build.build_log)
+    for kernel, use in rec["ptxas"].items():
+        log(f"[build] {kernel}: {json.dumps(use)}")
+
+
+def ptxas_usage(build_log: dict) -> dict:
+    """Registers and spill bytes of every kernel in nvcc's ``-Xptxas -v``
+    output, by kernel name (demangled by ``c++filt`` where the host has it,
+    argument list cut)."""
+    out, name = {}, None
+    for text in build_log.values():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                try:
+                    name = subprocess.run(["c++filt", name], capture_output=True, text=True,
+                                          check=True).stdout.strip()
+                except (OSError, subprocess.CalledProcessError):
+                    pass
+                name = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+                out[name] = {}
+            elif name and "spill" in line:
+                st = re.search(r"(\d+) bytes spill stores", line)
+                ld = re.search(r"(\d+) bytes spill loads", line)
+                out[name]["spill_bytes"] = int(st.group(1)) + int(ld.group(1))
+            elif name and "Used" in line:
+                out[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def phase_kernels(rec: dict, max_err: dict) -> None:
@@ -2406,18 +2440,33 @@ def kept_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
+def ops_ms(flops: float, elem_size: int) -> float:
+    """Least time (ms) for ``flops`` operations of products in the input
+    type: bf16 at the bf16 tensor-core peak; f32 at the lesser of the fp32
+    CUDA-core peak and three TF32 tensor-core passes (the f32-accurate split
+    a kernel can use), TF32_FLOPS_PER_S / 3."""
+    if elem_size == 2:
+        return flops / BF16_FLOPS_PER_S * 1e3
+    return min(flops / FP32_FLOPS_PER_S, 3.0 * flops / TF32_FLOPS_PER_S) * 1e3
+
+
+def fp32_core_bound(t_bytes: float, flops: float, q):
+    """The bound as priced before the TF32 rate (f32 at the fp32 CUDA-core
+    peak), kept beside the bound of an f32 case; None in bf16."""
+    return max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3) if q.element_size() == 4 else None
+
+
 def attn_bound(q, k, causal: bool, window: int) -> dict:
     """Least time (ms): q, k, v read once and o written once over HBM, or
-    4·dh operations per kept pair and query head over the peak of the input
-    type (bf16 tensor cores, or f32 on CUDA cores), the larger of the two."""
+    4·dh operations per kept pair and query head at the input type's rate
+    (``ops_ms``), the larger of the two."""
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     nbytes = (2 * b * s * hq * dh + 2 * b * t * hkv * dh) * q.element_size()
     flops = 4.0 * dh * hq * b * kept_pairs(s, t, causal, window)
-    peak = BF16_FLOPS_PER_S if q.element_size() == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ms(flops, q.element_size())
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "flops": flops}
+            "bound_bytes": nbytes, "flops": flops, "fp32_core_bound_ms": fp32_core_bound(t_bytes, flops, q)}
 
 
 def sdpa(q, k, v, causal: bool, window: int):
@@ -2804,16 +2853,16 @@ def bwd_bound(q, k, causal: bool, window: int) -> dict:
     """Least time (ms) of the attention backward: q, o, dO read and dq
     written ([B, S, Hq, dh] each), k, v read and dk, dv written ([B, T, Hkv,
     dh] each) over HBM; or 10·dh operations per kept pair and query head
-    (five products: S recomputed, dP, dV, dQ, dK) over the input type's peak.
+    (five products: S recomputed, dP, dV, dQ, dK) at the input type's rate
+    (``ops_ms``: in f32 the lesser of the fp32 peak and three TF32 passes).
     The larger of the two."""
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     nbytes = (4 * b * s * hq * dh + 4 * b * t * hkv * dh) * q.element_size()
     flops = 10.0 * dh * hq * b * kept_pairs(s, t, causal, window)
-    peak = BF16_FLOPS_PER_S if q.element_size() == 2 else FP32_FLOPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ms(flops, q.element_size())
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "flops": flops}
+            "bound_bytes": nbytes, "flops": flops, "fp32_core_bound_ms": fp32_core_bound(t_bytes, flops, q)}
 
 
 def bwd_rel_errors(got, want, label: str) -> list:
@@ -2896,12 +2945,20 @@ def bwd_case(rows, max_err, label, q, k, v, causal, window, reps, kernel_alone=F
 def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
     """Phase T(a): the backward kernels at minicpm's heads [2, 2048, 36/36,
     dh 64] and gemma3's [1, 4096, 32/16, dh 128] at windows 0 and 1024 in
-    bf16 (the wgmma pair), minicpm's heads in f32 (the tiled pair), [1,
-    2048, 8/4, dh 256] causal in bf16 and row 8's shape [1, 2048, 8/4, dh
-    512] causal in bf16 (the split wgmma pair) and f32 (the wide pair), each
-    with its launches alone from the profiler; and at BWD_SMALL in f32 (and
-    five small bf16 widths). Returns the rows by label."""
+    bf16 (the wgmma pair), minicpm's heads in f32 (the 3xTF32 pair), [1,
+    2048, 8/4, dh 256] causal in bf16 (the split wgmma pair) and f32 (the
+    3xTF32 pair at DH 256), row 8's shape [1, 2048, 8/4, dh 512] causal in
+    bf16 (the split wgmma pair) and f32 (the wide pair), each with its
+    launches alone from the profiler; f32 [1, 16384, 4/4, dh 64] causal
+    (``"f32-long"``); and at BWD_SMALL in f32 (and five small bf16 widths).
+    Beside minicpm's f32 backward, the f32 forward that runs with it in
+    every f32 training step (``flash_fwd_kernel``, row 6b) on the same
+    inputs: call, launch alone, plain, library, bound (its row under
+    ``"f32-forward"``, in ``rec["training_forward_f32"]``). Returns the rows
+    by label."""
     import torch
+
+    from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(11)
 
@@ -2920,14 +2977,27 @@ def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
         torch.cuda.empty_cache()
     q, k, v = qkv(2, 2048, 2048, 36, 36, 64, torch.float32)
     out["minicpm-s2048-f32"] = bwd_case(rows, max_err, "minicpm-s2048-f32", q, k, v, True, 0, 5, kernel_alone=True)
+    fwd_rows: list = []
+    fwd = attn_case(fwd_rows, max_err, "minicpm-s2048-f32-forward", q, k, v, True, 0, 10)
+    fwd["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), "flash_fwd_kernel")
+    rec["training_forward_f32"] = out["f32-forward"] = fwd
+    log(f"[train-fwd] f32 forward at minicpm's heads: {fwd['ms']:.3f} ms a call, {fwd['device_ms']:.3f} the launch "
+        f"alone, library {fwd['library_ms']}, bound {fwd['bound_ms']:.4f}")
     del q, k, v
     torch.cuda.empty_cache()
-    for dtype, tag, dh in ((torch.bfloat16, "bf16", 256), (torch.bfloat16, "bf16", 512), (torch.float32, "f32", 512)):
+    for dtype, tag, dh in ((torch.bfloat16, "bf16", 256), (torch.float32, "f32", 256), (torch.bfloat16, "bf16", 512),
+                           (torch.float32, "f32", 512)):
         q, k, v = qkv(1, 2048, 2048, 8, 4, dh, dtype)
         label = f"dh{dh}-{tag}"
         out[label] = bwd_case(rows, max_err, label, q, k, v, True, 0, 5 if tag == "bf16" else 3, kernel_alone=True)
         del q, k, v
         torch.cuda.empty_cache()
+    # f32 at T 16384: the 3xTF32 pair's sums over keys run 2,048 k8 steps (their error grew with T while the
+    # tensor core's accumulator chained them)
+    q, k, v = qkv(1, 16384, 16384, 4, 4, 64, torch.float32)
+    out["f32-long"] = bwd_case(rows, max_err, "f32-long", q, k, v, True, 0, 3)
+    del q, k, v
+    torch.cuda.empty_cache()
     for label, b, s, t, hq, hkv, dh, causal, w in BWD_SMALL:
         for dtype in (torch.float32, torch.bfloat16) if label in BWD_SMALL_BF16 else (torch.float32,):
             q, k, v = qkv(b, s, t, hq, hkv, dh, dtype)
@@ -3672,18 +3742,25 @@ def main() -> int:
                                                                    "library_ms", "ms_over_bound")}
         if name == "flash_attention_backward":
             entry["tflops"] = h["tflops"]
-            # gemma3's heads (the wgmma pair at DH 128), minicpm's in f32 (the tiled pair), dh 256 and row
-            # 8's shape in bf16 (the split wgmma pair) and f32 (the wide pair)
+            # gemma3's heads (the wgmma pair at DH 128), minicpm's and dh 256 in f32 (the 3xTF32 pair), dh 256
+            # and row 8's shape in bf16 (the split wgmma pair), dh 512 in f32 (the wide pair)
             entry["more_shapes"] = {
-                w: {key: bwd[w][key] for key in ("shape", "ms", "device_ms", "bwd_dq_device_ms", "bwd_dkdv_device_ms",
-                                                   "plain_ms", "bound_ms", "library_ms", "tflops")}
-                for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024", "minicpm-s2048-f32", "dh256-bf16", "dh512-bf16",
-                          "dh512-f32")}
+                w: {key: bwd[w].get(key) for key in ("shape", "ms", "device_ms", "bwd_dq_device_ms",
+                                                       "bwd_dkdv_device_ms", "plain_ms", "bound_ms",
+                                                       "fp32_core_bound_ms", "library_ms", "tflops")}
+                for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024", "minicpm-s2048-f32", "dh256-bf16", "dh256-f32",
+                          "dh512-bf16", "dh512-f32")}
+            # ptxas registers and spills of the 3xTF32 pair (phase 1's nvcc log)
+            entry["ptxas_tf32x3"] = {k: v for k, v in rec["ptxas"].items() if "tf32x3" in k}
         if name == "flash_attention":
             g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
             entry["tflops"] = h["tflops"]
             entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                               "tflops", "bound_share")}
+            # row 6b: flash_fwd_kernel (f32) at minicpm's heads, as every f32 training step runs it
+            f = bwd["f32-forward"]
+            entry["f32_training_forward"] = {key: f[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                                                      "fp32_core_bound_ms", "library_ms", "tflops")}
         for key in ("bound_bytes", "lut_streamed_bytes", "staged_lut_bytes", "real_query_slots",
                     "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets", "lookup_bound_ms",
                     "bwd_dq_device_ms", "bwd_dkdv_device_ms"):

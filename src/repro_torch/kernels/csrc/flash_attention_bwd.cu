@@ -43,14 +43,10 @@
 //    bwd_dkdv_wgmma_split_kernel at DH 256, 384, 512, the same ring with
 //    the two consumer warpgroups splitting the products (their section):
 //    14·dh a kept pair at DH 256, 18·dh at 384 and 512;
-//  * f32 up to dh 256: bwd_dq_kernel / bwd_dkdv_kernel on CUDA cores: each
-//    thread owns a 4 x 8 tile of a 64 x 64 product and 4 rows of the output
-//    columns, reading operands from shared memory as float4, as the
-//    forward's f32 kernel does. Operands are staged transposed ([DH][64 +
-//    pad]) for the S- and dP-type products, row-major for the dQ/dK/dV
-//    products, zero past S or T and dh; DH is the width compiled (32, 64,
-//    128, 256). Each output slice is DV = min(DH, 128) columns; at DH 256 a
-//    block owns one of two slices and computes S and dP over all 256 columns;
+//  * f32 up to dh 256: bwd_dq_tf32x3_kernel / bwd_dkdv_tf32x3_kernel at DH
+//    32, 64, 128, 256, every product on the tensor cores as three TF32
+//    mma.sync (hi/lo split, f32 sums), K/V or Q/dO tiles through a cp.async
+//    ring, S and dP once a tile for all DH columns (their section);
 //  * f32 past dh 256 and bf16 past 512: bwd_dq_wide_kernel /
 //    bwd_dkdv_wide_kernel on CUDA cores, 32 stationary rows a block staged
 //    once, the other operand streamed by cp.async, S and dP once a tile for
@@ -62,7 +58,10 @@
 // dO read once and dq, dk, dv written once. At minicpm's shapes ([2, 2048,
 // 36/36, dh 64], causal) that is 96.7 GFLOP against 151 MB: about 640
 // operations a byte, above the card's bf16 balance point (~295), so the
-// bf16 tensor cores' 989 TFLOP/s set the bound (0.098 ms).
+// bf16 tensor cores' 989 TFLOP/s set the bound (0.098 ms). In f32 the
+// bound is the lesser of the fp32 CUDA-core peak (67 TFLOP/s) and three
+// TF32 passes at the TF32 tensor-core peak (495 / 3 = 165 TFLOP/s of f32
+// work): 0.586 ms at minicpm's heads.
 //
 // Plain C interface for ctypes: pointers and the stream are void*; the
 // entry returns the first CUDA error of its launches (0 = launched).
@@ -77,10 +76,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
-constexpr int kB = 64;         // rows of a query tile, keys of a KV tile
-constexpr int kStride = kB + 4;  // row stride of the transposed tiles (floats)
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -91,329 +86,11 @@ struct Shape {
   float scale;
 };
 
-__host__ __device__ constexpr int slice_cols(int DH) { return DH < 128 ? DH : 128; }
-
-// Shared memory of either kernel at width DH: three [DH][kStride] tiles and
-// one [kB][kStride] tile of P or dS, plus 2 x kB floats (lse and D, dK/dV).
-__host__ __device__ constexpr size_t bwd_smem_bytes(int DH) {
-  return ((size_t)3 * DH * kStride + (size_t)kB * kStride + 2 * kB) * sizeof(float);
-}
-
-// Column of the thread's j-th entry in a 4 x 8 tile of a 64-column product.
-__device__ __forceinline__ int tile_col(int tx, int j) { return j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4); }
-
-// dst[d][r] = src row (r0 + r), column d, for r < kB, d < DH; 0 past `rows`
-// or dh. `ld` is the elements between consecutive rows of src.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_t(float* dst, const T* src, size_t ld, int r0, int rows, int dh) {
-  for (int e = threadIdx.x; e < kB * DH; e += kThreads) {
-    const int r = e / DH, d = e - (e / DH) * DH;
-    const int s = r0 + r;
-    dst[d * kStride + r] = (s < rows && d < dh) ? to_f32(src[(size_t)s * ld + d]) : 0.f;
-  }
-}
-
-// dst[r][c] = src row (r0 + r), column (c0 + c), for c < DV; 0 past `rows`
-// or dh.
-template <typename T, int DV>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, size_t ld, int r0, int rows, int c0,
-                                           int dh) {
-  for (int e = threadIdx.x; e < kB * DV; e += kThreads) {
-    const int r = e / DV, c = e - (e / DV) * DV;
-    const int s = r0 + r, d = c0 + c;
-    dst[r * DV + c] = (s < rows && d < dh) ? to_f32(src[(size_t)s * ld + d]) : 0.f;
-  }
-}
-
-// s[i][j] += Σ_d a[d][ty·4 + i] · b[d][tile_col(tx, j)] over N staged
-// columns: float4 reads, 32 FMAs per three.
-template <int N>
-__device__ __forceinline__ void product(float (&s)[4][8], const float* a, const float* b, int ty, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < N; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d * kStride + ty * 4);
-    const float4 y0 = *reinterpret_cast<const float4*>(b + d * kStride + tx * 4);
-    const float4 y1 = *reinterpret_cast<const float4*>(b + d * kStride + 32 + tx * 4);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(xv[i], yv[j], s[i][j]);
-  }
-}
-
-// acc[i][u·4 + c] += Σ_j w[j][ty·4 + i] · rows[j][u·32 + tx·4 + c] over the
-// tile's kB values of j: w is [kB][kStride], rows [kB][DV].
-template <int DV>
-__device__ __forceinline__ void accumulate(float (&acc)[4][DV / 8], const float* w, const float* rows, int ty,
-                                           int tx) {
-#pragma unroll 2
-  for (int j = 0; j < kB; ++j) {
-    const float4 wa = *reinterpret_cast<const float4*>(w + j * kStride + ty * 4);
-    const float wv[4] = {wa.x, wa.y, wa.z, wa.w};
-#pragma unroll
-    for (int u = 0; u < DV / 32; ++u) {
-      const float4 r = *reinterpret_cast<const float4*>(rows + j * DV + u * 32 + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][u * 4 + 0] = fmaf(wv[i], r.x, acc[i][u * 4 + 0]);
-        acc[i][u * 4 + 1] = fmaf(wv[i], r.y, acc[i][u * 4 + 1]);
-        acc[i][u * 4 + 2] = fmaf(wv[i], r.z, acc[i][u * 4 + 2]);
-        acc[i][u * 4 + 3] = fmaf(wv[i], r.w, acc[i][u * 4 + 3]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ bool kept(int qpos, int kpos, const Shape& sh) {
   bool ok = qpos < sh.S && kpos < sh.T;
   if (sh.causal) ok = ok && kpos <= qpos;
   if (sh.window > 0) ok = ok && kpos > qpos - sh.window;
   return ok;
-}
-
-// Sum over the 8 lanes of a row group (lanes 8g..8g+7 of one warp).
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
-// D_i = dO_i · O_i and lse_i of the thread's rows q0 + ty·4 + i (0 past S),
-// a row group's 8 lanes splitting the columns; `put` (one block of the
-// row's column slices) writes D for the dK/dV launch.
-template <typename T>
-__device__ __forceinline__ void row_terms(float (&delta)[4], float (&lse)[4], const T* o, const T* dout,
-                                          const float* lse_in, float* delta_out, size_t q_off, size_t q_row,
-                                          size_t at0, int q0, int ty, int tx, bool put, const Shape& sh) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    float acc = 0.f;
-    if (s < sh.S)
-      for (int d = tx; d < sh.dh; d += 8) {
-        const size_t at = q_off + (size_t)s * q_row + d;
-        acc = fmaf(to_f32(dout[at]), to_f32(o[at]), acc);
-      }
-    delta[i] = group_sum(acc);
-    lse[i] = s < sh.S ? lse_in[at0 + s] : 0.f;
-    if (put && tx == 0 && s < sh.S) delta_out[at0 + s] = delta[i];
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse_in,
-                  T* __restrict__ dq, float* __restrict__ delta_out, Shape sh) {
-  constexpr int DV = slice_cols(DH);
-  constexpr int kSlices = DH / DV;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [DH][kStride] q
-  float* dot = qt + DH * kStride;                  // [DH][kStride] dO
-  float* buf = dot + DH * kStride;                 // Kt, Vt [DH][kStride] or K rows [kB][DV]
-  float* dst = buf + DH * kStride;                  // [kB keys][kStride] dS
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;  // heavy (late causal) tiles first
-  const int h = blockIdx.y / kSlices;
-  const int c0 = (blockIdx.y - h * kSlices) * DV;
-  const int b = blockIdx.z;
-  const int hk = h / (sh.Hq / sh.Hkv);
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
-  const int dh = sh.dh;
-  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
-  const size_t q_off = ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-  const T* kb = k + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-  const T* vb = v + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-
-  stage_t<T, DH>(qt, q + q_off, q_row, q0, sh.S, dh);
-  stage_t<T, DH>(dot, dout + q_off, q_row, q0, sh.S, dh);
-  float delta[4], lse[4];
-  row_terms(delta, lse, o, dout, lse_in, delta_out, q_off, q_row, ((size_t)b * sh.Hq + h) * sh.S, q0, ty, tx,
-            c0 == 0, sh);
-
-  const int q_last = min(q0 + kB, sh.S) - 1;
-  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
-
-  float acc[4][DV / 8] = {};
-  for (int t0 = (kv_lo / kB) * kB; t0 < kv_hi; t0 += kB) {
-    __syncthreads();  // the previous tile's K rows and dS are consumed (and Qt, dOt staged)
-    stage_t<T, DH>(buf, kb, kv_row, t0, sh.T, dh);
-    __syncthreads();
-    float p[4][8] = {};
-    product<DH>(p, qt, buf, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        p[i][j] = kept(q0 + ty * 4 + i, t0 + tile_col(tx, j), sh) ? expf(p[i][j] * sh.scale - lse[i]) : 0.f;
-    __syncthreads();  // Kt is consumed
-    stage_t<T, DH>(buf, vb, kv_row, t0, sh.T, dh);
-    __syncthreads();
-    float dp[4][8] = {};
-    product<DH>(dp, dot, buf, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[tile_col(tx, j) * kStride + ty * 4 + i] = p[i][j] * (dp[i][j] - delta[i]);
-    __syncthreads();  // Vt is consumed, dS is visible
-    stage_rows<T, DV>(buf, kb, kv_row, t0, sh.T, c0, dh);
-    __syncthreads();
-    accumulate<DV>(acc, dst, buf, ty, tx);
-  }
-
-  T* dqb = dq + q_off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= sh.S) continue;
-#pragma unroll
-    for (int u = 0; u < DV / 32; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = c0 + u * 32 + tx * 4 + c;
-        if (d < dh) store(dqb + (size_t)s * q_row + d, acc[i][u * 4 + c] * sh.scale);
-      }
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse_in,
-                    const float* __restrict__ delta_in, T* __restrict__ dk, T* __restrict__ dv, Shape sh) {
-  constexpr int DV = slice_cols(DH);
-  constexpr int kSlices = DH / DV;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* kt = reinterpret_cast<float*>(smem_raw);  // [DH][kStride] K of the tile
-  float* vt = kt + DH * kStride;                   // [DH][kStride] V of the tile
-  float* buf = vt + DH * kStride;                  // Qt, dOt [DH][kStride] or dO, Q rows [kB][DV]
-  float* wt = buf + DH * kStride;                  // [kB queries][kStride] P, then dS
-  float* lse_s = wt + kB * kStride;                // [kB]
-  float* delta_s = lse_s + kB;                     // [kB]
-
-  const int k0 = blockIdx.x * kB;
-  const int hk = blockIdx.y / kSlices;
-  const int c0 = (blockIdx.y - hk * kSlices) * DV;
-  const int b = blockIdx.z;
-  const int g = sh.Hq / sh.Hkv;
-  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // keys ty·4 + i, queries tile_col(tx, j)
-  const int dh = sh.dh;
-  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
-  const size_t kv_off = ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-
-  stage_t<T, DH>(kt, k + kv_off, kv_row, k0, sh.T, dh);
-  stage_t<T, DH>(vt, v + kv_off, kv_row, k0, sh.T, dh);
-
-  // the query rows that keep any key of the tile: [q_lo, q_hi)
-  const int k_last = min(k0 + kB, sh.T) - 1;
-  const int q_lo = sh.causal ? k0 : 0;
-  const int q_hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
-
-  float dk_acc[4][DV / 8] = {}, dv_acc[4][DV / 8] = {};
-  for (int h = hk * g; h < hk * g + g; ++h) {
-    const size_t q_off = ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-    const float* lse_h = lse_in + ((size_t)b * sh.Hq + h) * sh.S;
-    const float* delta_h = delta_in + ((size_t)b * sh.Hq + h) * sh.S;
-    for (int q0 = (q_lo / kB) * kB; q0 < q_hi; q0 += kB) {
-      __syncthreads();  // the previous tile's products are done with buf and wt
-      stage_t<T, DH>(buf, q + q_off, q_row, q0, sh.S, dh);
-      for (int r = threadIdx.x; r < kB; r += kThreads) {
-        const bool in = q0 + r < sh.S;
-        lse_s[r] = in ? lse_h[q0 + r] : 0.f;
-        delta_s[r] = in ? delta_h[q0 + r] : 0.f;
-      }
-      __syncthreads();
-      // Sᵀ[key][query] and P, written to wt[query][key] (each thread reads
-      // back only what it wrote until the next barrier)
-      {
-        float s[4][8] = {};
-        product<DH>(s, kt, buf, ty, tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = tile_col(tx, j);
-            wt[col * kStride + ty * 4 + i] =
-                kept(q0 + col, k0 + ty * 4 + i, sh) ? expf(s[i][j] * sh.scale - lse_s[col]) : 0.f;
-          }
-      }
-      __syncthreads();  // Qt is consumed
-      stage_t<T, DH>(buf, dout + q_off, q_row, q0, sh.S, dh);
-      __syncthreads();
-      float ds[4][8] = {};
-      product<DH>(ds, vt, buf, ty, tx);  // dPᵀ[key][query]
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = tile_col(tx, j);
-          ds[i][j] = wt[col * kStride + ty * 4 + i] * (ds[i][j] - delta_s[col]);
-        }
-      __syncthreads();  // dOt is consumed, P is visible
-      stage_rows<T, DV>(buf, dout + q_off, q_row, q0, sh.S, c0, dh);
-      __syncthreads();
-      accumulate<DV>(dv_acc, wt, buf, ty, tx);  // dV += Pᵀ·dO
-      __syncthreads();  // P and the dO rows are consumed
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) wt[tile_col(tx, j) * kStride + ty * 4 + i] = ds[i][j];
-      stage_rows<T, DV>(buf, q + q_off, q_row, q0, sh.S, c0, dh);
-      __syncthreads();
-      accumulate<DV>(dk_acc, wt, buf, ty, tx);  // dK += dSᵀ·Q
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty * 4 + i;
-    if (t >= sh.T) continue;
-#pragma unroll
-    for (int u = 0; u < DV / 32; ++u)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = c0 + u * 32 + tx * 4 + c;
-        if (d < dh) {
-          const size_t at = kv_off + (size_t)t * kv_row + d;
-          store(dk + at, dk_acc[i][u * 4 + c] * sh.scale);
-          store(dv + at, dv_acc[i][u * 4 + c]);
-        }
-      }
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                   void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
-  constexpr int kSlices = DH / slice_cols(DH);
-  const size_t smem = bwd_smem_bytes(DH);
-  cudaError_t err = hqi::prepare(bwd_dq_kernel<T, DH>, smem);
-  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_kernel<T, DH>, smem);
-  if (err != cudaSuccess) return err;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  bwd_dq_kernel<T, DH><<<dim3((sh.S + kB - 1) / kB, sh.Hq * kSlices, sh.B), kThreads, smem, stream>>>(
-      qp, kp, vp, static_cast<const T*>(o), dop, lse, static_cast<T*>(dq), delta, sh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<T, DH><<<dim3((sh.T + kB - 1) / kB, sh.Hkv * kSlices, sh.B), kThreads, smem, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-                      void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t st) {
-  if (sh.dh <= 32) return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
-  if (sh.dh <= 64) return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
-  if (sh.dh <= 128) return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
-  return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, sh, st);
 }
 
 // --------------------------- f32 past dh 256, bf16 past 512: the wide pair
@@ -1974,12 +1651,619 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
+// ------------------------------------- f32 up to dh 256: 3xTF32 on mma.sync
+//
+// bwd_dq_tf32x3_kernel / bwd_dkdv_tf32x3_kernel replace an earlier CUDA-core
+// pair (bwd_dq_kernel / bwd_dkdv_kernel), which the 67 TFLOP/s fp32 peak
+// capped, which staged every tile element by element with nothing in
+// flight, and which read each moving operand twice a tile (once
+// transposed). Every product now runs on the tensor cores in TF32, split
+// three ways so that the route keeps f32 accuracy (BWD_TOL 1e-4; one TF32
+// pass keeps 11 bits, ~2^-11 a product): each f32 operand x becomes hi =
+// tf32(x) (tf32_rna: cvt.rna.tf32.f32's rounding, to nearest, ties away)
+// and lo = x - hi, whose f32 bits the tensor core reads as TF32 (its top 19
+// bits: lo truncated), and a k8 step of a product is lo·hi + hi·lo +
+// hi·hi, three mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 with f32 sums
+// (lo·lo, ~2^-22 of a product, is dropped). Both kernels: 256 threads (8 warps),
+// dh padded to a multiple of 8 by the wrapper and zero-filled to DH (32,
+// 64, 128, 256) in shared memory.
+//
+// Why mma.sync and not wgmma: wgmma takes TF32 from shared memory K-major
+// only (its transpose bits are for 16-bit types), so dQ = dS·K, dK = dSᵀ·Q
+// and dV = Pᵀ·dO would want Kᵀ, Qᵀ and dOᵀ tiles that TMA cannot make from
+// row-major f32, and the lo halves would need tiles of their own. With
+// mma.sync each thread loads its own fragments from one row-major staged
+// tile, splits them in registers, and the same tile serves as the "row"
+// operand (S-type products, contracting over d) and as the "transposed"
+// one (the accumulating products, contracting over the tile's rows): every
+// moving operand crosses from device memory once a tile.
+//
+// Fragments without a round trip: an m16n8 accumulator holds columns 2t and
+// 2t + 1 of its n8 block (t = lane % 4) and a TF32 A fragment wants
+// k-columns t and t + 4. The accumulating products contract over keys (dQ)
+// or queries (dK, dV) in the permuted order k' = t -> 2t, t + 4 -> 2t + 1
+// inside each 8-block, so S/dP accumulators become A fragments in place
+// (P and dS never leave registers in the dQ kernel); B reads its rows in
+// the same order (rows 2t and 2t + 1) and two n8 blocks' columns as one
+// 8-byte load (columns 2g, 2g + 1 of a 16-column pair, g = lane / 4), so
+// the output lands as float4s. Rows are DH + 4 floats apart: the S-type
+// fragment reads (rows g, columns t) and the permuted 8-byte reads (rows 2t,
+// columns 2g) are both free of bank conflicts.
+//
+// Sums over the band: the accumulating products run over every key (query)
+// of the band, hundreds of k8 steps. Chained in the tensor core's
+// accumulator, whose additions do not round to nearest, their error grew
+// linearly with T and passed 1e-4 of dK's norm by T 16384; so each tile's
+// products for a column pair are summed from zero (3 products a k8 step, a
+// tile's few steps) and added to the running sums by f32 adds.
+//
+//  * bwd_dq_tf32x3_kernel: a block owns 64·MT query rows of one head (the
+//    late, heavy causal tiles first); Q and dO are staged once, K and V
+//    tiles of BN keys stream through a cp.async ring of DQ_STAGES stages
+//    (16-byte copies, the next tiles in flight while this one computes, one
+//    __syncthreads a tile). Warp w owns rows 16·MT·(w % 4) and the keys
+//    BN/2 · (w / 4) of each tile: S and dP for them (once), P = exp2(S·scale
+//    ·log2 e - lse·log2 e) where kept, dS = P ∘ (dP - D), and dQ += dS·K
+//    over all DH columns; the two key halves' dQ are summed in shared
+//    memory in a fixed order at the end. D = dO · O is computed first and
+//    written for the second launch.
+//  * bwd_dkdv_tf32x3_kernel: a block owns 64·MT keys of one KV head
+//    (early, heavy keys first); K and V are staged once, Q and dO tiles of
+//    BQ queries (with their lse and D) stream through the ring over the g
+//    heads of the group and, per head, the query tiles that keep any key of
+//    the block. dK and dV of 16 keys x DH do not both fit in a warp's
+//    registers at DH 256 (2 x 128 a thread), so the block's 8 warps are 4
+//    key groups of 2 roles: role 0 computes Sᵀ = K·Qᵀ, P, hands P to its
+//    partner through shared memory (a named barrier of the pair) and
+//    accumulates dV += Pᵀ·dO; role 1 computes dPᵀ = V·dOᵀ, dS = P ∘ (dPᵀ -
+//    D) and dK += dSᵀ·Q. S and dP once a tile, each accumulator in one warp.
+// One block of 8 warps an SM at DH 64, 128 and 256 (shared memory, and
+// registers at 64). A kept pair costs 14·dh operations over both kernels
+// at three passes each (S and dP in both): chip_smoke.py prices the bound
+// at the lesser of the fp32 peak and three TF32 passes at the TF32 peak.
+// Tiles that cross the causal diagonal, the window's edge or S / T compute
+// the mask; warps whose rows (keys) a tile cannot keep skip it. No
+// atomics: the result does not depend on the schedule.
+
+constexpr int kTfThreads = 256;  // 8 warps
+constexpr int kTfKeySplit = 2;   // dQ: the two warps of a row group split each key tile
+
+// Per compiled width: MT m16 tiles a warp (16·MT stationary rows, 64·MT a
+// block), BN keys a dQ tile and its ring stages, BQ queries a dK/dV tile
+// and its stages. At DH 256 with few KV heads the dK/dV launch has about
+// one block an SM, and the first (causal) key block, walking every query
+// tile, takes twice the average (PERF.md §7). Two m16 tiles a warp share
+// each loaded and split B fragment (half the B loads and splits a
+// product): on the H100 that was faster at DH 64 and slower at DH 32, and
+// at DH 128 and 256 32 rows' dK or dV alone would take 128 or 256
+// registers a thread.
+template <int DH>
+struct TfTile;
+template <>
+struct TfTile<32> {
+  static constexpr int MT = 1, BN = 64, DQ_STAGES = 3, BQ = 64, KV_STAGES = 3;
+};
+template <>
+struct TfTile<64> {
+  static constexpr int MT = 2, BN = 64, DQ_STAGES = 2, BQ = 32, KV_STAGES = 3;
+};
+template <>
+struct TfTile<128> {
+  static constexpr int MT = 1, BN = 64, DQ_STAGES = 2, BQ = 64, KV_STAGES = 2;
+};
+template <>
+struct TfTile<256> {
+  static constexpr int MT = 1, BN = 16, DQ_STAGES = 2, BQ = 16, KV_STAGES = 2;
+};
+
+// Shared memory (bytes): the two stationary tiles, the ring, and (dK/dV)
+// the P hand-over, a float4 a lane for each m16 x n8 block of each of the
+// four warp pairs.
+template <int DH>
+struct TfSmem {
+  static constexpr int LD = DH + 4;  // row stride (floats)
+  static constexpr int MT = TfTile<DH>::MT, BN = TfTile<DH>::BN, BQ = TfTile<DH>::BQ;
+  static constexpr int ROWS = 64 * MT;                   // query rows a dQ block, keys a dK/dV block
+  static constexpr int DQ_STAGE = 2 * BN * LD;           // floats: a K and a V tile
+  static constexpr int KV_STAGE = 2 * BQ * LD + 2 * BQ;  // floats: a Q and a dO tile, lse, D
+  static constexpr size_t p_bytes = (size_t)4 * MT * (BQ / 8) * 32 * 16;
+  static constexpr size_t dq = (size_t)2 * ROWS * LD * 4 + (size_t)TfTile<DH>::DQ_STAGES * DQ_STAGE * 4;
+  static constexpr size_t dkdv =
+      (size_t)2 * ROWS * LD * 4 + (size_t)TfTile<DH>::KV_STAGES * KV_STAGE * 4 + p_bytes;
+};
+
+// x rounded to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32's
+// rounding written on the bits (half of the dropped 13 bits' weight added to
+// the magnitude, then the 13 bits cleared; a carry reaches the exponent, inf
+// stays inf), for finite x and ±inf. A NaN's bits may carry into the sign
+// or lose its mantissa (0x7fffffff, the GPU's canonical NaN, gives -0), so
+// a split keeps NaN in lo: x - hi is the canonical NaN whatever hi is, and
+// the tensor core reads its top 19 bits as a TF32 NaN. On the H100 this
+// pair of integer operations for hi, with lo left to the tensor core's
+// truncation, was faster than cvt.rna.tf32.f32 (which ptxas expands with
+// NaN tests) and than the bit rounding with a NaN select (PERF.md §6).
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// An A fragment (four values) or a B fragment (two) split into TF32 hi and
+// lo (see tf32_rna: a NaN operand makes each of its products NaN).
+struct TfA {
+  uint32_t hi[4], lo[4];
+};
+struct TfB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ TfA split_a(float a0, float a1, float a2, float a3) {
+  const float a[4] = {a0, a1, a2, a3};
+  TfA f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = tf32_rna(a[i]);
+    f.lo[i] = __float_as_uint(a[i] - __uint_as_float(f.hi[i]));
+  }
+  return f;
+}
+
+__device__ __forceinline__ TfB split_b(float b0, float b1) {
+  TfB f;
+  f.hi[0] = tf32_rna(b0), f.hi[1] = tf32_rna(b1);
+  f.lo[0] = __float_as_uint(b0 - __uint_as_float(f.hi[0])), f.lo[1] = __float_as_uint(b1 - __uint_as_float(f.hi[1]));
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A·B over one k8 step in three TF32 products: the small terms
+// (lo·hi, hi·lo) first, then hi·hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const TfA& a, const TfB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// acc[p][m][j] += A_p[16·MT][DH] · B_p[8·NB][DH]ᵀ for NP products at once
+// (S and dP). a[p] points at element (g, t) of the warp's first row of a
+// [.][LD] tile (m16 tile m 16·m rows below), b[p] at element (g, t) of the
+// first row of the n8 blocks. Each B fragment is split once for the MT
+// tiles.
+template <int DH, int MT, int NB, int NP>
+__device__ __forceinline__ void s_products(float (&acc)[NP][MT][NB][4], const float* const (&a)[NP],
+                                           const float* const (&b)[NP]) {
+  constexpr int LD = DH + 4;
+#pragma unroll 2
+  for (int kk = 0; kk < DH / 8; ++kk) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      TfA fa[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* ap = a[p] + 16 * m * LD + 8 * kk;
+        fa[m] = split_a(ap[0], ap[8 * LD], ap[4], ap[8 * LD + 4]);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float* bp = b[p] + j * 8 * LD + 8 * kk;
+        const TfB fb = split_b(bp[0], bp[4]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma3(acc[p][m][j], fa[m], fb);
+      }
+    }
+  }
+}
+
+// acc[m] += W[m] · B over the 8·KS rows of b: W[m] [16][8·KS] is KS n8
+// accumulator blocks of an S-type product (rows g, g + 8; columns 2t,
+// 2t + 1), taken as A fragments in the permuted order (k' t -> 2t,
+// t + 4 -> 2t + 1); b points at the tile's first row of those 8·KS,
+// row-major [.][DH + 4]. acc blocks 2p and 2p + 1 hold columns 16p + 2n and
+// 16p + 2n + 1 for n8 column n, so a thread's row holds columns 16p + 4t ..
+// 16p + 4t + 3. Each B fragment is split once for the MT tiles. A tile's
+// products for each column pair go to a zeroed fragment (3·KS products)
+// that is added to acc by f32 adds (see "Sums over the band" above).
+template <int DH, int MT, int KS>
+__device__ __forceinline__ void acc_product(float (&acc)[MT][DH / 8][4], const float (&w)[MT][KS][4], const float* b,
+                                            int g, int t) {
+  constexpr int LD = DH + 4;
+  TfA fa[MT][KS];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int s = 0; s < KS; ++s) fa[m][s] = split_a(w[m][s][0], w[m][s][2], w[m][s][1], w[m][s][3]);
+  const float* r0 = b + 2 * t * LD + 2 * g;
+#pragma unroll
+  for (int p = 0; p < DH / 16; ++p) {
+    float d[MT][2][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[m][0][e] = d[m][1][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const float2 x = *reinterpret_cast<const float2*>(r0 + 8 * s * LD + 16 * p);
+      const float2 y = *reinterpret_cast<const float2*>(r0 + (8 * s + 1) * LD + 16 * p);
+      const TfB b0 = split_b(x.x, y.x), b1 = split_b(x.y, y.y);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma3(d[m][0], fa[m][s], b0);
+        mma3(d[m][1], fa[m][s], b1);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[m][2 * p][e] += d[m][0][e];
+        acc[m][2 * p + 1][e] += d[m][1][e];
+      }
+  }
+}
+
+// Row g + 8i of an accumulator in the layout above, as float4s at columns
+// 16p + 4t, scaled; columns past dh (a multiple of 8) are not written.
+template <int DH>
+__device__ __forceinline__ void store_rows(float* row_ptr, const float (&acc)[DH / 8][4], int i, int t, int dh,
+                                           float scale) {
+#pragma unroll
+  for (int p = 0; p < DH / 16; ++p) {
+    const int c = 16 * p + 4 * t;
+    if (c < dh)
+      *reinterpret_cast<float4*>(row_ptr + c) =
+          make_float4(acc[2 * p][2 * i] * scale, acc[2 * p + 1][2 * i] * scale, acc[2 * p][2 * i + 1] * scale,
+                      acc[2 * p + 1][2 * i + 1] * scale);
+  }
+}
+
+// Rows [r0, r0 + rows) x DH columns of src (row stride ld floats) into dst
+// [rows][DH + 4] by 16-byte cp.async; zeros past row_end or dh.
+template <int DH>
+__device__ __forceinline__ void stage_tf(float* dst, const float* src, size_t ld, int r0, int rows, int row_end,
+                                         int dh) {
+  constexpr int U = DH / 4;
+  for (int e = threadIdx.x; e < rows * U; e += kTfThreads) {
+    const int r = e / U, col = 4 * (e % U);
+    const int row = r0 + r;
+    const bool ok = row < row_end && col < dh;
+    sm90::cp_async16_zfill(dst + r * (DH + 4) + col, ok ? src + (size_t)row * ld + col : src, ok);
+  }
+}
+
+// 4 bytes by cp.async, or a zero when `valid` is false (src not read).
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sm90::smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void pair_arrive(int id) { asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void pair_sync(int id) { asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory"); }
+
+template <int DH>
+__global__ void __launch_bounds__(kTfThreads, 1)
+    bwd_dq_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         const float* __restrict__ o, const float* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ delta, Shape sh) {
+  using M = TfSmem<DH>;
+  constexpr int LD = DH + 4, MT = M::MT, ROWS = M::ROWS, BN = M::BN, STAGES = TfTile<DH>::DQ_STAGES;
+  constexpr int NK = BN / kTfKeySplit, NB = NK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [ROWS][LD] Q
+  float* sdo = sq + ROWS * LD;                     // [ROWS][LD] dO
+  float* ring = sdo + ROWS * LD;                   // STAGES x ([BN][LD] K, [BN][LD] V)
+
+  // Heavy tiles first: every (batch, head)'s last query tile, then the one before.
+  const int hb_n = sh.Hq * sh.B;
+  const int n_qt = (sh.S + ROWS - 1) / ROWS;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / hb_n)) * ROWS;
+  const int h = (int)(blockIdx.x % hb_n) % sh.Hq, b = (int)(blockIdx.x % hb_n) / sh.Hq;
+  const int hk = h / (sh.Hq / sh.Hkv);
+  const int dh = sh.dh;
+  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
+  const size_t q_off = (size_t)b * sh.S * q_row + (size_t)h * dh;
+  const float* kb = k + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+  const float* vb = v + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+
+  const int q_last = min(q0 + ROWS, sh.S) - 1;
+  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
+  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
+  const int tile_lo = kv_lo / BN;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN - tile_lo : 0;
+
+  stage_tf<DH>(sq, q + q_off, q_row, q0, ROWS, sh.S, dh);
+  stage_tf<DH>(sdo, dout + q_off, q_row, q0, ROWS, sh.S, dh);
+  sm90::cp_async_commit();
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      float* st = ring + (it % STAGES) * M::DQ_STAGE;
+      const int t0 = (tile_lo + it) * BN;
+      stage_tf<DH>(st, kb, kv_row, t0, BN, sh.T, dh);
+      stage_tf<DH>(st + BN * LD, vb, kv_row, t0, BN, sh.T, dh);
+    }
+    sm90::cp_async_commit();  // empty groups too: the waits count groups
+  };
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) issue(it);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, ks = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * MT * rg;  // the warp's first row
+
+  // D = dO · O and lse (log2 units) of rows r0 + 16m + g + 8i, the four
+  // lanes of a quad splitting the columns 4 at a time; 0 past S.
+  sm90::cp_async_wait<STAGES - 1>();  // Q and dO landed
+  __syncthreads();
+  const size_t at0 = ((size_t)b * sh.Hq + h) * sh.S;
+  float dlt[MT][2], lse2[MT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = 16 * (MT * rg + m) + g + 8 * i, row = q0 + rr;
+      float acc = 0.f;
+      if (row < sh.S)
+        for (int c = 4 * t; c < dh; c += 16)
+          acc = dot4(ld4(sdo + rr * LD + c), ld4(o + q_off + (size_t)row * q_row + c), acc);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dlt[m][i] = acc;
+      lse2[m][i] = row < sh.S ? lse[at0 + row] * kLog2e : 0.f;
+      if (ks == 0 && t == 0 && row < sh.S) delta[at0 + row] = acc;
+    }
+
+  const float c_log2 = sh.scale * kLog2e;
+  const int r_last = min(r0 + 16 * MT - 1, sh.S - 1);
+  float dqa[MT][DH / 8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    sm90::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile it visible; every warp is done with the stage refilled next
+    issue(it + STAGES - 1);
+    const float* sk = ring + (it % STAGES) * M::DQ_STAGE;
+    const float* sv = sk + BN * LD;
+    const int kw = (tile_lo + it) * BN + ks * NK;  // the warp's first key
+    if (r0 >= sh.S || kw >= sh.T || (sh.causal && kw > r_last) ||
+        (sh.window > 0 && kw + NK - 1 <= r0 - sh.window))
+      continue;  // no (row, key) pair of the warp is kept
+    float s[2][MT][NB][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[p][m][j][e] = 0.f;
+    const int ar = 16 * MT * rg + g;
+    const float* const pa[2] = {sq + ar * LD + t, sdo + ar * LD + t};
+    const float* const pb[2] = {sk + (ks * NK + g) * LD + t, sv + (ks * NK + g) * LD + t};
+    s_products<DH, MT, NB, 2>(s, pa, pb);  // S = Q·Kᵀ, dP = dO·Vᵀ
+    const bool mask = !(kw + NK <= sh.T && r0 + 16 * MT <= sh.S && (!sh.causal || kw + NK - 1 <= r0) &&
+                        (sh.window <= 0 || kw > r0 + 16 * MT - 1 - sh.window));
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float p = ex2(fmaf(s[0][m][j][e], c_log2, -lse2[m][i]));
+          if (mask && !kept(r0 + 16 * m + g + 8 * i, kw + 8 * j + 2 * t + (e & 1), sh)) p = 0.f;
+          s[1][m][j][e] = p * (s[1][m][j][e] - dlt[m][i]);  // dS
+        }
+    acc_product<DH, MT, NB>(dqa, s[1], sk + ks * NK * LD, g, t);  // dQ += dS·K
+  }
+  sm90::cp_async_wait<0>();
+
+  // The key halves' dQ summed in a fixed order (half 1 through shared
+  // memory into half 0), scaled, written.
+  __syncthreads();  // every warp is done with Q and dO
+  float* red = sq + rg * (MT * DH / 2) * 32 + lane;
+  if (ks == 1) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[((m * DH / 8 + n) * 4 + e) * 32] = dqa[m][n][e];
+  }
+  __syncthreads();
+  if (ks != 0) return;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[m][n][e] += red[((m * DH / 8 + n) * 4 + e) * 32];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 16 * m + g + 8 * i;
+      if (row < sh.S) store_rows<DH>(dq + q_off + (size_t)row * q_row, dqa[m], i, t, dh, sh.scale);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kTfThreads, 1)
+    bwd_dkdv_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                           const float* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                           Shape sh) {
+  using M = TfSmem<DH>;
+  constexpr int LD = DH + 4, MT = M::MT, ROWS = M::ROWS, BQ = M::BQ;
+  constexpr int STAGES = TfTile<DH>::KV_STAGES, NB = BQ / 8, STAGE = M::KV_STAGE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sk = reinterpret_cast<float*>(smem_raw);  // [ROWS][LD] K
+  float* sv = sk + ROWS * LD;                      // [ROWS][LD] V
+  float* ring = sv + ROWS * LD;                    // STAGES x ([BQ][LD] Q, [BQ][LD] dO, lse [BQ], D [BQ])
+  float4* ps = reinterpret_cast<float4*>(ring + STAGES * STAGE);  // [4 warp pairs][MT][NB][32 lanes] P
+
+  // Heavy first: early keys (the most causal queries) of every (batch, KV head).
+  const int hb_n = sh.Hkv * sh.B;
+  const int k0 = (int)(blockIdx.x / hb_n) * ROWS;
+  const int hk = (int)(blockIdx.x % hb_n) % sh.Hkv, b = (int)(blockIdx.x % hb_n) / sh.Hkv;
+  const int grp = sh.Hq / sh.Hkv;
+  const int dh = sh.dh;
+  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
+  const size_t kv_off = (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+
+  // The query rows that keep any key of the block: [q_lo, q_hi), in tiles
+  // for each head of the group.
+  const int k_last = min(k0 + ROWS, sh.T) - 1;
+  const int q_lo = sh.causal ? k0 : 0;
+  const int q_hi = sh.window > 0 ? min(sh.S, k_last + sh.window) : sh.S;
+  const int qt_lo = q_lo / BQ;
+  const int n_qt = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt_lo : 0;
+  const int n_tiles = grp * n_qt;
+
+  stage_tf<DH>(sk, k + kv_off, kv_row, k0, ROWS, sh.T, dh);
+  stage_tf<DH>(sv, v + kv_off, kv_row, k0, ROWS, sh.T, dh);
+  sm90::cp_async_commit();
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      float* st = ring + (it % STAGES) * STAGE;
+      const int hq = hk * grp + it / n_qt, q0 = (qt_lo + it % n_qt) * BQ;
+      const size_t q_off = (size_t)b * sh.S * q_row + (size_t)hq * dh;
+      const size_t at0 = ((size_t)b * sh.Hq + hq) * sh.S;
+      stage_tf<DH>(st, q + q_off, q_row, q0, BQ, sh.S, dh);
+      stage_tf<DH>(st + BQ * LD, dout + q_off, q_row, q0, BQ, sh.S, dh);
+      for (int r = threadIdx.x; r < 2 * BQ; r += kTfThreads) {
+        const int row = q0 + r % BQ;
+        const bool ok = row < sh.S;
+        cp_async4_zfill(st + 2 * BQ * LD + r, (r < BQ ? lse : delta) + (ok ? at0 + row : 0), ok);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) issue(it);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kg = warp % 4, role = warp / 4;  // role 0: S, P, dV; 1: dP, dS, dK
+  const int g = lane / 4, t = lane % 4;
+  const int kr0 = k0 + 16 * MT * kg;  // the warp's first key
+  const float c_log2 = sh.scale * kLog2e;
+  float acc[MT][DH / 8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    sm90::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile it visible; every warp is done with the stage refilled next and with P
+    issue(it + STAGES - 1);
+    const float* sqt = ring + (it % STAGES) * STAGE;
+    const float* sdot = sqt + BQ * LD;
+    const float* lse_s = sqt + 2 * BQ * LD;
+    const float* d_s = lse_s + BQ;
+    const int q0 = (qt_lo + it % n_qt) * BQ;
+    const int q_end = min(q0 + BQ, sh.S) - 1;
+    const int kr_end = kr0 + 16 * MT - 1;
+    if (kr0 >= sh.T || q0 >= sh.S || (sh.causal && kr0 > q_end) || (sh.window > 0 && q0 >= kr_end + sh.window))
+      continue;  // no (key, query) pair of the warp pair is kept
+    const bool mask = !(kr_end < sh.T && q0 + BQ <= sh.S && (!sh.causal || kr_end <= q0) &&
+                        (sh.window <= 0 || kr0 > q0 + BQ - 1 - sh.window));
+    float s[1][MT][NB][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[0][m][j][e] = 0.f;
+    float4* pk = ps + kg * MT * NB * 32 + lane;
+    const int ar = 16 * MT * kg + g;
+    if (role == 0) {
+      const float* const pa[1] = {sk + ar * LD + t};
+      const float* const pb[1] = {sqt + g * LD + t};
+      s_products<DH, MT, NB, 1>(s, pa, pb);  // Sᵀ = K·Qᵀ
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = 8 * j + 2 * t + (e & 1);
+            float p = ex2(fmaf(s[0][m][j][e], c_log2, -lse_s[qi] * kLog2e));
+            if (mask && !kept(q0 + qi, kr0 + 16 * m + g + 8 * (e >> 1), sh)) p = 0.f;
+            s[0][m][j][e] = p;
+          }
+          pk[(m * NB + j) * 32] = make_float4(s[0][m][j][0], s[0][m][j][1], s[0][m][j][2], s[0][m][j][3]);
+        }
+      pair_arrive(1 + kg);
+      acc_product<DH, MT, NB>(acc, s[0], sdot, g, t);  // dV += Pᵀ·dO
+    } else {
+      const float* const pa[1] = {sv + ar * LD + t};
+      const float* const pb[1] = {sdot + g * LD + t};
+      s_products<DH, MT, NB, 1>(s, pa, pb);  // dPᵀ = V·dOᵀ
+      pair_sync(1 + kg);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const float4 p4 = pk[(m * NB + j) * 32];
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[0][m][j][e] = pv[e] * (s[0][m][j][e] - d_s[8 * j + 2 * t + (e & 1)]);  // dSᵀ
+        }
+      acc_product<DH, MT, NB>(acc, s[0], sqt, g, t);  // dK += dSᵀ·Q
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  // dK takes the scale; dV does not.
+  float* out = role == 0 ? dv : dk;
+  const float sc = role == 0 ? 1.f : sh.scale;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = kr0 + 16 * m + g + 8 * i;
+      if (row < sh.T) store_rows<DH>(out + kv_off + (size_t)row * kv_row, acc[m], i, t, dh, sc);
+    }
+}
+
+template <int DH>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
+                          void* dk, void* dv, const float* lse, float* delta, const Shape& sh, cudaStream_t stream) {
+  using M = TfSmem<DH>;
+  cudaError_t err = hqi::prepare(bwd_dq_tf32x3_kernel<DH>, M::dq);
+  if (err == cudaSuccess) err = hqi::prepare(bwd_dkdv_tf32x3_kernel<DH>, M::dkdv);
+  if (err != cudaSuccess) return err;
+  const long long dq_blocks = (long long)((sh.S + M::ROWS - 1) / M::ROWS) * sh.Hq * sh.B;
+  const long long kv_blocks = (long long)((sh.T + M::ROWS - 1) / M::ROWS) * sh.Hkv * sh.B;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  bwd_dq_tf32x3_kernel<DH><<<(unsigned)dq_blocks, kTfThreads, M::dq, stream>>>(
+      qp, kp, vp, static_cast<const float*>(o), dop, lse, static_cast<float*>(dq), delta, sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_dkdv_tf32x3_kernel<DH><<<(unsigned)kv_blocks, kTfThreads, M::dkdv, stream>>>(
+      qp, kp, vp, dop, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), sh);
+  return cudaGetLastError();
+}
+
 // The design at (padded) width dh: 0 the wgmma pair (bf16 to 128), 1 the
-// split wgmma pair (bf16 129..512), 2 the tiled CUDA-core pair (f32 to
-// 256), 3 the wide pair (f32 past 256, bf16 past 512).
+// split wgmma pair (bf16 129..512), 2 the 3xTF32 pair (f32 to 256), 3 the
+// wide pair (f32 past 256, bf16 past 512).
 int bwd_route(int dh, int bf16) { return bf16 ? (dh <= 128 ? 0 : dh <= 512 ? 1 : 3) : (dh <= 256 ? 2 : 3); }
 
-int tiled_width(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256; }
+int tf32_width(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256; }
 int split_width(int dh) { return dh <= 256 ? 256 : dh <= 384 ? 384 : 512; }
 
 }  // namespace
@@ -2006,10 +2290,13 @@ int flash_attention_bwd_plan(int dh, int bf16, int* out) {
     mkv = w == 256 ? DkvSplitSmem<256>::bytes : w == 384 ? DkvSplitSmem<384>::bytes : DkvSplitSmem<512>::bytes;
     skv = w / (w == 256 ? SplitTile<256>::DV : w == 384 ? SplitTile<384>::DV : SplitTile<512>::DV);
   } else if (route == 2) {
-    w = tiled_width(dh);
-    sq = skv = w / slice_cols(w);
-    mq = mkv = bwd_smem_bytes(w);
-    thr = kThreads;
+    w = tf32_width(dh);
+    mq = w == 32 ? TfSmem<32>::dq : w == 64 ? TfSmem<64>::dq : w == 128 ? TfSmem<128>::dq : TfSmem<256>::dq;
+    mkv = w == 32    ? TfSmem<32>::dkdv
+          : w == 64  ? TfSmem<64>::dkdv
+          : w == 128 ? TfSmem<128>::dkdv
+                     : TfSmem<256>::dkdv;
+    thr = kTfThreads;
   } else {
     const int es = bf16 ? 2 : 4;
     const WidePlan pq = wide_plan(dh, es, 0), pk = wide_plan(dh, es, 1);
@@ -2027,8 +2314,8 @@ int flash_attention_bwd_plan(int dh, int bf16, int* out) {
 // dq, dk, dv (the inputs' type) of flash_attention, from the training
 // forward's lse (f32 [B, Hq, S]); delta is f32 [B, Hq, S] scratch the
 // wrapper allocates (dO · O, written by the first kernel, read by the
-// second). Every route but the f32 tiled pair wants dh a multiple of 8 and
-// 16-byte aligned operands (the wrapper pads and copies).
+// second). Every route wants dh a multiple of 8 and 16-byte aligned
+// operands (the wrapper pads and copies).
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                void* dq, void* dk, void* dv, const void* lse, void* delta, int B, int S, int T,
                                int Hq, int Hkv, int dh, int causal, int window, float scale, int bf16,
@@ -2037,12 +2324,10 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
       (long long)Hq * 2 > 65535)
     return (int)cudaErrorInvalidValue;
   const int route = bwd_route(dh, bf16);
-  if (route != 2) {
-    const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
-    for (const void* p : ptrs)
-      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
-    if (dh % 8 != 0) return (int)cudaErrorInvalidValue;
-  }
+  const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (dh % 8 != 0) return (int)cudaErrorInvalidValue;
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -2057,7 +2342,11 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
           : w == 384 ? launch_split<384>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
                      : launch_split<512>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
   } else if (route == 2) {
-    err = launch_dh<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
+    const int w = tf32_width(dh);
+    err = w == 32    ? launch_tf32x3<32>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+          : w == 64  ? launch_tf32x3<64>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+          : w == 128 ? launch_tf32x3<128>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
+                     : launch_tf32x3<256>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);
   } else {
     err = bf16 ? launch_wide<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st)
                : launch_wide<float>(q, k, v, o, dout, dq, dk, dv, l, d, sh, st);

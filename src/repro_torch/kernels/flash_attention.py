@@ -19,9 +19,10 @@ Training: with grad enabled and an input that requires grad,
 version) asked also for each row's log-sum-exp, ``lse`` f32 [B, Hq, S], and
 whose backward is ``flash_attention_backward`` reading that lse: on a CUDA
 tensor the kernels of ``csrc/flash_attention_bwd.cu`` (bf16 up to dh 512 on
-wgmma fed by TMA, f32 up to 256 on CUDA cores, f32 past 256 and bf16 past
-512 on a wide CUDA-core pair; any dh; ``backward_plan`` says which), on a
-CPU tensor ``flash_attention_backward_plain``. Neither backward differentiates through
+wgmma fed by TMA, f32 up to 256 on the tensor cores in three TF32 passes,
+f32 past 256 and bf16 past 512 on a wide CUDA-core pair; any dh;
+``backward_plan`` says which), on a CPU tensor
+``flash_attention_backward_plain``. Neither backward differentiates through
 the plain forward. Without grad (serving) the call takes the path above,
 with the same launches and no lse.
 
@@ -50,6 +51,10 @@ WGMMA_BWD_MAX = 512
 # its ring stages, queries a dK/dV tile and its stages, dK/dV columns a slice
 _BWD_WGMMA = {64: (64, 4, 64, 4, 64), 128: (64, 3, 32, 4, 128), 256: (64, 2, 64, 2, 256),
               384: (32, 2, 32, 2, 192), 512: (16, 2, 16, 2, 256)}
+# the f32 backward up to dh 256 on 3xTF32 mma.sync by compiled width DH (TfTile):
+# m16 tiles a warp (a block's 8 warps hold 64 x that query rows or keys), keys a
+# dQ tile and its ring stages, queries a dK/dV tile and its stages
+_BWD_TF32 = {32: (1, 64, 3, 64, 3), 64: (2, 64, 2, 32, 3), 128: (1, 64, 2, 64, 2), 256: (1, 16, 2, 16, 2)}
 # the wide backward pair (WidePlan): stationary rows a block, moving rows a tile,
 # columns of an S/dP chunk, moving rows of an accumulating chunk, ring stages,
 # output columns a slice at most
@@ -133,12 +138,12 @@ def backward_plan(dh: int, elem_size: int) -> dict:
     element size (mirrors the C entry's ``flash_attention_bwd_plan``, which
     a card test holds it to): ``route`` (``wgmma``: bf16 up to 128, DH 64 or
     128; ``wgmma_split``: bf16 129..512, DH 256, 384 or 512, the two
-    consumer warpgroups splitting the products; ``tiled``: f32 up to 256 on
-    CUDA cores; ``wide``: f32 past 256 and bf16 past 512 on CUDA cores),
-    ``dp`` (the width the wrapper hands the kernels: dh padded to a
-    multiple of 8 on every route but ``tiled``), ``width`` (compiled; the
-    wide pair's dh rounded up to its chunk), each kernel's column slices
-    and dynamic shared bytes, ``threads``, the wide pair's ``stationary``
+    consumer warpgroups splitting the products; ``tf32x3``: f32 up to 256,
+    DH 32, 64, 128 or 256, on the tensor cores in three TF32 passes;
+    ``wide``: f32 past 256 and bf16 past 512 on CUDA cores), ``dp`` (the
+    width the wrapper hands the kernels: dh padded to a multiple of 8),
+    ``width`` (compiled; the wide pair's dh rounded up to its chunk), each
+    kernel's column slices and dynamic shared bytes, ``threads``, the wide pair's ``stationary``
     flags (dq, dk/dv), ``cols`` (columns a dk/dv slice) and ``regs``, the
     wgmma consumers' registers a thread for accumulators and operands (dq,
     dk/dv), which setmaxnreg caps at 240."""
@@ -163,10 +168,13 @@ def backward_plan(dh: int, elem_size: int) -> dict:
                    dkdv_slices=width // dv, dq_smem=dq_smem, dkdv_smem=kv_smem, threads=384, cols=dv, regs=regs)
     elif not bf16 and dh <= MAX_HEAD_DIM:
         width = 32 if dh <= 32 else 64 if dh <= 64 else 128 if dh <= 128 else 256
-        smem = (3 * width * (64 + _PAD) + 64 * (64 + _PAD) + 2 * 64) * 4
-        out.update(route="tiled", dp=dh, width=width, dq_slices=width // min(width, 128),
-                   dkdv_slices=width // min(width, 128), dq_smem=smem, dkdv_smem=smem, threads=128,
-                   cols=min(width, 128))
+        mt, bn, dq_st, bq, kv_st = _BWD_TF32[width]
+        ld = width + _PAD  # row stride (floats) of every staged tile
+        dq_smem = 2 * 64 * mt * ld * 4 + dq_st * 2 * bn * ld * 4  # Q and dO, the K/V ring
+        # K and V, the ring of Q/dO/lse/D tiles, the P hand-over
+        kv_smem = 2 * 64 * mt * ld * 4 + kv_st * (2 * bq * ld + 2 * bq) * 4 + 4 * mt * (bq // 8) * 32 * 16
+        out.update(route="tf32x3", dp=dp8, width=width, dq_slices=1, dkdv_slices=1, dq_smem=dq_smem,
+                   dkdv_smem=kv_smem, threads=256, cols=width)
     else:
         sq, cols, mq, st_q, dhc = _wide_bwd_side(dp8, elem_size, False)
         skv, _, mkv, st_kv, _ = _wide_bwd_side(dp8, elem_size, True)
@@ -475,12 +483,11 @@ def flash_attention_backward(
     the current stream, D and dQ per query tile, then dK and dV per key tile;
     f32 sums, no atomics, so the result is deterministic. The design is
     ``backward_plan``'s: bf16 up to dh ``WGMMA_BWD_MAX`` on wgmma, f32 up to
-    ``MAX_HEAD_DIM`` on the tiled CUDA-core pair, wider heads on the wide
-    CUDA-core pair; any dh. Every route but the tiled one reads whole 16-byte
-    rows, so dh is zero-padded to a multiple of 8 and misaligned bases are
-    copied here (as the forward does). On a CPU tensor
-    ``flash_attention_backward_plain`` (lse optional). ``launches`` counts
-    the CUDA calls."""
+    ``MAX_HEAD_DIM`` on the 3xTF32 tensor-core pair, wider heads on the wide
+    CUDA-core pair; any dh. Every route reads whole 16-byte rows, so dh is
+    zero-padded to a multiple of 8 and misaligned bases are copied here (as
+    the forward does). On a CPU tensor ``flash_attention_backward_plain``
+    (lse optional). ``launches`` counts the CUDA calls."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
@@ -502,14 +509,15 @@ def flash_attention_backward(
     lse = lse.to(torch.float32).contiguous()
     bf16 = q.dtype == torch.bfloat16
     # The wgmma pairs read q, k, v and dO with TMA (16-byte row strides and
-    # bases) and o 16 bytes at a time, the wide pair every operand by 16-byte
-    # cp.async: pad dh to a multiple of 8 (zero columns add nothing to S or
-    # dP and give zero gradients, cut off below) and copy misaligned bases.
+    # bases) and o 16 bytes at a time, the 3xTF32 and wide pairs every
+    # operand by 16-byte cp.async: pad dh to a multiple of 8 (zero columns add
+    # nothing to S or dP and give zero gradients, cut off below) and copy
+    # misaligned bases.
     plan = backward_plan(dh, q.element_size())
     dp = plan["dp"]
     if dp != dh:
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, dp - dh)) for x in (q, k, v, o, do))
-    elif plan["route"] != "tiled" and any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+    elif any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
         q, k, v, o, do = (x.clone() for x in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or T == 0:

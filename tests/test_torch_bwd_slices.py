@@ -1,10 +1,19 @@
-"""The attention backward's designs past dh 128, emulated on the CPU.
+"""The attention backward's designs past dh 128 and its f32 design, emulated
+on the CPU.
 
 ``csrc/flash_attention_bwd.cu`` cannot run here, so its decompositions are
 written out in plain torch and held against ``flash_attention_backward_plain``
-within ``chip_smoke.BWD_TOL`` and, at one wide shape, against ``jax.vjp`` of
-the reference's chunked online softmax (``repro.models.attention``):
+within ``chip_smoke.BWD_TOL`` and against ``jax.vjp`` of the reference's
+chunked online softmax (``repro.models.attention``):
 
+* the 3xTF32 pair (f32, dh up to 256): blocks of 64 or 128 stationary
+  rows, key (query) tiles of the compiled width's size, every product as
+  three TF32 products a k8 step (each operand split into hi = tf32(x),
+  ``_tf32`` being ``cvt.rna.tf32.f32``'s rounding, and lo = x - hi read by
+  the tensor core as TF32, ``_tf32_read``)
+  summed in f32, the accumulating products contracting in the permuted key
+  order of the kernels' fragments and adding each tile's products to their
+  sums by f32 adds, dQ in two key halves summed at the end;
 * the split wgmma pair (bf16, dh 129..512): blocks of 64 stationary rows,
   S and dP over the padded width once a tile, P and dS rounded to bf16
   before their products, dK/dV in column slices of ``cols``;
@@ -207,6 +216,134 @@ def _wide_emulation(q, k, v, o, do, lse, *, causal, window):
     return tuple(x[..., :dh].to(q.dtype) for x in (dq, dk, dv))
 
 
+def _bits_to_f32(b):
+    return torch.where(b >= 2**31, b - 2**32, b).to(torch.int32).view(torch.float32)
+
+
+def _tf32(x):
+    """The kernels' ``tf32_rna`` on the CPU: x rounded to TF32 (the top 10 of
+    f32's 23 mantissa bits kept), to nearest with ties away from zero as
+    ``cvt.rna.tf32.f32`` rounds, by adding half of the dropped 13 bits'
+    weight to the int32 bits (carrying into the exponent where it must) and
+    clearing them; inf stays inf. A NaN's bits may carry into the sign or
+    lose the mantissa (the GPU's canonical NaN 0x7FFFFFFF gives -0): the
+    split keeps NaN in lo (``_tf32_read``). Returns f32 whose low 13 bits
+    are 0."""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return _bits_to_f32((b + 0x1000) & 0xFFFFE000)
+
+
+def _tf32_read(x):
+    """An f32 operand as the tensor core reads it as TF32: its top 19 bits,
+    the low 13 mantissa bits dropped (truncated toward zero); a NaN whose
+    top mantissa bits are set (the GPU's arithmetic gives 0x7FFFFFFF) stays
+    NaN. The kernels hand lo = x - hi over so."""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return _bits_to_f32(b & 0xFFFFE000)
+
+
+def _mm3(a, b):
+    """a @ b as the kernels' 3xTF32 products: a [..., M, K] and b [..., K, N]
+    split into hi = tf32(x) and lo = x - hi as the tensor core reads it
+    (NaN for a NaN x), then k8 step by k8 step the two small products
+    (lo·hi, hi·lo) and hi·hi added to one f32 sum from zero (the S-type
+    products over d; the accumulating products over keys or queries sum a
+    tile's steps so and the caller adds the result to its running sum)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        x = slice(k0, k0 + 8)
+        acc = acc + al[..., x] @ bh[..., x, :] + ah[..., x] @ bl[..., x, :] + ah[..., x] @ bh[..., x, :]
+    return acc
+
+
+def _permuted(n):
+    """The kernels' contraction order over n keys (queries) of accumulating
+    products: within each 8-block k' = t -> 2t, t + 4 -> 2t + 1, so an
+    m16n8 accumulator (columns 2t, 2t + 1 a thread) is an A fragment
+    (k-columns t, t + 4) as it stands."""
+    i = torch.arange(n)
+    return (i // 8) * 8 + torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])[i % 8]
+
+
+def _tf32x3_emulation(q, k, v, o, do, lse, *, causal, window):
+    """``bwd_dq_tf32x3_kernel`` and ``bwd_dkdv_tf32x3_kernel`` (f32, dh up
+    to 256): dh padded to a multiple of 8, then zero to the compiled width
+    DH. dQ: a block per 64·MT query rows and head (MT m16 tiles a warp),
+    K/V tiles of BN keys over the band, each in two halves of BN/2 keys
+    (two warps a row group): S
+    and dP over DH, P = exp2(S·scale·log2 e - lse·log2 e) where kept, dS =
+    P ∘ (dP - D), the half's dQ += dS·K in the permuted key order; the two
+    halves summed at the end, then scaled. dK/dV: a block per 64·MT keys
+    and KV head, Q/dO tiles of BQ queries over the g heads of the group
+    (their lse and D with them): Sᵀ = K·Qᵀ and P (role 0), dPᵀ = V·dOᵀ and
+    dS (role 1), dV += Pᵀ·dO and dK += dSᵀ·Q in the permuted query order."""
+    b, s, hq, dh = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    plan = fa.backward_plan(dh, 4)
+    assert plan["route"] == "tf32x3"
+    width = plan["width"]
+    mt, bn, _, bq, _ = fa._BWD_TF32[width]
+    rows, nk = 64 * mt, bn // 2
+    scale = dh**-0.5
+    c = scale * LOG2E
+    qp, kp, vp, dop = (F.pad(x.float(), (0, width - dh)) for x in (q, k, v, do))
+    delta = (do.float() * o.float()).sum(-1)  # [B, S, Hq]
+    lse2 = lse.float() * LOG2E  # [B, Hq, S]
+    dq = torch.zeros((b, s, hq, width))
+    dk, dv = torch.zeros((b, t, hkv, width)), torch.zeros((b, t, hkv, width))
+    for h in range(hq):
+        hk = h // g
+        for q0 in range(0, s, rows):
+            qpos = torch.arange(q0, q0 + rows)
+            qb, dob = _rows(qp[:, :, h], q0, rows), _rows(dop[:, :, h], q0, rows)
+            l2 = _rows(lse2[:, h, :, None], q0, rows)[..., 0]
+            dd = _rows(delta[:, :, h, None], q0, rows)[..., 0]
+            q_last = min(q0 + rows, s) - 1
+            lo = max(0, q0 - window + 1) if window > 0 else 0
+            hi = min(t, q_last + 1) if causal else t
+            halves = [torch.zeros((b, rows, width)) for _ in range(2)]
+            for t0 in range((lo // bn) * bn, hi, bn):
+                for ks in range(2):
+                    kw = t0 + ks * nk
+                    kt, vt = _rows(kp[:, :, hk], kw, nk), _rows(vp[:, :, hk], kw, nk)
+                    keep = _keep(qpos, torch.arange(kw, kw + nk), s, t, causal, window)
+                    sp = _mm3(qb, kt.transpose(1, 2))
+                    dp = _mm3(dob, vt.transpose(1, 2))
+                    p = torch.where(keep, torch.exp2(sp * c - l2[..., None]), 0.0)
+                    ds = p * (dp - dd[..., None])
+                    perm = _permuted(nk)
+                    halves[ks] = halves[ks] + _mm3(ds[..., perm], kt[:, perm])
+            n = min(rows, s - q0)
+            dq[:, q0:q0 + n, h] = ((halves[0] + halves[1]) * scale)[:, :n]
+    perm = _permuted(bq)
+    for hk in range(hkv):
+        for k0 in range(0, t, rows):
+            kpos = torch.arange(k0, k0 + rows)
+            kb, vb = _rows(kp[:, :, hk], k0, rows), _rows(vp[:, :, hk], k0, rows)
+            k_last = min(k0 + rows, t) - 1
+            lo = k0 if causal else 0
+            hi = min(s, k_last + window) if window > 0 else s
+            ak, av = torch.zeros((b, rows, width)), torch.zeros((b, rows, width))
+            for h, q0 in [(h, q0) for h in range(hk * g, hk * g + g) for q0 in range((lo // bq) * bq, hi, bq)]:
+                qt, dot = _rows(qp[:, :, h], q0, bq), _rows(dop[:, :, h], q0, bq)
+                l2 = _rows(lse2[:, h, :, None], q0, bq)[..., 0]
+                dd = _rows(delta[:, :, h, None], q0, bq)[..., 0]
+                keep = _keep(torch.arange(q0, q0 + bq), kpos, s, t, causal, window).T
+                st = _mm3(kb, qt.transpose(1, 2))
+                pt = torch.where(keep, torch.exp2(st * c - l2[:, None, :]), 0.0)
+                dpt = _mm3(vb, dot.transpose(1, 2))
+                dst = pt * (dpt - dd[:, None, :])
+                av = av + _mm3(pt[..., perm], dot[:, perm])
+                ak = ak + _mm3(dst[..., perm], qt[:, perm])
+            n = min(rows, t - k0)
+            dk[:, k0:k0 + n, hk] = (ak * scale)[:, :n]
+            dv[:, k0:k0 + n, hk] = av[:, :n]
+    return tuple(x[..., :dh].contiguous() for x in (dq, dk, dv))
+
+
 def _case(b, s, t, hq, hkv, dh, causal, window, dtype, seed):
     """Inputs from a numpy seed in ``dtype``; o and lse from the plain
     forward on them."""
@@ -223,6 +360,18 @@ def _rel(got, want):
 
 
 # b, s, t, hq, hkv, dh, causal, window
+TF32X3 = [
+    (2, 77, 77, 4, 2, 16, True, 0),  # ragged S, dh 16 (DH 32)
+    (2, 50, 50, 4, 4, 16, False, 0),  # not causal
+    (1, 90, 90, 4, 2, 16, True, 7),  # a window below the tile
+    (1, 40, 40, 8, 1, 16, True, 0),  # a GQA group of 8 on one KV head
+    (1, 30, 60, 4, 2, 16, True, 0),  # S < T
+    (1, 90, 30, 4, 2, 16, False, 8),  # S > T: rows 37.. keep no key
+    (1, 70, 100, 2, 2, 36, True, 24),  # dh 36, padded to 40 (DH 64), S < T, a window
+    (1, 130, 130, 2, 1, 64, True, 0),  # DH 64, GQA 2, three query blocks
+    (1, 100, 100, 4, 2, 128, True, 30),  # DH 128
+    (1, 130, 130, 2, 1, 200, True, 0),  # DH 256: 16-key and 16-query tiles
+]
 SPLIT = [
     (1, 130, 130, 4, 2, 136, True, 0),  # DH 256, three query blocks, GQA 2
     (1, 90, 30, 2, 1, 264, False, 8),  # DH 384 in two dK/dV slices; S > T: rows 37.. keep no key
@@ -234,6 +383,111 @@ WIDE = [
     (1, 70, 100, 2, 1, 520, True, 24, torch.float32),  # two slices of 264, a window
     (1, 64, 64, 4, 2, 520, True, 0, torch.bfloat16),  # bf16 past 512
 ]
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """``_tf32`` (the kernels' ``cvt.rna.tf32.f32``) on hand-picked f32
+    values: exact TF32 values stay; half of the last kept bit rounds away
+    from zero (ties to even would keep 1.0); just below it rounds down; a
+    carry into the exponent; negatives mirror; subnormals round on their
+    bits; ±0 and ±inf stay. Every result has its low 13 bits clear, and hi
+    plus lo = x - hi as the tensor core reads it leaves less than 2^-21 of
+    |x|. A NaN's hi need not be NaN (the GPU's canonical 0x7FFFFFFF carries
+    into the sign: -0; 0x7F800001 loses its mantissa: inf), but its lo is
+    NaN whatever hi is, so every product of a NaN operand is NaN."""
+    def f(bits):
+        return torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(torch.float32)
+
+    cases = [
+        (1.0, 1.0),
+        (1 + 2**-11, 1 + 2**-10),  # a tie: away from zero
+        (1 + 2**-11 - 2**-23, 1.0),  # just below the tie
+        (1 + 3 * 2**-11, 1 + 2**-9),  # a tie above an odd last bit
+        (2 - 2**-11, 2.0),  # the carry reaches the exponent
+        (-(1 + 2**-11), -(1 + 2**-10)),
+        (-(1 + 2**-12), -1.0),
+        (3.0e38, 3.0e38),  # bits 0x7F61B1E6: the dropped 0x11E6 rounds up to 0x7F61C000
+        (0.0, 0.0),
+        (float("inf"), float("inf")),
+        (float("-inf"), float("-inf")),
+    ]
+    x = torch.tensor([c[0] for c in cases], dtype=torch.float32)
+    want = torch.tensor([c[1] for c in cases], dtype=torch.float32)
+    want[7] = f(0x7F61C000)
+    assert torch.equal(_tf32(x), want)
+    assert (_tf32(x).view(torch.int32) & 0x1FFF).eq(0).all()
+    assert torch.equal(_tf32(torch.tensor([-0.0])).view(torch.int32), torch.tensor([-0.0]).view(torch.int32))
+    nans = torch.cat([f(b) for b in (0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001, 0xFF800001, 0x7FFFF000)])
+    assert torch.equal(_tf32(nans).view(torch.int32), torch.tensor(
+        [0x7FC00000, 0x80000000 - 2**32, 0, 0x7F800000, 0xFF800000 - 2**32, 0x80000000 - 2**32], dtype=torch.int32))
+    assert torch.isnan(_tf32_read(nans - _tf32(nans))).all()
+    assert torch.isnan(_tf32_read(f(0x7FFFFFFF))).all()
+    # subnormals: 2^-149 (bits 1) rounds to 0; bits 0x1000 (a tie) to 0x2000; 0x2fff to 0x2000
+    sub = torch.cat([f(1), f(0x1000), f(0x2FFF), f(0x80001000)])
+    assert torch.equal(_tf32(sub).view(torch.int32), torch.tensor([0, 0x2000, 0x2000, 0x80002000 - 2**32],
+                                                                  dtype=torch.int32))
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32)) * 1e3
+    hi = _tf32(r)
+    lo = _tf32_read(r - hi)
+    assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((hi + lo - r).abs() < 2.0**-21 * r.abs()).all()
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", TF32X3)
+def test_tf32x3_decomposition_within_bwd_tol(b, s, t, hq, hkv, dh, causal, window):
+    """The 3xTF32 pair's blocks, key halves, tiles, permuted contraction
+    order, hi/lo splits and f32 sums against the plain backward within
+    ``BWD_TOL[4]``; rows that keep no key get dq = 0."""
+    q, k, v, o, do, lse = _case(b, s, t, hq, hkv, dh, causal, window, torch.float32, dh + s + 2)
+    got = _tf32x3_emulation(q, k, v, o, do, lse, causal=causal, window=window)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, lse, causal=causal, window=window)
+    assert max(_rel(got, want)) <= _bwd_tol()[4]
+    if s > t and not causal:
+        assert torch.all(got[0][:, t + window - 1:] == 0)
+
+
+@pytest.mark.parametrize("where", ["q", "do"])
+def test_tf32x3_decomposition_keeps_nan(where):
+    """A NaN in q or in dO reaches the 3xTF32 decomposition's gradients
+    exactly where it reaches the plain backward's, and nowhere else: every
+    pair is kept (not causal, no window), so every tile is computed and the
+    NaN sets do not depend on tiling. A NaN q element makes its row's lse,
+    D, P and dS NaN: its dq row and all dk, dv of its KV head; a NaN dO
+    element makes D, dP and dS of its row NaN: its dq row, all dk of its KV
+    head and one column of dv. The rest within ``BWD_TOL[4]``."""
+    b, s, hq, hkv, dh = 2, 50, 4, 2, 36
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   for shape in ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh), (b, s, hq, dh)))
+    # the GPU's canonical NaN (what a diverging step's arithmetic writes), whose bits carry into the sign
+    # when hi is rounded
+    (q if where == "q" else do)[1, 37, 3, 5] = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    got = _tf32x3_emulation(q, k, v, o, do, lse, causal=False, window=0)
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, lse, causal=False)
+    for g, w in zip(got, want):
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(g), nan)
+        assert _rel([g[~nan]], [w[~nan]])[0] <= _bwd_tol()[4]
+    assert torch.isnan(got[0][1, 37, 3]).all() and not torch.isnan(got[0][1, 36]).any()
+    assert torch.isnan(got[1][1, :, 1]).all() and not torch.isnan(got[1][:, :, 0]).any()
+    assert torch.isnan(got[2][1, :, 1]).all() if where == "q" else torch.isnan(got[2][1, :, 1, 5]).all()
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", [TF32X3[3], TF32X3[6], TF32X3[9]])
+def test_tf32x3_decomposition_matches_jax_vjp(b, s, t, hq, hkv, dh, causal, window):
+    """The 3xTF32 decomposition against ``jax.vjp`` of the reference's
+    chunked softmax in f32 within ``BWD_TOL[4]``: a GQA group of 8 on one
+    KV head, dh 36 (DH 64) with S < T and a window, dh 200 (DH 256). (Every
+    row keeps a key here: for a row that keeps none the reference returns a
+    mean of V and the port 0, ROADMAP.md §3.)"""
+    q, k, v, o, do, lse = _case(b, s, t, hq, hkv, dh, causal, window, torch.float32, dh + s + 3)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jflash_attention(q_, k_, v_, causal=causal, window=window,
+                                                         q_chunk=32, kv_chunk=32),
+                     *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    want = [torch.from_numpy(np.array(x)) for x in vjp(jnp.asarray(do.numpy()))]
+    got = _tf32x3_emulation(q, k, v, o, do, lse, causal=causal, window=window)
+    assert max(_rel(got, want)) <= _bwd_tol()[4]
 
 
 @pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", SPLIT)
@@ -284,26 +538,29 @@ def test_wide_designs_match_jax_vjp_at_dh_320():
 
 def test_backward_plan_for_every_width():
     """For every dh 1..1024 in both types: the documented route, the width
-    handed to the kernels (dh itself on the tiled route, else padded to a
-    multiple of 8), column slices covering dh, every block's dynamic shared
-    memory within the H100's 232,448 bytes, and the wgmma consumers'
-    registers for accumulators and operands within the 240 setmaxnreg
-    gives."""
+    handed to the kernels (dh padded to a multiple of 8 on every route),
+    column slices covering dh, every block's dynamic shared memory within
+    the H100's 232,448 bytes, and the wgmma consumers' registers for
+    accumulators and operands within the 240 setmaxnreg gives; the 3xTF32
+    pair one slice of its compiled width (32, 64, 128, 256) in 256
+    threads."""
     for es in (2, 4):
         for dh in range(1, 1025):
             p = fa.backward_plan(dh, es)
             want = ("wgmma" if dh <= 128 else "wgmma_split" if dh <= 512 else "wide") if es == 2 else \
-                ("tiled" if dh <= 256 else "wide")
+                ("tf32x3" if dh <= 256 else "wide")
             assert p["route"] == want, (es, dh, p)
             dp = p["dp"]
-            assert dp == dh if want == "tiled" else (dp % 8 == 0 and dh <= dp < dh + 8), (es, dh, p)
+            assert dp % 8 == 0 and dh <= dp < dh + 8, (es, dh, p)
             assert max(p["dq_smem"], p["dkdv_smem"]) <= fa.SMEM_MAX, (es, dh, p)
             if want in ("wgmma", "wgmma_split"):
                 assert p["width"] >= dp and p["dq_slices"] == 1 and p["dkdv_slices"] * p["cols"] == p["width"]
                 assert max(p["regs"]) <= 240, (es, dh, p)
                 assert p["threads"] == 384
-            elif want == "tiled":
-                assert p["width"] >= dh and p["dq_slices"] * p["cols"] == p["width"] and p["regs"] is None
+            elif want == "tf32x3":
+                assert p["width"] == min(w for w in (32, 64, 128, 256) if w >= dp), (es, dh, p)
+                assert p["dq_slices"] == p["dkdv_slices"] == 1 and p["cols"] == p["width"], (es, dh, p)
+                assert p["regs"] is None and p["threads"] == 256
             else:
                 n, cols = p["dq_slices"], p["cols"]
                 assert n == p["dkdv_slices"] and (n - 1) * cols < dp <= n * cols, (es, dh, p)

@@ -820,11 +820,11 @@ def _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
 @pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal,window", BWD)
 def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window):
     """The backward kernels (bf16 up to dh 128: the wgmma pair, past it the
-    split wgmma pair; f32 the tiled CUDA-core pair) against their plain
-    version within
-    ``chip_smoke.BWD_TOL`` (f32: the order of the sums; bf16: also P and dS
-    rounded to bf16 before their tensor-core products, and one rounding of
-    each output); rows that keep no key get dq = 0."""
+    split wgmma pair; f32 the 3xTF32 tensor-core pair at DH 32, 64, 128 and
+    256) against their plain version within ``chip_smoke.BWD_TOL`` (f32:
+    the order of the sums and three TF32 passes, ~2^-21 a product; bf16:
+    also P and dS rounded to bf16 before their tensor-core products, and one
+    rounding of each output); rows that keep no key get dq = 0."""
     got = _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window)
     if s > t and not causal and window:
         assert torch.all(got[0][:, t + window - 1:] == 0)
@@ -833,7 +833,7 @@ def test_flash_attention_backward_matches_plain(dev, dtype, tol, b, s, t, hq, hk
 # past dh 256 (bf16 to 512 the split wgmma pair, f32 and wider bf16 the
 # wide pair): b, s, t, hq, hkv, dh, causal, window
 WIDE_BWD = [
-    (1, 64, 64, 2, 1, 264, True, 0),  # just past the tiled pair's 256; bf16 at DH 384
+    (1, 64, 64, 2, 1, 264, True, 0),  # just past the 3xTF32 pair's 256; bf16 at DH 384
     (1, 130, 130, 4, 2, 320, True, 0),  # GQA 2, ragged S
     (1, 90, 200, 2, 1, 320, True, 0),  # S < T
     (1, 90, 30, 2, 1, 320, False, 8),  # S > T: rows 37.. keep no key
@@ -856,6 +856,51 @@ def test_flash_attention_backward_wide_head(dev, dtype, tol, b, s, t, hq, hkv, d
     got = _bwd_check(dev, dtype, tol, b, s, t, hq, hkv, dh, causal, window)
     if s > t and not causal and window:
         assert torch.all(got[0][:, t + window - 1:] == 0)
+
+
+# f32 sequences whose sums over keys (queries) run thousands of k8 steps on
+# the 3xTF32 pair: b, s, hq, hkv, dh (causal, S = T)
+LONG_F32 = [(1, 16384, 4, 4, 64), (1, 8192, 4, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,dh", LONG_F32)
+def test_flash_attention_backward_f32_long_sequence(dev, b, s, hq, hkv, dh):
+    """The 3xTF32 pair at T 16384 (dh 64) and 8192 (dh 256): each gradient
+    within ``chip_smoke.BWD_TOL[4]`` of the plain version. Its accumulating
+    products add each k8 step's three TF32 products to their sums by f32
+    adds; chained in the tensor core's accumulator instead, dK's error grew
+    with T past the limit (1.7e-4 at 16384)."""
+    _bwd_check(dev, torch.float32, 1e-4, b, s, s, hq, hkv, dh, True, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["q", "do"])
+@pytest.mark.parametrize("dh", [16, 64, 128, 200])
+def test_flash_attention_backward_f32_keeps_nan(dev, where, dh):
+    """A NaN in q or in dO reaches the 3xTF32 pair's gradients (DH 32, 64,
+    128, 256) exactly where it reaches the plain version's: every pair is
+    kept (not causal, no window), so every tile is computed and the NaN sets
+    do not depend on tiling. The NaN is the GPU's canonical one: its hi
+    rounds to -0, and the split keeps it NaN in lo = x - hi (rounding lo as
+    hi made every product of it a zero term). The rest within
+    ``chip_smoke.BWD_TOL[4]``."""
+    b, s, hq, hkv = 2, 100, 4, 2
+    q, k, v = _attn_case(dev, dh + 11, b, s, hq, hkv, dh, torch.float32)
+    do = torch.randn_like(q)
+    # the GPU's canonical NaN (what a diverging step's arithmetic writes), whose bits carry into the sign
+    # when hi is rounded
+    (q if where == "q" else do)[1, 37, 3, 5] = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    n0 = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, o, do, lse, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == n0 + 1
+    want = fa.flash_attention_backward_plain(q, k, v, o, do, lse, causal=False)
+    for g, w in zip(got, want):
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(g), nan)
+        assert torch.linalg.vector_norm(g[~nan] - w[~nan]) <= 1e-4 * torch.linalg.vector_norm(w[~nan])
 
 
 @pytest.mark.cuda
@@ -906,7 +951,7 @@ def test_backward_plan_matches_the_c_entry(dev):
 
     lib = _build.library("flash_attention_bwd")
     out = (ctypes.c_int * 9)()
-    routes = {"wgmma": 0, "wgmma_split": 1, "tiled": 2, "wide": 3}
+    routes = {"wgmma": 0, "wgmma_split": 1, "tf32x3": 2, "wide": 3}
     for es in (2, 4):
         for dh in range(1, 1101):
             p = fa.backward_plan(dh, es)
@@ -961,15 +1006,21 @@ def test_forward_lse_leaves_the_output_unchanged(dev, dtype, atol, b, s, t, hq, 
     (torch.bfloat16, 64, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
     (torch.bfloat16, 128, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
     (torch.bfloat16, 200, ("bwd_dq_wgmma_split_kernel", "bwd_dkdv_wgmma_split_kernel")),
-    (torch.float32, 64, ("bwd_dq_kernel", "bwd_dkdv_kernel")),
+    (torch.float32, 64, ("bwd_dq_tf32x3_kernel", "bwd_dkdv_tf32x3_kernel")),
     (torch.bfloat16, 320, ("bwd_dq_wgmma_split_kernel", "bwd_dkdv_wgmma_split_kernel")),
     (torch.float32, 320, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
     (torch.bfloat16, 520, ("bwd_dq_wide_kernel", "bwd_dkdv_wide_kernel")),
-], ids=["bf16-dh64", "bf16-dh128", "bf16-dh200", "f32-dh64", "bf16-dh320", "f32-dh320", "bf16-dh520"])
+    (torch.float32, 16, ("bwd_dq_tf32x3_kernel", "bwd_dkdv_tf32x3_kernel")),
+    (torch.float32, 128, ("bwd_dq_tf32x3_kernel", "bwd_dkdv_tf32x3_kernel")),
+    (torch.float32, 256, ("bwd_dq_tf32x3_kernel", "bwd_dkdv_tf32x3_kernel")),
+], ids=["bf16-dh64", "bf16-dh128", "bf16-dh200", "f32-dh64", "bf16-dh320", "f32-dh320", "bf16-dh520", "f32-dh16",
+        "f32-dh128", "f32-dh256"])
 def test_flash_attention_backward_launch_names(dev, dtype, dh, kernels):
-    """A traced call launches the two kernels of its design, by name
-    (chip_smoke.py's ``device_ms`` finds them by the ``bwd_dq`` and
-    ``bwd_dkdv`` in their names)."""
+    """A traced call launches the two kernels of its design, by name, and
+    no backward kernel of another design (chip_smoke.py's ``device_ms``
+    finds them by the ``bwd_dq`` and ``bwd_dkdv`` in their names): f32 up
+    to dh 256 the 3xTF32 pair at every compiled width, never the wide
+    pair."""
     q, k, v = _attn_case(dev, 3, 1, 256, 4, 2, dh, dtype)
     o, lse = fa.flash_attention(q, k, v, return_lse=True)
     do = torch.randn_like(q)
@@ -977,6 +1028,7 @@ def test_flash_attention_backward_launch_names(dev, dtype, dh, kernels):
                        kernels[0])
     for kernel in kernels:
         assert sum(kernel in n for n in names) == 1, (kernel, names)
+    assert all(any(kernel in n for kernel in kernels) for n in names if "bwd_" in n), names
 
 
 @pytest.mark.cuda
