@@ -181,7 +181,7 @@
    (ragged S, not causal, a window below the 64-key tile, S < T); within
    ``ATTN_TOL``: rtol 2e-2, atol 2e-3 and a relative error
    (||got - want|| / ||want||) of 1e-2 in bf16, 1e-4, 1e-4 and 5e-5 in
-   f32 (the CUDA-core kernel: sums in another order). The bf16 kernel
+   f32 (the 3xTF32 kernel: hi/lo TF32 products, sums in another order). The bf16 kernel
    rounds P to bf16 before P·V (up to 2^-9 of each p, ~1e-3 of |o|) and
    adds P's bf16 remainder on tiles whose rows have few effective keys,
    where one rounding could move a near-zero output past atol; the outputs'
@@ -220,7 +220,9 @@ T. training: (a) the attention backward kernels
    (``csrc/flash_attention_bwd.cu``) on the training forward's o and lse
    against their plain version on the card: minicpm heads [2, 2048, 36/36,
    dh 64] causal in bf16 (the wgmma pair) and f32 (the 3xTF32 pair, and
-   beside it the f32 forward kernel on the same inputs), gemma3 heads [1,
+   beside it the f32 forward kernel on the same inputs, then again at [1,
+   2048, 8/4, dh 256] and [1, 16384, 4/4, dh 64], each within ``ATTN_TOL``
+   and ``LSE_TOL``, with its library time and bound), gemma3 heads [1,
    4096, 32/16, dh 128] at window 0 and 1024 in bf16, [1, 2048, 8/4, dh
    256] causal in bf16 (the split wgmma pair) and f32 (the 3xTF32 pair),
    [1, 2048, 8/4, dh 512] causal in bf16 (the split wgmma pair) and f32
@@ -2645,7 +2647,7 @@ def profiled_prefill(params, cfg, prompt) -> dict:
         logits.sum().item()
         wall = time.perf_counter() - t0
     busy, top, device_us = device_split(prof, n=10)
-    # both kernels' symbols: flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
+    # both kernels' symbols: flash_fwd_wgmma_kernel (bf16), flash_fwd_tf32x3_kernel (f32)
     flash_ms = sum(v for k, v in device_us.items() if "flash_fwd" in k) / 1e3
     if flash_ms <= 0:
         raise AssertionError("profiled prefill: no flash_fwd kernel in the device trace")
@@ -2952,10 +2954,13 @@ def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
     launches alone from the profiler; f32 [1, 16384, 4/4, dh 64] causal
     (``"f32-long"``); and at BWD_SMALL in f32 (and five small bf16 widths).
     Beside minicpm's f32 backward, the f32 forward that runs with it in
-    every f32 training step (``flash_fwd_kernel``, row 6b) on the same
-    inputs: call, launch alone, plain, library, bound (its row under
-    ``"f32-forward"``, in ``rec["training_forward_f32"]``). Returns the rows
-    by label."""
+    every f32 training step (``flash_fwd_tf32x3_kernel``, row 6b) on the
+    same inputs: call, launch alone, plain, library, bound (its row under
+    ``"f32-forward"``, in ``rec["training_forward_f32"]``); the same kernel
+    at [1, 2048, 8/4, dh 256] causal (``"f32-forward-dh256"``: 16-key tiles
+    beside Q's split fragments) and at [1, 16384, 4/4, dh 64] causal
+    (``"f32-forward-long"``: its P·V sums over 16,384 keys), each within
+    ``ATTN_TOL[4]`` and ``LSE_TOL[4]``. Returns the rows by label."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2979,12 +2984,24 @@ def phase_backward_kernels(rec: dict, max_err: dict) -> dict:
     out["minicpm-s2048-f32"] = bwd_case(rows, max_err, "minicpm-s2048-f32", q, k, v, True, 0, 5, kernel_alone=True)
     fwd_rows: list = []
     fwd = attn_case(fwd_rows, max_err, "minicpm-s2048-f32-forward", q, k, v, True, 0, 10)
-    fwd["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), "flash_fwd_kernel")
+    fwd["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), "flash_fwd_tf32x3_kernel")
     rec["training_forward_f32"] = out["f32-forward"] = fwd
     log(f"[train-fwd] f32 forward at minicpm's heads: {fwd['ms']:.3f} ms a call, {fwd['device_ms']:.3f} the launch "
         f"alone, library {fwd['library_ms']}, bound {fwd['bound_ms']:.4f}")
     del q, k, v
     torch.cuda.empty_cache()
+    for label, b, s, hq, hkv, dh in (("f32-forward-dh256", 1, 2048, 8, 4, 256), ("f32-forward-long", 1, 16384, 4, 4, 64)):
+        q, k, v = qkv(b, s, s, hq, hkv, dh, torch.float32)
+        row = attn_case(fwd_rows, max_err, label, q, k, v, True, 0, 10 if s <= 2048 else 5)
+        row["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), "flash_fwd_tf32x3_kernel",
+                                     reps=10 if s <= 2048 else 5)
+        out[label] = row
+        log(f"[train-fwd] {label}: {row['ms']:.3f} ms a call, {row['device_ms']:.3f} the launch alone, library "
+            f"{row['library_ms']}, bound {row['bound_ms']:.4f}, error {row['max_abs_err']:.2e}, lse error "
+            f"{row['lse_max_abs_err']:.2e}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    rec["training_forward_f32_shapes"] = fwd_rows
     for dtype, tag, dh in ((torch.bfloat16, "bf16", 256), (torch.float32, "f32", 256), (torch.bfloat16, "bf16", 512),
                            (torch.float32, "f32", 512)):
         q, k, v = qkv(1, 2048, 2048, 8, 4, dh, dtype)
@@ -3750,17 +3767,22 @@ def main() -> int:
                                                        "fp32_core_bound_ms", "library_ms", "tflops")}
                 for w in ("gemma3-s4096-w0", "gemma3-s4096-w1024", "minicpm-s2048-f32", "dh256-bf16", "dh256-f32",
                           "dh512-bf16", "dh512-f32")}
-            # ptxas registers and spills of the 3xTF32 pair (phase 1's nvcc log)
+            # ptxas registers and spills of the 3xTF32 kernels: the backward pair and the f32 forward (phase 1's
+            # nvcc log)
             entry["ptxas_tf32x3"] = {k: v for k, v in rec["ptxas"].items() if "tf32x3" in k}
         if name == "flash_attention":
             g = attn["gemma3-s4096-w0"]  # the global layers at the same prompt
             entry["tflops"] = h["tflops"]
             entry["global_layer"] = {key: g[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                               "tflops", "bound_share")}
-            # row 6b: flash_fwd_kernel (f32) at minicpm's heads, as every f32 training step runs it
+            # row 6b: flash_fwd_tf32x3_kernel (f32) at minicpm's heads, as every f32 training step runs it, and at
+            # dh 256 and T 16384
+            keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "fp32_core_bound_ms", "library_ms", "tflops",
+                    "max_abs_err", "lse_max_abs_err")
             f = bwd["f32-forward"]
-            entry["f32_training_forward"] = {key: f[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                                                                      "fp32_core_bound_ms", "library_ms", "tflops")}
+            entry["f32_training_forward"] = {key: f[key] for key in keys}
+            entry["f32_training_forward"]["more_shapes"] = {
+                w: {key: bwd[w][key] for key in keys} for w in ("f32-forward-dh256", "f32-forward-long")}
         for key in ("bound_bytes", "lut_streamed_bytes", "staged_lut_bytes", "real_query_slots",
                     "device_ms", "work_list_ms", "ms_64_queries", "summed_over_buckets", "lookup_bound_ms",
                     "bwd_dq_device_ms", "bwd_dkdv_device_ms"):

@@ -56,19 +56,20 @@
 // compiled width DH in {64, 128, 256}, with BN and STAGES chosen per width
 // (see Tile).
 //
-// f32 (flash_fwd_kernel): the CUDA-core kernel of the first port, kept
-// for f32 inputs because TF32's 10-bit mantissa cannot meet f32's 1e-4
-// agreement. Each thread keeps a 4 x 8 tile of logits and a 4 x (DH / 8)
-// tile of the output in registers, reading q, k, p and v from shared memory
-// as float4; K and V share one buffer so two blocks fit on an SM at dh 128;
-// dh is zero-padded to DH in {32, 64, 128, 256}.
+// f32 (flash_fwd_tf32x3_kernel, its own section below): both products on
+// the tensor cores too, as three TF32 mma.sync products a k8 step on hi/lo
+// splits of each operand (tf32x3.cuh), which keep f32's 1e-4 agreement
+// where one TF32 pass (a 10-bit mantissa) would not. Q is scaled and split
+// once a block; K and V tiles come through a cp.async ring; P enters P·V as
+// A fragments in registers. dh is a multiple of 8 here too (the wrapper
+// pads it) and is zero-filled to DH in {32, 64, 128, 256}.
 //
 // Both kernels skip KV tiles wholly outside the block's band (kv_lo,
 // kv_hi], schedule the heavy (late causal) query tiles first, and take the
 // window as a runtime int, so one build serves every layer. Past dh 256
 // (flash_attention_wide, its own section below) the bf16 kernel runs at DH
 // 384 and 512 with O in column slices, and past that, and for f32, a
-// sliced form of the CUDA-core kernel takes any width.
+// sliced CUDA-core kernel takes any width.
 //
 // Training: every kernel also takes an optional lse pointer, f32 [B, Hq,
 // S]: when it is not null the kernel writes each row's log-sum-exp of its
@@ -87,97 +88,25 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 #include "topk.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;   // 16 row groups x 8 column lanes
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 64;         // keys per KV tile
+using namespace tf32x3;
+
+constexpr int kBQ = 64;         // query rows per block (flash_sliced_kernel)
+constexpr int kBK = 64;         // keys per KV tile (flash_sliced_kernel)
 constexpr int kPad = 4;         // row padding of the transposed tiles (floats)
 constexpr int kStrideQ = kBQ + kPad;
 constexpr int kStrideK = kBK + kPad;
 constexpr float kNegInf = -3.0e38f;  // models/attention.py NEG_INF, not the scan kernels'
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Shape {
   int B, S, T, Hq, Hkv, dh, causal, window;
   float scale;
 };
-
-// Shared memory of one block at padded width DH: Qt [DH][kStrideQ], a KV
-// buffer holding Kt [DH][kStrideK] or V [kBK][DH], and Pt [kBK][kStrideQ].
-__host__ __device__ constexpr size_t flash_smem_bytes(int DH) {
-  return ((size_t)DH * kStrideQ + (size_t)DH * kStrideK + (size_t)kBK * kStrideQ) * sizeof(float);
-}
-
-// s[i][j] += Σ_d qt[d][ty·4 + i] · kt[d][key j] over N staged columns, keys
-// tx·4 + j (j < 4) and 32 + tx·4 + j - 4: float4 reads, 32 FMAs per three.
-template <int N>
-__device__ __forceinline__ void logits(float (&s)[4][8], const float* qt, const float* kt, int ty, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < N; ++d) {
-    const float4 qa = *reinterpret_cast<const float4*>(qt + d * kStrideQ + ty * 4);
-    const float4 k0 = *reinterpret_cast<const float4*>(kt + d * kStrideK + tx * 4);
-    const float4 k1 = *reinterpret_cast<const float4*>(kt + d * kStrideK + 32 + tx * 4);
-    const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-    const float kk[8] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kk[j], s[i][j]);
-  }
-}
-
-// Mask the tile's logits, then the online-softmax update of each of the
-// thread's rows (q0 + ty·4 + i); P goes to pt [kBK][kStrideQ]. The 8 lanes
-// sharing a row group are lanes 8g..8g+7 of one warp.
-template <int kCols>
-__device__ __forceinline__ void softmax_tile(float (&s)[4][8], float (&m)[4], float (&l)[4],
-                                             float (&acc)[4][kCols], float* pt, int q0, int t0, int ty,
-                                             int tx, const Shape& sh) {
-  bool keep[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int kpos = t0 + (j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4));
-      bool ok = kpos < sh.T;
-      if (sh.causal) ok = ok && kpos <= qpos;
-      if (sh.window > 0) ok = ok && kpos > qpos - sh.window;
-      keep[i][j] = ok;
-      s[i][j] = ok ? s[i][j] : kNegInf;
-      mx = fmaxf(mx, s[i][j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-    const float m_new = fmaxf(m[i], mx);
-    const float alpha = expf(m[i] - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[i][j] = keep[i][j] ? expf(s[i][j] - m_new) : 0.f;
-      sum += s[i][j];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-    l[i] = l[i] * alpha + sum;
-    m[i] = m_new;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j < 4 ? tx * 4 + j : 32 + tx * 4 + (j - 4);
-      pt[col * kStrideQ + ty * 4 + i] = s[i][j];
-    }
-  }
-}
 
 // acc += P · V over the tile's kBK keys: V rows of `stride` floats, the
 // thread's output columns u·32 + tx·4 + j.
@@ -200,120 +129,6 @@ __device__ __forceinline__ void pv_tile(float (&acc)[4][kCols], const float* pt,
       }
     }
   }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, Shape sh) {
-  static_assert(DH % 32 == 0, "DH is a multiple of 32");
-  constexpr int kCols = DH / 8;  // output columns per thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qt = reinterpret_cast<float*>(smem_raw);  // [DH][kStrideQ], q * scale
-  float* kv = qt + DH * kStrideQ;                  // Kt [DH][kStrideK] or V [kBK][DH]
-  float* pt = kv + DH * kStrideK;                  // [kBK][kStrideQ]
-
-  // Heavy tiles (late rows under a causal mask) are scheduled first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (sh.Hq / sh.Hkv);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;  // rows ty*4 .. ty*4+3 of the tile
-  const int tx = tid & 7;   // logit columns tx*4+j and 32+tx*4+j; output columns tx*4+32u+j
-  const int dh = sh.dh;
-
-  const size_t q_row = (size_t)sh.Hq * dh;   // elements between consecutive positions
-  const size_t kv_row = (size_t)sh.Hkv * dh;
-  const T* qb = q + ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-  const T* kb = k + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-  const T* vb = v + ((size_t)b * sh.T) * kv_row + (size_t)hk * dh;
-
-  for (int e = tid; e < kBQ * DH; e += kThreads) {
-    const int r = e / DH, d = e - (e / DH) * DH;
-    const int s = q0 + r;
-    const float x = (s < sh.S && d < dh) ? to_f32(qb[(size_t)s * q_row + d]) * sh.scale : 0.f;
-    qt[d * kStrideQ + r] = x;
-  }
-
-  // The keys any row of this tile may keep: (kv_lo - 1, kv_hi).
-  const int q_last = min(q0 + kBQ, sh.S) - 1;
-  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
-  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t0 = (kv_lo / kBK) * kBK; t0 < kv_hi; t0 += kBK) {
-    __syncthreads();  // the previous tile's V and P are consumed (and Qt is staged)
-    for (int e = tid; e < kBK * DH; e += kThreads) {
-      const int j = e / DH, d = e - (e / DH) * DH;
-      const int t = t0 + j;
-      kv[d * kStrideK + j] = (t < sh.T && d < dh) ? to_f32(kb[(size_t)t * kv_row + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-    logits<DH>(s, qt, kv, ty, tx);
-    softmax_tile<kCols>(s, m, l, acc, pt, q0, t0, ty, tx, sh);
-    __syncthreads();  // Kt is consumed, P is visible
-
-    for (int e = tid; e < kBK * DH; e += kThreads) {
-      const int j = e / DH, d = e - (e / DH) * DH;
-      const int t = t0 + j;
-      kv[j * DH + d] = (t < sh.T && d < dh) ? to_f32(vb[(size_t)t * kv_row + d]) : 0.f;
-    }
-    __syncthreads();
-
-    pv_tile<kCols>(acc, pt, kv, DH, ty, tx);
-  }
-
-  T* ob = o + ((size_t)b * sh.S) * q_row + (size_t)h * dh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= sh.S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && tx == 0) lse[((size_t)b * sh.Hq + h) * sh.S + s] = l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
-#pragma unroll
-    for (int u = 0; u < DH / 32; ++u)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = u * 32 + tx * 4 + j;
-        if (d < dh) store(ob + (size_t)s * q_row + d, acc[i][u * 4 + j] * inv);
-      }
-  }
-}
-
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
-                   cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes(DH);
-  cudaError_t err = hqi::prepare(flash_fwd_kernel<T, DH>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sh.S + kBQ - 1) / kBQ, sh.Hq, sh.B);
-  flash_fwd_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, sh);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_f32_dh(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
-                          cudaStream_t stream) {
-  if (sh.dh <= 32) return launch<float, 32>(q, k, v, o, lse, sh, stream);
-  if (sh.dh <= 64) return launch<float, 64>(q, k, v, o, lse, sh, stream);
-  if (sh.dh <= 128) return launch<float, 128>(q, k, v, o, lse, sh, stream);
-  return launch<float, 256>(q, k, v, o, lse, sh, stream);
 }
 
 // ------------------------------------------------- bf16: wgmma + TMA ring
@@ -731,6 +546,373 @@ cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o,
   return launch_bf16<256>(q, k, v, o, lse, sh, stream);
 }
 
+// ------------------------------------- f32 up to dh 256: 3xTF32 on mma.sync
+//
+// flash_fwd_tf32x3_kernel replaces an earlier CUDA-core kernel
+// (flash_fwd_kernel), which the 67 TFLOP/s fp32 peak capped, which staged
+// Q, K and V element by element (K transposed, K and V in one buffer: four
+// __syncthreads a tile, nothing in flight during the products) and which
+// passed P through shared memory. Both products run on the tensor cores as
+// 3xTF32 (tf32x3.cuh: hi rounded on the bits, lo = x - hi handed over as it
+// stands, so a NaN operand stays NaN; three mma.sync.m16n8k8 a k8 step; f32
+// sums), which keeps f32's 1e-4 where one TF32 pass would not. The design is the backward's dQ kernel
+// (bwd_dq_tf32x3_kernel) without dO and dP, with an online softmax in place
+// of the stored lse and O += P·V in place of dQ += dS·K:
+//  * a block of 256 threads (8 warps) owns 64·MT query rows of one head (the
+//    late, heavy causal tiles first). Q lands once by 16-byte cp.async in the
+//    ring, is scaled (q·scale in f32, as the plain version) and split into
+//    TF32 hi/lo A fragments once for the block, stored in fragment order
+//    (one float4 of hi and one of lo a lane a k8 step: two conflict-free
+//    16-byte reads where splitting the staged tile would take four reads and
+//    twelve integer and float operations, every tile);
+//  * K and V tiles of BN keys stream through a cp.async ring of STAGES
+//    stages, the next tiles in flight while this one computes, one
+//    __syncthreads a tile. Both are row-major with rows DH + 4 floats apart:
+//    K as the B operand of S = (q·scale)·Kᵀ is read at row g, column t (bank
+//    4g + t), V as the B operand of P·V at rows 2t, 2t + 1, columns 2g, 2g + 1
+//    (one 8-byte read, banks 8t + 2g a half-warp at a time): both
+//    conflict-free, so one stride serves both tiles;
+//  * warp w owns rows 16·MT·(w % 4) and the keys BN/2·(w / 4) of each tile
+//    (kTfKeySplit): S for them (B fragments split once for the MT m16 tiles),
+//    the mask where the tile crosses the causal diagonal, the window's lower
+//    edge or T, and its own online softmax (m in log2 units, p =
+//    ex2(S·log2 e - m), l a thread's share); P stays in registers and enters
+//    O += P·V as A fragments in the permuted key order (acc_product), V's
+//    rows read in the same order. Each tile's P·V is summed from zero and
+//    added to the running O in f32 as O = fmaf(O, alpha, tile) (O is not
+//    chained through the accumulator across tiles: such sums drift with T);
+//  * at the end the two key halves of a row group merge in a fixed order
+//    through shared memory (m, l and O of half 1 rescaled into half 0's),
+//    and half 0 writes o = O / max(l, 1e-30) and, for training, lse = (m +
+//    log2 l)·ln 2 (NEG_INF for a row that keeps no key).
+// What bounds it: 4·dh operations a kept pair and head, three TF32 passes at
+// 495 TFLOP/s (chip_smoke.py prices the bound at the lesser of that and the
+// fp32 peak). No atomics: the output does not depend on the schedule, and it
+// is the same with and without the lse pointer.
+
+// Per compiled width: MT m16 tiles a warp (64·MT query rows a block), BN keys
+// a K/V tile, STAGES ring stages, BLOCKS blocks an SM the registers are
+// capped for, SACC accumulators of S (qk_products). Two m16 tiles a warp at
+// DH 64 share each split K and V fragment: faster on the H100 than one tile
+// at two blocks an SM (128 registers), and than 32- or 48-key tiles, though
+// it takes 255 registers and spills 24 bytes. At DH 256 Q's hi and lo
+// fragments take 128 KiB, so the ring holds two stages of 16 keys (the
+// backward's dQ tile), one block fits an SM, and a warp's S (one n8 block of
+// 8 keys) is summed in four chains of k8 steps.
+template <int DH>
+struct FwdTile;
+template <>
+struct FwdTile<32> {
+  static constexpr int MT = 1, BN = 64, STAGES = 3, BLOCKS = 2, SACC = 1;
+};
+template <>
+struct FwdTile<64> {
+  static constexpr int MT = 2, BN = 64, STAGES = 2, BLOCKS = 1, SACC = 1;
+};
+template <>
+struct FwdTile<128> {
+  static constexpr int MT = 1, BN = 64, STAGES = 2, BLOCKS = 1, SACC = 1;
+};
+template <>
+struct FwdTile<256> {
+  static constexpr int MT = 1, BN = 16, STAGES = 2, BLOCKS = 1, SACC = 4;
+};
+
+// Shared memory: Q's hi and lo fragments [64·MT / 16][DH / 8][32 lanes]
+// float4 each, and the ring of K and V tiles [BN][DH + 4]. Q lands in the
+// ring (rows DH + 4 apart) before it is split, and the end's merge reuses
+// the fragments' space.
+template <int DH>
+struct FwdSmem {
+  static constexpr int LD = DH + 4;
+  static constexpr int MT = FwdTile<DH>::MT, BN = FwdTile<DH>::BN, ROWS = 64 * MT;
+  static constexpr int QF = ROWS * DH;         // floats: Q's hi (and again its lo) fragments
+  static constexpr int STAGE = 2 * BN * LD;     // floats: a K and a V tile
+  static constexpr size_t bytes = (size_t)2 * QF * 4 + (size_t)FwdTile<DH>::STAGES * STAGE * 4;
+  static_assert(FwdTile<DH>::STAGES * STAGE >= ROWS * LD, "Q lands in the ring before it is split");
+  static_assert(bytes <= 232448, "a block's shared memory");
+};
+
+// s[m][j] = (q·scale)[16 rows of m16 tile m][DH] · K[8 keys of n8 block j][DH]ᵀ
+// in three TF32 products a k8 step: A from Q's split fragments (qf: the
+// warp's first m16 tile's hi at this lane; lo QF / 4 float4 further), B read
+// at element (g, t) of the warp's first key row (kb) and split once for the
+// MT tiles. The k8 steps go round-robin to SACC accumulators of each block,
+// summed at the end: a warp with few blocks (MT·NB) would otherwise wait on
+// one chain of 3·DH/8 dependent mma.sync.
+template <int DH, int MT, int NB, int SACC>
+__device__ __forceinline__ void qk_products(float (&s)[MT][NB][4], const float4* qf, const float* kb) {
+  constexpr int LD = DH + 4, KD = DH / 8, QF4 = FwdSmem<DH>::QF / 4;
+  static_assert(KD % SACC == 0, "the k8 steps split evenly over the accumulators");
+  float part[SACC][MT][NB][4];
+#pragma unroll
+  for (int c = 0; c < SACC; ++c)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[c][m][j][e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < KD; k0 += SACC) {
+#pragma unroll
+    for (int c = 0; c < SACC; ++c) {
+      const int kk = k0 + c;
+      TfA fa[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float4 hi = qf[(m * KD + kk) * 32], lo = qf[(m * KD + kk) * 32 + QF4];
+        fa[m].hi[0] = __float_as_uint(hi.x), fa[m].hi[1] = __float_as_uint(hi.y);
+        fa[m].hi[2] = __float_as_uint(hi.z), fa[m].hi[3] = __float_as_uint(hi.w);
+        fa[m].lo[0] = __float_as_uint(lo.x), fa[m].lo[1] = __float_as_uint(lo.y);
+        fa[m].lo[2] = __float_as_uint(lo.z), fa[m].lo[3] = __float_as_uint(lo.w);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float* bp = kb + j * 8 * LD + 8 * kk;
+        const TfB fb = split_b(bp[0], bp[4]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma3(part[c][m][j], fa[m], fb);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = part[0][m][j][e];
+#pragma unroll
+        for (int c = 1; c < SACC; ++c) x += part[c][m][j][e];
+        s[m][j][e] = x;
+      }
+}
+
+// The running O rescaled and a tile's P·V added in one rounding:
+// acc_product's add for row g + 8·(e / 2) of m16 tile m.
+template <int MT>
+struct RescaleAdd {
+  float alpha[MT][2];
+  __device__ __forceinline__ float operator()(int m, int e, float acc, float d) const {
+    return fmaf(acc, alpha[m][e >> 1], d);
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kTfThreads, FwdTile<DH>::BLOCKS)
+    flash_fwd_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                            float* __restrict__ o, float* __restrict__ lse, Shape sh) {
+  using M = FwdSmem<DH>;
+  constexpr int LD = M::LD, MT = M::MT, ROWS = M::ROWS, BN = M::BN, STAGES = FwdTile<DH>::STAGES;
+  constexpr int NK = BN / kTfKeySplit, NB = NK / 8, KD = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* qf = reinterpret_cast<float4*>(smem_raw);                   // [ROWS / 16][KD][32] hi, then lo
+  float* ring = reinterpret_cast<float*>(smem_raw) + 2 * M::QF;        // STAGES x ([BN][LD] K, [BN][LD] V)
+
+  // Heavy tiles first: every (batch, head)'s last query tile, then the one before.
+  const int hb_n = sh.Hq * sh.B;
+  const int n_qt = (sh.S + ROWS - 1) / ROWS;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / hb_n)) * ROWS;
+  const int h = (int)(blockIdx.x % hb_n) % sh.Hq, b = (int)(blockIdx.x % hb_n) / sh.Hq;
+  const int hk = h / (sh.Hq / sh.Hkv);
+  const int dh = sh.dh;
+  const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
+  const size_t q_off = (size_t)b * sh.S * q_row + (size_t)h * dh;
+  const float* kb = k + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+  const float* vb = v + (size_t)b * sh.T * kv_row + (size_t)hk * dh;
+
+  // The keys any row of the block may keep, (kv_lo - 1, kv_hi), and their tiles.
+  const int q_last = min(q0 + ROWS, sh.S) - 1;
+  const int kv_lo = sh.window > 0 ? max(0, q0 - sh.window + 1) : 0;
+  const int kv_hi = sh.causal ? min(sh.T, q_last + 1) : sh.T;
+  const int tile_lo = kv_lo / BN;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN - tile_lo : 0;
+
+  // Q through the ring: scaled in f32 and split into fragments once.
+  stage_tf<DH>(ring, q + q_off, q_row, q0, ROWS, sh.S, dh);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  for (int e = threadIdx.x; e < M::QF / 4; e += kTfThreads) {
+    // fragment e: lane e % 32 (g, t), k8 step (e / 32) % KD, m16 tile e / (32·KD)
+    const int fl = e % 32, kk = (e / 32) % KD, r16 = e / (32 * KD);
+    const float* x = ring + (16 * r16 + fl / 4) * LD + 8 * kk + fl % 4;
+    const TfA f = split_a(x[0] * sh.scale, x[8 * LD] * sh.scale, x[4] * sh.scale, x[8 * LD + 4] * sh.scale);
+    qf[e] = make_float4(__uint_as_float(f.hi[0]), __uint_as_float(f.hi[1]), __uint_as_float(f.hi[2]),
+                        __uint_as_float(f.hi[3]));
+    qf[e + M::QF / 4] = make_float4(__uint_as_float(f.lo[0]), __uint_as_float(f.lo[1]), __uint_as_float(f.lo[2]),
+                                    __uint_as_float(f.lo[3]));
+  }
+  __syncthreads();  // the ring is free for K and V
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      float* st = ring + (it % STAGES) * M::STAGE;
+      const int t0 = (tile_lo + it) * BN;
+      stage_tf<DH>(st, kb, kv_row, t0, BN, sh.T, dh);
+      stage_tf<DH>(st + BN * LD, vb, kv_row, t0, BN, sh.T, dh);
+    }
+    sm90::cp_async_commit();  // empty groups too: the waits count groups
+  };
+#pragma unroll
+  for (int it = 0; it < STAGES - 1; ++it) issue(it);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % 4, ks = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 16 * MT * rg;  // the warp's first row
+  const int r_end = r0 + 16 * MT - 1;
+  const float4* qw = qf + MT * rg * KD * 32 + lane;
+
+  float oacc[MT][KD][4];
+  float ms[MT][2], l[MT][2];  // running max (log2 units) and this thread's share of the row sums
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) ms[m][i] = kNegInf, l[m][i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[m][n][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    sm90::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile it visible; every warp is done with the stage refilled next
+    issue(it + STAGES - 1);
+    const float* sk = ring + (it % STAGES) * M::STAGE;
+    const float* sv = sk + BN * LD;
+    const int kw = (tile_lo + it) * BN + ks * NK;  // the warp's first key
+    if (r0 >= sh.S || kw >= sh.T || (sh.causal && kw > min(r_end, sh.S - 1)) ||
+        (sh.window > 0 && kw + NK - 1 <= r0 - sh.window))
+      continue;  // no (row, key) pair of the warp is kept
+    float s[MT][NB][4];
+    qk_products<DH, MT, NB, FwdTile<DH>::SACC>(s, qw, sk + (ks * NK + g) * LD + t);  // S = (q·scale)·Kᵀ
+
+    // Mask only the tiles that cross the diagonal, the window's lower edge
+    // or T; masked logits become -inf, so p = ex2(-inf) = 0.
+    if (kw + NK > sh.T || (sh.causal && kw + NK - 1 > r0) || (sh.window > 0 && kw <= r_end - sh.window)) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = r0 + 16 * m + g + 8 * (e >> 1), kpos = kw + 8 * j + 2 * t + (e & 1);
+            bool keep = kpos < sh.T;
+            if (sh.causal) keep = keep && kpos <= qpos;
+            if (sh.window > 0) keep = keep && kpos > qpos - sh.window;
+            if (!keep) s[m][j][e] = -INFINITY;
+          }
+    }
+
+    // Online softmax of this thread's rows; the four lanes of a quad share a row.
+    RescaleAdd<MT> rescale;  // each row's alpha
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) mx = fmaxf(mx, fmaxf(s[m][j][2 * i], s[m][j][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(ms[m][i], mx * kLog2e);
+        rescale.alpha[m][i] = ex2(ms[m][i] - m_new);
+        ms[m][i] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = ex2(fmaf(s[m][j][2 * i + c], kLog2e, -m_new));
+            s[m][j][2 * i + c] = p;
+            rs += p;
+          }
+        l[m][i] = fmaf(l[m][i], rescale.alpha[m][i], rs);
+      }
+    // O = O·alpha + P·V over the warp's keys (P as A fragments in the permuted key order)
+    acc_product<DH, MT, NB>(oacc, s, sv + ks * NK * LD, g, t, rescale);
+  }
+  sm90::cp_async_wait<0>();
+
+  // The key halves merged in a fixed order (half 1 through shared memory
+  // into half 0), then o and lse written.
+  __syncthreads();  // every warp is done with Q's fragments
+  float* red = reinterpret_cast<float*>(smem_raw) + rg * (MT * (KD * 4 + 4)) * 32 + lane;
+  if (ks == 1) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int n = 0; n < KD; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[((m * KD + n) * 4 + e) * 32] = oacc[m][n][e];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        red[(MT * KD * 4 + 4 * m + i) * 32] = ms[m][i];
+        red[(MT * KD * 4 + 4 * m + 2 + i) * 32] = l[m][i];
+      }
+    }
+  }
+  __syncthreads();
+  if (ks != 0) return;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    float a0[2], a1[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m1 = red[(MT * KD * 4 + 4 * m + i) * 32], l1 = red[(MT * KD * 4 + 4 * m + 2 + i) * 32];
+      const float mm = fmaxf(ms[m][i], m1);
+      a0[i] = ex2(ms[m][i] - mm), a1[i] = ex2(m1 - mm);
+      ms[m][i] = mm;
+      l[m][i] = l[m][i] * a0[i] + l1 * a1[i];
+      l[m][i] += __shfl_xor_sync(0xffffffffu, l[m][i], 1);
+      l[m][i] += __shfl_xor_sync(0xffffffffu, l[m][i], 2);
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        oacc[m][n][e] = oacc[m][n][e] * a0[e >> 1] + red[((m * KD + n) * 4 + e) * 32] * a1[e >> 1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 16 * m + g + 8 * i;
+      if (row >= sh.S) continue;
+      if (lse != nullptr && t == 0)
+        lse[((size_t)b * sh.Hq + h) * sh.S + row] =
+            l[m][i] > 0.f ? (ms[m][i] + log2f(l[m][i])) * 0.6931471805599453f : kNegInf;
+      store_rows<DH>(o + q_off + (size_t)row * q_row, oacc[m], i, t, dh, 1.f / fmaxf(l[m][i], 1e-30f));
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_tf32x3(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
+                          cudaStream_t stream) {
+  using M = FwdSmem<DH>;
+  cudaError_t err = hqi::prepare(flash_fwd_tf32x3_kernel<DH>, M::bytes);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((sh.S + M::ROWS - 1) / M::ROWS) * sh.Hq * sh.B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  flash_fwd_tf32x3_kernel<DH><<<(unsigned)blocks, kTfThreads, M::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, sh);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32x3_dh(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
+                             cudaStream_t stream) {
+  // 16-byte cp.async rows and float4 stores: the wrapper pads dh to a multiple of 8 and aligns the bases
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  if (sh.dh % 8 != 0) return cudaErrorInvalidValue;
+  if (sh.dh <= 32) return launch_tf32x3<32>(q, k, v, o, lse, sh, stream);
+  if (sh.dh <= 64) return launch_tf32x3<64>(q, k, v, o, lse, sh, stream);
+  if (sh.dh <= 128) return launch_tf32x3<128>(q, k, v, o, lse, sh, stream);
+  return launch_tf32x3<256>(q, k, v, o, lse, sh, stream);
+}
+
 // ------------------------------------------------- dh > 256
 //
 // flash_attention_wide takes the widths the tiled kernels above do not (at
@@ -741,9 +923,8 @@ cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o,
 //     each block owning DV output columns (two slices) and summing S over
 //     all DH columns as DH / 16 k-steps of one accumulator; dh padded to
 //     DH by TMA's zero fill.
-//   * f32 past 256 and bf16 past 512: flash_sliced_kernel, the register-
-//     tiled CUDA-core design of flash_fwd_kernel (float4 reads of shared
-//     memory) in a block of 256 threads owning 64 query rows and up to 512
+//   * f32 past 256 and bf16 past 512: flash_sliced_kernel, a register-
+//     tiled CUDA-core design (float4 reads of shared memory) in a block of 256 threads owning 64 query rows and up to 512
 //     output columns in two halves of DV = 160..256 (dh split into the
 //     fewest such blocks). Q and K are staged kSliceDC columns at a time and
 //     the 64 x 64 logits summed chunk by chunk (f32: each chunk read into
@@ -752,7 +933,9 @@ cudaError_t launch_bf16_dh(const void* q, const void* k, const void* v, void* o,
 //     memory, and each half adds P·V for its columns (4 x DV/8 a thread).
 //     Shared memory: Qt and Kt chunks [32][68], P [64][68] and V [64][2·DV]
 //     in f32, 163 KiB at DV 256 (one block an SM); registers: 4·DV/8 + 16
-//     accumulators a thread. TF32 stays out (it cannot meet f32's 1e-4).
+//     accumulators a thread. Its f32 products stay on CUDA cores: the
+//     3xTF32 design of flash_fwd_tf32x3_kernel (which keeps 1e-4) is not
+//     carried past dh 256 yet.
 //     bf16 past 512 comes here because a wgmma block's Q tile (128 rows)
 //     would outgrow shared memory.
 // Past 512 columns each block recomputes S for its columns: the products
@@ -821,8 +1004,7 @@ __device__ __forceinline__ void put_chunk(float* dst, int stride, const float4 (
 // sx·4 + j, 32 + sx·4 + j, summing Q·Kᵀ over dh a kSliceDC chunk at a time;
 // its softmax writes P and each row's rescale to shared memory. Then each
 // half multiplies P by its DV columns of V: thread (ty, tx) holds rows
-// ty·4 + i and columns u·32 + tx·4 + j of the half (flash_fwd_kernel's
-// tiles).
+// ty·4 + i and columns u·32 + tx·4 + j of the half (pv_tile).
 template <typename T, int DV>
 __global__ void __launch_bounds__(kSlicedThreads)
     flash_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -842,7 +1024,7 @@ __global__ void __launch_bounds__(kSlicedThreads)
   const int b = blockIdx.z;
   const int hk = h / (sh.Hq / sh.Hkv);
   const int half = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int sy = t >> 3, sx = t & 7;  // logits: rows 32·half + 2·sy + i, keys as flash_fwd_kernel's
+  const int sy = t >> 3, sx = t & 7;  // logits: rows 32·half + 2·sy + i, keys sx·4 + j and 32 + sx·4 + j
   const int ty = t >> 3, tx = t & 7;  // P·V: rows ty·4 + i, columns c0 + DV·half + u·32 + tx·4 + j
   const int dh = sh.dh;
   const size_t q_row = (size_t)sh.Hq * dh, kv_row = (size_t)sh.Hkv * dh;
@@ -1055,7 +1237,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   const Shape sh{B, S, T, Hq, Hkv, dh, causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  const cudaError_t err = bf16 ? launch_bf16_dh(q, k, v, o, l, sh, st) : launch_f32_dh(q, k, v, o, l, sh, st);
+  const cudaError_t err = bf16 ? launch_bf16_dh(q, k, v, o, l, sh, st) : launch_tf32x3_dh(q, k, v, o, l, sh, st);
   return (int)err;
 }
 

@@ -72,9 +72,12 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 #include "topk.cuh"
 
 namespace {
+
+using namespace tf32x3;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -1666,7 +1669,9 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
 // hi·hi, three mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 with f32 sums
 // (lo·lo, ~2^-22 of a product, is dropped). Both kernels: 256 threads (8 warps),
 // dh padded to a multiple of 8 by the wrapper and zero-filled to DH (32,
-// 64, 128, 256) in shared memory.
+// 64, 128, 256) in shared memory. The split, the products, the staging and
+// the stores are in tf32x3.cuh, shared with the f32 forward
+// (flash_attention.cu's flash_fwd_tf32x3_kernel).
 //
 // Why mma.sync and not wgmma: wgmma takes TF32 from shared memory K-major
 // only (its transpose bits are for 16-bit types), so dQ = dS·K, dK = dSᵀ·Q
@@ -1725,9 +1730,6 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
 // the mask; warps whose rows (keys) a tile cannot keep skip it. No
 // atomics: the result does not depend on the schedule.
 
-constexpr int kTfThreads = 256;  // 8 warps
-constexpr int kTfKeySplit = 2;   // dQ: the two warps of a row group split each key tile
-
 // Per compiled width: MT m16 tiles a warp (16·MT stationary rows, 64·MT a
 // block), BN keys a dQ tile and its ring stages, BQ queries a dK/dV tile
 // and its stages. At DH 256 with few KV heads the dK/dV launch has about
@@ -1771,166 +1773,6 @@ struct TfSmem {
   static constexpr size_t dkdv =
       (size_t)2 * ROWS * LD * 4 + (size_t)TfTile<DH>::KV_STAGES * KV_STAGE * 4 + p_bytes;
 };
-
-// x rounded to TF32, to nearest with ties away from zero: cvt.rna.tf32.f32's
-// rounding written on the bits (half of the dropped 13 bits' weight added to
-// the magnitude, then the 13 bits cleared; a carry reaches the exponent, inf
-// stays inf), for finite x and ±inf. A NaN's bits may carry into the sign
-// or lose its mantissa (0x7fffffff, the GPU's canonical NaN, gives -0), so
-// a split keeps NaN in lo: x - hi is the canonical NaN whatever hi is, and
-// the tensor core reads its top 19 bits as a TF32 NaN. On the H100 this
-// pair of integer operations for hi, with lo left to the tensor core's
-// truncation, was faster than cvt.rna.tf32.f32 (which ptxas expands with
-// NaN tests) and than the bit rounding with a NaN select (PERF.md §6).
-__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// An A fragment (four values) or a B fragment (two) split into TF32 hi and
-// lo (see tf32_rna: a NaN operand makes each of its products NaN).
-struct TfA {
-  uint32_t hi[4], lo[4];
-};
-struct TfB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ TfA split_a(float a0, float a1, float a2, float a3) {
-  const float a[4] = {a0, a1, a2, a3};
-  TfA f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f.hi[i] = tf32_rna(a[i]);
-    f.lo[i] = __float_as_uint(a[i] - __uint_as_float(f.hi[i]));
-  }
-  return f;
-}
-
-__device__ __forceinline__ TfB split_b(float b0, float b1) {
-  TfB f;
-  f.hi[0] = tf32_rna(b0), f.hi[1] = tf32_rna(b1);
-  f.lo[0] = __float_as_uint(b0 - __uint_as_float(f.hi[0])), f.lo[1] = __float_as_uint(b1 - __uint_as_float(f.hi[1]));
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += A·B over one k8 step in three TF32 products: the small terms
-// (lo·hi, hi·lo) first, then hi·hi.
-__device__ __forceinline__ void mma3(float (&d)[4], const TfA& a, const TfB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// acc[p][m][j] += A_p[16·MT][DH] · B_p[8·NB][DH]ᵀ for NP products at once
-// (S and dP). a[p] points at element (g, t) of the warp's first row of a
-// [.][LD] tile (m16 tile m 16·m rows below), b[p] at element (g, t) of the
-// first row of the n8 blocks. Each B fragment is split once for the MT
-// tiles.
-template <int DH, int MT, int NB, int NP>
-__device__ __forceinline__ void s_products(float (&acc)[NP][MT][NB][4], const float* const (&a)[NP],
-                                           const float* const (&b)[NP]) {
-  constexpr int LD = DH + 4;
-#pragma unroll 2
-  for (int kk = 0; kk < DH / 8; ++kk) {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      TfA fa[MT];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float* ap = a[p] + 16 * m * LD + 8 * kk;
-        fa[m] = split_a(ap[0], ap[8 * LD], ap[4], ap[8 * LD + 4]);
-      }
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const float* bp = b[p] + j * 8 * LD + 8 * kk;
-        const TfB fb = split_b(bp[0], bp[4]);
-#pragma unroll
-        for (int m = 0; m < MT; ++m) mma3(acc[p][m][j], fa[m], fb);
-      }
-    }
-  }
-}
-
-// acc[m] += W[m] · B over the 8·KS rows of b: W[m] [16][8·KS] is KS n8
-// accumulator blocks of an S-type product (rows g, g + 8; columns 2t,
-// 2t + 1), taken as A fragments in the permuted order (k' t -> 2t,
-// t + 4 -> 2t + 1); b points at the tile's first row of those 8·KS,
-// row-major [.][DH + 4]. acc blocks 2p and 2p + 1 hold columns 16p + 2n and
-// 16p + 2n + 1 for n8 column n, so a thread's row holds columns 16p + 4t ..
-// 16p + 4t + 3. Each B fragment is split once for the MT tiles. A tile's
-// products for each column pair go to a zeroed fragment (3·KS products)
-// that is added to acc by f32 adds (see "Sums over the band" above).
-template <int DH, int MT, int KS>
-__device__ __forceinline__ void acc_product(float (&acc)[MT][DH / 8][4], const float (&w)[MT][KS][4], const float* b,
-                                            int g, int t) {
-  constexpr int LD = DH + 4;
-  TfA fa[MT][KS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int s = 0; s < KS; ++s) fa[m][s] = split_a(w[m][s][0], w[m][s][2], w[m][s][1], w[m][s][3]);
-  const float* r0 = b + 2 * t * LD + 2 * g;
-#pragma unroll
-  for (int p = 0; p < DH / 16; ++p) {
-    float d[MT][2][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) d[m][0][e] = d[m][1][e] = 0.f;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      const float2 x = *reinterpret_cast<const float2*>(r0 + 8 * s * LD + 16 * p);
-      const float2 y = *reinterpret_cast<const float2*>(r0 + (8 * s + 1) * LD + 16 * p);
-      const TfB b0 = split_b(x.x, y.x), b1 = split_b(x.y, y.y);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        mma3(d[m][0], fa[m][s], b0);
-        mma3(d[m][1], fa[m][s], b1);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[m][2 * p][e] += d[m][0][e];
-        acc[m][2 * p + 1][e] += d[m][1][e];
-      }
-  }
-}
-
-// Row g + 8i of an accumulator in the layout above, as float4s at columns
-// 16p + 4t, scaled; columns past dh (a multiple of 8) are not written.
-template <int DH>
-__device__ __forceinline__ void store_rows(float* row_ptr, const float (&acc)[DH / 8][4], int i, int t, int dh,
-                                           float scale) {
-#pragma unroll
-  for (int p = 0; p < DH / 16; ++p) {
-    const int c = 16 * p + 4 * t;
-    if (c < dh)
-      *reinterpret_cast<float4*>(row_ptr + c) =
-          make_float4(acc[2 * p][2 * i] * scale, acc[2 * p + 1][2 * i] * scale, acc[2 * p][2 * i + 1] * scale,
-                      acc[2 * p + 1][2 * i + 1] * scale);
-  }
-}
-
-// Rows [r0, r0 + rows) x DH columns of src (row stride ld floats) into dst
-// [rows][DH + 4] by 16-byte cp.async; zeros past row_end or dh.
-template <int DH>
-__device__ __forceinline__ void stage_tf(float* dst, const float* src, size_t ld, int r0, int rows, int row_end,
-                                         int dh) {
-  constexpr int U = DH / 4;
-  for (int e = threadIdx.x; e < rows * U; e += kTfThreads) {
-    const int r = e / U, col = 4 * (e % U);
-    const int row = r0 + r;
-    const bool ok = row < row_end && col < dh;
-    sm90::cp_async16_zfill(dst + r * (DH + 4) + col, ok ? src + (size_t)row * ld + col : src, ok);
-  }
-}
 
 // 4 bytes by cp.async, or a zero when `valid` is false (src not read).
 __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {

@@ -3,12 +3,14 @@ grouped-query heads (the prefill hot path of the LM serving path).
 
 ``flash_attention`` takes ``q [B, S, Hq, dh]``, ``k``/``v [B, T, Hkv, dh]``
 (f32 or bf16, one type) and returns ``[B, S, Hq, dh]`` in q's type. On a
-CUDA tensor it launches a kernel of ``csrc/flash_attention.cu`` (or raises):
-bf16 inputs the tensor-core kernel (wgmma products, K/V tiles through a TMA
-ring), f32 inputs the CUDA-core kernel; past ``MAX_HEAD_DIM`` the same two
-designs with O in column slices of at most 256 and the logits summed over
-dh in slices (``flash_attention_wide``: bf16 up to ``WIDE_WGMMA_MAX`` on
-the tensor cores, f32 and wider bf16 on CUDA cores). On a CPU tensor it
+CUDA tensor it launches a kernel of ``csrc/flash_attention.cu`` (or raises),
+both on the tensor cores: bf16 inputs ``flash_fwd_wgmma_kernel`` (wgmma
+products, K/V tiles through a TMA ring), f32 inputs
+``flash_fwd_tf32x3_kernel`` (three TF32 ``mma.sync`` products a k8 step on
+hi/lo splits, K/V tiles through a cp.async ring); past ``MAX_HEAD_DIM`` O
+in column slices of at most 256 and the logits summed over dh in slices
+(``flash_attention_wide``: bf16 up to ``WIDE_WGMMA_MAX`` on the tensor
+cores, f32 and wider bf16 on CUDA cores). On a CPU tensor it
 runs the plain version, ``flash_attention_plain``. ``launches`` on the
 wrapper counts the tiled kernels' launches, ``flash_attention_wide.launches``
 the wide ones', and ``calls`` on the plain version its calls.
@@ -42,7 +44,9 @@ import torch
 from . import _build
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
-MAX_HEAD_DIM = 256  # widest compiled width of the tiled kernels (dh is zero-padded up to 64/128/256 in bf16, 32/64/128/256 in f32)
+# widest compiled width of the tiled kernels: dh is zero-padded to a multiple of 8 here, then up to
+# 64/128/256 in bf16 (TMA's fill) and 32/64/128/256 in f32 (the cp.async staging's)
+MAX_HEAD_DIM = 256
 # widest bf16 head the backward runs on wgmma (DH 64 and 128 the wgmma pair,
 # 256, 384 and 512 the split pair): past it a block's 64 stationary rows of
 # two operands (128 KiB at 512) leave no room for a ring of two stages
@@ -74,8 +78,8 @@ _WGMMA_WIDE = {384: (32, 3, 192), 512: (32, 2, 256)}
 def wide_head(dh: int) -> bool:
     """Whether a head width takes ``flash_attention_wide``: the tiled
     kernels' tiles at the next width above 256 (512) would exceed the 227
-    KiB of shared memory a block may hold (the f32 kernel's would need 289
-    KiB, ``flash_smem_bytes``; the bf16 kernel's Q tile alone 128 KiB beside
+    KiB of shared memory a block may hold (the f32 kernel's split Q alone
+    would take 256 KiB, ``FwdSmem``; the bf16 kernel's Q tile 128 KiB beside
     a ring of two 128 KiB K/V stages), and a warpgroup's 64 x 512 output 256
     registers a thread."""
     return int(dh) > MAX_HEAD_DIM
@@ -275,7 +279,7 @@ def flash_attention(
     """See the module docstring. ``window`` 0 is global attention.
     ``q_chunk``/``kv_chunk`` are the plain version's chunks (CPU tensors);
     the kernels tile by their own sizes (bf16: 128 queries and 64 or 128
-    keys; f32: 64 and 64). Under grad, with an input that requires grad,
+    keys; f32: 64 or 128 queries and 64 or 16 keys, ``FwdTile``). Under grad, with an input that requires grad,
     the result's ``grad_fn`` is ``FlashAttentionFn``'s. ``return_lse``
     (outside grad: for calling ``flash_attention_backward`` by hand) returns
     ``(o, lse)``, the same o and each row's log-sum-exp, f32 [B, Hq, S]."""
@@ -311,14 +315,14 @@ def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int, wi
     if wide_head(dh):
         return flash_attention_wide(q, k, v, causal=causal, window=window, return_lse=with_lse)
     bf16 = q.dtype == torch.bfloat16
-    # The bf16 kernel reads q, k and v with TMA, whose row strides must be
-    # multiples of 16 bytes: other widths are zero-padded to a multiple of 8
-    # on the card (zero columns add nothing to q·k and give zero outputs,
-    # which are cut off). TMA also wants 16-byte aligned bases.
-    dp = -(-dh // 8) * 8 if bf16 else dh
+    # Both kernels read whole 16-byte rows (bf16 by TMA, f32 by cp.async) and
+    # the f32 kernel writes o as float4s: other widths are zero-padded to a
+    # multiple of 8 on the card (zero columns add nothing to q·k and give
+    # zero outputs, which are cut off), and misaligned bases are copied.
+    dp = -(-dh // 8) * 8
     if dp != dh:
         q, k, v = (torch.nn.functional.pad(x, (0, dp - dh)) for x in (q, k, v))
-    elif bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+    elif any(x.data_ptr() % 16 for x in (q, k, v)):
         q, k, v = (x.clone() for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if with_lse else None

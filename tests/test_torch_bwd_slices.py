@@ -9,8 +9,8 @@ chunked online softmax (``repro.models.attention``):
 * the 3xTF32 pair (f32, dh up to 256): blocks of 64 or 128 stationary
   rows, key (query) tiles of the compiled width's size, every product as
   three TF32 products a k8 step (each operand split into hi = tf32(x),
-  ``_tf32`` being ``cvt.rna.tf32.f32``'s rounding, and lo = x - hi read by
-  the tensor core as TF32, ``_tf32_read``)
+  ``torch_tf32.tf32`` being ``cvt.rna.tf32.f32``'s rounding, and lo = x - hi
+  read by the tensor core as TF32, ``torch_tf32.tf32_read``)
   summed in f32, the accumulating products contracting in the permuted key
   order of the kernels' fragments and adding each tile's products to their
   sums by f32 adds, dQ in two key halves summed at the end;
@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from repro.models.attention import flash_attention as jflash_attention
 from repro_torch.kernels import flash_attention as fa
+from torch_tf32 import mm3, permuted, tf32, tf32_read
 
 ROOT = Path(__file__).resolve().parents[1]
 LOG2E = 1.4426950408889634
@@ -216,57 +217,6 @@ def _wide_emulation(q, k, v, o, do, lse, *, causal, window):
     return tuple(x[..., :dh].to(q.dtype) for x in (dq, dk, dv))
 
 
-def _bits_to_f32(b):
-    return torch.where(b >= 2**31, b - 2**32, b).to(torch.int32).view(torch.float32)
-
-
-def _tf32(x):
-    """The kernels' ``tf32_rna`` on the CPU: x rounded to TF32 (the top 10 of
-    f32's 23 mantissa bits kept), to nearest with ties away from zero as
-    ``cvt.rna.tf32.f32`` rounds, by adding half of the dropped 13 bits'
-    weight to the int32 bits (carrying into the exponent where it must) and
-    clearing them; inf stays inf. A NaN's bits may carry into the sign or
-    lose the mantissa (the GPU's canonical NaN 0x7FFFFFFF gives -0): the
-    split keeps NaN in lo (``_tf32_read``). Returns f32 whose low 13 bits
-    are 0."""
-    b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return _bits_to_f32((b + 0x1000) & 0xFFFFE000)
-
-
-def _tf32_read(x):
-    """An f32 operand as the tensor core reads it as TF32: its top 19 bits,
-    the low 13 mantissa bits dropped (truncated toward zero); a NaN whose
-    top mantissa bits are set (the GPU's arithmetic gives 0x7FFFFFFF) stays
-    NaN. The kernels hand lo = x - hi over so."""
-    b = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    return _bits_to_f32(b & 0xFFFFE000)
-
-
-def _mm3(a, b):
-    """a @ b as the kernels' 3xTF32 products: a [..., M, K] and b [..., K, N]
-    split into hi = tf32(x) and lo = x - hi as the tensor core reads it
-    (NaN for a NaN x), then k8 step by k8 step the two small products
-    (lo·hi, hi·lo) and hi·hi added to one f32 sum from zero (the S-type
-    products over d; the accumulating products over keys or queries sum a
-    tile's steps so and the caller adds the result to its running sum)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
-    for k0 in range(0, a.shape[-1], 8):
-        x = slice(k0, k0 + 8)
-        acc = acc + al[..., x] @ bh[..., x, :] + ah[..., x] @ bl[..., x, :] + ah[..., x] @ bh[..., x, :]
-    return acc
-
-
-def _permuted(n):
-    """The kernels' contraction order over n keys (queries) of accumulating
-    products: within each 8-block k' = t -> 2t, t + 4 -> 2t + 1, so an
-    m16n8 accumulator (columns 2t, 2t + 1 a thread) is an A fragment
-    (k-columns t, t + 4) as it stands."""
-    i = torch.arange(n)
-    return (i // 8) * 8 + torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])[i % 8]
-
-
 def _tf32x3_emulation(q, k, v, o, do, lse, *, causal, window):
     """``bwd_dq_tf32x3_kernel`` and ``bwd_dkdv_tf32x3_kernel`` (f32, dh up
     to 256): dh padded to a multiple of 8, then zero to the compiled width
@@ -310,15 +260,15 @@ def _tf32x3_emulation(q, k, v, o, do, lse, *, causal, window):
                     kw = t0 + ks * nk
                     kt, vt = _rows(kp[:, :, hk], kw, nk), _rows(vp[:, :, hk], kw, nk)
                     keep = _keep(qpos, torch.arange(kw, kw + nk), s, t, causal, window)
-                    sp = _mm3(qb, kt.transpose(1, 2))
-                    dp = _mm3(dob, vt.transpose(1, 2))
+                    sp = mm3(qb, kt.transpose(1, 2))
+                    dp = mm3(dob, vt.transpose(1, 2))
                     p = torch.where(keep, torch.exp2(sp * c - l2[..., None]), 0.0)
                     ds = p * (dp - dd[..., None])
-                    perm = _permuted(nk)
-                    halves[ks] = halves[ks] + _mm3(ds[..., perm], kt[:, perm])
+                    perm = permuted(nk)
+                    halves[ks] = halves[ks] + mm3(ds[..., perm], kt[:, perm])
             n = min(rows, s - q0)
             dq[:, q0:q0 + n, h] = ((halves[0] + halves[1]) * scale)[:, :n]
-    perm = _permuted(bq)
+    perm = permuted(bq)
     for hk in range(hkv):
         for k0 in range(0, t, rows):
             kpos = torch.arange(k0, k0 + rows)
@@ -332,12 +282,12 @@ def _tf32x3_emulation(q, k, v, o, do, lse, *, causal, window):
                 l2 = _rows(lse2[:, h, :, None], q0, bq)[..., 0]
                 dd = _rows(delta[:, :, h, None], q0, bq)[..., 0]
                 keep = _keep(torch.arange(q0, q0 + bq), kpos, s, t, causal, window).T
-                st = _mm3(kb, qt.transpose(1, 2))
+                st = mm3(kb, qt.transpose(1, 2))
                 pt = torch.where(keep, torch.exp2(st * c - l2[:, None, :]), 0.0)
-                dpt = _mm3(vb, dot.transpose(1, 2))
+                dpt = mm3(vb, dot.transpose(1, 2))
                 dst = pt * (dpt - dd[:, None, :])
-                av = av + _mm3(pt[..., perm], dot[:, perm])
-                ak = ak + _mm3(dst[..., perm], qt[:, perm])
+                av = av + mm3(pt[..., perm], dot[:, perm])
+                ak = ak + mm3(dst[..., perm], qt[:, perm])
             n = min(rows, t - k0)
             dk[:, k0:k0 + n, hk] = (ak * scale)[:, :n]
             dv[:, k0:k0 + n, hk] = av[:, :n]
@@ -386,7 +336,7 @@ WIDE = [
 
 
 def test_tf32_rounds_to_nearest_ties_away():
-    """``_tf32`` (the kernels' ``cvt.rna.tf32.f32``) on hand-picked f32
+    """``tf32`` (the kernels' ``cvt.rna.tf32.f32``) on hand-picked f32
     values: exact TF32 values stay; half of the last kept bit rounds away
     from zero (ties to even would keep 1.0); just below it rounds down; a
     carry into the exponent; negatives mirror; subnormals round on their
@@ -414,21 +364,21 @@ def test_tf32_rounds_to_nearest_ties_away():
     x = torch.tensor([c[0] for c in cases], dtype=torch.float32)
     want = torch.tensor([c[1] for c in cases], dtype=torch.float32)
     want[7] = f(0x7F61C000)
-    assert torch.equal(_tf32(x), want)
-    assert (_tf32(x).view(torch.int32) & 0x1FFF).eq(0).all()
-    assert torch.equal(_tf32(torch.tensor([-0.0])).view(torch.int32), torch.tensor([-0.0]).view(torch.int32))
+    assert torch.equal(tf32(x), want)
+    assert (tf32(x).view(torch.int32) & 0x1FFF).eq(0).all()
+    assert torch.equal(tf32(torch.tensor([-0.0])).view(torch.int32), torch.tensor([-0.0]).view(torch.int32))
     nans = torch.cat([f(b) for b in (0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0x7F800001, 0xFF800001, 0x7FFFF000)])
-    assert torch.equal(_tf32(nans).view(torch.int32), torch.tensor(
+    assert torch.equal(tf32(nans).view(torch.int32), torch.tensor(
         [0x7FC00000, 0x80000000 - 2**32, 0, 0x7F800000, 0xFF800000 - 2**32, 0x80000000 - 2**32], dtype=torch.int32))
-    assert torch.isnan(_tf32_read(nans - _tf32(nans))).all()
-    assert torch.isnan(_tf32_read(f(0x7FFFFFFF))).all()
+    assert torch.isnan(tf32_read(nans - tf32(nans))).all()
+    assert torch.isnan(tf32_read(f(0x7FFFFFFF))).all()
     # subnormals: 2^-149 (bits 1) rounds to 0; bits 0x1000 (a tie) to 0x2000; 0x2fff to 0x2000
     sub = torch.cat([f(1), f(0x1000), f(0x2FFF), f(0x80001000)])
-    assert torch.equal(_tf32(sub).view(torch.int32), torch.tensor([0, 0x2000, 0x2000, 0x80002000 - 2**32],
+    assert torch.equal(tf32(sub).view(torch.int32), torch.tensor([0, 0x2000, 0x2000, 0x80002000 - 2**32],
                                                                   dtype=torch.int32))
     r = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32)) * 1e3
-    hi = _tf32(r)
-    lo = _tf32_read(r - hi)
+    hi = tf32(r)
+    lo = tf32_read(r - hi)
     assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
     assert ((hi + lo - r).abs() < 2.0**-21 * r.abs()).all()
 

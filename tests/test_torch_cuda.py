@@ -1002,6 +1002,91 @@ def test_forward_lse_leaves_the_output_unchanged(dev, dtype, atol, b, s, t, hq, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 36, 64, 128, 200, 256])
+def test_flash_attention_f32_forward_launch_name(dev, dh):
+    """An f32 forward up to dh 256 (every compiled width; dh 36 padded to 40,
+    200 to DH 256) launches ``flash_fwd_tf32x3_kernel`` once, by name, and
+    no other attention kernel (not the CUDA-core ``flash_fwd_kernel`` it
+    replaced), within ATTN_TOL[4] of the plain version and its lse within
+    LSE_TOL[4] (a window, GQA 2, S off the block's 64 rows)."""
+    q, k, v = _attn_case(dev, dh + 17, 1, 300, 4, 2, dh, torch.float32)
+    (got, lse), names = _traced(lambda: fa.flash_attention(q, k, v, window=100, return_lse=True), fa.flash_attention,
+                                "flash_fwd_tf32x3_kernel")
+    flash = [n for n in names if "flash_" in n]
+    assert len(flash) == 1 and "flash_fwd_tf32x3_kernel" in flash[0], names
+    want, want_lse = fa.flash_attention_plain(q, k, v, window=100, return_lse=True)
+    _attn_close(got, want)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+# f32 forward sequences whose sums over keys run thousands of k8 steps on the
+# 3xTF32 kernel: b, s, hq, hkv, dh (causal, S = T)
+LONG_F32_FWD = [(1, 16384, 4, 4, 64), (1, 8192, 4, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,dh", LONG_F32_FWD)
+def test_flash_attention_f32_forward_long_sequence(dev, b, s, hq, hkv, dh):
+    """The 3xTF32 forward at T 16384 (dh 64) and 8192 (dh 256): o within
+    ATTN_TOL[4] and lse within LSE_TOL[4] of the plain version. Each key
+    tile's P·V is summed from zero and added to the running O in f32; chained
+    through the tensor core's accumulator, whose additions do not round to
+    nearest, such sums drifted with T in the backward."""
+    q, k, v = _attn_case(dev, s + dh, b, s, hq, hkv, dh, torch.float32)
+    n0 = fa.flash_attention.launches
+    got, lse = fa.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    _attn_close(got, want)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["q", "v"])
+@pytest.mark.parametrize("dh", [32, 64, 128, 200])
+def test_flash_attention_f32_forward_keeps_nan(dev, where, dh):
+    """A NaN in q or in v reaches the 3xTF32 forward's output (DH 32, 64,
+    128, 256) exactly where it reaches the plain version's: a q element its
+    row, a v element its column in every row of the query heads reading
+    that KV head. Every pair is kept (not causal, no window), so every tile
+    is computed and the NaN sets do not depend on tiling. The NaN is the
+    GPU's canonical one, whose hi rounds to -0: the split keeps it NaN in lo
+    = x - hi. The rest within ATTN_TOL[4]."""
+    b, s, hq, hkv = 2, 100, 4, 2
+    q, k, v = _attn_case(dev, dh + 13, b, s, hq, hkv, dh, torch.float32)
+    (q if where == "q" else v)[1, 37, 1, 5] = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    nan = torch.isnan(want)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_attention_misaligned_f32_base(dev):
+    """Contiguous f32 views whose bases are not 16-byte aligned (the 3xTF32
+    kernel reads 16-byte rows by cp.async) run: the wrapper copies them, and
+    the result matches the plain version within ATTN_TOL[4]."""
+    b, s, hq, hkv, dh = 1, 70, 4, 2, 64
+    n_q, n_kv = b * s * hq * dh, b * s * hkv * dh
+    g = torch.Generator(device=dev).manual_seed(8)
+    flat = torch.randn(1 + n_q + 2 * n_kv, generator=g, device=dev)
+    q = flat[1:1 + n_q].view(b, s, hq, dh)
+    k = flat[1 + n_q:1 + n_q + n_kv].view(b, s, hkv, dh)
+    v = flat[1 + n_q + n_kv:].view(b, s, hkv, dh)
+    assert all(x.is_contiguous() and x.data_ptr() % 16 for x in (q, k, v))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=20)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    _attn_close(got, fa.flash_attention_plain(q, k, v, window=20))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dh,kernels", [
     (torch.bfloat16, 64, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
     (torch.bfloat16, 128, ("bwd_dq_wgmma_kernel", "bwd_dkdv_wgmma_kernel")),
