@@ -622,3 +622,22 @@ class HQIIndex:
         for fi, fs in enumerate(cache["filters"]):
             index.router._bitmap_cache[filter_from_state(fs)] = bitmaps[fi]
         return index
+
+    # ------------------------------------------------------------------ stats
+
+    def partition_sizes(self) -> np.ndarray:
+        return np.array([len(p.rows) for p in self.partitions])
+
+    def tuples_routed(self, workload: Workload) -> int:
+        """Σ over (query, routed partition) of |partition| — the Eq.(1) cost."""
+        troutes, qcent_ok = self.router.routes(workload)
+        sizes = self.partition_sizes()
+        total = 0
+        for ti in range(len(workload.templates)):
+            q_of_t = workload.queries_for_template(ti)
+            for li in np.nonzero(troutes[ti])[0]:
+                cnt = len(q_of_t)
+                if qcent_ok is not None:
+                    cnt = int(qcent_ok[q_of_t, li].sum())
+                total += cnt * int(sizes[li])
+        return total

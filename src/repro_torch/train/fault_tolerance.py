@@ -1,9 +1,7 @@
 """Fault tolerance: retrying step execution, elastic re-meshing, and the
 resilient train loop (checkpoint/restart + deterministic data replay).
 
-The counterpart of ``repro.train.fault_tolerance`` (the compressed
-data-parallel step, ``dp_train_step_compressed``, is not ported yet:
-ROADMAP.md §1, the rest of the LM scaffolding).
+The counterpart of ``repro.train.fault_tolerance``.
   * Checkpoint/restart — ``TrainLoop`` saves async every N steps and resumes
     from the newest complete checkpoint; data is a pure function of step, so
     replay after restart is exact.
@@ -11,6 +9,8 @@ ROADMAP.md §1, the rest of the LM scaffolding).
   * Elastic meshes — ``elastic_mesh`` builds the largest mesh of the
     preferred shape that the visible devices allow, shrinking the data axis
     first.
+  * Compressed data parallelism — ``dp_train_step_compressed`` exchanges
+    int8 error-feedback gradients over the mesh's data ranks.
 
 ``TrainLoop`` trains on "cuda" unless told otherwise; without a card it
 raises and never moves to the CPU.
@@ -21,15 +21,19 @@ import dataclasses
 import logging
 import os
 import tempfile
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.pipeline import DataConfig, SyntheticLM
-from ..launch.mesh import Mesh, _mesh
+from ..distributed import compression as comp
+from ..launch.mesh import Mesh, _mesh, canonical_device
+from ..models import api
 from ..models.transformer import ModelConfig
+from ..models.tree import leaves, tree_map
 from . import checkpoint as ckpt
+from .optimizer import OptConfig, apply_opt, clip_by_global_norm
 from .train_step import TrainConfig, init_train_state, make_train_step
 
 log = logging.getLogger("repro_torch.train")
@@ -161,3 +165,76 @@ def elastic_mesh(preferred_shape: Tuple[int, ...], axis_names: Tuple[str, ...], 
         shape = [1] * (len(shape) - 1) + [n]
         total = n
     return _mesh(devices[:total], tuple(shape), tuple(axis_names))
+
+
+# ---------------------------------------------------------------------------
+# compressed data-parallel train step (over the mesh's "data" ranks)
+# ---------------------------------------------------------------------------
+
+
+def dp_train_step_compressed(model_cfg: ModelConfig, opt_cfg: OptConfig, mesh: Mesh):
+    """Pure data-parallel step with int8 + error-feedback gradient exchange.
+
+    Returns step(params, opt_state, residuals, batch) -> (params, opt_state,
+    residuals, {"loss", "grad_norm"}). Single-controller over
+    ``mesh.axis_devices("data")``, as the sharded engine uses the mesh:
+    the batch splits along dim 0 in rank order (the reference's
+    ``P("data")``); each rank computes ``api.loss_fn`` and its f32
+    gradients on its device, then ``compress_tree`` with its own residual;
+    ``allreduce_compressed`` averages the int8 payloads on rank 0's device.
+    The averaged gradients are the same on every rank, so the clip and the
+    optimizer update run once, in place, on the replicated ``params`` and
+    ``opt_state`` (f32 masters, as ``make_train_step`` wants). The loss is
+    the ranks' mean (``pmean``). Every data rank must sit on the parameters'
+    device (``make_test_mesh``: ranks on one card, or on the CPU); a mesh
+    whose ranks span devices raises.
+
+    ``residuals`` is one tree per rank, in rank order
+    (``[comp.zero_residual(params) for _ in range(n)]`` to start): each
+    rank keeps its own
+    quantization error, as each device of the reference keeps
+    its shard of the residual it returns under ``out_specs=P()`` (which
+    reads on the host as rank 0's). Like the parameters and the optimizer
+    state, the residuals are updated in place and returned."""
+    devices = mesh.axis_devices("data")
+    n = len(devices)
+
+    def step(params, opt_state, residuals, batch: Dict[str, torch.Tensor]):
+        if len(residuals) != n:
+            raise ValueError(f"{len(residuals)} residual trees for {n} data ranks")
+        ps = leaves(params)
+        for p in ps:
+            if p.dtype != torch.float32:
+                raise TypeError(f"dp_train_step_compressed wants f32 masters; got a {p.dtype} leaf")
+        b = batch["tokens"].shape[0]
+        if b % n:
+            raise ValueError(f"global batch {b} does not split over {n} data ranks")
+        per = b // n
+        home = ps[0].device
+        if any(canonical_device(dev) != home for dev in devices):
+            raise ValueError(f"data ranks on {devices}; every rank must sit on the parameters' device {home}")
+        qs, ss, losses = [], [], []
+        for r in range(n):
+            for p in ps:
+                p.requires_grad_(True)
+                p.grad = None
+            shard = {k: x[r * per:(r + 1) * per].to(home) for k, x in batch.items()}
+            loss, _ = api.loss_fn(params, model_cfg, shard)
+            loss.backward()
+            grads = tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p), params)
+            q, s, res = comp.compress_tree(grads, residuals[r])
+            for p in ps:
+                p.grad = None
+            del grads
+            with torch.no_grad():  # each rank's residual is updated in place
+                for old, new in zip(leaves(residuals[r]), leaves(res)):
+                    old.copy_(new)
+            del res
+            qs.append(q)
+            ss.append(s)
+            losses.append(loss.detach())
+        grads, gnorm = clip_by_global_norm(comp.allreduce_compressed(qs, ss), opt_cfg.clip_norm)
+        params, opt_state = apply_opt(params, grads, opt_state, opt_cfg)
+        return params, opt_state, residuals, {"loss": torch.stack(losses).mean(), "grad_norm": gnorm}
+
+    return step

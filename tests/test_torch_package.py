@@ -48,12 +48,15 @@ def test_import_leaves_out_jax_and_reference():
 @pytest.mark.parametrize("package", ["repro_torch.service", "repro_torch.fault", "repro_torch.obs",
                                      "repro_torch.store", "repro_torch.tuner",
                                      "repro_torch.fault.chaos", "repro_torch.train.fault_tolerance",
-                                     "repro_torch.launch.train", "repro_torch.data.pipeline"])
+                                     "repro_torch.launch.train", "repro_torch.data.pipeline",
+                                     "repro_torch.distributed", "repro_torch.distributed.compression",
+                                     "repro_torch.distributed.sharding", "repro_torch.launch.obsdump"])
 def test_serving_packages_leave_out_jax_and_reference(package):
     """The online service, its host-only carry-overs (metrics, drift,
     failpoints, retry), the store, the tuner, the chaos harness, the train
-    loop, the training CLI and the data pipeline import alone without jax or
-    the reference package."""
+    loop, the training CLI, the data pipeline, the data-parallel compression
+    and sharding rules and the observability dump import alone without jax
+    or the reference package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({package!r})\n"
