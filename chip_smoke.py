@@ -270,9 +270,32 @@ E. every ``examples/torch_*.py`` at its default size on the card, each in
    queries, max batch 256, ``--profile --probe-recall --tune``) in a child:
    every query answered, the drift shift, a swap record of the rows after
    the insert, a valid trace, kernel launches and the profiler's table;
+H. the ssm and hybrid families: (a) the reduced mamba2-130m and
+   zamba2-2.7b in f32 with the same weights on the card and the CPU:
+   prefill logits and every cache leaf, three decode steps' logits within
+   2e-3, a 3-slot ``SlotServer``'s tokens equal (the hybrid's card server
+   launching the kernel once per group and prefill), gradients, 3 train
+   steps' losses and parameters within 1e-4; (b) mamba2-130m and (c)
+   zamba2-2.7b at full width and depth (128.9 M and 2.340 B parameters,
+   bf16 compute, nothing cut): phase 9's serving run (8 requests of
+   1100-4096 tokens, 4 slots, 16 new tokens; tokens/s, peak memory, a
+   profiled prefill and decode step; counters around it: zamba2's shared
+   block launches the kernel 8 x 9 times, mamba2 never, the plain version
+   never), then the first request checked (mamba2: prefill logits against
+   ``lm_forward``'s; zamba2: group by group, each shared-block kernel
+   output against the plain version on that use's own q/k/v, ending in the
+   served token), then 10 ``TrainLoop`` steps as phase T(b) (4 x 2048 in 2
+   microbatches, f32 masters, remat, AdamW on the arch's schedule): the
+   loss falls; counters around the last step (zamba2: forward 2 x 9 x 2,
+   backward 9 x 2, plain 0; mamba2: 0); tokens/s, peak memory, a profiled
+   step; (d) the attention kernels at zamba2's heads (32/32, dh 80), bf16:
+   the forward at [1, 4096] causal and the backward at [2, 2048] causal,
+   each against its plain version (``ATTN_TOL``, ``BWD_TOL``), timed with
+   events and its launches alone beside the bound and the library;
 11. the ``kernels`` JSON line (all nine kernels; each with its launches in
    S1's streams, S3's first stream and S4's sharded searches; the two
-   attention kernels also in a compressed DP step), the
+   attention kernels also in a compressed DP step and in phase H's zamba2
+   runs, with their times at zamba2's heads), the
    ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -365,6 +388,10 @@ BWD_SMALL = (
     ("f32-dh320-wide", 1, 130, 130, 4, 2, 320, True, 0),
     ("f32-dh520-wide", 1, 130, 130, 4, 2, 520, True, 0),
 )
+# phase H: the ssm and hybrid families at full width and depth, served as
+# phase 9 serves gemma3 and trained as phase T trains minicpm, for this many
+# steps
+SSM_ARCHS, SSM_TRAIN_STEPS = ("mamba2-130m", "zamba2-2.7b"), 10
 BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices", "f32-dh320-wide", "f32-dh520-wide")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2667,16 +2694,17 @@ def phase_attention_kernels(rec: dict, max_err: dict) -> dict:
     return out
 
 
-def profiled_prefill(params, cfg, prompt) -> dict:
+def profiled_prefill(params, cfg, prompt, tag: str = "[serve]") -> dict:
     """One prefill under torch.profiler: device busy share and the largest
-    device items."""
+    device items; the attention kernel's time where the model has attention
+    (an ssm model has none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import api
 
     toks = torch.as_tensor(prompt[None], device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only (a CPU trace takes seconds)
         t0 = time.perf_counter()
         logits, _ = api.serve_prefill(params, cfg, {"tokens": toks})
         logits.sum().item()
@@ -2684,38 +2712,71 @@ def profiled_prefill(params, cfg, prompt) -> dict:
     busy, top, device_us = device_split(prof, n=10)
     # both kernels' symbols: flash_fwd_wgmma_kernel (bf16), flash_fwd_tf32x3_kernel (f32)
     flash_ms = sum(v for k, v in device_us.items() if "flash_fwd" in k) / 1e3
-    if flash_ms <= 0:
+    if flash_ms <= 0 and cfg.family != "ssm":
         raise AssertionError("profiled prefill: no flash_fwd kernel in the device trace")
     out = {"tokens": len(prompt), "wall_seconds": wall, "device_busy_seconds": busy,
            "busy_share": busy / wall, "flash_kernel_ms": flash_ms,
            "flash_share_of_busy": flash_ms / 1e3 / busy, "device_ops_ms": top}
-    log(f"[serve] profiled prefill of {len(prompt)} tokens: {wall:.3f} s, device busy "
+    log(f"{tag} profiled prefill of {len(prompt)} tokens: {wall:.3f} s, device busy "
         f"{busy * 1e3:.1f} ms ({busy / wall:.2%}); flash kernel {flash_ms:.1f} ms "
         f"({out['flash_share_of_busy']:.2%} of busy); top device ops (ms) " + json.dumps(top))
     return out
 
 
-def profiled_decode(params, cfg, cache) -> dict:
-    """One full-slot decode step on the server's cache under torch.profiler:
-    wall time, device busy share and the largest device items."""
+def profiled_decode(params, cfg, cache, tag: str = "[serve]") -> dict:
+    """One full-slot decode step on the server's cache under torch.profiler
+    (every slot at its last K/V position, where the cache has K/V): wall
+    time, device busy share and the largest device items."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import api
 
     toks = torch.full((cache["len"].shape[0],), 2, dtype=torch.int32, device="cuda")
-    cache = dict(cache, len=torch.full_like(cache["len"], cache["k"].shape[2] - 1))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    if "k" in cache:
+        cache = dict(cache, len=torch.full_like(cache["len"], cache["k"].shape[2] - 1))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only (a CPU trace takes seconds)
         t0 = time.perf_counter()
         logits, _ = api.serve_decode(params, cfg, toks, cache)
         logits.sum().item()
         wall = time.perf_counter() - t0
     busy, top, _ = device_split(prof)
-    log(f"[serve] profiled decode step ({cache['len'].shape[0]} slots at {cache['k'].shape[2]} "
+    log(f"{tag} profiled decode step ({cache['len'].shape[0]} slots at {int(cache['len'].max()) + 1} "
         f"cached positions): {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
         f"({busy / wall:.2%}); top device ops (ms) " + json.dumps(top))
     return {"wall_seconds": wall, "device_busy_seconds": busy, "busy_share": busy / wall,
             "device_ops_ms": top}
+
+
+def timed_serve(srv, reqs) -> tuple:
+    """``srv.run(reqs)`` with the wall seconds of its admits (prefill, cache
+    copy, first token read) and ticks (a full-slot decode step, the tokens
+    read), the ticks and the tokens decoded for occupied slots counted.
+    Returns (spent, run seconds)."""
+    import torch
+
+    spent = {"admit": 0.0, "tick": 0.0, "ticks": 0, "decoded": 0}
+    admit, tick = srv.admit, srv.tick
+
+    def timed_admit(req):
+        t = time.perf_counter()
+        ok = admit(req)  # ends in a host read of the first token
+        spent["admit"] += time.perf_counter() - t
+        return ok
+
+    def timed_tick():
+        busy = sum(r is not None for r in srv.slot_req)
+        t = time.perf_counter()
+        tick()  # ends in a host read of the next tokens
+        spent["tick"] += time.perf_counter() - t
+        spent["ticks"] += 1
+        spent["decoded"] += busy
+
+    srv.admit, srv.tick = timed_admit, timed_tick
+    t0 = time.perf_counter()
+    srv.run(reqs)
+    torch.cuda.synchronize()
+    return spent, time.perf_counter() - t0
 
 
 def phase_serving(rec: dict, max_err: dict) -> dict:
@@ -2751,29 +2812,8 @@ def phase_serving(rec: dict, max_err: dict) -> dict:
     reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n).astype(np.int32),
                     max_new_tokens=LM_NEW) for i, n in enumerate(LM_PROMPTS)]
     srv = SlotServer(params, cfg, n_slots=LM_SLOTS, max_len=max(LM_PROMPTS) + LM_NEW)
-    spent = {"admit": 0.0, "tick": 0.0, "ticks": 0, "decoded": 0}
-    admit, tick = srv.admit, srv.tick
-
-    def timed_admit(req):
-        t = time.perf_counter()
-        ok = admit(req)  # ends in a host read of the first token
-        spent["admit"] += time.perf_counter() - t
-        return ok
-
-    def timed_tick():
-        busy = sum(r is not None for r in srv.slot_req)
-        t = time.perf_counter()
-        tick()  # ends in a host read of the next tokens
-        spent["tick"] += time.perf_counter() - t
-        spent["ticks"] += 1
-        spent["decoded"] += busy
-
-    srv.admit, srv.tick = timed_admit, timed_tick
     zero_counters()
-    t0 = time.perf_counter()
-    srv.run(reqs)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+    spent, run_s = timed_serve(srv, reqs)
     counts = read_counters()
     peak = torch.cuda.max_memory_allocated()
     want = len(reqs) * LM_LAYERS
@@ -3075,7 +3115,6 @@ def phase_training(rec: dict) -> dict:
     import tempfile
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config, optimizer_for, schedule_for
     from repro_torch.data.pipeline import DataConfig
@@ -3135,21 +3174,7 @@ def phase_training(rec: dict) -> dict:
         f"phases hold); one step: forward kernel {counts['flash_attention']} launches, "
         f"backward {counts['flash_attention_backward']}, plain calls 0")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        loop.run(1)
-        wall = time.perf_counter() - t
-    busy, top, device_us = device_split(prof, n=10)
-    bwd_us = sum(v for name, v in device_us.items() if "bwd_dq" in name or "bwd_dkdv" in name)
-    fwd_us = sum(v for name, v in device_us.items() if "flash_fwd" in name)
-    if bwd_us <= 0:
-        raise AssertionError("profiled training step: no backward kernel in the device trace")
-    train["profile"] = {"wall_seconds": wall, "device_busy_seconds": busy, "busy_share": busy / wall,
-                        "backward_kernel_ms": bwd_us / 1e3, "backward_share_of_busy": bwd_us / 1e6 / busy,
-                        "forward_kernel_ms": fwd_us / 1e3, "device_ops_ms": top}
-    log(f"[train] profiled step: {wall:.3f} s, device busy {busy:.3f} s ({busy / wall:.2%}); backward "
-        f"kernels {bwd_us / 1e3:.1f} ms ({train['profile']['backward_share_of_busy']:.2%} of busy), forward "
-        f"{fwd_us / 1e3:.1f} ms; top device ops (ms) " + json.dumps(top))
+    train["profile"] = profiled_train_step(loop, cfg)
 
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(2, cfg.vocab, (EMBED_SEQS, EMBED_LEN)).astype(np.int32)).cuda()
@@ -3171,6 +3196,30 @@ def phase_training(rec: dict) -> dict:
     del loop, vecs, toks
     torch.cuda.empty_cache()
     return train
+
+
+def profiled_train_step(loop, cfg, tag: str = "[train]") -> dict:
+    """One more ``loop.run(1)`` under torch.profiler: wall time, device busy
+    share, the attention kernels' time (forward and backward; an ssm model
+    has none) and the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device events only (a CPU trace takes seconds)
+        t = time.perf_counter()
+        loop.run(1)
+        wall = time.perf_counter() - t
+    busy, top, device_us = device_split(prof, n=10)
+    bwd_us = sum(v for name, v in device_us.items() if "bwd_dq" in name or "bwd_dkdv" in name)
+    fwd_us = sum(v for name, v in device_us.items() if "flash_fwd" in name)
+    if bwd_us <= 0 and cfg.family != "ssm":
+        raise AssertionError("profiled training step: no backward kernel in the device trace")
+    out = {"wall_seconds": wall, "device_busy_seconds": busy, "busy_share": busy / wall,
+           "backward_kernel_ms": bwd_us / 1e3, "backward_share_of_busy": bwd_us / 1e6 / busy,
+           "forward_kernel_ms": fwd_us / 1e3, "device_ops_ms": top}
+    log(f"{tag} profiled step: {wall:.3f} s, device busy {busy:.3f} s ({busy / wall:.2%}); backward "
+        f"kernels {bwd_us / 1e3:.1f} ms ({out['backward_share_of_busy']:.2%} of busy), forward "
+        f"{fwd_us / 1e3:.1f} ms; top device ops (ms) " + json.dumps(top))
+    return out
 
 
 def phase_train_card_vs_cpu(rec: dict, out_dir: str) -> None:
@@ -4130,6 +4179,305 @@ def phase_flight(rec: dict, svc, wl, out_dir: str) -> None:
     rec["flight"] = out
 
 
+# ------------------------------------------- phase H: the ssm and hybrid families
+
+
+def phase_ssm_card_vs_cpu(rec: dict) -> None:
+    """Phase H(a): the reduced mamba2-130m and zamba2-2.7b in f32, the same
+    weights (drawn once on the card, moved) on the card and the CPU: prefill
+    logits and every cache leaf, then three decode steps' logits, within
+    2e-3; a ``SlotServer`` with 3 slots gives the same greedy tokens (the
+    hybrid's card server launches the kernel once per group and prefill);
+    ``loss_fn``'s gradients each within 1e-4 of their norm, then 3
+    ``make_train_step`` steps: losses within 1e-4 relative, parameters
+    within 1e-4 (TF32 off, as in T(c)). ``tests/test_torch_cuda.py`` runs
+    this phase as a card test."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.tree import leaves, leaves_with_paths, path_key, tree_map
+    from repro_torch.serve.server import Request, SlotServer
+    from repro_torch.train.optimizer import OptConfig, init_opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+        gpu = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(3))
+        cpu = api.params_to(gpu, "cpu")
+        toks = torch.from_numpy(np.random.default_rng(3).integers(2, cfg.vocab, (2, 57)))
+        lg, cg = api.serve_prefill(gpu, cfg, {"tokens": toks.cuda()}, max_len=64)
+        lc, cc = api.serve_prefill(cpu, cfg, {"tokens": toks}, max_len=64)
+        if set(cg) != set(cc):
+            raise AssertionError(f"{arch}: card cache leaves {sorted(cg)}, CPU {sorted(cc)}")
+        for name in cc:
+            torch.testing.assert_close(cg[name].cpu(), cc[name], rtol=2e-3, atol=2e-3)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+        err = float((lg.cpu() - lc).abs().max())
+        for i in range(3):
+            lg, cg = api.serve_decode(gpu, cfg, toks[:, i].cuda(), cg)
+            lc, cc = api.serve_decode(cpu, cfg, toks[:, i], cc)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=2e-3, atol=2e-3)
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (20, 60, 33, 47, 25)]
+        served = []
+        for params in (gpu, cpu):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+            n0 = fa.flash_attention.launches
+            SlotServer(params, cfg, n_slots=3, max_len=66).run(reqs)
+            launched = fa.flash_attention.launches - n0
+            want = len(prompts) * cfg.n_groups if params is gpu and cfg.family == "hybrid" else 0
+            if launched != want:
+                raise AssertionError(f"reduced {arch}: {launched} kernel launches, want {want}")
+            served.append([r.out_tokens for r in reqs])
+        if served[0] != served[1]:
+            raise AssertionError(f"reduced {arch}: card tokens {served[0]} != CPU tokens {served[1]}")
+
+        tcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10))
+        mg = tree_map(lambda p: p.detach().clone().requires_grad_(True), gpu)
+        mc = tree_map(lambda p: p.detach().clone().requires_grad_(True), cpu)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+        on = lambda b, dev: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        for params, dev in ((mg, "cuda"), (mc, "cpu")):
+            loss, _ = api.loss_fn(params, cfg, on(data.batch(0), dev))
+            loss.backward()
+        grad_rel = {}
+        for (path, g), c in zip(leaves_with_paths(mg), leaves(mc)):
+            a, b = g.grad.cpu(), c.grad
+            grad_rel[path_key(path)] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            if not grad_rel[path_key(path)] <= 1e-4:
+                raise AssertionError(f"reduced {arch}: gradient of {path_key(path)} off by "
+                                     f"{grad_rel[path_key(path)]:.3e} of its norm")
+        step = make_train_step(cfg, tcfg)
+        sg, sc = init_opt(mg, tcfg.opt), init_opt(mc, tcfg.opt)
+        losses = []
+        for s in range(3):
+            mg, sg, metg = step(mg, sg, on(data.batch(s), "cuda"))
+            mc, sc, metc = step(mc, sc, on(data.batch(s), "cpu"))
+            losses.append((float(metg["loss"]), float(metc["loss"])))
+            if abs(losses[-1][0] - losses[-1][1]) > 1e-4 * abs(losses[-1][1]):
+                raise AssertionError(f"reduced {arch}: step {s} loss {losses[-1]}")
+        param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(leaves(mg), leaves(mc)))
+        if param_err > 1e-4:
+            raise AssertionError(f"reduced {arch}: parameters differ by {param_err:.3e} after 3 steps")
+        out[arch] = {"max_abs_logit_err": err, "tokens": served[0], "grad_rel_max": max(grad_rel.values()),
+                     "losses_card_cpu": losses, "param_max_abs_err": param_err}
+        log(f"[ssm-card-vs-cpu] reduced {arch} f32: logits within {err:.2e}, cache leaves {sorted(cc)} within 2e-3, "
+            f"5 requests' tokens equal; gradients within {max(grad_rel.values()):.2e} of their norms, losses "
+            f"{losses}, parameters within {param_err:.2e}")
+    rec["ssm_card_vs_cpu"] = out
+
+
+def phase_ssm_full(rec: dict, arch: str, max_err: dict) -> dict:
+    """Phase H(b) (mamba2-130m) and H(c) (zamba2-2.7b): the arch at full
+    width and depth, nothing cut, bf16 compute, seeded random weights on the
+    card. Serving as phase 9: ``SlotServer`` with LM_SLOTS slots serves the
+    LM_PROMPTS requests, LM_NEW new tokens each; prefill and decode
+    tokens/s, peak memory; counters zeroed and read around the run (the
+    hybrid's kernel once per group and prefill, the ssm's never; the plain
+    version never). Then the first request: mamba2's last prefill logits
+    against ``lm_forward``'s on the prompt; zamba2's group by group, each
+    shared-block kernel output against the plain version on that use's
+    own q/k/v (``ATTN_TOL``, the training forward's lse within ``LSE_TOL``),
+    ending in the served token. Then SSM_TRAIN_STEPS steps of ``TrainLoop(...,
+    device="cuda")`` as phase T(b) (f32 masters, remat, AdamW on the arch's
+    schedule, ``SyntheticLM`` TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
+    microbatches): the loss falls; counters zeroed and read around the last
+    step (hybrid: the forward kernel 2 x groups x microbatches, remat
+    rerunning each group; the backward groups x microbatches; no plain
+    call); tokens/s at the median step and peak memory. A prefill of the
+    longest prompt, a full-slot decode step and one more training step run
+    under the profiler (busy share, the largest device items)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, optimizer_for, schedule_for
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.attention import qkv_project
+    from repro_torch.models.layers import mlp, rmsnorm
+    from repro_torch.models.transformer import embed_tokens, groups, lm_forward, logits_of, ssm_body
+    from repro_torch.serve.server import Request, SlotServer
+    from repro_torch.train.fault_tolerance import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    tag = f"[{arch}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.count_params(params)
+    log(f"{tag} {cfg.n_layers} layers, d {cfg.d_model}, {n_params / 1e9:.4f} B parameters drawn in {init_s:.1f} s; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n).astype(np.int32), max_new_tokens=LM_NEW)
+            for i, n in enumerate(LM_PROMPTS)]
+    srv = SlotServer(params, cfg, n_slots=LM_SLOTS, max_len=max(LM_PROMPTS) + LM_NEW)
+    zero_counters()
+    spent, run_s = timed_serve(srv, reqs)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = len(reqs) * cfg.n_groups if hybrid else 0
+    if counts["flash_attention"] != want or counts["flash_attention_plain"] != 0:
+        raise AssertionError(f"{arch} serving: flash_attention launched {counts['flash_attention']} times "
+                             f"(want {want}), plain called {counts['flash_attention_plain']}")
+    for r in reqs:
+        if not (r.done and len(r.out_tokens) == LM_NEW and all(0 <= t < cfg.vocab for t in r.out_tokens)):
+            raise AssertionError(f"{arch} request {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens}")
+    prompt_tokens = sum(LM_PROMPTS)
+    serve = {"arch": arch, "layers": cfg.n_layers, "params": n_params, "init_seconds": init_s,
+             "slots": LM_SLOTS, "requests": len(reqs), "prompt_tokens": prompt_tokens,
+             "new_tokens_per_request": LM_NEW, "run_seconds": run_s,
+             "prefill_seconds": spent["admit"], "prefill_tokens_per_s": prompt_tokens / spent["admit"],
+             "decode_seconds": spent["tick"], "decode_ticks": spent["ticks"], "decoded_tokens": spent["decoded"],
+             "decode_tokens_per_s": spent["decoded"] / spent["tick"], "peak_device_bytes": peak,
+             "launches": counts["flash_attention"], "out_tokens_first": reqs[0].out_tokens}
+    log(f"{tag} served {len(reqs)} requests in {run_s:.2f} s: prefill {prompt_tokens} tokens in "
+        f"{spent['admit']:.3f} s ({serve['prefill_tokens_per_s']:.0f} tokens/s), decode {spent['decoded']} tokens "
+        f"in {spent['ticks']} ticks, {spent['tick']:.3f} s ({serve['decode_tokens_per_s']:.1f} tokens/s); flash "
+        f"launches {counts['flash_attention']} (want {want}), plain calls 0; peak device memory {peak / 2**30:.2f} GiB")
+    serve["profile"] = profiled_prefill(params, cfg, reqs[-1].prompt, tag)
+    serve["decode_profile"] = profiled_decode(params, cfg, srv.cache, tag)
+    del srv
+    torch.cuda.empty_cache()
+
+    toks = torch.as_tensor(reqs[0].prompt[None], device="cuda")
+    with torch.no_grad():
+        if not hybrid:  # the server's first token against the teacher-forced forward's last logits
+            full = lm_forward(params, cfg, toks)[0][0, -1]
+            first = int(torch.argmax(full))
+            err = float((api.serve_prefill(params, cfg, {"tokens": toks})[0][0] - full).abs().max())
+            scale = float(full.abs().max())
+            if err > 1e-3 * scale or first != reqs[0].out_tokens[0]:
+                raise AssertionError(f"{arch}: prefill logits {err:.3e} off the forward's (scale {scale:.3e}); "
+                                     f"forward token {first}, served {reqs[0].out_tokens[0]}")
+            serve["first_request_check"] = {"max_abs_logit_err": err, "max_abs_logit": scale, "token": first}
+            log(f"{tag} first request: prefill logits within {err:.2e} of lm_forward's (max |logit| "
+                f"{scale:.2f}); token {first} as served")
+        else:  # group by group: each use of the shared block, kernel against plain on its own q/k/v
+            x = embed_tokens(params, cfg, toks)
+            s = toks.shape[1]
+            positions = torch.arange(s, device="cuda")[None]
+            shared, acfg = params["shared_attn"], cfg.attn_cfg()
+            rows = []
+            for g, glp in enumerate(groups(cfg, params["layers"])):
+                for lp in glp:
+                    x, _ = ssm_body(cfg, lp, x)
+                q, k, v = qkv_project(shared["attn"], rmsnorm(x, shared["attn_norm"]), acfg, positions)
+                got = fa.flash_attention(q, k, v)
+                want_o, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+                e, rel = attn_agree(got, want_o, f"{arch} group {g}", max_err)
+                forward_lse_check(got, want_lse, q, k, v, True, 0, f"{arch} group {g}")
+                rows.append({"group": g, "max_abs_err": e, "rel_err": rel,
+                             "median_abs_out": float(want_o.float().abs().median())})
+                x = x + got.reshape(1, s, -1) @ shared["attn"]["wo"]
+                x = x + mlp(shared["mlp"], rmsnorm(x, shared["mlp_norm"]))
+            first = int(torch.argmax(logits_of(params, cfg, x[:, -1:])[0, 0]))
+            if first != reqs[0].out_tokens[0]:
+                raise AssertionError(f"{arch}: group-by-group prefill gives token {first}, the server "
+                                     f"{reqs[0].out_tokens[0]}")
+            serve["group_by_group"] = rows
+            log(f"{tag} group by group at {s} tokens: kernel = plain within ATTN_TOL on all {len(rows)} uses of "
+                f"the shared block (max |err| {max(r['max_abs_err'] for r in rows):.2e}); first token {first} as served")
+    del params
+    torch.cuda.empty_cache()
+
+    opt = OptConfig(name=optimizer_for(arch), schedule=schedule_for(arch), peak_lr=3e-4,
+                    warmup_steps=max(10, SSM_TRAIN_STEPS // 20), total_steps=SSM_TRAIN_STEPS)
+    tcfg = TrainConfig(opt=opt, microbatches=TRAIN_MICRO)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, tcfg, dcfg, LoopConfig(ckpt_dir=tempfile.mkdtemp(), ckpt_every=0, log_every=1),
+                     seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_s = []
+    for i in range(SSM_TRAIN_STEPS):
+        if i == SSM_TRAIN_STEPS - 1:
+            zero_counters()
+        t = time.perf_counter()
+        loop.run(1)  # ends in a host read of the step's metrics
+        step_s.append(time.perf_counter() - t)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in loop.metrics_history]
+    want_fwd = (2 if cfg.remat else 1) * cfg.n_groups * TRAIN_MICRO if hybrid else 0
+    want_bwd = cfg.n_groups * TRAIN_MICRO if hybrid else 0
+    if (counts["flash_attention"] != want_fwd or counts["flash_attention_backward"] != want_bwd
+            or counts["flash_attention_plain"] or counts["flash_attention_backward_plain"]):
+        raise AssertionError(f"{arch} training step: forward launches {counts['flash_attention']} (want {want_fwd}), "
+                             f"backward {counts['flash_attention_backward']} (want {want_bwd}), plain calls "
+                             f"{counts['flash_attention_plain']}, {counts['flash_attention_backward_plain']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training: the loss did not fall: {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_s[1:])
+    train = {"arch": arch, "params": n_params, "init_seconds": init_s, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "microbatches": TRAIN_MICRO, "steps": SSM_TRAIN_STEPS, "optimizer": opt.name, "schedule": opt.schedule,
+             "remat": cfg.remat, "losses": losses, "grad_norms": [h["grad_norm"] for h in loop.metrics_history],
+             "step_seconds": step_s, "median_step_seconds": med, "tokens_per_s": tokens / med,
+             "peak_device_bytes": peak, "baseline_device_bytes": base, "peak_above_baseline_bytes": peak - base,
+             "forward_launches": counts["flash_attention"], "backward_launches": counts["flash_attention_backward"]}
+    log(f"{tag} {SSM_TRAIN_STEPS} training steps of {tokens} tokens: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"median step {med:.3f} s ({train['tokens_per_s']:.0f} tokens/s; first {step_s[0]:.2f} s); peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} GiB earlier phases hold); "
+        f"one step: forward kernel {counts['flash_attention']} launches, backward "
+        f"{counts['flash_attention_backward']}, plain calls 0")
+    train["profile"] = profiled_train_step(loop, cfg, tag)
+    del loop
+    torch.cuda.empty_cache()
+    return {"serve": serve, "train": train}
+
+
+def phase_zamba2_kernels(rec: dict, max_err: dict) -> dict:
+    """Phase H(d): the attention kernels at zamba2's heads (32/32, dh 80,
+    padded to 128 inside the bf16 kernels): the forward at the serving shape
+    [1, 4096, 32/32, dh 80] causal (``attn_case``: within ``ATTN_TOL``, its
+    lse within ``LSE_TOL``) and the backward at the training microbatch [2,
+    2048, 32/32, dh 80] causal (``bwd_case``: each gradient within
+    ``BWD_TOL``), both bf16; each timed with CUDA events and its launches
+    alone by the profiler, beside the bound (4·dh and 10·dh operations a
+    kept pair) and ``scaled_dot_product_attention`` (with its backward)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+
+    def qkv(b, s, h, dh):
+        return tuple(torch.randn((b, s, h, dh), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+
+    rows: list = []
+    q, k, v = qkv(1, 4096, 32, 80)
+    fwd = attn_case(rows, max_err, "zamba2-s4096", q, k, v, True, 0, 10)
+    fwd["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=True), "flash_fwd_wgmma_kernel")
+    del q, k, v
+    q, k, v = qkv(2, 2048, 32, 80)
+    bwd = bwd_case(rows, max_err, "zamba2-s2048", q, k, v, True, 0, 10, kernel_alone=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    rec["zamba2_kernel_cases"] = rows
+    log(f"[zamba2-kernels] forward {fwd['ms']:.3f} ms a call, {fwd['device_ms']:.3f} the launch alone, bound "
+        f"{fwd['bound_ms']:.4f}, library {fwd['library_ms']}; backward {bwd['ms']:.3f} ms, {bwd['device_ms']:.3f} "
+        f"the launches alone, bound {bwd['bound_ms']:.4f}, library {bwd['library_ms']}")
+    return {"forward": fwd, "backward": bwd}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"), help="record directory")
@@ -4208,6 +4556,12 @@ def main() -> int:
     phase_examples(rec, args.out)
     rec["examples_phase_seconds"] = time.perf_counter() - t_phase
     log(f"[examples] phase E in {rec['examples_phase_seconds']:.1f} s")
+    t_phase = time.perf_counter()
+    phase_ssm_card_vs_cpu(rec)
+    ssm = rec["ssm_families"] = {arch: phase_ssm_full(rec, arch, max_err) for arch in SSM_ARCHS}
+    zamba2_kernels = phase_zamba2_kernels(rec, max_err)
+    rec["ssm_phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[ssm] phase H in {rec['ssm_phase_seconds']:.1f} s")
 
     timed = {
         "fused_knn": (main_run["counts"]["fused_knn"], heaviest["fused_knn"]),
@@ -4242,9 +4596,20 @@ def main() -> int:
             entry["f32"] = {key: wide_dh["f32"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                                    "library_ms", "ms_over_bound")}
         if name in ("flash_attention", "flash_attention_backward"):
+            fwd = name == "flash_attention"
             # launches in one compressed data-parallel step at full width (phase DP(b))
             entry["dp_launches"] = dp["full_width"]["compressed"][
-                "forward_launches" if name == "flash_attention" else "backward_launches"]
+                "forward_launches" if fwd else "backward_launches"]
+            # phase H: zamba2's shared block (serving: 8 prefills; one training step); mamba2 runs no kernel
+            z, zk = ssm["zamba2-2.7b"], zamba2_kernels["forward" if fwd else "backward"]
+            entry["zamba2"] = {
+                "serve_launches": z["serve"]["launches"] if fwd else 0,
+                "train_step_launches": z["train"]["forward_launches" if fwd else "backward_launches"],
+                "dh80": {key: zk.get(key) for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                                      "library_ms", "tflops", "max_abs_err")}}
+            entry["mamba2_launches"] = {"serve": ssm["mamba2-130m"]["serve"]["launches"] if fwd else 0,
+                                        "train_step": ssm["mamba2-130m"]["train"][
+                                            "forward_launches" if fwd else "backward_launches"]}
         if name == "flash_attention_backward":
             entry["tflops"] = h["tflops"]
             # gemma3's heads (the wgmma pair at DH 128), minicpm's and dh 256 in f32 (the 3xTF32 pair), dh 256

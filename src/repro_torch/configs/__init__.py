@@ -1,12 +1,13 @@
-"""Config registry of the archs whose family the port runs (dense).
+"""Config registry of the archs whose family the port runs (dense, ssm,
+hybrid).
 
 get_config(arch_id) -> full ModelConfig; get_reduced(arch_id) -> the small
 config of the same wiring the CPU tests use; optimizer_for / schedule_for
 -> the optimizer and learning-rate schedule an arch trains with. Copies of the reference's
-``repro.configs`` modules for these archs; the other six (internvl2-2b,
-mamba2-130m, whisper-large-v3, kimi-k2-1t-a32b, deepseek-moe-16b,
-zamba2-2.7b) wait for their families (ROADMAP.md §1, the rest of the LM
-scaffolding).
+``repro.configs`` modules for these archs; the other four (internvl2-2b,
+whisper-large-v3, kimi-k2-1t-a32b, deepseek-moe-16b) wait for their
+families (ROADMAP.md §1, the rest of the LM scaffolding). ``shapes`` holds
+the assigned input shapes.
 """
 from importlib import import_module
 
@@ -15,6 +16,8 @@ ARCHS = {
     "gemma3-27b": "gemma3_27b",
     "qwen3-32b": "qwen3_32b",
     "qwen1.5-110b": "qwen1_5_110b",
+    "mamba2-130m": "mamba2_130m",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 

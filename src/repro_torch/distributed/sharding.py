@@ -17,9 +17,9 @@ single-controller over ``launch.mesh.Mesh`` (no ``jax.sharding``), so:
     without its first entry, and no leaf has more than two dims;
   * only the rules a ported model's leaves reach are kept: the reference's
     ``OPT`` switches (``set_opt``, ``set_all_opt``), its FSDP placement on
-    the stacked dim (``fsdp_stacked``), its expert, router and SSM rules
-    and its ``seq`` and ``expert`` axes steer code or leaves the port does
-    not have, so they have no counterpart.
+    the stacked dim (``fsdp_stacked``), its expert and router rules and its
+    ``seq`` and ``expert`` axes steer code or leaves the port does not
+    have, so they have no counterpart.
 
 Conventions (mesh axes: optional "pod", "data", "model"):
   batch        -> ("pod", "data")     activations' batch dim
@@ -112,7 +112,10 @@ PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r"(bq)", ("heads",)),
     (r"(bk|bv)", ("kv",)),
     (r"embedding|unembed|lm_head", ("vocab", "embed")),
-    (r".*", (None,)),  # default: replicate (norm scales, ...)
+    (r"in_proj", ("embed", "mlp")),  # ssm projections: tp over inner dim
+    (r"out_proj", ("mlp", "embed")),
+    (r"conv", (None, "mlp")),
+    (r".*", (None,)),  # default: replicate (norm scales, A_log, dt_bias, ...)
 )
 
 

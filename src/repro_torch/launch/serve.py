@@ -1,7 +1,8 @@
 """Serving CLI: slot-based continuous batching over random weights.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --full
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
 
 The flags of ``repro.launch.serve`` plus ``--device`` (default ``cuda``).
 Weights come from a ``torch.Generator`` seeded with 0 on that device; the

@@ -1,8 +1,11 @@
-"""Model API: init / loss / prefill / decode / cache.
+"""Model API: init / loss / prefill / decode / cache / input_specs.
 
-The counterpart of ``repro.models.api`` for the dense family. The dry-run
-shape specs (``input_specs``, ``params_specs``) are not ported yet
-(ROADMAP.md §1, the rest of the LM scaffolding).
+The counterpart of ``repro.models.api`` for the dense, ssm and hybrid
+families. ``input_specs``, ``init_cache_specs`` and ``params_specs`` are
+the dry-run's shapes: the port's own tensors built by ``init_cache`` and
+``init_model`` on the ``meta`` device, which allocates nothing. The vlm and
+encdec inputs (``vision_embeds``, ``frames``) and the moe family wait for
+their families (ROADMAP.md §1, the rest of the LM scaffolding).
 """
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import decode as dec
-from .transformer import ModelConfig, init_lm, lm_forward
+from .layers import MetaGenerator
+from .transformer import ModelConfig, init_lm, lm_forward, require_ported
 from .tree import leaves, tree_map
 
 
@@ -41,7 +45,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> Tuple[t
     over kept labels, divided by ``max(count, 1)`` so that an all-ignored
     batch gives 0 (``F.cross_entropy(ignore_index=-100)`` would give NaN).
     Returns (total, {"ce_loss", "lb_loss", "z_loss", "dropped_frac"}); the
-    dense family's aux losses are 0 and enter the total with the
+    ported families' aux losses are 0 and enter the total with the
     reference's weights."""
     tokens, labels = batch["tokens"], batch["labels"]
     logits, aux = lm_forward(params, cfg, tokens)
@@ -58,7 +62,7 @@ def serve_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
                   max_len: Optional[int] = None):
     """batch {"tokens": int [B, S]} -> (last logits f32 [B, V], cache).
     ``max_len`` pads the KV cache past the prompt to leave room for
-    decoding."""
+    decoding (SSM states are O(1) and need no padding)."""
     return dec.prefill(params, cfg, batch["tokens"], max_len=max_len)
 
 
@@ -68,3 +72,37 @@ def serve_decode(params, cfg: ModelConfig, token: torch.Tensor, cache):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     return dec.init_cache(cfg, batch, max_len, device=device)
+
+
+# ---------------------------------------------------------------------------
+# meta-device stand-ins for the dry-run
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, kind: str, *, batch: int, seq_len: int) -> Dict[str, Any]:
+    """kind ∈ {train, prefill, decode}: the step's inputs as ``meta``
+    tensors (shapes and dtypes, no allocation)."""
+    require_ported(cfg)
+    i32 = torch.int32
+
+    def spec(*shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind == "train":
+        return {"tokens": spec(batch, seq_len), "labels": spec(batch, seq_len)}
+    if kind == "prefill":
+        return {"tokens": spec(batch, seq_len)}
+    if kind == "decode":
+        return {"token": spec(batch), "cache": init_cache_specs(cfg, batch, seq_len)}
+    raise ValueError(kind)
+
+
+def init_cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """``init_cache`` on the meta device (no allocation)."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def params_specs(cfg: ModelConfig):
+    """The parameters as ``init_model(..., masters=True)`` builds them (f32,
+    the reference's types), on the meta device (no allocation)."""
+    return init_model(cfg, MetaGenerator(), masters=True)

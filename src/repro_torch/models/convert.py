@@ -3,9 +3,12 @@
 ``params_from_jax`` takes the pytree that ``repro.models.api.init_model``
 returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), with the
 stacked ``[L, ...]`` layer leaves of ``init_lm``, and returns the port's
-parameter dict: the layers unstacked into a list, matmul weights and biases
-in ``cfg.dtype``, norm weights and embedding tables in f32 (what the
-reference's per-use casts give); with ``masters=True`` every leaf in f32,
+parameter dict: the layers unstacked into a list (a hybrid's
+``shared_attn`` stays one dict), matmul weights and biases in
+``cfg.dtype``; norm weights, embedding tables and the SSM's ``conv_w``,
+``A_log``, ``dt_bias`` and ``D`` in f32 (what the reference's per-use casts
+give: it reads ``conv_w`` in f32, so a copy in ``cfg.dtype`` would round
+where the reference does not); with ``masters=True`` every leaf in f32,
 as the reference keeps them for training. Both packages then compute the
 same function, which is how the tests compare them. ``params_to_numpy`` is
 the inverse: the port's tree (parameters, or an optimizer state of the same
@@ -20,9 +23,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .transformer import ModelConfig, require_dense
+from .transformer import ModelConfig, require_ported
 
-_F32_LEAVES = ("embedding", "lm_head", "final_norm", "attn_norm", "mlp_norm", "q_norm", "k_norm")
+_F32_LEAVES = ("embedding", "lm_head", "final_norm", "attn_norm", "mlp_norm", "q_norm", "k_norm", "norm",
+               "conv_w", "A_log", "dt_bias", "D")
 
 
 def _tensor(name: str, arr, dtype, device) -> torch.Tensor:
@@ -42,7 +46,7 @@ def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda", *,
                     masters: bool = False) -> Dict[str, Any]:
-    require_dense(cfg)
+    require_ported(cfg)
     dtype = torch.float32 if masters else cfg.dtype
     params = _convert({k: v for k, v in tree.items() if k != "layers"}, dtype, device)
     params["layers"] = [_convert(_layer(tree["layers"], i), dtype, device)

@@ -19,11 +19,20 @@ import torch
 import torch.nn.functional as F
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes and dtypes are
+    wanted (``api.params_specs``): a generator cannot live on the ``meta``
+    device, and there a draw allocates nothing."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Normal(0, 1/fan_in) by default, drawn in f32 and stored in ``dtype``."""
     scale = scale if scale is not None else 1.0 / (shape[0] ** 0.5)
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    x = torch.randn(shape, generator=None if gen.device.type == "meta" else gen, device=gen.device,
+                    dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 
 

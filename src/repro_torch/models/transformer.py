@@ -1,16 +1,21 @@
-"""Decoder-only LM, dense family (llama-like GQA: minicpm, qwen3 with
+"""Decoder-only LM: the dense family (llama-like GQA: minicpm, qwen3 with
 qk-norm, qwen1.5 with QKV bias, gemma3 with its local:global window
-pattern).
+pattern), ssm (mamba2: pure SSD stacks) and hybrid (zamba2: groups of SSD
+layers, each group followed by one weight-shared attention block with its
+own KV per use).
 
 The counterpart of ``repro.models.transformer``. Parameters are a plain
-dict: ``embedding`` (f32 [V, D]), ``final_norm``, optional ``lm_head``, and
-``layers``, a list of per-layer dicts (the reference stacks them on a
-leading axis and scans; here a Python loop walks the list; under grad with
-``cfg.remat`` each layer runs through ``torch.utils.checkpoint``, as the
-reference's ``jax.checkpoint`` over the scanned layer body). The moe, ssm,
-hybrid, vlm and encdec families are not ported yet (ROADMAP.md §1, the rest
-of the LM scaffolding):
-their entry points raise ``NotImplementedError``.
+dict: ``embedding`` (f32 [V, D]), ``final_norm``, optional ``lm_head``,
+``layers``, a list of per-layer dicts (dense: ``{"attn_norm", "attn",
+"mlp_norm", "mlp"}``; ssm and hybrid: ``{"norm", "ssm"}``), and for hybrid
+``shared_attn``, one dense-layer dict applied after every group. The
+reference stacks the layers on a leading axis and scans; here a Python loop
+walks the list. Under grad with ``cfg.remat`` each dense or ssm layer, and
+each hybrid group with its shared block, runs through
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` over the
+scanned body. The moe, vlm and encdec families are not ported yet
+(ROADMAP.md §1, the rest of the LM scaffolding): their entry points raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,12 +28,15 @@ from torch.utils.checkpoint import checkpoint
 from .attention import AttnConfig, attention_block, init_attention
 from .layers import (embed, embed_scale, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm,
                      unembed)
+from .ssm import SSMConfig, init_ssm, ssm_block
+
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm (only dense runs here)
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm (dense, ssm, hybrid run here)
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,8 +51,8 @@ class ModelConfig:
     window_pattern: Optional[Tuple[int, ...]] = None
     moe: Optional[Any] = None  # the reference's MoEConfig (family not ported)
     moe_first_dense: int = 0
-    ssm: Optional[Any] = None  # the reference's SSMConfig (family not ported)
-    hybrid_attn_every: int = 0
+    ssm: Optional[SSMConfig] = None
+    hybrid_attn_every: int = 0  # zamba2: the shared attention block after every k ssm layers
     encoder_layers: int = 0
     encoder_frames: int = 0
     vision_patches: int = 0
@@ -58,6 +66,16 @@ class ModelConfig:
     @property
     def dh(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def n_groups(self) -> int:
+        """hybrid: the groups of ``hybrid_attn_every`` ssm layers, each
+        followed by the shared attention block."""
+        return self.n_layers // self.hybrid_attn_every
 
     def attn_cfg(self, causal: bool = True) -> AttnConfig:
         return AttnConfig(
@@ -80,11 +98,14 @@ class ModelConfig:
         return [int(w) for w in (pat * reps)[: self.n_layers]]
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch yet; the port "
-            f"runs the dense family (ROADMAP.md §1, the rest of the LM scaffolding)")
+            f"runs the {', '.join(PORTED_FAMILIES)} families (ROADMAP.md §1, the rest of the LM "
+            f"scaffolding)")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid_attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not groups of {cfg.hybrid_attn_every}")
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +130,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, masters: bool = False) ->
     reference's weights across). Matmul weights in ``cfg.dtype`` for
     serving; with ``masters`` every leaf in f32, as the reference keeps
     them for training (the layers cast per use)."""
-    require_dense(cfg)
+    require_ported(cfg)
     params: Dict[str, Any] = {
         "embedding": init_embedding(gen, cfg.vocab, cfg.d_model),
         "final_norm": init_rmsnorm(cfg.d_model, gen.device),
@@ -117,7 +138,13 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, masters: bool = False) ->
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab, cfg.d_model)
     dtype = torch.float32 if masters else cfg.dtype
-    params["layers"] = [init_dense_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    if cfg.family == "dense":
+        params["layers"] = [init_dense_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+        return params
+    params["layers"] = [{"norm": init_rmsnorm(cfg.d_model, gen.device), "ssm": init_ssm(gen, cfg.ssm, dtype)}
+                        for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = init_dense_layer(gen, cfg, dtype)
     return params
 
 
@@ -144,6 +171,19 @@ def dense_body(cfg: ModelConfig, lp, x, positions, window: int, cache=None, cach
     return x, new_cache
 
 
+def ssm_body(cfg: ModelConfig, lp, x, state=None):
+    """One pre-norm SSD layer. Returns (x, {"ssm", "conv"})."""
+    h, new_state = ssm_block(lp["ssm"], rmsnorm(x, lp["norm"]), cfg.ssm, state=state)
+    return x + h, new_state
+
+
+def groups(cfg: ModelConfig, layers: List[Any]) -> List[List[Any]]:
+    """hybrid: the per-layer list cut into ``n_groups`` groups of
+    ``hybrid_attn_every`` (the reference's ``reshape((G, E) + ...)``)."""
+    e = cfg.hybrid_attn_every
+    return [layers[i * e:(i + 1) * e] for i in range(cfg.n_groups)]
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = embed(params["embedding"], tokens, cfg.dtype)
     if cfg.embed_scale:
@@ -164,24 +204,34 @@ def logits_of(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _layers(params, cfg: ModelConfig, x: torch.Tensor, *, remat: bool) -> torch.Tensor:
     """Every layer over x [B, S, D]. With ``remat`` (and grad enabled) each
-    layer is a ``torch.utils.checkpoint`` region: its activations are
-    recomputed in the backward pass, so only the layer inputs stay alive."""
+    region (a dense or ssm layer; a hybrid group of ssm layers with the
+    shared block after it) is a ``torch.utils.checkpoint`` region: its
+    activations are recomputed in the backward pass, so only the region
+    inputs stay alive."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if cfg.family == "dense":
+        regions = [lambda x, lp=lp, w=w: dense_body(cfg, lp, x, positions, w)[0]
+                   for lp, w in zip(params["layers"], cfg.layer_windows())]
+    elif cfg.family == "ssm":
+        regions = [lambda x, lp=lp: ssm_body(cfg, lp, x)[0] for lp in params["layers"]]
+    else:
+        def group(x, glp):
+            for lp in glp:
+                x, _ = ssm_body(cfg, lp, x)
+            return dense_body(cfg, params["shared_attn"], x, positions, 0)[0]
+
+        regions = [lambda x, glp=glp: group(x, glp) for glp in groups(cfg, params["layers"])]
     remat = remat and torch.is_grad_enabled()
-    for lp, w in zip(params["layers"], cfg.layer_windows()):
-        if remat:
-            x = checkpoint(lambda x, lp=lp, w=w: dense_body(cfg, lp, x, positions, w)[0], x,
-                           use_reentrant=False)
-        else:
-            x, _ = dense_body(cfg, lp, x, positions, w)
+    for fn in regions:
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return x
 
 
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor):
-    """tokens int [B, S] -> (logits f32 [B, S, V], aux losses). The dense
-    family has no auxiliary losses; the dict keeps the reference's keys."""
-    require_dense(cfg)
+    """tokens int [B, S] -> (logits f32 [B, S, V], aux losses). The ported
+    families have no auxiliary losses; the dict keeps the reference's keys."""
+    require_ported(cfg)
     x = _layers(params, cfg, embed_tokens(params, cfg, tokens), remat=cfg.remat)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "z_loss": zero, "dropped_frac": zero}
@@ -193,8 +243,12 @@ def lm_hidden_embed(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tens
     """Mean-pooled final hidden state, f32 [B, D]: the entity-embedding
     producer of the HQI integration (models emit vectors; HQI indexes them).
     As in the reference, the embedding is not scaled by ``sqrt(d)`` here
-    even where ``cfg.embed_scale`` is set. Builds no autograd graph."""
-    require_dense(cfg)
+    even where ``cfg.embed_scale`` is set. For ssm and hybrid the reference
+    returns the logits' mean over the sequence, f32 [B, V], and so does
+    this (ROADMAP.md §3). Builds no autograd graph."""
+    require_ported(cfg)
+    if cfg.family != "dense":
+        return lm_forward(params, cfg, tokens)[0].mean(dim=1)
     x = _layers(params, cfg, embed(params["embedding"], tokens, cfg.dtype), remat=False)
     x = rmsnorm(x, params["final_norm"])
     return x.mean(dim=1).to(torch.float32)

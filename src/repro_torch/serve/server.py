@@ -2,9 +2,13 @@
 
 The counterpart of ``repro.serve.server``. The decode step always runs the
 full [n_slots] batch; finished and empty slots ride along and their tokens
-are dropped. A new request is prefilled alone and its KV is copied into a
-free slot of the shared cache. Greedy decoding: ``argmax`` takes the first
-maximum, as in the reference.
+are dropped. A new request is prefilled alone and every leaf of its cache
+(K/V, SSM and conv states, length) is copied into a free slot of the shared
+cache along the leaf's batch axis, which the layout names
+(``decode.BATCH_AXIS``; the reference guesses it as the first dim equal to
+``n_slots``, which picks a hybrid's group or layer axis when ``n_slots``
+equals it). Greedy decoding: ``argmax`` takes the first maximum, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models import api
+from ..models.decode import BATCH_AXIS
 from ..models.transformer import ModelConfig
 
 
@@ -57,7 +62,7 @@ class SlotServer:
         return None
 
     def admit(self, req: Request) -> bool:
-        """Prefill the request and copy its KV into a free slot."""
+        """Prefill the request and copy its cache into a free slot."""
         slot = self._free_slot()
         if slot is None:
             return False
@@ -67,9 +72,8 @@ class SlotServer:
         toks = torch.as_tensor(np.asarray(req.prompt, dtype=np.int32)[None, :], device=self.device)
         logits, cache1 = api.serve_prefill(self.params, self.cfg, {"tokens": toks},
                                            max_len=self.max_len)
-        for name in ("k", "v"):
-            self.cache[name][:, slot].copy_(cache1[name][:, 0])
-        self.cache["len"][slot] = cache1["len"][0]
+        for name, axis in BATCH_AXIS[self.cfg.family].items():
+            self.cache[name].select(axis, slot).copy_(cache1[name].select(axis, 0))
         tok = int(torch.argmax(logits[0]))
         req.out_tokens.append(tok)
         self._last_token[slot] = tok

@@ -1,2 +1,3 @@
-"""LM training for the dense family: optimizers, the train step, checkpoints
-and the resilient train loop (the counterpart of ``repro.train``)."""
+"""LM training for the ported families (dense, ssm, hybrid; any parameter
+tree): optimizers, the train step, checkpoints and the resilient train loop
+(the counterpart of ``repro.train``)."""

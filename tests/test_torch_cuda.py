@@ -771,6 +771,19 @@ def test_reduced_lm_serves_alike_on_card_and_cpu(dev):
     assert rec["lm_card_vs_cpu"]["max_abs_logit_err"] <= 2e-3
 
 
+@pytest.mark.cuda
+def test_ssm_families_serve_and_train_alike_on_card_and_cpu(dev):
+    """The reduced mamba2-130m and zamba2-2.7b in f32, the same weights on
+    both devices: prefill logits and cache leaves, decode logits, the
+    SlotServer's tokens (the hybrid's card server launching the kernel once
+    per group and prefill), gradients and three train steps.
+    ``chip_smoke.py``'s phase H(a), run here as it runs there."""
+    rec = {}
+    _smoke().phase_ssm_card_vs_cpu(rec)
+    for arch in ("mamba2-130m", "zamba2-2.7b"):
+        assert rec["ssm_card_vs_cpu"][arch]["max_abs_logit_err"] <= 2e-3
+
+
 def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -792,6 +805,7 @@ BWD = [
     (1, 130, 130, 2, 1, 200, True, 0),  # f32: the 256-wide build in two column slices
     (1, 130, 130, 4, 2, 136, True, 0),  # bf16: the split wgmma pair at DH 256, ragged S, GQA 2
     (1, 100, 60, 4, 2, 256, True, 0),  # S > T, causal, a full DH 256
+    (1, 300, 300, 4, 4, 80, True, 0),  # zamba2's head width: bf16 the wgmma pair at DH 128, f32 the 3xTF32 pair
 ]
 
 

@@ -309,12 +309,15 @@ def test_dp_step_refuses_ranks_on_another_device():
 # ----------------------------------------------------------- sharding rules
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b", "qwen3-32b", "qwen1.5-110b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "gemma3-27b", "qwen3-32b", "qwen1.5-110b", "mamba2-130m",
+                                  "zamba2-2.7b"])
 @pytest.mark.parametrize("shape", [(1, 1), (2, 4)])
 def test_param_specs_match_reference(arch, shape):
-    """Every leaf of the reduced dense configs: the port's axes per dim equal
-    the reference's ``PartitionSpec`` (without its stacked-layer dim for the
-    layer leaves) at a (data, model) mesh of ``shape``, fsdp off."""
+    """Every leaf of the reduced dense, ssm and hybrid configs (the SSM's
+    ``in_proj``, ``out_proj`` and ``conv_w`` rules; the hybrid's one
+    ``shared_attn``): the port's axes per dim equal the reference's
+    ``PartitionSpec`` (without its stacked-layer dim for the layer leaves)
+    at a (data, model) mesh of ``shape``, fsdp off."""
     axes = ("data", "model")
     jmesh = types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, shape)))  # the rules read only these
     jrules = jsharding.ShardingRules(mesh=jmesh)

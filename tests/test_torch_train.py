@@ -43,17 +43,21 @@ from repro_torch.models.tree import leaves, tree_map
 
 CFG = get_reduced("minicpm-2b")
 ARCHS = ["minicpm-2b", "gemma3-27b"]  # GQA 4/4, and 4/2 with windows of 16 on five layers of six
+SSM_ARCHS = ["mamba2-130m", "zamba2-2.7b"]  # ssm, and hybrid (two groups of two ssm layers and the shared block)
 
 
 def _perturb(tree, rng):
     """Norm weights (zeros at init) drawn at random, so the offset form
-    changes the result (as ``tests/test_torch_models.py`` does)."""
+    changes the result, and the SSM's constants moved (as
+    ``tests/test_torch_models.py`` does)."""
     out = {}
     for name, v in tree.items():
         if isinstance(v, dict):
             out[name] = _perturb(v, rng)
         elif name.endswith("norm"):
             out[name] = (rng.normal(size=v.shape) * 0.1).astype(np.float32)
+        elif name in ("A_log", "dt_bias", "D"):
+            out[name] = (np.asarray(v) + rng.normal(size=v.shape) * 0.2).astype(np.float32)
         else:
             out[name] = np.asarray(v)
     return out
@@ -218,7 +222,8 @@ def test_config_optimizer_and_schedule():
 LOSS_TOL = {"f32": (1e-4, 1e-4, 1e-4), "bf16": (2e-3, None, 5e-2)}
 
 
-@pytest.mark.parametrize("arch,dtype", [("minicpm-2b", "f32"), ("gemma3-27b", "f32"), ("gemma3-27b", "bf16")])
+@pytest.mark.parametrize("arch,dtype", [("minicpm-2b", "f32"), ("gemma3-27b", "f32"), ("gemma3-27b", "bf16")]
+                         + [(arch, dtype) for arch in SSM_ARCHS for dtype in ("f32", "bf16")])
 def test_loss_and_grad_match_reference(arch, dtype):
     """``loss_fn`` and its gradient against ``jax.value_and_grad`` of
     ``repro.models.api.loss_fn`` with the same weights and batch (labels
@@ -640,11 +645,14 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
 # ------------------------------------------------------- lm_hidden_embed
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SSM_ARCHS)
 def test_lm_hidden_embed_matches_reference(arch):
+    """[B, D] for dense; for ssm and hybrid the reference's mean of the
+    logits, [B, V]."""
     jcfg, tcfg, tree = _setup(arch, "f32")
     toks = _batch(jcfg, 3, 20, 4)["tokens"]
     want = np.asarray(jlm_hidden_embed(jax.tree.map(jnp.asarray, tree), jcfg, jnp.asarray(toks)))
     got = lm_hidden_embed(params_from_jax(tree, tcfg, device="cpu"), tcfg, torch.from_numpy(toks))
-    assert got.dtype == torch.float32 and got.shape == (3, tcfg.d_model) and got.grad_fn is None
+    width = tcfg.d_model if tcfg.family == "dense" else tcfg.vocab
+    assert got.dtype == torch.float32 and got.shape == (3, width) == want.shape and got.grad_fn is None
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
