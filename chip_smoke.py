@@ -292,10 +292,37 @@ H. the ssm and hybrid families: (a) the reduced mamba2-130m and
    the forward at [1, 4096] causal and the backward at [2, 2048] causal,
    each against its plain version (``ATTN_TOL``, ``BWD_TOL``), timed with
    events and its launches alone beside the bound and the library;
+M. the moe, vlm and encdec families: (a) the reduced deepseek-moe-16b,
+   kimi-k2-1t-a32b, internvl2-2b and whisper-large-v3 in f32 with the same
+   weights on the card and the CPU: forward logits and aux values, prefill
+   logits and every cache leaf, three decode steps, gradients (the card's
+   bit-equal run to run) and 3 train steps (kimi with Adafactor) within
+   1e-4, the moe configs' 3-slot ``SlotServer`` tokens equal, and the
+   reduced deepseek's restarted ``TrainLoop`` bit-equal to an uninterrupted
+   one; (b) deepseek-moe-16b at full width and depth (16.4 B parameters,
+   bf16) served with phase 9's traffic (the forward kernel 8 x 28 times,
+   each prompt's prefill dropped fraction, the first token against
+   ``lm_forward``), then trained 10 steps at a depth cut 28 -> 4 (1 dense +
+   3 moe; 4 x 2048 in 2 microbatches, AdamW): the loss falls, forward 16
+   and backward 8 launches in the last step; (c) kimi-k2-1t-a32b at full
+   width, depth cut 61 -> 2 (384 experts, 18.75 B parameters), served the
+   same way (not trained: its f32 masters would not fit); (d) internvl2-2b
+   and (e) whisper-large-v3 at full width and depth, served as one batch
+   through ``api.serve_prefill``/``serve_decode`` (4 x (256 patches + 2048
+   tokens), 16 greedy tokens; 4 x (1500 frames + 4 tokens), 128 greedy
+   tokens: 24 and 32 + 32 forward launches, whisper's encoder non-causal),
+   then trained 10 steps through ``make_train_step`` on the tokens with
+   their patches or frames (4 x 2048; 4 x 448 tokens after 1500 frames):
+   the loss falls, launches exact; (f) the attention kernels at the new
+   layouts against their plain versions, timed beside the bound and the
+   library: the forward at [4, 1500, 20/20, 64] non-causal, [1, 4096,
+   64/8, 128] and [1, 2304, 16/8, 128] causal; the backward at [2, 1500,
+   20/20, 64] non-causal and [2, 2304, 16/8, 128] causal;
 11. the ``kernels`` JSON line (all nine kernels; each with its launches in
    S1's streams, S3's first stream and S4's sharded searches; the two
-   attention kernels also in a compressed DP step and in phase H's zamba2
-   runs, with their times at zamba2's heads), the
+   attention kernels also in a compressed DP step, in phase H's zamba2
+   runs, with their times at zamba2's heads, and in phase M's runs, with
+   their times at its layouts), the
    ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -392,6 +419,21 @@ BWD_SMALL = (
 # phase 9 serves gemma3 and trained as phase T trains minicpm, for this many
 # steps
 SSM_ARCHS, SSM_TRAIN_STEPS = ("mamba2-130m", "zamba2-2.7b"), 10
+# phase M: the moe, vlm and encdec families; reduced (M(a)) and served and
+# trained at full width (M(b)-(e)). deepseek-moe-16b is served at all 28
+# layers and trained at a depth cut 28 -> 4 (1 dense + 3 moe); kimi-k2 is
+# served at a depth cut 61 -> 2 (1 dense + 1 moe) and not trained on the card;
+# internvl2-2b serves a batch of 4 x 2,048 tokens (after 256 patches) for 16
+# greedy tokens; whisper-large-v3 4 clips of 1,500 frames and 4-token prompts
+# for 128 greedy tokens, trained on 448 tokens a clip (its max_target_positions)
+M_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-2b", "whisper-large-v3")
+M_DEEPSEEK_TRAIN_LAYERS, M_KIMI_LAYERS, M_TRAIN_STEPS = 4, 2, 10
+M_VLM_BATCH, M_VLM_PROMPT, M_VLM_NEW = 4, 2048, 16
+M_WHISPER_BATCH, M_WHISPER_PROMPT, M_WHISPER_NEW, M_WHISPER_TRAIN_TOKENS = 4, 4, 128, 448
+# phase M(f): (label, b, s, hq, hkv, dh, causal), bf16, S = T
+M_FWD_CASES = (("whisper-enc-s1500", 4, 1500, 20, 20, 64, False), ("kimi-s4096", 1, 4096, 64, 8, 128, True),
+               ("internvl2-s2304", 1, 2304, 16, 8, 128, True))
+M_BWD_CASES = (("whisper-enc-s1500", 2, 1500, 20, 20, 64, False), ("internvl2-s2304", 2, 2304, 16, 8, 128, True))
 BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices", "f32-dh320-wide", "f32-dh520-wide")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2776,7 +2818,9 @@ def timed_serve(srv, reqs) -> tuple:
     t0 = time.perf_counter()
     srv.run(reqs)
     torch.cuda.synchronize()
-    return spent, time.perf_counter() - t0
+    run_s = time.perf_counter() - t0
+    del srv.admit, srv.tick  # the closures hold srv: without them its weights and cache go with it
+    return spent, run_s
 
 
 def phase_serving(rec: dict, max_err: dict) -> dict:
@@ -4478,6 +4522,555 @@ def phase_zamba2_kernels(rec: dict, max_err: dict) -> dict:
     return {"forward": fwd, "backward": bwd}
 
 
+# ------------------------------------------- the moe, vlm and encdec families (M)
+
+
+def m_extra(cfg, b: int, rng) -> dict:
+    """The family's input beside the tokens, seeded f32 (the reference's
+    frontends are stubs too): vlm patch embeddings [b, P, D], encdec frames
+    [b, F, D]; nothing for the others."""
+    import torch
+
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.from_numpy(rng.normal(size=(b, cfg.vision_patches, cfg.d_model))
+                                                  .astype(np.float32))}
+    if cfg.family == "encdec":
+        return {"frames": torch.from_numpy(rng.normal(size=(b, cfg.encoder_frames, cfg.d_model)).astype(np.float32))}
+    return {}
+
+
+def m_train_batch(cfg, data, step: int, dev) -> dict:
+    """``SyntheticLM``'s batch of ``step`` (tokens, labels) with the family's
+    input drawn from a generator seeded by the step."""
+    import torch
+
+    batch = {k: torch.from_numpy(v) for k, v in data.batch(step).items()}
+    batch.update(m_extra(cfg, batch["tokens"].shape[0], np.random.default_rng(1000 + step)))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def m_forward(params, cfg, inputs: dict):
+    """(logits, aux) of the teacher-forced forward: ``lm_forward`` (vlm with
+    its patches), or ``encdec_forward`` with no aux values."""
+    from repro_torch.models.encdec import encdec_forward
+    from repro_torch.models.transformer import lm_forward
+
+    if cfg.family == "encdec":
+        return encdec_forward(params, cfg, inputs["frames"], inputs["tokens"]), {}
+    return lm_forward(params, cfg, inputs["tokens"], vision_embeds=inputs.get("vision_embeds"))
+
+
+def phase_m_card_vs_cpu(rec: dict) -> None:
+    """Phase M(a): the reduced deepseek-moe-16b, kimi-k2-1t-a32b,
+    internvl2-2b and whisper-large-v3 in f32, the same weights (drawn once
+    on the card, moved) on the card and the CPU (TF32 off): the forward's
+    logits and aux values, the prefill's logits and every cache leaf, three
+    decode steps' logits, all within 1e-4; for the two moe configs a 3-slot
+    ``SlotServer``'s tokens equal (the card's launching the forward kernel
+    once a layer and request, the CPU's never); ``loss_fn``'s gradients each
+    within 1e-4 of their norm, the moe backward bit-equal from one run to
+    the next on the card; then 3 ``make_train_step`` steps with the arch's
+    optimizer (kimi: Adafactor): losses within 1e-4 relative, parameters
+    within 1e-4. Last, the reduced deepseek's ``TrainLoop`` run 10 steps,
+    checkpointed, dropped, restored and run 10 more: bit-equal to an
+    uninterrupted 20. ``tests/test_torch_cuda.py`` runs this phase as a
+    card test."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_reduced, optimizer_for
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.tree import leaves, leaves_with_paths, path_key, tree_map
+    from repro_torch.serve.server import Request, SlotServer
+    from repro_torch.train.fault_tolerance import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig, init_opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    tol = dict(rtol=1e-4, atol=1e-4)
+    out = {}
+    for arch in M_ARCHS:
+        cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+        gpu = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(3))
+        cpu = api.params_to(gpu, "cpu")
+        rng = np.random.default_rng(3)
+        inp = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (2, 57)).astype(np.int32)),
+               **m_extra(cfg, 2, rng)}
+        inp_g = {k: v.cuda() for k, v in inp.items()}
+        with torch.no_grad():
+            lg, ag = m_forward(gpu, cfg, inp_g)
+            lc, ac = m_forward(cpu, cfg, inp)
+        torch.testing.assert_close(lg.cpu(), lc, **tol)
+        for key in ac:
+            torch.testing.assert_close(ag[key].cpu(), ac[key], **tol)
+        err = float((lg.cpu() - lc).abs().max())
+        max_len = 57 + cfg.vision_patches + 8
+        lg, cg = api.serve_prefill(gpu, cfg, inp_g, max_len=max_len)
+        lc, cc = api.serve_prefill(cpu, cfg, inp, max_len=max_len)
+        if set(cg) != set(cc):
+            raise AssertionError(f"{arch}: card cache leaves {sorted(cg)}, CPU {sorted(cc)}")
+        for name in cc:
+            torch.testing.assert_close(cg[name].cpu(), cc[name], **tol)
+        torch.testing.assert_close(lg.cpu(), lc, **tol)
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+        for i in range(3):
+            lg, cg = api.serve_decode(gpu, cfg, inp["tokens"][:, i].cuda(), cg)
+            lc, cc = api.serve_decode(cpu, cfg, inp["tokens"][:, i], cc)
+            torch.testing.assert_close(lg.cpu(), lc, **tol)
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+        served = None
+        if cfg.family == "moe":
+            prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (20, 60, 33, 47, 25)]
+            served = []
+            for params in (gpu, cpu):
+                reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+                n0 = fa.flash_attention.launches
+                SlotServer(params, cfg, n_slots=3, max_len=66).run(reqs)
+                launched = fa.flash_attention.launches - n0
+                want = len(prompts) * cfg.n_layers if params is gpu else 0
+                if launched != want:
+                    raise AssertionError(f"reduced {arch}: {launched} kernel launches, want {want}")
+                served.append([r.out_tokens for r in reqs])
+            if served[0] != served[1]:
+                raise AssertionError(f"reduced {arch}: card tokens {served[0]} != CPU tokens {served[1]}")
+
+        opt = OptConfig(name=optimizer_for(arch), peak_lr=1e-3, warmup_steps=1, total_steps=10)
+        tcfg = TrainConfig(opt=opt, microbatches=2)
+        mg = tree_map(lambda p: p.detach().clone().requires_grad_(True), gpu)
+        mc = tree_map(lambda p: p.detach().clone().requires_grad_(True), cpu)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4))
+        grads_g = []
+        for params, dev, runs in ((mg, "cuda", 2), (mc, "cpu", 1)):
+            for _ in range(runs):
+                for p in leaves(params):
+                    p.grad = None
+                loss, _ = api.loss_fn(params, cfg, m_train_batch(cfg, data, 0, dev))
+                loss.backward()
+                if dev == "cuda":
+                    grads_g.append([p.grad.clone() for p in leaves(params)])
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads_g[0], grads_g[1]))
+        if not bit_equal:
+            raise AssertionError(f"reduced {arch}: the card's gradients differ between two runs")
+        grad_rel = {}
+        for (path, g), c in zip(leaves_with_paths(mg), leaves(mc)):
+            a, b = g.grad.cpu(), c.grad
+            grad_rel[path_key(path)] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            if not grad_rel[path_key(path)] <= 1e-4:
+                raise AssertionError(f"reduced {arch}: gradient of {path_key(path)} off by "
+                                     f"{grad_rel[path_key(path)]:.3e} of its norm")
+        for params in (mg, mc):
+            for p in leaves(params):
+                p.grad = None
+        step = make_train_step(cfg, tcfg)
+        sg, sc = init_opt(mg, opt), init_opt(mc, opt)
+        losses = []
+        for s in range(3):
+            mg, sg, metg = step(mg, sg, m_train_batch(cfg, data, s, "cuda"))
+            mc, sc, metc = step(mc, sc, m_train_batch(cfg, data, s, "cpu"))
+            losses.append((float(metg["loss"]), float(metc["loss"])))
+            if abs(losses[-1][0] - losses[-1][1]) > 1e-4 * abs(losses[-1][1]):
+                raise AssertionError(f"reduced {arch}: step {s} loss {losses[-1]}")
+        param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(leaves(mg), leaves(mc)))
+        if param_err > 1e-4:
+            raise AssertionError(f"reduced {arch}: parameters differ by {param_err:.3e} after 3 steps")
+        out[arch] = {"max_abs_logit_err": err, "aux_card": {k: float(v) for k, v in ag.items()},
+                     "tokens": served[0] if served else None, "grad_rel_max": max(grad_rel.values()),
+                     "card_grads_bit_equal_run_to_run": bit_equal, "optimizer": opt.name,
+                     "losses_card_cpu": losses, "param_max_abs_err": param_err}
+        log(f"[m-card-vs-cpu] reduced {arch} f32: logits within {err:.2e}, aux {out[arch]['aux_card']}, cache "
+            f"leaves {sorted(cc)} within 1e-4{', 5 requests tokens equal' if served else ''}; gradients within "
+            f"{max(grad_rel.values()):.2e} of their norms, bit-equal run to run; {opt.name} losses {losses}, "
+            f"parameters within {param_err:.2e}")
+
+    cfg = dataclasses.replace(get_reduced("deepseek-moe-16b"), dtype=torch.float32)
+    root = tempfile.mkdtemp(prefix="m_restart_")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    rcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=40))
+
+    def loop(name, every):
+        return TrainLoop(cfg, rcfg, dcfg, LoopConfig(ckpt_dir=os.path.join(root, name), ckpt_every=every,
+                                                     log_every=1), seed=3, device="cuda")
+
+    loop("a", 10).run(10)
+    resumed = loop("a", 10)
+    if not resumed.maybe_restore() or resumed.state["step"] != 10:
+        raise AssertionError("moe restart: no checkpoint at step 10")
+    h_b = [h["loss"] for h in resumed.run(10)]
+    h_c = [h["loss"] for h in loop("b", 0).run(20)][10:]
+    shutil.rmtree(root, ignore_errors=True)
+    out["deepseek_restart"] = {"restart_losses": h_b, "uninterrupted_losses": h_c, "bit_equal": h_b == h_c}
+    log(f"[m-restart] reduced deepseek-moe-16b: 10 + restore + 10 steps against 20 uninterrupted: "
+        f"{'bit-equal' if h_b == h_c else 'DIFFERENT'} ({h_b[-1]} vs {h_c[-1]})")
+    if h_b != h_c:
+        raise AssertionError(f"moe restart: losses differ: {h_b} vs {h_c}")
+    rec["m_card_vs_cpu"] = out
+
+
+def profiled_call(fn, tag: str, what: str) -> dict:
+    """``fn()`` (ending in a host read) once under torch.profiler, device
+    events only: wall time, device busy share, the attention kernels' time
+    and the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t
+    busy, top, device_us = device_split(prof, n=10)
+    fwd_us = sum(v for name, v in device_us.items() if "flash_fwd" in name)
+    bwd_us = sum(v for name, v in device_us.items() if "bwd_dq" in name or "bwd_dkdv" in name)
+    out = {"wall_seconds": wall, "device_busy_seconds": busy, "busy_share": busy / wall,
+           "forward_kernel_ms": fwd_us / 1e3, "backward_kernel_ms": bwd_us / 1e3,
+           "attention_share_of_busy": (fwd_us + bwd_us) / 1e6 / busy if busy else 0.0, "device_ops_ms": top}
+    log(f"{tag} profiled {what}: {wall:.3f} s, device busy {busy:.3f} s ({busy / wall:.2%}); attention kernels "
+        f"{(fwd_us + bwd_us) / 1e3:.1f} ms ({out['attention_share_of_busy']:.2%} of busy); top device ops (ms) "
+        + json.dumps(top))
+    return out
+
+
+def m_train(cfg, arch: str, tag: str, want_fwd: int, want_bwd: int, loop_data: bool) -> dict:
+    """M_TRAIN_STEPS training steps of ``cfg`` on the card: f32 masters,
+    remat, the arch's optimizer on its schedule (peak 3e-4, 10 warmup
+    steps), TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches; through
+    ``TrainLoop`` (``loop_data``: ``SyntheticLM`` batches) or
+    ``make_train_step`` on ``m_train_batch`` (the family's patches or frames
+    beside the tokens). The loss falls; counters zeroed and read around the
+    last step (the forward and backward kernels' launches exact, the plain
+    versions never called); tokens/s at the median step, peak memory, one
+    more step profiled."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import optimizer_for, schedule_for
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import api
+    from repro_torch.train.fault_tolerance import LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import TrainConfig, init_train_state, make_train_step
+
+    opt = OptConfig(name=optimizer_for(arch), schedule=schedule_for(arch), peak_lr=3e-4,
+                    warmup_steps=max(10, M_TRAIN_STEPS // 20), total_steps=M_TRAIN_STEPS)
+    tcfg = TrainConfig(opt=opt, microbatches=TRAIN_MICRO)
+    seq = M_WHISPER_TRAIN_TOKENS if cfg.family == "encdec" else TRAIN_SEQ
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=TRAIN_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if loop_data:
+        loop = TrainLoop(cfg, tcfg, dcfg, LoopConfig(ckpt_dir=tempfile.mkdtemp(), ckpt_every=0, log_every=1),
+                         seed=0, device="cuda")
+        params = loop.state["params"]
+        run_one = lambda s: loop.run(1)[-1]
+    else:
+        params, state = init_train_state(cfg, tcfg, torch.Generator(device="cuda").manual_seed(0))
+        step_fn, data, hist = make_train_step(cfg, tcfg), SyntheticLM(dcfg), []
+
+        def run_one(s):
+            nonlocal params, state
+            params, state, m = step_fn(params, state, m_train_batch(cfg, data, s, "cuda"))
+            hist.append({"step": s, **{k: float(v) for k, v in m.items()}})  # a host read ends the step
+            return hist[-1]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.count_params(params)
+    step_s, history = [], []
+    for i in range(M_TRAIN_STEPS):
+        if i == M_TRAIN_STEPS - 1:
+            zero_counters()
+        t = time.perf_counter()
+        history.append(run_one(i))
+        step_s.append(time.perf_counter() - t)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    if (counts["flash_attention"] != want_fwd or counts["flash_attention_backward"] != want_bwd
+            or counts["flash_attention_plain"] or counts["flash_attention_backward_plain"]
+            or counts["flash_attention_wide"]):
+        raise AssertionError(f"{tag} training step: forward launches {counts['flash_attention']} (want {want_fwd}), "
+                             f"backward {counts['flash_attention_backward']} (want {want_bwd}), wide "
+                             f"{counts['flash_attention_wide']}, plain calls {counts['flash_attention_plain']}, "
+                             f"{counts['flash_attention_backward_plain']}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} training: the loss did not fall: {losses}")
+    extra = cfg.vision_patches if cfg.family == "vlm" else 0
+    tokens = TRAIN_BATCH * seq
+    med = statistics.median(step_s[1:])
+    train = {"arch": arch, "layers": cfg.n_layers, "params": n_params, "init_seconds": init_s,
+             "batch": TRAIN_BATCH, "seq": seq, "positions_per_row": seq + extra, "microbatches": TRAIN_MICRO,
+             "steps": M_TRAIN_STEPS, "optimizer": opt.name, "schedule": opt.schedule, "remat": cfg.remat,
+             "losses": losses, "grad_norms": [h["grad_norm"] for h in history],
+             "aux_last": {k: history[-1][k] for k in ("lb_loss", "z_loss", "dropped_frac") if k in history[-1]},
+             "step_seconds": step_s, "median_step_seconds": med, "tokens_per_s": tokens / med,
+             "positions_per_s": TRAIN_BATCH * (seq + extra) / med,
+             "peak_device_bytes": peak, "baseline_device_bytes": base, "peak_above_baseline_bytes": peak - base,
+             "forward_launches": counts["flash_attention"], "backward_launches": counts["flash_attention_backward"]}
+    if cfg.family == "encdec":
+        train["frames_per_row"] = cfg.encoder_frames
+    if cfg.family == "moe":  # summed over the moe layers, as lm_forward sums it
+        train["dropped_frac_by_step"] = [h["dropped_frac"] for h in history]
+    log(f"{tag} {M_TRAIN_STEPS} training steps of {tokens} tokens ({opt.name}): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; median step {med:.3f} s ({train['tokens_per_s']:.0f} tokens/s; first {step_s[0]:.2f} s); "
+        f"peak device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} GiB "
+        f"earlier phases hold); one step: forward kernel {counts['flash_attention']} launches (want {want_fwd}), "
+        f"backward {counts['flash_attention_backward']} (want {want_bwd}), plain calls 0")
+    train["profile"] = profiled_call(lambda: run_one(M_TRAIN_STEPS), tag, "training step")
+    return train
+
+
+def phase_moe_full(rec: dict, arch: str, serve_layers, train_layers: int) -> dict:
+    """Phase M(b) (deepseek-moe-16b, all 28 layers served; trained at a
+    depth cut 28 -> 4, 1 dense + 3 moe layers, whose f32 masters, gradients
+    and AdamW moments take ~33 GB) and M(c) (kimi-k2-1t-a32b served at a
+    depth cut 61 -> 2: 1 dense + 1 moe layer of 384 experts, 18.75 B
+    parameters; not trained: two layers' f32 masters alone take ~75 GB), at
+    full width in bf16 with seeded random weights. Serving as phase 9:
+    ``SlotServer`` with LM_SLOTS slots serves the LM_PROMPTS requests,
+    LM_NEW new tokens each (decode at the serving capacity factor; prefill
+    at the training one, as the reference's); prefill and decode tokens/s,
+    peak memory, counters zeroed and read around the run (the forward kernel
+    once a layer and request, the plain version never); a profiled prefill
+    and decode step; each prompt's prefill dropped fraction; the first request's
+    served token against the argmax of ``lm_forward``'s last logits.
+    Each prompt's prefill dropped fraction is ``lm_forward``'s on it (the
+    same tokens at the same capacity route alike), the mean over the moe
+    layers."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serve.server import Request, SlotServer
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=serve_layers or full.n_layers)
+    tag = f"[{arch}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.count_params(params)
+    log(f"{tag} {cfg.n_layers} layers (of {full.n_layers}), d {cfg.d_model}, {cfg.moe.n_experts} experts top "
+        f"{cfg.moe.top_k}, {n_params / 1e9:.4f} B parameters drawn in {init_s:.1f} s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, n).astype(np.int32), max_new_tokens=LM_NEW)
+            for i, n in enumerate(LM_PROMPTS)]
+    srv = SlotServer(params, cfg, n_slots=LM_SLOTS, max_len=max(LM_PROMPTS) + LM_NEW)
+    zero_counters()
+    spent, run_s = timed_serve(srv, reqs)
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = len(reqs) * cfg.n_layers
+    if counts["flash_attention"] != want or counts["flash_attention_plain"] != 0 or counts["flash_attention_wide"]:
+        raise AssertionError(f"{arch} serving: flash_attention launched {counts['flash_attention']} times "
+                             f"(want {want}), wide {counts['flash_attention_wide']}, plain called "
+                             f"{counts['flash_attention_plain']}")
+    for r in reqs:
+        if not (r.done and len(r.out_tokens) == LM_NEW and all(0 <= t < cfg.vocab for t in r.out_tokens)):
+            raise AssertionError(f"{arch} request {r.rid}: {len(r.out_tokens)} tokens {r.out_tokens}")
+    prompt_tokens = sum(LM_PROMPTS)
+    serve = {"arch": arch, "layers": cfg.n_layers, "full_layers": full.n_layers, "params": n_params,
+             "init_seconds": init_s, "slots": LM_SLOTS, "requests": len(reqs), "prompt_tokens": prompt_tokens,
+             "new_tokens_per_request": LM_NEW, "run_seconds": run_s,
+             "prefill_seconds": spent["admit"], "prefill_tokens_per_s": prompt_tokens / spent["admit"],
+             "decode_seconds": spent["tick"], "decode_ticks": spent["ticks"], "decoded_tokens": spent["decoded"],
+             "decode_tokens_per_s": spent["decoded"] / spent["tick"], "peak_device_bytes": peak,
+             "launches": counts["flash_attention"], "out_tokens_first": reqs[0].out_tokens,
+             "decode_capacity_per_expert": capacity(LM_SLOTS, cfg.moe, serving=True),
+             "prefill_capacity_per_expert_at_4096": capacity(4096, cfg.moe)}
+    log(f"{tag} served {len(reqs)} requests in {run_s:.2f} s: prefill {prompt_tokens} tokens in "
+        f"{spent['admit']:.3f} s ({serve['prefill_tokens_per_s']:.0f} tokens/s), decode {spent['decoded']} tokens "
+        f"in {spent['ticks']} ticks, {spent['tick']:.3f} s ({serve['decode_tokens_per_s']:.1f} tokens/s); flash "
+        f"launches {counts['flash_attention']} (want {want}), plain calls 0; peak device memory {peak / 2**30:.2f} GiB")
+    serve["profile"] = profiled_prefill(params, cfg, reqs[-1].prompt, tag)
+    serve["decode_profile"] = profiled_decode(params, cfg, srv.cache, tag)
+    del srv
+    torch.cuda.empty_cache()
+
+    n_moe = cfg.n_layers - cfg.moe_first_dense
+    with torch.no_grad():
+        drops = []
+        for r in reversed(reqs):  # the first request last: its logits are checked below
+            toks = torch.as_tensor(r.prompt[None], device="cuda")
+            logits, aux = lm_forward(params, cfg, toks)
+            drops.insert(0, float(aux["dropped_frac"]) / n_moe)
+        serve["prefill_dropped_frac"] = drops
+        last = logits[0, -1].clone()
+        del logits
+        first = int(torch.argmax(last))
+        err = float((api.serve_prefill(params, cfg, {"tokens": toks})[0][0] - last).abs().max())
+        scale = float(last.abs().max())
+    if err > 1e-3 * scale or first != reqs[0].out_tokens[0]:
+        raise AssertionError(f"{arch}: prefill logits {err:.3e} off the forward's (scale {scale:.3e}); "
+                             f"forward token {first}, served {reqs[0].out_tokens[0]}")
+    serve["first_request_check"] = {"max_abs_logit_err": err, "max_abs_logit": scale, "token": first}
+    log(f"{tag} prefill dropped fraction by prompt {[round(d, 4) for d in drops]} (capacity factor "
+        f"{cfg.moe.capacity_factor}); first request: prefill logits within {err:.2e} of lm_forward's (max "
+        f"|logit| {scale:.2f}); token {first} as served")
+    del params
+    torch.cuda.empty_cache()
+    out = {"serve": serve}
+    if train_layers:
+        tcfg = dataclasses.replace(full, n_layers=train_layers)
+        out["train"] = m_train(tcfg, arch, tag, (2 if tcfg.remat else 1) * train_layers * TRAIN_MICRO,
+                               train_layers * TRAIN_MICRO, loop_data=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_m_batch_served(rec: dict, arch: str, batch: int, prompt_len: int, new: int) -> dict:
+    """Phase M(d) (internvl2-2b: 4 prompts of 2,048 tokens, each after its
+    256 seeded f32 patch embeddings; 16 greedy tokens) and M(e)
+    (whisper-large-v3: 4 clips of 1,500 seeded f32 frames with 4-token
+    prompts; 128 greedy tokens), at full width and depth in bf16 with seeded
+    random weights, served as one batch through ``api.serve_prefill`` and
+    ``serve_decode`` (the ``SlotServer`` takes tokens only). Counters zeroed
+    and read around the run: the forward kernel once a layer in the prefill
+    (whisper: the 32 encoder layers non-causal, then the 32 decoder layers),
+    never in decode, the plain version never; prefill and decode tokens/s,
+    peak memory; a profiled prefill and decode step; the first tokens
+    against the argmax of the teacher-forced forward's last logits. Then
+    M_TRAIN_STEPS steps through ``make_train_step`` on {tokens, labels, and
+    the patches or frames} (``m_train``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config(arch)
+    tag = f"[{arch}]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = api.count_params(params)
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab, (batch, prompt_len)).astype(np.int32)),
+              **m_extra(cfg, batch, rng)}
+    inputs = {k: v.cuda() for k, v in inputs.items()}
+    extra = cfg.vision_patches if cfg.family == "vlm" else 0
+    max_len = extra + prompt_len + new
+    log(f"{tag} {cfg.n_layers}{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''} layers, d "
+        f"{cfg.d_model}, {n_params / 1e9:.4f} B parameters drawn in {init_s:.1f} s")
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.serve_prefill(params, cfg, inputs, max_len=max_len)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    first = tok.cpu()
+    prefill_s = time.perf_counter() - t0
+    out_toks = [first]
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        logits, cache = api.serve_decode(params, cfg, tok, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out_toks.append(tok.cpu())  # a host read ends each step, as the slot server's tick
+    decode_s = time.perf_counter() - t0
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers + cfg.encoder_layers
+    if counts["flash_attention"] != want or counts["flash_attention_plain"] or counts["flash_attention_wide"]:
+        raise AssertionError(f"{arch} serving: flash_attention launched {counts['flash_attention']} times (want "
+                             f"{want}), wide {counts['flash_attention_wide']}, plain called "
+                             f"{counts['flash_attention_plain']}")
+    tokens = torch.stack(out_toks, dim=1)
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()) or tuple(tokens.shape) != (batch, new):
+        raise AssertionError(f"{arch}: served tokens {tokens.shape} out of range")
+    with torch.no_grad():
+        last = m_forward(params, cfg, inputs)[0][:, -1]
+    want_first = torch.argmax(last, dim=-1).cpu()
+    err = float((api.serve_prefill(params, cfg, inputs)[0] - last).abs().max())
+    scale = float(last.abs().max())
+    if err > 1e-3 * scale or not torch.equal(want_first.to(torch.int32), first):
+        raise AssertionError(f"{arch}: prefill logits {err:.3e} off the forward's (scale {scale:.3e}); forward "
+                             f"tokens {want_first.tolist()}, served {first.tolist()}")
+    serve = {"arch": arch, "layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers, "params": n_params,
+             "init_seconds": init_s, "batch": batch, "prompt_tokens": batch * prompt_len,
+             "prefill_positions": batch * (extra + prompt_len), "extra_inputs_per_row": extra or cfg.encoder_frames,
+             "new_tokens_per_row": new, "prefill_seconds": prefill_s,
+             "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+             "prefill_positions_per_s": batch * (extra + prompt_len) / prefill_s,
+             "decode_seconds": decode_s, "decode_steps": new - 1, "decoded_tokens": batch * (new - 1),
+             "decode_tokens_per_s": batch * (new - 1) / decode_s, "peak_device_bytes": peak,
+             "launches": counts["flash_attention"], "out_tokens_first": tokens[0].tolist(),
+             "first_token_check": {"max_abs_logit_err": err, "max_abs_logit": scale, "tokens": first.tolist()}}
+    if cfg.family == "encdec":
+        serve["encoded_frames_per_s"] = batch * cfg.encoder_frames / prefill_s
+    log(f"{tag} served a batch of {batch}: prefill {batch} x ({extra or cfg.encoder_frames} "
+        f"{'patches' if extra else 'frames'} + {prompt_len} tokens) in {prefill_s:.3f} s "
+        f"({serve['prefill_tokens_per_s']:.0f} prompt tokens/s), {new - 1} decode steps in {decode_s:.3f} s "
+        f"({serve['decode_tokens_per_s']:.1f} tokens/s); flash launches {counts['flash_attention']} (want {want}), "
+        f"plain 0; peak device memory {peak / 2**30:.2f} GiB; first tokens {first.tolist()} = the forward's "
+        f"(logits within {err:.2e}, max |logit| {scale:.2f})")
+    serve["profile"] = profiled_call(lambda: api.serve_prefill(params, cfg, inputs, max_len=max_len)[0].sum().item(),
+                                     tag, "prefill")
+    step_cache = dict(cache, len=torch.full_like(cache["len"], cache["k"].shape[2] - 1))
+    serve["decode_profile"] = profiled_call(
+        lambda: api.serve_decode(params, cfg, tok, step_cache)[0].sum().item(), tag, "full-batch decode step")
+    del params, cache, step_cache, logits, last
+    torch.cuda.empty_cache()
+    L = cfg.n_layers + cfg.encoder_layers
+    train = m_train(cfg, arch, tag, (2 if cfg.remat else 1) * L * TRAIN_MICRO, L * TRAIN_MICRO, loop_data=False)
+    torch.cuda.empty_cache()
+    return {"serve": serve, "train": train}
+
+
+def phase_m_kernels(rec: dict, max_err: dict) -> dict:
+    """Phase M(f): the attention kernels at the new families' layouts, bf16,
+    each against its plain version (``attn_case``: ``ATTN_TOL``, its lse
+    within ``LSE_TOL``; ``bwd_case``: each gradient within ``BWD_TOL``),
+    timed with CUDA events and its launches alone by the profiler, beside
+    the bound and ``scaled_dot_product_attention`` (with its backward): the
+    forward at whisper's encoder [4, 1500, 20/20, dh 64] non-causal (S = T =
+    1500, no multiple of a tile), at kimi's heads [1, 4096, 64/8, 128] and
+    at internvl2's [1, 2304, 16/8, 128] causal; the backward at [2, 1500,
+    20/20, 64] non-causal and [2, 2304, 16/8, 128] causal."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+
+    def qkv(b, s, hq, hkv, dh):
+        return (torch.randn((b, s, hq, dh), generator=gen, device="cuda").to(torch.bfloat16),
+                *(torch.randn((b, s, hkv, dh), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2)))
+
+    rows: list = []
+    out = {}
+    for label, b, s, hq, hkv, dh, causal in M_FWD_CASES:
+        q, k, v = qkv(b, s, hq, hkv, dh)
+        row = attn_case(rows, max_err, label, q, k, v, causal, 0, 10)
+        row["device_ms"] = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal), "flash_fwd_wgmma_kernel")
+        out[f"forward-{label}"] = row
+        del q, k, v
+    for label, b, s, hq, hkv, dh, causal in M_BWD_CASES:
+        q, k, v = qkv(b, s, hq, hkv, dh)
+        out[f"backward-{label}"] = bwd_case(rows, max_err, label, q, k, v, causal, 0, 10, kernel_alone=True)
+        del q, k, v
+    torch.cuda.empty_cache()
+    rec["m_kernel_cases"] = rows
+    for key, row in out.items():
+        log(f"[m-kernels] {key} {row['shape']} causal={row['causal']}: {row['ms']:.3f} ms a call, "
+            f"{row['device_ms']:.3f} the launches alone, bound {row['bound_ms']:.4f} ({row['bound_by']}), library "
+            f"{row['library_ms']}, max |err| {row['max_abs_err']:.2e}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"), help="record directory")
@@ -4562,6 +5155,18 @@ def main() -> int:
     zamba2_kernels = phase_zamba2_kernels(rec, max_err)
     rec["ssm_phase_seconds"] = time.perf_counter() - t_phase
     log(f"[ssm] phase H in {rec['ssm_phase_seconds']:.1f} s")
+    t_phase = time.perf_counter()
+    phase_m_card_vs_cpu(rec)
+    fam = rec["m_families"] = {
+        "deepseek-moe-16b": phase_moe_full(rec, "deepseek-moe-16b", None, M_DEEPSEEK_TRAIN_LAYERS),
+        "kimi-k2-1t-a32b": phase_moe_full(rec, "kimi-k2-1t-a32b", M_KIMI_LAYERS, 0),
+        "internvl2-2b": phase_m_batch_served(rec, "internvl2-2b", M_VLM_BATCH, M_VLM_PROMPT, M_VLM_NEW),
+        "whisper-large-v3": phase_m_batch_served(rec, "whisper-large-v3", M_WHISPER_BATCH, M_WHISPER_PROMPT,
+                                                 M_WHISPER_NEW),
+    }
+    m_kernels = phase_m_kernels(rec, max_err)
+    rec["m_phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[m] phase M in {rec['m_phase_seconds']:.1f} s")
 
     timed = {
         "fused_knn": (main_run["counts"]["fused_knn"], heaviest["fused_knn"]),
@@ -4610,6 +5215,17 @@ def main() -> int:
             entry["mamba2_launches"] = {"serve": ssm["mamba2-130m"]["serve"]["launches"] if fwd else 0,
                                         "train_step": ssm["mamba2-130m"]["train"][
                                             "forward_launches" if fwd else "backward_launches"]}
+            # phase M: each family's serving run and last training step (kimi is not trained on the card)
+            entry["moe_vlm_encdec_launches"] = {
+                arch: {"serve": f["serve"]["launches"] if fwd else 0,
+                       "train_step": f["train"]["forward_launches" if fwd else "backward_launches"]
+                       if "train" in f else None} for arch, f in fam.items()}
+            # phase M(f): the new layouts (whisper's encoder non-causal at S = T = 1500, kimi's and internvl2's heads)
+            entry["m_layouts"] = {
+                key.split("-", 1)[1]: {k: row.get(k) for k in ("shape", "causal", "ms", "device_ms", "plain_ms",
+                                                               "bound_ms", "bound_by", "library_ms", "tflops",
+                                                               "max_abs_err")}
+                for key, row in m_kernels.items() if key.startswith("forward-" if fwd else "backward-")}
         if name == "flash_attention_backward":
             entry["tflops"] = h["tflops"]
             # gemma3's heads (the wgmma pair at DH 128), minicpm's and dh 256 in f32 (the 3xTF32 pair), dh 256

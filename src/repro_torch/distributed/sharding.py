@@ -1,4 +1,4 @@
-"""Logical-axis sharding rules -> mesh axes (DP / FSDP / TP) — the
+"""Logical-axis sharding rules -> mesh axes (DP / FSDP / TP / EP) — the
 counterpart of ``repro.distributed.sharding``.
 
 Parameters are matched by path patterns, and the mapping from logical axes
@@ -14,17 +14,20 @@ single-controller over ``launch.mesh.Mesh`` (no ``jax.sharding``), so:
     counterpart;
   * the port's layer leaves are per layer (``params/layers/<i>/attn/wq``),
     with no stacked ``[L, ...]`` dim, so a leaf's spec is the reference's
-    without its first entry, and no leaf has more than two dims;
+    without its first entry; the expert leaves are ``[E, D, F]``;
   * only the rules a ported model's leaves reach are kept: the reference's
     ``OPT`` switches (``set_opt``, ``set_all_opt``), its FSDP placement on
-    the stacked dim (``fsdp_stacked``), its expert and router rules and its
-    ``seq`` and ``expert`` axes steer code or leaves the port does not
-    have, so they have no counterpart.
+    the stacked dim (``fsdp_stacked``) and its ``seq`` axis steer code or
+    leaves the port does not have, so they have no counterpart. The
+    ``expert`` axis resolves as the reference's default
+    (``OPT["moe_ep_data"]`` on) resolves it: to "data", where
+    ``models.moe.moe_layer_ep`` puts the experts.
 
 Conventions (mesh axes: optional "pod", "data", "model"):
   batch        -> ("pod", "data")     activations' batch dim
   embed        -> None (replicated) or "data" under FSDP for params
   heads/mlp/kv -> "model"             tensor parallel param dims
+  expert       -> "data"              expert parallel (with TP over the expert FFN)
   vocab        -> "model"
 """
 from __future__ import annotations
@@ -50,6 +53,9 @@ class ShardingRules:
     heads: Any = "model"
     kv: Any = "model"
     mlp: Any = "model"
+    # EP axis: None resolves to "data" (the reference's default): experts
+    # stationary per data shard, tokens moved by the all-to-all
+    expert: Any = None
     vocab: Any = "model"
     embed: Any = None  # "data" => FSDP: shard params' embed dim over data
     fsdp: bool = False
@@ -59,6 +65,8 @@ class ShardingRules:
         if name is None:
             return None
         v = getattr(self, name)
+        if name == "expert" and v is None:
+            v = "data"
         if v is None:
             return None
         if isinstance(v, tuple):
@@ -93,9 +101,25 @@ class use_rules:
         set_rules(self.prev)
 
 
+# kind -> logical dim names of the trailing axes, as the reference's table
+ACTIVATION_SPECS = {
+    "batch_seq": ("batch", "seq"),  # e.g. tokens [B, S]
+    "hidden": ("batch", "seq", None),  # [B, S, D]
+    "hidden_sp": ("batch", "seq", None),
+    "mlp": ("batch", "seq", "mlp"),  # [B, S, F]
+    "heads": ("batch", "seq", "heads", None),  # [B, S, H, Dh]
+    "kv": ("batch", "seq", "kv", None),
+    "kv_cache": ("batch", None, "kv", None),  # [B, T, Hkv, Dh]
+    "logits": ("batch", "seq", "vocab"),
+    "expert_buf": ("expert", None, None),  # [E, C, D]
+}
+
+
 def shard_activation(x, kind: str):
-    """The reference annotates an intermediate with its logical sharding; a
-    single controller places nothing, so ``x`` comes back as it is."""
+    """The reference annotates an intermediate with its logical sharding
+    (``ACTIVATION_SPECS``: an unknown kind raises ``KeyError``); a single
+    controller places nothing, so ``x`` comes back as it is."""
+    ACTIVATION_SPECS[kind]
     return x
 
 
@@ -104,6 +128,10 @@ def shard_activation(x, kind: str):
 # path-pattern -> logical names per dim (matched right-aligned to the shape;
 # leading dims are replicated). First match wins.
 PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    (r"router", ("embed", None)),  # router stays small; replicate experts dim
+    # experts: EP over the expert dim + TP over the expert-ffn dim
+    (r"experts?.*w_(up|gate)", ("expert", None, "mlp")),
+    (r"experts?.*w_down", ("expert", "mlp", None)),
     (r"w_(up|gate)", ("embed", "mlp")),
     (r"w_down", ("mlp", "embed")),
     (r"(wq|w_q)", ("embed", "heads")),

@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --device cpu
 
 The flags of ``repro.launch.serve`` plus ``--device`` (default ``cuda``).
 Weights come from a ``torch.Generator`` seeded with 0 on that device; the
@@ -33,6 +34,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    if cfg.family in ("encdec",):
+        raise SystemExit("slot server demo covers decoder-only archs")
     gen = torch.Generator(device=args.device).manual_seed(0)
     params = api.init_model(cfg, gen)
     rng = np.random.default_rng(0)

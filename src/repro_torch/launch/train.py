@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b --reduced \
         --steps 200 --batch 16 --seq 128 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch kimi-k2-1t-a32b --reduced --device cpu
 
 The flags of ``repro.launch.train`` plus ``--device`` (default ``cuda``).
 Runs the resilient ``TrainLoop`` (checkpoint/restart, retries,

@@ -2,13 +2,15 @@
 
 ``params_from_jax`` takes the pytree that ``repro.models.api.init_model``
 returns, as numpy arrays (``jax.tree.map(np.asarray, params)``), with the
-stacked ``[L, ...]`` layer leaves of ``init_lm``, and returns the port's
-parameter dict: the layers unstacked into a list (a hybrid's
-``shared_attn`` stays one dict), matmul weights and biases in
-``cfg.dtype``; norm weights, embedding tables and the SSM's ``conv_w``,
-``A_log``, ``dt_bias`` and ``D`` in f32 (what the reference's per-use casts
-give: it reads ``conv_w`` in f32, so a copy in ``cfg.dtype`` would round
-where the reference does not); with ``masters=True`` every leaf in f32,
+stacked ``[L, ...]`` leaves of its layer lists (``tree.STACKED``:
+``layers``, a moe model's ``dense_layers``, an encdec model's
+``enc_layers`` and ``dec_layers``), and returns the port's parameter dict:
+each list unstacked (a hybrid's ``shared_attn`` stays one dict), matmul
+weights and biases in ``cfg.dtype``; norm weights, embedding tables, a moe
+router and the SSM's ``conv_w``, ``A_log``, ``dt_bias`` and ``D`` in f32
+(what the reference's per-use casts give: it reads ``conv_w`` and the
+router in f32, so a copy in ``cfg.dtype`` would round where the reference
+does not); with ``masters=True`` every leaf in f32,
 as the reference keeps them for training. Both packages then compute the
 same function, which is how the tests compare them. ``params_to_numpy`` is
 the inverse: the port's tree (parameters, or an optimizer state of the same
@@ -24,9 +26,10 @@ import numpy as np
 import torch
 
 from .transformer import ModelConfig, require_ported
+from .tree import STACKED
 
 _F32_LEAVES = ("embedding", "lm_head", "final_norm", "attn_norm", "mlp_norm", "q_norm", "k_norm", "norm",
-               "conv_w", "A_log", "dt_bias", "D")
+               "xattn_norm", "enc_norm", "conv_w", "A_log", "dt_bias", "D", "router")
 
 
 def _tensor(name: str, arr, dtype, device) -> torch.Tensor:
@@ -48,10 +51,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device="cuda", *,
                     masters: bool = False) -> Dict[str, Any]:
     require_ported(cfg)
     dtype = torch.float32 if masters else cfg.dtype
-    params = _convert({k: v for k, v in tree.items() if k != "layers"}, dtype, device)
-    params["layers"] = [_convert(_layer(tree["layers"], i), dtype, device)
-                        for i in range(cfg.n_layers)]
+    params = {}
+    for key, v in tree.items():
+        if key in STACKED:
+            n = len(np.asarray(_first_leaf(v)))
+            params[key] = [_convert(_layer(v, i), dtype, device) for i in range(n)]
+        else:
+            params[key] = _convert(v, dtype, device) if isinstance(v, dict) else _tensor(key, v, dtype, device)
     return params
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -59,10 +72,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_to_numpy(tree) -> Dict[str, Any]:
-    """The port's tree as numpy f32 arrays in the reference's layout: a
-    ``layers`` list becomes one dict of ``[L, ...]`` stacked leaves."""
+    """The port's tree as numpy f32 arrays in the reference's layout: each
+    list of ``tree.STACKED`` becomes one dict of ``[L, ...]`` stacked leaves."""
     if isinstance(tree, dict):
-        return {k: _stack(v) if k == "layers" else params_to_numpy(v) for k, v in tree.items()}
+        return {k: _stack(v) if k in STACKED else params_to_numpy(v) for k, v in tree.items()}
     return _numpy(tree)
 
 

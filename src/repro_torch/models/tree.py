@@ -2,16 +2,20 @@
 optimizer trees): leaves with their paths, a map over leaves, and the
 reference's stacked-leaf key of a path.
 
-The reference stacks the layers of ``init_lm`` on a leading axis
-(``params/layers/attn/wq`` is ``[L, ...]``); the port keeps a list
-(``params/layers/<i>/attn/wq``). ``stack_key`` drops the layer index, so
-every per-layer leaf finds the reference leaf it is a slice of.
+The reference stacks the layers on a leading axis (``params/layers/attn/wq``
+is ``[L, ...]``, and so are ``dense_layers``, ``enc_layers`` and
+``dec_layers``); the port keeps a list (``params/layers/<i>/attn/wq``).
+``stack_key`` drops the layer index, so every per-layer leaf finds the
+reference leaf it is a slice of.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Tuple
 
 Path = Tuple[Any, ...]
+
+# the parameter lists the reference stacks on a leading layer axis
+STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers")
 
 
 def leaves_with_paths(tree, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
@@ -43,9 +47,10 @@ def tree_map(fn: Callable, tree, *rest):
 
 def stack_key(path: Path) -> str:
     """The reference's key of the stacked leaf a per-layer leaf belongs to:
-    ``("layers", 3, "attn", "wq")`` -> ``"layers/attn/wq"``."""
+    ``("layers", 3, "attn", "wq")`` -> ``"layers/attn/wq"`` (the index after
+    any of ``STACKED`` dropped)."""
     parts = [str(p) for i, p in enumerate(path)
-             if not (isinstance(p, int) and i > 0 and path[i - 1] == "layers")]
+             if not (isinstance(p, int) and i > 0 and path[i - 1] in STACKED)]
     return "/".join(parts)
 
 

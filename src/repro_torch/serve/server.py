@@ -8,7 +8,10 @@ cache along the leaf's batch axis, which the layout names
 (``decode.BATCH_AXIS``; the reference guesses it as the first dim equal to
 ``n_slots``, which picks a hybrid's group or layer axis when ``n_slots``
 equals it). Greedy decoding: ``argmax`` takes the first maximum, as in the
-reference.
+reference. It serves the dense, moe, ssm and hybrid families; vlm and encdec
+prefill needs patch embeddings or frames beside the tokens, which
+``admit`` does not take (the reference's ``api.serve_prefill`` raises
+``KeyError`` there), so construction raises ``ValueError`` for them.
 """
 from __future__ import annotations
 
@@ -42,6 +45,10 @@ class SlotServer:
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 8, max_len: int = 512,
                  eos_id: int = 1):
+        if cfg.family in ("vlm", "encdec"):
+            raise ValueError(f"SlotServer admits token prompts only; a {cfg.family} prefill needs "
+                             f"{'vision_embeds' if cfg.family == 'vlm' else 'frames'} beside the tokens: "
+                             f"call api.serve_prefill and api.serve_decode directly")
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots

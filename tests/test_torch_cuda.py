@@ -784,6 +784,72 @@ def test_ssm_families_serve_and_train_alike_on_card_and_cpu(dev):
         assert rec["ssm_card_vs_cpu"][arch]["max_abs_logit_err"] <= 2e-3
 
 
+@pytest.mark.cuda
+def test_moe_vlm_encdec_families_serve_and_train_alike_on_card_and_cpu(dev):
+    """The reduced deepseek-moe-16b, kimi-k2-1t-a32b, internvl2-2b and
+    whisper-large-v3 in f32, the same weights on both devices: forward
+    logits and aux values, prefill and decode, the moe SlotServers' tokens,
+    gradients (the card's bit-equal run to run), three train steps (kimi
+    with Adafactor), and the reduced deepseek's restart bit-equal.
+    ``chip_smoke.py``'s phase M(a), run here as it runs there."""
+    rec = {}
+    _smoke().phase_m_card_vs_cpu(rec)
+    for arch in ("deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-2b", "whisper-large-v3"):
+        assert rec["m_card_vs_cpu"][arch]["max_abs_logit_err"] <= 1e-4
+    assert rec["m_card_vs_cpu"]["deepseek_restart"]["bit_equal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_attention_non_causal_at_whisper_frames(dev, dtype):
+    """whisper's encoder: S = T = 1500 (no multiple of a tile: the last
+    tile is ragged), 20/20 heads at dh 64, no causal mask; one launch, within
+    ATTN_TOL of the plain version, the lse within LSE_TOL."""
+    q, k, v = _attn_case(dev, 1500, 2, 1500, 20, 20, 64, dtype)
+    n0 = fa.flash_attention.launches
+    got, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=False, return_lse=True)
+    _attn_close(got, want)
+    lse_tol = {torch.bfloat16: 2e-3, torch.float32: 1e-4}[dtype]
+    torch.testing.assert_close(lse, want_lse, rtol=lse_tol, atol=lse_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)], ids=["bf16", "f32"])
+def test_flash_attention_backward_non_causal_at_whisper_frames(dev, dtype, tol):
+    """The backward over all 1,500 queries of whisper's encoder (dK/dV of
+    every key sums every query's term), non-causal, within BWD_TOL."""
+    _bwd_check(dev, dtype, tol, 2, 1500, 1500, 20, 20, 64, False, 0)
+
+
+@pytest.mark.cuda
+def test_moe_backward_is_bit_equal_run_to_run(dev):
+    """A moe layer at deepseek's routing (64 experts, top 6, 2 shared) over
+    4,096 tokens in bf16 at the training capacity (pairs dropped): forward
+    and backward twice give the same bits (gathers only, no float atomics),
+    and the gradients are finite."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(n_experts=64, top_k=6, d_ff_expert=128, n_shared_experts=2, d_ff_shared=256)
+    p = moe.init_moe(torch.Generator(device=dev).manual_seed(0), 256, cfg, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 2048, 256), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((2, 2048, 256), generator=g, device=dev).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [x.detach().clone().requires_grad_(True)] + [
+            t.detach().clone().requires_grad_(True) for t in (p["router"], *p["experts"].values())]
+        params = dict(p, router=leaves[1], experts=dict(zip(p["experts"], leaves[2:])))
+        y, aux = moe.moe_layer_dense(params, leaves[0], cfg)
+        ((y.float() * w.float()).sum() + aux["lb_loss"] + aux["z_loss"]).backward()
+        runs.append([y.detach()] + [t.grad for t in leaves])
+    assert float(aux["dropped_frac"]) > 0
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
 def _smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)

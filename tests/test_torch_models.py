@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.configs import ARCHS as JARCHS
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.models import api as japi
@@ -83,7 +84,7 @@ def test_config_matches_reference(arch):
                 assert a == b, f.name
         assert ours.layer_windows() == np.asarray(theirs.layer_windows()).tolist()
         assert ours.subquadratic == theirs.subquadratic
-    assert sorted(ARCHS) == sorted(PORTED)
+    assert sorted(ARCHS) == sorted(JARCHS)
 
 
 def test_gemma3_windows():
@@ -188,20 +189,23 @@ def test_init_lm_draws_dense_weights():
 
 
 def test_other_families_are_not_ported():
-    """moe, vlm and encdec still raise, naming the ROADMAP, at every entry
-    point; their archs are not in the registry."""
-    for family in ("moe", "vlm", "encdec"):
-        cfg = ModelConfig(name=f"{family}-toy", family=family, n_layers=2, d_model=16, n_heads=2,
-                          n_kv_heads=2, d_ff=32, vocab=64)
-        toks = torch.zeros((1, 4), dtype=torch.int32)
-        for fn in (lambda: init_lm(cfg, torch.Generator()), lambda: api.init_cache(cfg, 1, 8, device="cpu"),
-                   lambda: lm_forward({}, cfg, toks), lambda: api.serve_prefill({}, cfg, {"tokens": toks}),
-                   lambda: api.input_specs(cfg, "prefill", batch=1, seq_len=4)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fn()
+    """Every family of the reference is ported: the four archs of the moe,
+    vlm and encdec families are in the registry and their entry points
+    run; a family the reference does not have raises ``ValueError`` at
+    every entry point."""
     for arch in ("deepseek-moe-16b", "internvl2-2b", "whisper-large-v3", "kimi-k2-1t-a32b"):
-        with pytest.raises(KeyError):
-            get_config(arch)
+        cfg = get_reduced(arch)
+        assert get_config(arch).name == arch and arch in ARCHS
+        params = api.init_model(cfg, torch.Generator().manual_seed(0))
+        assert api.count_params(params) > 0 and set(api.init_cache(cfg, 1, 8, device="cpu")) >= {"len", "k", "v"}
+    cfg = ModelConfig(name="toy", family="retrieval", n_layers=2, d_model=16, n_heads=2, n_kv_heads=2, d_ff=32,
+                      vocab=64)
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    for fn in (lambda: init_lm(cfg, torch.Generator()), lambda: api.init_cache(cfg, 1, 8, device="cpu"),
+               lambda: lm_forward({}, cfg, toks), lambda: api.serve_prefill({}, cfg, {"tokens": toks}),
+               lambda: api.input_specs(cfg, "prefill", batch=1, seq_len=4)):
+        with pytest.raises(ValueError, match="unknown family"):
+            fn()
 
 
 def test_decode_raises_on_a_full_cache():

@@ -346,8 +346,16 @@ def test_long_context_specs_allocate_nothing():
 
 
 def test_unported_families_raise_in_the_specs():
+    """A vlm config's specs now carry its patch embeddings and build its
+    parameters and cache on the meta device; a family the reference does
+    not have raises ``ValueError`` in every spec function."""
     cfg = dataclasses.replace(get_reduced("minicpm-2b"), name="vlm-toy", family="vlm", vision_patches=4)
+    spec = api.input_specs(cfg, "train", batch=1, seq_len=8)
+    assert tuple(spec["vision_embeds"].shape) == (1, 4, cfg.d_model) and spec["vision_embeds"].device.type == "meta"
+    assert api.count_params(api.params_specs(cfg)) == api.count_params(api.params_specs(get_reduced("minicpm-2b")))
+    assert api.init_cache_specs(cfg, 1, 8)["k"].device.type == "meta"
+    cfg = dataclasses.replace(cfg, name="toy", family="retrieval")
     for fn in (lambda: api.input_specs(cfg, "train", batch=1, seq_len=8), lambda: api.params_specs(cfg),
                lambda: api.init_cache_specs(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unknown family"):
             fn()
