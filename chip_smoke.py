@@ -318,11 +318,31 @@ M. the moe, vlm and encdec families: (a) the reduced deepseek-moe-16b,
    library: the forward at [4, 1500, 20/20, 64] non-causal, [1, 4096,
    64/8, 128] and [1, 2304, 16/8, 128] causal; the backward at [2, 1500,
    20/20, 64] non-causal and [2, 2304, 16/8, 128] causal;
+D. the dry run and its hqi step: (a) ``make_roofline_search_step`` on a
+   (2, 4) ("data", "model") mesh on the card at n 65,536, d 128, m 512, k
+   10 (seeded rows, a seeded bitmap keeping 1 row in 8), ip and l2, against the same
+   step on a CPU mesh run in a child process: scores within 1e-4 and equal
+   id sets (``agree_untied``), 2 launches of ``fused_knn_db_stationary``
+   each (one a batch index, the four ranks one unit each), no plain call;
+   (b) one device's program of each ``hqi-search`` cell at its real
+   per-device size, on a (1, 1) mesh on the card: rows [6,250,000, 128] f32
+   (3.2 GB) and a half-true bitmap, queries [4096 | 256 | 2048 | 128, 128]
+   (single-pod batch64k, online4k; multi-pod batch64k, online4k): one warm
+   call, then 3 timed by CUDA events (median) with exactly 3 launches and
+   no plain call; 8 queries against ``torch.matmul`` + masked ``topk`` over
+   every row; each time beside the cell's dry-run ``compute_s`` and
+   ``memory_s``; (c) ``python -m repro_torch.launch.dryrun`` in a child
+   (started first, beside (a) and (b)) on the four hqi cells and one
+   decode cell a family (minicpm-2b, deepseek-moe-16b, mamba2-130m,
+   zamba2-2.7b, internvl2-2b, whisper-large-v3) on both meshes, into the
+   run's directory: every cell ``ok``; ``report`` renders both meshes'
+   tables;
 11. the ``kernels`` JSON line (all nine kernels; each with its launches in
    S1's streams, S3's first stream and S4's sharded searches; the two
    attention kernels also in a compressed DP step, in phase H's zamba2
    runs, with their times at zamba2's heads, and in phase M's runs, with
-   their times at its layouts), the
+   their times at its layouts; ``fused_knn_db_stationary`` also in phase
+   D's runs, ``hqi_search_launches``), the
    ``nvidia-smi`` line,
    and last the result line ``{"ok": true, "device": {...}}``.
 
@@ -434,6 +454,18 @@ M_WHISPER_BATCH, M_WHISPER_PROMPT, M_WHISPER_NEW, M_WHISPER_TRAIN_TOKENS = 4, 4,
 M_FWD_CASES = (("whisper-enc-s1500", 4, 1500, 20, 20, 64, False), ("kimi-s4096", 1, 4096, 64, 8, 128, True),
                ("internvl2-s2304", 1, 2304, 16, 8, 128, True))
 M_BWD_CASES = (("whisper-enc-s1500", 2, 1500, 20, 20, 64, False), ("internvl2-s2304", 2, 2304, 16, 8, 128, True))
+# phase D: (a) the roofline step at a size both a card and a CPU mesh take;
+# (b) each hqi-search cell's device program: rows per device (1e8 over 16
+# model ranks) and queries per device (its batch over 16 data ranks, or 32
+# pod x data ranks); (c) one decode cell a family, beside the four hqi cells
+D_N, D_D, D_M, D_K, D_SEED, D_VALID = 65_536, 128, 512, 10, 33, 0.125
+# (a)'s bitmap keeps 1 row in 8, a filtered query: the CPU mesh's plain scans
+# (fp64 fmaf chains) cost in proportion to the valid rows
+D_ROWS = 100_000_000 // 16
+D_CELLS = (("single", "hqi_100m_batch64k", 4096), ("single", "hqi_100m_online4k", 256),
+           ("multi", "hqi_100m_batch64k", 2048), ("multi", "hqi_100m_online4k", 128))
+D_FAMILY_CELLS = ("minicpm-2b:decode_32k", "deepseek-moe-16b:decode_32k", "mamba2-130m:decode_32k",
+                  "zamba2-2.7b:decode_32k", "internvl2-2b:decode_32k", "whisper-large-v3:decode_32k")
 BWD_SMALL_BF16 = ("f32-ragged", "f32-dh128", "f32-dh200-two-slices", "f32-dh320-wide", "f32-dh520-wide")
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2539,11 +2571,25 @@ def phase_pq_card_vs_cpu(rec: dict, max_err: dict) -> dict:
 
 def kept_pairs(s: int, t: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask keeps: row i (left-aligned) keeps keys in
-    [max(0, i - window + 1), min(i, T - 1)] (window > 0, causal)."""
+    [max(0, i - window + 1), min(i, T - 1)] (window > 0, causal). The
+    bounds' own count, independent of the port's ``kept_pairs`` (which the
+    dry run charges by): ``checked_kept_pairs`` holds the two together."""
     i = np.arange(s, dtype=np.int64)
     hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
     lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(s, dtype=np.int64)
     return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def checked_kept_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """``kept_pairs``, after checking that the port's count (the attention
+    kernels' meta charge) agrees with it at these shapes."""
+    from repro_torch.kernels import flash_attention
+
+    kept = kept_pairs(s, t, causal, window)
+    port = flash_attention.kept_pairs(s, t, causal, window)
+    if port != kept:
+        raise AssertionError(f"the port's kept_pairs({s}, {t}, {causal}, {window}) = {port}, not {kept}")
+    return kept
 
 
 def ops_ms(flops: float, elem_size: int) -> float:
@@ -2569,7 +2615,7 @@ def attn_bound(q, k, causal: bool, window: int) -> dict:
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     nbytes = (2 * b * s * hq * dh + 2 * b * t * hkv * dh) * q.element_size()
-    flops = 4.0 * dh * hq * b * kept_pairs(s, t, causal, window)
+    flops = 4.0 * dh * hq * b * checked_kept_pairs(s, t, causal, window)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ms(flops, q.element_size())
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "flops": flops, "fp32_core_bound_ms": fp32_core_bound(t_bytes, flops, q)}
@@ -2980,7 +3026,7 @@ def bwd_bound(q, k, causal: bool, window: int) -> dict:
     b, s, hq, dh = q.shape
     t, hkv = k.shape[1], k.shape[2]
     nbytes = (4 * b * s * hq * dh + 4 * b * t * hkv * dh) * q.element_size()
-    flops = 10.0 * dh * hq * b * kept_pairs(s, t, causal, window)
+    flops = 10.0 * dh * hq * b * checked_kept_pairs(s, t, causal, window)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ms(flops, q.element_size())
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "flops": flops, "fp32_core_bound_ms": fp32_core_bound(t_bytes, flops, q)}
@@ -5071,6 +5117,156 @@ def phase_m_kernels(rec: dict, max_err: dict) -> dict:
     return out
 
 
+# ------------------------------------------- phase D: the dry run and its hqi step
+
+
+def d_inputs() -> dict:
+    """Phase D(a)'s seeded rows, bitmap (1 row in 8) and queries (numpy)."""
+    rng = np.random.default_rng(D_SEED)
+    return {"db": rng.normal(size=(D_N, D_D)).astype(np.float32), "bitmap": rng.random(D_N) < D_VALID,
+            "queries": rng.normal(size=(D_M, D_D)).astype(np.float32)}
+
+
+# the CPU side of D(a), in a child: the same step on a CPU mesh, its answers to an npz;
+# two cores left to this process (driving the card) and the dry run's child
+D_CPU_CHILD = f"""
+import os, sys
+import numpy as np, torch
+torch.set_num_threads(max(1, (os.cpu_count() or 4) - 2))
+sys.path.insert(0, {os.path.join(ROOT, "src")!r})
+from repro_torch.core.distributed import make_roofline_search_step
+from repro_torch.launch.mesh import make_test_mesh
+rng = np.random.default_rng({D_SEED})
+data = [rng.normal(size=({D_N}, {D_D})).astype(np.float32), rng.random({D_N}) < {D_VALID},
+        rng.normal(size=({D_M}, {D_D})).astype(np.float32)]
+mesh = make_test_mesh((2, 4), ("data", "model"), device="cpu")
+out = {{}}
+for metric in ("ip", "l2"):
+    s, i = make_roofline_search_step(mesh, k={D_K}, metric=metric)(*(torch.from_numpy(x) for x in data))
+    out[metric + "_scores"], out[metric + "_ids"] = s.numpy(), i.numpy()
+np.savez(sys.argv[1], **out)
+""" + NO_JAX
+
+
+def phase_dryrun(rec: dict, out_dir: str) -> dict:
+    """Phase D (module docstring): (c)'s dry run and (a)'s CPU mesh start as
+    children, (a) and (b) run on the card beside them."""
+    import torch
+
+    from repro_torch.core.distributed import make_roofline_search_step
+    from repro_torch.kernels import fused_knn as fk
+    from repro_torch.launch import report
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    out_dir = os.path.abspath(out_dir)  # the children run from it
+    results_path = os.path.join(out_dir, "dryrun_results_torch.json")
+    if os.path.exists(results_path):
+        os.remove(results_path)
+    cells = [arg for c in D_FAMILY_CELLS + tuple(f"hqi-search:{s}" for s in ("hqi_100m_batch64k", "hqi_100m_online4k"))
+             for arg in ("--cell", c)]
+    dry = start_child([sys.executable, "-m", "repro_torch.launch.dryrun", "--out", results_path, *cells], out_dir)
+    cpu_npz = os.path.join(out_dir, "d_cpu.npz")
+    cpu = start_child([sys.executable, "-c", D_CPU_CHILD, cpu_npz], out_dir)
+
+    # (a) the (2, 4) mesh on the card
+    data = d_inputs()
+    db, bitmap, queries = (torch.from_numpy(data[k]).cuda() for k in ("db", "bitmap", "queries"))
+    mesh = make_test_mesh((2, 4), ("data", "model"), device="cuda")
+    card = {}
+    for metric in ("ip", "l2"):
+        step = make_roofline_search_step(mesh, k=D_K, metric=metric)
+        zero_counters()
+        s, i = step(db, bitmap, queries)
+        torch.cuda.synchronize()
+        c = read_counters()
+        if c["fused_knn_db_stationary"] != 2 or c["fused_knn_plain"] or c["fused_knn"]:
+            raise AssertionError(f"D(a) {metric}: launches {c}, want 2 of fused_knn_db_stationary and no plain call")
+        card[metric] = (s.cpu().numpy(), i.cpu().numpy(), c["fused_knn_db_stationary"])
+    del db, bitmap, queries
+
+    # (b) one device's program of each hqi-search cell, at its real per-device size
+    gen = torch.Generator(device="cuda").manual_seed(D_SEED)
+    rows = torch.randn((D_ROWS, D_D), generator=gen, device="cuda")
+    valid = torch.rand(D_ROWS, generator=gen, device="cuda") < 0.5
+    one = make_roofline_search_step(make_test_mesh((1, 1), ("data", "model"), device="cuda"), k=D_K)
+    device_runs = {}
+    for mesh_name, shape_name, tq in D_CELLS:
+        q = torch.randn((tq, D_D), generator=gen, device="cuda")
+        s, i = one(rows, valid, q)  # warm
+        zero_counters()
+        times = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            s, i = one(rows, valid, q)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        c = read_counters()
+        if c["fused_knn_db_stationary"] != 3 or c["fused_knn_plain"] or c["fused_knn"]:
+            raise AssertionError(f"D(b) {shape_name}: launches {c}, want 3 of fused_knn_db_stationary")
+        if tuple(s.shape) != (tq, D_K) or not torch.isfinite(s).all() or not bool((i >= 0).all()):
+            raise AssertionError(f"D(b) {shape_name}: scores {tuple(s.shape)} not finite or ids absent")
+        # 8 queries against the library's product and top-k over every valid row
+        ref = (q[:8] @ rows.T).masked_fill(~valid[None, :], float("-inf")).topk(D_K, dim=1)
+        agree_untied(s[:8].cpu().numpy(), i[:8].cpu().numpy(), ref.values.cpu().numpy(),
+                     ref.indices.cpu().numpy(), f"D(b) {shape_name}")
+        device_runs[f"{mesh_name}|{shape_name}"] = {
+            "rows": [D_ROWS, D_D], "queries": [tq, D_D], "launches": c["fused_knn_db_stationary"],
+            "ms": statistics.median(times), "ms_runs": times}
+        del q, s, i, ref
+    del rows, valid
+    torch.cuda.empty_cache()
+
+    # (a)'s CPU side
+    done = finish_child(cpu, timeout=600)
+    if done["rc"] != 0:
+        raise AssertionError(f"D(a) CPU mesh: rc {done['rc']}\n{done['stdout'][-2000:]}\n{done['stderr'][-4000:]}")
+    got = np.load(cpu_npz)
+    cpu_seconds = done["seconds"]
+    mesh_check = {}
+    for metric, (s, i, launches) in card.items():
+        tied = agree_untied(s, i, got[metric + "_scores"], got[metric + "_ids"], f"D(a) {metric}")
+        mesh_check[metric] = {"launches": launches, "tied_queries": tied,
+                              "max_abs_err": float(np.abs(s - got[metric + "_scores"]).max())}
+        log(f"[dryrun-step] (2, 4) mesh, n {D_N}, d {D_D}, m {D_M}, k {D_K}, {metric}: card = CPU "
+            f"(max |err| {mesh_check[metric]['max_abs_err']:.3g}, {tied} tied queries), launches {launches}; "
+            f"the CPU mesh's child {cpu_seconds:.1f} s")
+    os.remove(cpu_npz)
+
+    # (c) the dry run's subset, and each device run beside its cell's terms
+    done = finish_child(dry, timeout=600)
+    if done["rc"] != 0:
+        raise AssertionError(f"D(c) dry run: rc {done['rc']}\n{done['stdout'][-2000:]}\n{done['stderr'][-4000:]}")
+    with open(results_path) as f:
+        results = json.load(f)
+    want = 2 * (len(D_FAMILY_CELLS) + 2)
+    bad = [k for k, v in results.items() if not v.get("ok")]
+    if len(results) != want or bad:
+        raise AssertionError(f"D(c): {len(results)} cells of {want}, failed {bad}")
+    for key, run in device_runs.items():
+        mesh_name, shape_name = key.split("|")
+        r = results[f"hqi-search|{shape_name}|{mesh_name}"]["roofline"]
+        run.update(compute_ms=r["compute_s"] * 1e3, memory_ms=r["memory_s"] * 1e3,
+                   flops_per_dev=r["flops_per_dev"], bytes_per_dev=r["bytes_per_dev"])
+        run["tflops"] = r["flops_per_dev"] / run["ms"] / 1e9
+        log(f"[hqi-device] {key}: rows {run['rows']} x queries {run['queries']}: {run['launches']} launches, "
+            f"median {run['ms']:.3f} ms ({run['tflops']:.1f} TFLOP/s); dry run: compute_s {run['compute_ms']:.3f} "
+            f"ms, memory_s {run['memory_ms']:.3f} ms (h100 terms)")
+    tables = {m: report.roofline_table(results, m) for m in ("single", "multi")}
+    for m, table in tables.items():
+        log(f"[dryrun-report] {m}:\n{table}")
+    seconds = time.perf_counter() - t0
+    log(f"[dryrun] {len(results)} cells OK in the child's {done['seconds']:.1f} s; phase D in {seconds:.1f} s")
+    rec["dryrun"] = out = {"step_card_vs_cpu": mesh_check, "device_runs": device_runs,
+                           "cells": {k: {"count_seconds": v["count_seconds"], "roofline": v["roofline"],
+                                         "memory": v["memory"]} for k, v in results.items()},
+                           "child_seconds": done["seconds"], "cpu_mesh_seconds": cpu_seconds, "report": tables,
+                           "seconds": seconds}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "smoke_out"), help="record directory")
@@ -5167,6 +5363,8 @@ def main() -> int:
     m_kernels = phase_m_kernels(rec, max_err)
     rec["m_phase_seconds"] = time.perf_counter() - t_phase
     log(f"[m] phase M in {rec['m_phase_seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(rec, args.out)
 
     timed = {
         "fused_knn": (main_run["counts"]["fused_knn"], heaviest["fused_knn"]),
@@ -5259,6 +5457,10 @@ def main() -> int:
                 entry[key] = h[key]
         if name == "fused_knn_db_stationary":
             entry["pq_rerank"] = {key: rerank[key] for key in ("shape", "ms", "device_ms", "bound_ms")}
+            # phase D: the roofline step on the (2, 4) card mesh, and each hqi-search cell's device program
+            entry["hqi_search_launches"] = {
+                "step_2x4": {m: c["launches"] for m, c in dry["step_card_vs_cpu"].items()},
+                **{k: run["launches"] for k, run in dry["device_runs"].items()}}
         if name == "workunit_pq_scan_streamed":
             entry["summed_over_buckets"] = pq_heavy["summed"]
         # launches in each stream of the online service (S1)

@@ -36,12 +36,20 @@ keep key j for row i iff j < T, j <= i when causal, and j > i - window when
 window > 0; a row that keeps no key returns 0. What bounds the kernel on
 the H100 (operations, 4·dh per kept pair) and what its design does about it
 is in the CUDA source.
+
+A ``meta`` tensor (the dry run) launches nothing: the forward and the
+backward return empty outputs (lse included) and charge ``cost.charge``
+with 4·dh (forward) or 10·dh (backward) operations a kept pair and query
+head at the input type, and their operands and outputs at its size
+(``_meta_forward``, ``_meta_backward``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
+from . import cost as _cost
 
 NEG_INF = float(-3.0e38)  # models/attention.py's sentinel (the scan kernels use -3.4e38)
 # widest compiled width of the tiled kernels: dh is zero-padded to a multiple of 8 here, then up to
@@ -303,6 +311,8 @@ def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int, wi
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk, return_lse=with_lse)
+    if q.device.type == "meta":
+        return _meta_forward(q, k, v, causal, window, with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     B, S, Hq, dh = q.shape
@@ -340,6 +350,29 @@ def _forward(q, k, v, causal: bool, window: int, q_chunk: int, kv_chunk: int, wi
 
 
 flash_attention.launches = 0
+
+
+def kept_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps: row i (left-aligned) keeps keys in
+    [max(0, i - window + 1), min(i, T - 1)] (the upper end T - 1 when not
+    causal; the lower 0 when ``window`` is 0)."""
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(s, dtype=np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _meta_forward(q, k, v, causal: bool, window: int, with_lse: bool):
+    """The forward's answer to meta tensors: empty o (and lse), charged 4·dh
+    operations a kept pair and query head, q, k, v read and o (lse) written
+    once."""
+    B, S, Hq, dh = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if with_lse else None
+    flops = 4.0 * dh * Hq * B * kept_pairs(S, k.shape[1], causal, window)
+    name = "flash_attention_wide" if wide_head(dh) else "flash_attention"
+    _cost.charge(name, flops, q.dtype, (q, k, v), (o,) if lse is None else (o, lse))
+    return (o, lse) if with_lse else o
 
 
 def flash_attention_wide(
@@ -503,6 +536,8 @@ def flash_attention_backward(
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, do.to(q.dtype), lse, causal=causal, window=window,
                                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if q.device.type == "meta":
+        return _meta_backward(q, k, v, o, do, lse, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on cuda or cpu tensors, got {q.device}")
     if lse is None:
@@ -544,6 +579,18 @@ def flash_attention_backward(
 
 
 flash_attention_backward.launches = 0
+
+
+def _meta_backward(q, k, v, o, do, lse, causal: bool, window: int):
+    """The backward's answer to meta tensors: empty dq, dk, dv, charged 10·dh
+    operations a kept pair and query head (S recomputed, dP, dV, dQ, dK), its
+    operands read and the gradients written once."""
+    B, S, Hq, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    flops = 10.0 * dh * Hq * B * kept_pairs(S, k.shape[1], causal, window)
+    reads = (q, k, v, o, do) if lse is None else (q, k, v, o, do, lse)
+    _cost.charge("flash_attention_backward", flops, q.dtype, reads, (dq, dk, dv))
+    return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):

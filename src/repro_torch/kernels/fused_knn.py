@@ -19,13 +19,17 @@ row fills a slot and on every slot that holds no query. A CUDA tensor
 launches the kernel (or the wrapper raises); a CPU tensor takes the plain
 version, ``fused_knn_plain``. ``launches`` on each wrapper counts kernel
 launches. The kernels' lists hold ``MAX_K`` entries; a larger k is taken in
-``floor_passes``, one launch a pass.
+``floor_passes``, one launch a pass. A ``meta`` tensor (the dry run) launches
+nothing: it gets empty outputs and charges ``cost.charge`` with 2·TQ·TV·D
+operations a unit and the operand and output bytes of the padded shape, a
+pass each (``_meta_scan``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from . import cost as _cost
 from . import ref as _ref
 
 MAX_K = 64  # largest k one launch's lists hold: a larger k takes passes (floor_passes)
@@ -213,6 +217,21 @@ def _launch_pass(wrapper, entry: str, q, v, valid, k: int, metric: str, n_live, 
     return out_s, out_i
 
 
+def _meta_scan(wrapper, q, v, valid, k: int, n_live):
+    """A wrapper's answer to meta tensors: empty outputs, and the charge of
+    ``kernel_passes(k)`` passes, each reading every operand of the padded
+    shape and doing 2·TQ·TV·D operations a unit (the count of the planner's
+    profiler sites); the outputs are written once."""
+    W, TQ, D = q.shape
+    TV = v.shape[1]
+    out_s = torch.empty((W, TQ, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((W, TQ, k), dtype=torch.int32, device=q.device)
+    passes = kernel_passes(k)
+    reads = ((q, v, valid) if n_live is None else (q, v, valid, n_live)) * passes
+    _cost.charge(wrapper.__name__, 2.0 * W * TQ * TV * D * passes, q.dtype, reads, (out_s, out_i))
+    return out_s, out_i
+
+
 def fused_knn(
     q: torch.Tensor, v: torch.Tensor, valid: torch.Tensor, *, k: int, metric: str = "ip",
     n_live: torch.Tensor | None = None,
@@ -222,6 +241,8 @@ def fused_knn(
     _check(q, v, valid, k, metric, n_live)
     if q.device.type == "cpu":
         return fused_knn_plain(q, v, valid, k=k, metric=metric, n_live=n_live)
+    if q.device.type == "meta":
+        return _meta_scan(fused_knn, q, v, valid, k, n_live)
     return _launch(fused_knn, "fused_knn_launch", q, v, valid, k, metric, n_live)
 
 
@@ -238,6 +259,8 @@ def fused_knn_db_stationary(
     _check(q, v, valid, k, metric, n_live)
     if q.device.type == "cpu":
         return fused_knn_plain(q, v, valid, k=k, metric=metric, n_live=n_live)
+    if q.device.type == "meta":
+        return _meta_scan(fused_knn_db_stationary, q, v, valid, k, n_live)
     return _launch(fused_knn_db_stationary, "fused_knn_db_stationary_launch", q, v, valid, k,
                    metric, n_live)
 

@@ -50,13 +50,15 @@ def test_import_leaves_out_jax_and_reference():
                                      "repro_torch.fault.chaos", "repro_torch.train.fault_tolerance",
                                      "repro_torch.launch.train", "repro_torch.data.pipeline",
                                      "repro_torch.distributed", "repro_torch.distributed.compression",
-                                     "repro_torch.distributed.sharding", "repro_torch.launch.obsdump"])
+                                     "repro_torch.distributed.sharding", "repro_torch.launch.obsdump",
+                                     "repro_torch.launch.dryrun", "repro_torch.launch.op_cost",
+                                     "repro_torch.launch.report"])
 def test_serving_packages_leave_out_jax_and_reference(package):
     """The online service, its host-only carry-overs (metrics, drift,
     failpoints, retry), the store, the tuner, the chaos harness, the train
     loop, the training CLI, the data pipeline, the data-parallel compression
-    and sharding rules and the observability dump import alone without jax
-    or the reference package."""
+    and sharding rules, the observability dump and the dry run's three
+    tools import alone without jax or the reference package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({package!r})\n"
